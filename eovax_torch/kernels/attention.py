@@ -1,0 +1,88 @@
+"""Single-head, unmasked attention over [B, S, D] tensors.
+
+Port of ``eovax/kernels/attention.py``. On a CUDA tensor
+:func:`flash_attention` launches the hand-written Hopper kernel in
+``csrc/flash_attention.cu`` for every S (the JAX package sends only
+S ≥ 4096 to its Pallas kernel; here the kernel is the path's attention
+whatever the length). On a CPU tensor it computes
+:func:`flash_attention_plain`, the plain PyTorch version of the same
+function. It never falls back from the kernel.
+
+The kernel takes bf16 (the inference policy) and fp32 (``FULL_PRECISION``),
+with D in :data:`KERNEL_HEAD_DIMS`; the logits, softmax statistics and the
+P·V accumulator are fp32, and the output has the input's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from eovax_torch.kernels import build
+
+SOURCE = "flash_attention.cu"
+KERNEL_HEAD_DIMS = (64, 128, 256, 512)
+_ENTRY = {torch.bfloat16: "eovax_flash_attention_bf16", torch.float32: "eovax_flash_attention_f32"}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q kᵀ / √D) v in fp32, cast to ``q.dtype``."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q kᵀ / √D) v for single-head [B, S, D] tensors.
+
+    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
+    kernel (and add one to ``flash_attention.launches``) or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"flash_attention: q, k, v must share one [B, S, D] shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k, v must be on one device")
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention: dtypes must all be bfloat16 or float32, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    b, s, d = q.shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: D={d} not in {KERNEL_HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    if b == 0 or s == 0:
+        return torch.empty_like(q)
+    lib = _library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = getattr(lib, _ENTRY[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, d, stream
+        )
+    build.check(lib, code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

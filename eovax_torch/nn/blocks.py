@@ -1,0 +1,174 @@
+"""Core conv and attention blocks of the Flux-derived VAE (NCHW).
+
+Port of ``eovax/nn/blocks.py``. Parameters are fp32; convolutions run in the
+policy's compute dtype; GroupNorm statistics are fp32 and the output is cast
+back to the compute dtype, at the same places as in the JAX package.
+
+- GroupNorm: 32 groups, eps 1e-6.
+- Downsample: asymmetric (0,1,0,1) pad, then a VALID 3×3 stride-2 conv.
+- Upsample: nearest ×2, then a 3×3 conv (the plain form; the JAX package's
+  input-dilated lowering computes the same up to tap-sum reassociation).
+- AttnBlock: single-head attention over the H·W tokens through
+  :func:`eovax_torch.kernels.attention.flash_attention`, with a residual
+  1×1 output projection.
+- AdaIN ``emb_proj`` init: zero weight, bias [1]*C ++ [0]*C.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from eovax_torch.core.precision import FULL_PRECISION, Policy
+from eovax_torch.kernels.attention import flash_attention
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose input, weight and bias are cast to the compute dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, policy: Policy = FULL_PRECISION):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+        self.policy = policy
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.policy.cast_to_compute
+        return F.conv2d(c(x), c(self.weight), c(self.bias), self.stride, self.padding)
+
+
+class GroupNorm(nn.GroupNorm):
+    """32-group GroupNorm with fp32 statistics, output in the compute dtype."""
+
+    def __init__(self, num_channels: int, policy: Policy = FULL_PRECISION):
+        super().__init__(32, num_channels, eps=1e-6)
+        self.policy = policy
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(self.policy.cast_to_norm(x), self.num_groups, self.weight, self.bias,
+                         self.eps)
+        return self.policy.cast_to_compute(y)
+
+
+def sincos_embed_microns(embed_dim: int, wvs: torch.Tensor) -> torch.Tensor:
+    """Sincos embedding of raw µm wavelengths (no µm → nm scaling here)."""
+    half = embed_dim // 2
+    omega = torch.arange(half, dtype=torch.float32, device=wvs.device) / float(half)
+    omega = 1.0 / (10000.0**omega)
+    out = wvs.reshape(-1).float()[:, None] * omega[None, :]
+    return torch.cat([torch.sin(out), torch.cos(out)], dim=-1)  # [N, D]
+
+
+class WavelengthConditioner(nn.Module):
+    """Wavelength set → global AdaIN style vector (fp32 MLP)."""
+
+    def __init__(self, embed_dim: int = 512):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.mlp = nn.Sequential(
+            nn.Linear(embed_dim, embed_dim * 2), nn.SiLU(),
+            nn.Linear(embed_dim * 2, embed_dim), nn.SiLU(),
+            nn.Linear(embed_dim, embed_dim),
+        )
+
+    def forward(self, wvs: torch.Tensor) -> torch.Tensor:
+        emb = sincos_embed_microns(self.embed_dim, wvs).mean(dim=0)  # modality fingerprint
+        return self.mlp(emb)
+
+
+class Downsample(nn.Module):
+    """Stride-2 3×3 conv after an asymmetric (right/bottom) pad."""
+
+    def __init__(self, in_channels: int, policy: Policy = FULL_PRECISION):
+        super().__init__()
+        self.conv = Conv2d(in_channels, in_channels, 3, stride=2, policy=policy)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class Upsample(nn.Module):
+    """Nearest ×2 upsample, then a 3×3 conv."""
+
+    def __init__(self, in_channels: int, policy: Policy = FULL_PRECISION):
+        super().__init__()
+        self.conv = Conv2d(in_channels, in_channels, 3, padding=1, policy=policy)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class ResnetBlock(nn.Module):
+    """GN → swish → conv, twice, with optional AdaIN modulation after norm2."""
+
+    def __init__(self, in_channels: int, out_channels: int, cond_dim: int | None = None,
+                 policy: Policy = FULL_PRECISION):
+        super().__init__()
+        self.out_channels = out_channels
+        self.norm1 = GroupNorm(in_channels, policy)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, policy=policy)
+        self.norm2 = GroupNorm(out_channels, policy)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, policy=policy)
+        self.nin_shortcut = (
+            Conv2d(in_channels, out_channels, 1, policy=policy)
+            if in_channels != out_channels else None
+        )
+        self.emb_proj = nn.Linear(cond_dim, 2 * out_channels) if cond_dim is not None else None
+
+    @torch.no_grad()
+    def init_special(self, generator: torch.Generator) -> None:
+        if self.emb_proj is not None:  # identity modulation at init
+            self.emb_proj.weight.zero_()
+            self.emb_proj.bias[: self.out_channels] = 1.0
+            self.emb_proj.bias[self.out_channels :] = 0.0
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor | None = None) -> torch.Tensor:
+        h = self.conv1(swish(self.norm1(x)))
+        h = self.norm2(h)
+        if self.emb_proj is not None and emb is not None:
+            scale, shift = self.emb_proj(emb.float()).chunk(2, dim=-1)
+            if scale.dim() == 1:  # shared across the batch
+                scale, shift = scale.view(1, -1, 1, 1), shift.view(1, -1, 1, 1)
+            else:  # [B, C]
+                scale, shift = scale[:, :, None, None], shift[:, :, None, None]
+            h = h * scale.to(h.dtype) + shift.to(h.dtype)
+        h = self.conv2(swish(h))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x.to(h.dtype) + h
+
+
+class AttnBlock(nn.Module):
+    """Single-head self-attention over the H·W tokens with a residual projection.
+
+    The 1×1 convs ``q``/``k``/``v``/``proj_out`` keep conv parameters (the
+    reference layout) and run as matmuls over the [B, H·W, C] token matrix.
+    """
+
+    def __init__(self, in_channels: int, policy: Policy = FULL_PRECISION):
+        super().__init__()
+        self.policy = policy
+        self.norm = GroupNorm(in_channels, policy)
+        self.q = Conv2d(in_channels, in_channels, 1, policy=policy)
+        self.k = Conv2d(in_channels, in_channels, 1, policy=policy)
+        self.v = Conv2d(in_channels, in_channels, 1, policy=policy)
+        self.proj_out = Conv2d(in_channels, in_channels, 1, policy=policy)
+
+    def _pointwise(self, conv: Conv2d, tokens: torch.Tensor) -> torch.Tensor:
+        c = self.policy.cast_to_compute
+        return F.linear(tokens, c(conv.weight.flatten(1)), c(conv.bias)).contiguous()
+
+    def qkv(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """NCHW activation → contiguous [B, H·W, C] q, k, v in the compute dtype."""
+        tokens = self.norm(x).flatten(2).transpose(1, 2)
+        return tuple(self._pointwise(m, tokens) for m in (self.q, self.k, self.v))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        out = self._pointwise(self.proj_out, flash_attention(*self.qkv(x)))
+        out = out.transpose(1, 2).reshape(b, c, h, w)
+        return x.to(out.dtype) + out

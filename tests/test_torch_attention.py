@@ -1,0 +1,135 @@
+"""The port's attention wrapper against the JAX package's flash kernel.
+
+``flash_attention_plain`` is what the port computes on the CPU; here it is
+held against ``eovax.kernels.attention.flash_attention`` run in Pallas
+interpret mode. The tests marked ``gpu`` hold the CUDA kernel against
+``flash_attention_plain`` on the card and skip without one. They import no
+JAX, so the card's machine runs them without it:
+
+    python -m pytest tests/test_torch_attention.py -m gpu --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from eovax_torch.kernels import attention, build
+
+# fp32 on both sides, online softmax vs one-shot softmax: the tolerance of
+# the JAX package's own kernel test.
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _qkv(b, s, d, seed=0):
+    g = np.random.default_rng(seed)
+    return [g.standard_normal((b, s, d), dtype=np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("s,d,block", [(256, 64, 128), (512, 128, 256), (1024, 512, 512)])
+def test_plain_matches_jax_flash_kernel(s, d, block):
+    import jax.numpy as jnp
+
+    from eovax.kernels.attention import flash_attention as jax_flash_attention
+
+    q, k, v = _qkv(2, s, d)
+    ref = jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        block_q=block, block_k=block, interpret=True,
+    )
+    out = attention.flash_attention_plain(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensor_takes_plain_path_without_launch(dtype):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(2, 100, 64, seed=1))
+    before = attention.flash_attention.launches
+    out = attention.flash_attention(q, k, v)
+    assert attention.flash_attention.launches == before
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out, attention.flash_attention_plain(q, k, v), rtol=0, atol=0)
+
+
+def test_non_cpu_non_cuda_tensor_raises():
+    q = torch.empty(1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.flash_attention(q, q, q)
+
+
+def test_kernel_library_is_keyed_by_source_hash():
+    lib = build.library_path(attention.SOURCE)
+    assert lib.parent == build.BUILD_DIR
+    assert lib.name.startswith("flash_attention_") and lib.suffix == ".so"
+    assert (build.CSRC / attention.SOURCE).exists()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,s,d,dtype,tol",
+    [
+        (4, 4096, 512, torch.bfloat16, 2e-2),
+        (16, 1024, 512, torch.bfloat16, 2e-2),
+        (3, 1037, 512, torch.bfloat16, 2e-2),
+        (2, 200, 64, torch.bfloat16, 2e-2),
+        (2, 1037, 512, torch.float32, 1e-4),
+        (2, 77, 128, torch.float32, 1e-4),
+    ],
+)
+def test_kernel_matches_plain_on_card(cuda_device, b, s, d, dtype, tol):
+    """bf16: output rounding and P rounded to bf16 before P·V; fp32: another
+    summation order. Both relative to max |reference|."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(b, s, d, generator=g, device=cuda_device, dtype=dtype)
+               for _ in range(3))
+    before = attention.flash_attention.launches
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == before + 1
+    assert out.dtype == dtype
+    ref = attention.flash_attention_plain(q, k, v).float()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    q = torch.zeros(1, 64, 96, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D=96"):
+        attention.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtypes"):
+        attention.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 128, device=cuda_device, dtype=torch.bfloat16)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy_name,tol", [("fp32", 1e-3), ("bf16", 1e-1)])
+def test_tiny_model_on_card_launches_kernel_and_matches_cpu(cuda_device, policy_name, tol):
+    """reconstruct on the card against the same weights on the CPU: two
+    kernel launches (encoder and decoder mid blocks). fp32: other summation
+    orders; bf16: bf16 activations between layers. Relative to max |ref|."""
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.core import config
+    from eovax_torch.core.precision import FULL_PRECISION, policy_from_name
+
+    stem = config.StemConfig(num_layers=1, wv_planes=32)
+    kw = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=8, stem=stem)
+    cfg = config.VAEConfig(encoder=config.EncoderConfig(**kw), decoder=config.DecoderConfig(**kw))
+    cpu = EOFluxVAE(cfg, policy=FULL_PRECISION, device="cpu", seed=0)
+    card = EOFluxVAE(cfg, cpu.core.state_dict(), policy=policy_from_name(policy_name))
+    x = np.random.default_rng(0).standard_normal((2, 4, 40, 40)).astype(np.float32)
+    wvs = [0.665, 0.56, 0.49, 0.842]
+    before = attention.flash_attention.launches
+    out = card.reconstruct(x, wvs).float().cpu()
+    assert attention.flash_attention.launches == before + 2
+    ref = cpu.reconstruct(x, wvs)
+    assert (out - ref).abs().max().item() <= tol * ref.abs().max().item()
