@@ -8,22 +8,38 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Report the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and build every kernel of ``eovax_torch/kernels/csrc`` with
-   ``nvcc`` (all sources at once).
-2. Hold each kernel against its plain PyTorch version on the card: at the
-   main path's shapes, at an odd sequence length, in fp32, and on the real
-   q/k/v of an encoder ``mid.attn_1`` call captured with a forward hook.
+   ``nvcc`` (one compiler per source, all started at once).
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   main path's shapes, at odd shapes, in fp32, and on real activations of
+   the main path captured with forward hooks:
+   - ``flash_attention``: [4,4096,512], [16,1024,512], odd S, fp32, and the
+     q/k/v of the encoder's ``mid.attn_1``;
+   - ``group_norm`` (affine; + swish; + AdaIN + swish with [C] and [B, C])
+     and ``gn_channel_sums``: [4,128,512,512] and [4,512,64,64] bf16,
+     [2,96,37,53] fp32, and the input of a decoder ResnetBlock ``norm2``;
+   - ``conv3x3``: [4,128,512,512] 128→128, [4,512,256,256] 512→256 and
+     [4,512,64,64] 512→512 bf16, [2,64,37,53] 64→96 fp32, and the input of
+     the decoder's level-0 ``conv1``.
 3. Drive the main path at full width: the shipped architecture (ch=128,
    ch_mult (1,2,4,4), 2 res blocks, z=32, wavelength stems with 4 layers
-   and 256 planes), 12-band S2L2A input, bf16 ``DEFAULT_POLICY``, weights
-   N(0, 0.02) from a seed. ``reconstruct`` of a [4, 12, 512, 512] batch must
-   launch the attention kernel exactly twice (encoder and decoder mid
-   blocks); the Sen2NAIP bulk-encode pass (``encode_spatial_normalized`` then
-   ``decode_spatial_normalized`` of a [4, 4, 512, 512] batch) twice more.
+   and 256 planes), bf16 ``DEFAULT_POLICY``, weights N(0, 0.02) from a
+   seed. Every kernel's launch count is set to 0 just before each call and
+   must be exactly (conv3x3 / group_norm / flash_attention):
+   - ``reconstruct`` [4,12,512,512] (12-band S2L2A): 48 / 52 / 2, and the
+     same in fp32 (``FULL_PRECISION``) at [1,12,64,64];
+   - ``encode_spatial_normalized`` [4,4,512,512] (Sen2NAIP bands):
+     20 / 22 / 1; ``decode_spatial_normalized`` of its latent: 28 / 30 / 1;
+   - ``eovax_torch.cli.encode_latents.encode_split`` on 2 synthetic
+     collated batches of 4 Sen2NAIP pairs at 512²: 80 / 88 / 4;
+   - ``eovax_torch.utils.tiling.tiled_reconstruct`` of a [12,1024,1024]
+     scene, tile 256, overlap 32, 16 tiles a call: 96 / 104 / 4.
    The full-width model on a small input is held against the same weights
-   on the CPU.
-4. Time ``reconstruct`` and each kernel with CUDA events after warm-up,
-   break one 512² ``reconstruct`` down by kernel with ``torch.profiler``, and
-   print one ``{"kernels": [...]}`` line.
+   on the CPU in fp32 and bf16.
+4. Time ``reconstruct``, ``encode_split`` and each kernel with CUDA events
+   after warm-up (kernel, plain version, the one PyTorch call computing the
+   same function, and the card's bound), break one 512² ``reconstruct``
+   down by kernel with ``torch.profiler``, and print one
+   ``{"kernels": [...]}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with an error before any result.
@@ -33,16 +49,28 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Tolerances, each relative to max |reference|.
-#  bf16: one bf16 rounding of the output (2^-8) plus P rounded to bf16
-#        before P·V; 2e-2 leaves room for the sum over S keys.
-#  fp32: fp32 FMA in another summation order and exp2 for exp, ~1e-6 seen.
+#  Attention, bf16: one bf16 rounding of the output (2^-8) plus P rounded to
+#  bf16 before P·V; 2e-2 leaves room for the sum over S keys.
+#  Attention, fp32: fp32 FMA in another summation order and exp2 for exp, ~1e-6 seen.
 TOL_BF16 = 2e-2
 TOL_F32 = 1e-4
+#  GroupNorm, bf16: one rounding of the output (2^-8 of |y|); fp32: the
+#  statistics summed in another order.
+TOL_GN_BF16 = 1e-2
+TOL_GN_F32 = 1e-5
+#  gn_channel_sums: fp32 sums of the same values in another order.
+TOL_SUMS = 1e-5
+#  conv3x3, bf16: the sum over K = 9·Ci ≤ 4608 products in another order,
+#  plus one output rounding; fp32: another summation order.
+TOL_CONV_BF16 = 2e-2
+TOL_CONV_F32 = 1e-4
 #  Full model, fp32 on the card (TF32 off) vs fp32 on the CPU: about 60
 #  conv layers summed in other orders.
 TOL_MODEL_F32 = 1e-3
@@ -51,7 +79,13 @@ TOL_MODEL_F32 = 1e-3
 TOL_MODEL_BF16 = 1e-1
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
+H100_F32_FLOPS = 67e12    # fp32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
+# fp32 operations per element of one GroupNorm + swish: statistics (x − K,
+# two adds, one FMA) and apply (subtract, FMA, SiLU's exp, add and divide).
+GN_FLOPS_PER_ELEMENT = 11
+
+ROOT = Path(__file__).resolve().parent
 
 
 def card_line() -> str:
@@ -77,9 +111,16 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, flops_per_s: float, nbytes: float) -> dict:
+    """The least time for ``flops`` at ``flops_per_s`` and ``nbytes`` at the memory rate."""
+    t_ops, t_bytes = flops / flops_per_s * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def profile_reconstruct(model, x, wvs, card: str, calls: int = 2) -> None:
     """Kernel time by name over ``calls`` reconstructs (torch.profiler, kernel
-    rows only), and the device-busy share of the profiled wall time."""
+    rows only), each hand kernel's share, and the device-busy share of the
+    profiled wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -95,11 +136,16 @@ def profile_reconstruct(model, x, wvs, card: str, calls: int = 2) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
     print(f"profile reconstruct {tuple(x.shape)}: wall {wall_ms:.3f} ms/call (profiler on), "
           f"kernels {busy_ms:.3f} ms/call, device busy {busy_ms / wall_ms:.3f} [{card}]")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         ms = e.self_device_time_total / 1e3 / calls
         print(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count // calls:<4d} {e.key[:96]}")
-    ours = sum(e.self_device_time_total for e in kernels if "flash_" in e.key) / 1e3 / calls
-    print(f"  flash_attention kernels: {ours:.3f} ms/call, {100 * ours / busy_ms:.2f}% of kernel time")
+    for group, tag in (("conv3x3", "conv3x3_"), ("group_norm", "gn_"),
+                       ("flash_attention", "flash_")):
+        ours = [e for e in kernels if tag in e.key]
+        ms = sum(e.self_device_time_total for e in ours) / 1e3 / calls
+        count = sum(e.count for e in ours) // calls
+        print(f"  {group} kernels: {ms:.3f} ms/call x{count}, {100 * ms / busy_ms:.2f}% of "
+              "kernel time")
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -123,22 +169,88 @@ def build_kernels() -> float:
     return seconds
 
 
+def check(name: str, label: str, out, ref, tol: float) -> float:
+    """Kernel output vs plain output; returns the max abs error."""
+    import torch
+
+    err, rel = rel_err(out, ref)
+    ok = bool(torch.isfinite(out).all()) and out.shape == ref.shape and rel <= tol
+    print(f"kernel-vs-plain {name} {label}: max_abs_err={err:.3e} rel={rel:.3e} tol={tol:g} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at {label}")
+    return err
+
+
 def check_attention(q, k, v, tol: float, label: str) -> float:
-    """Kernel vs plain on the same inputs; returns the max abs error."""
     import torch
 
     from eovax_torch.kernels.attention import flash_attention, flash_attention_plain
 
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    ref = flash_attention_plain(q, k, v)
-    err, rel = rel_err(out, ref)
-    ok = bool(torch.isfinite(out).all()) and rel <= tol
-    print(f"kernel-vs-plain flash_attention {label} {tuple(q.shape)} {q.dtype}: "
-          f"max_abs_err={err:.3e} rel={rel:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"flash_attention disagrees with its plain version at {label}")
-    return err
+    return check("flash_attention", f"{label} {tuple(q.shape)} {q.dtype}", out,
+                 flash_attention_plain(q, k, v), tol)
+
+
+def gn_variants(b: int, c: int, g) -> dict:
+    """The GroupNorm calls the model makes: affine (AttnBlock), + swish
+    (ResnetBlock norm1, norm_out), + AdaIN + swish ([C] and [B, C], norm2)."""
+    import torch
+
+    dev = g.device
+    ada = {}
+    for label, shape in (("adain[C]+swish", (c,)), ("adain[B,C]+swish", (b, c))):
+        ada[label] = dict(swish=True,
+                          ada_scale=1.0 + 0.2 * torch.randn(shape, generator=g, device=dev),
+                          ada_shift=0.2 * torch.randn(shape, generator=g, device=dev))
+    return {"affine": {}, "swish": dict(swish=True), **ada}
+
+
+def check_group_norm(x, weight, bias, tol: float, label: str, variants: dict) -> dict:
+    """group_norm in each variant and gn_channel_sums vs their plain versions;
+    returns the max abs error of each group_norm variant."""
+    import torch
+
+    from eovax_torch.kernels.groupnorm import (
+        gn_channel_sums,
+        gn_channel_sums_plain,
+        group_norm,
+        group_norm_plain,
+    )
+
+    errs = {}
+    for name, kw in variants.items():
+        out = group_norm(x, weight, bias, **kw)
+        torch.cuda.synchronize()
+        errs[name] = check("group_norm", f"{label} {name} {tuple(x.shape)} {x.dtype}", out,
+                           group_norm_plain(x, weight, bias, **kw), tol)
+    sums = gn_channel_sums(x)
+    torch.cuda.synchronize()
+    for which, out, ref in zip(("sum", "sum_sq"), sums, gn_channel_sums_plain(x)):
+        check("gn_channel_sums", f"{label} {which} {tuple(x.shape)} {x.dtype}", out, ref,
+              TOL_SUMS)
+    return errs
+
+
+def check_conv(x, w, bias, tol: float, label: str) -> float:
+    import torch
+
+    from eovax_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
+
+    out = conv3x3(x, w, bias)
+    torch.cuda.synchronize()
+    return check("conv3x3", f"{label} {tuple(x.shape)}→{w.shape[0]} {x.dtype}", out,
+                 conv3x3_plain(x, w, bias), tol)
+
+
+def conv_inputs(b, ci, co, h, w, dtype, g):
+    import torch
+
+    dev = g.device
+    return (torch.randn(b, ci, h, w, generator=g, device=dev).to(dtype),
+            0.05 * torch.randn(co, ci, 3, 3, generator=g, device=dev),
+            0.1 * torch.randn(co, generator=g, device=dev))
 
 
 def shipped_config(bands: int):
@@ -165,6 +277,88 @@ def bench_state_dict(model, seed: int) -> dict:
     return sd
 
 
+def drive(label: str, fn, expected: dict):
+    """Run ``fn()`` with every kernel's launch count set to 0 just before it;
+    the counts read just after must equal ``expected``. Returns the output
+    and the counts."""
+    import torch
+
+    from eovax_torch.kernels import attention, conv3x3, groupnorm
+
+    wrappers = {"conv3x3": conv3x3.conv3x3, "group_norm": groupnorm.group_norm,
+                "flash_attention": attention.flash_attention}
+    for f in wrappers.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name: f.launches for name, f in wrappers.items()}
+    print(f"{label}: launches {got}")
+    if got != expected:
+        raise AssertionError(f"{label}: expected launches {expected}, got {got}")
+    return out, got
+
+
+def launches(conv: int, gn: int, attn: int) -> dict:
+    return {"conv3x3": conv, "group_norm": gn, "flash_attention": attn}
+
+
+def sen2naip_batches(n_batches: int, batch: int, seed: int) -> list[dict]:
+    """Collated synthetic Sen2NAIP batches: LR 128² S2 and HR 512² NAIP digital
+    numbers from ``seed``, z-scored and LR bicubic-upsampled to 512²."""
+    import numpy as np
+
+    from eovax_torch.data.sen2naip import sen2naip_collate
+
+    rng = np.random.default_rng(seed)
+    return [
+        sen2naip_collate([
+            {"image_lr": rng.uniform(0.0, 4000.0, (128, 128, 4)).astype(np.float32),
+             "image_hr": rng.uniform(0.0, 255.0, (512, 512, 4)).astype(np.float32),
+             "aoi": f"aoi{i}_{j}"}
+            for j in range(batch)
+        ])
+        for i in range(n_batches)
+    ]
+
+
+def run_encode_split(model, batches, out_dir: Path, compress: bool = True):
+    from eovax_torch.cli.encode_latents import encode_split
+    from eovax_torch.data.sen2naip import SEN2NAIP_WVS
+    from eovax_torch.utils.stats import RunningStats
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    z = model.config.encoder.z_channels
+    stats = {"lr_latent": RunningStats((z,), (0, 1, 2)), "hr_latent": RunningStats((z,), (0, 1, 2))}
+    n = encode_split(model, iter(batches), str(out_dir / "train"), wvs=SEN2NAIP_WVS,
+                     stats_lr=stats["lr_latent"], stats_hr=stats["hr_latent"],
+                     use_spatial_norm=True, compress=compress)
+    return n, {k: v.to_dict() for k, v in stats.items()}
+
+
+def check_encode_split(n: int, stats: dict, out_dir: Path, expected: int) -> None:
+    import numpy as np
+
+    files = sorted((out_dir / "train").glob("*.npz"))
+    if n != expected or len(files) != expected:
+        raise AssertionError(f"encode_split wrote {n} / {len(files)} AOIs, expected {expected}")
+    for path in files:
+        with np.load(path) as d:
+            if sorted(d.files) != ["hr_image", "hr_latent", "lr_image", "lr_latent"]:
+                raise AssertionError(f"{path.name}: npz keys {d.files}")
+            for key in ("lr_latent", "hr_latent"):
+                if d[key].shape != (32, 64, 64) or not np.isfinite(d[key]).all():
+                    raise AssertionError(f"{path.name}: {key} {d[key].shape} or non-finite")
+            if d["hr_image"].shape != (4, 512, 512):
+                raise AssertionError(f"{path.name}: hr_image {d['hr_image'].shape}")
+    for part in ("lr_latent", "hr_latent"):
+        if sorted(stats[part]) != ["count", "max", "mean", "min", "std", "var"]:
+            raise AssertionError(f"latent_stats {part} keys {sorted(stats[part])}")
+        if not all(np.isfinite(v).all() for v in stats[part].values()):
+            raise AssertionError(f"latent_stats {part} has non-finite values")
+    print(f"encode_split: {len(files)} npz files, keys and [32,64,64] latents ok, "
+          f"latent_stats keys ok and finite (count {stats['hr_latent']['count'][0]:.0f})")
+
+
 def main() -> int:
     import torch
 
@@ -173,13 +367,17 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    import numpy as np
     import torch.nn.functional as F
 
     from eovax_torch import EOFluxVAE
     from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
-    from eovax_torch.data.wavelengths import SEN2NAIP_WAVELENGTHS, wavelengths_for
-    from eovax_torch.kernels import attention
+    from eovax_torch.data.sen2naip import SEN2NAIP_WVS
+    from eovax_torch.data.wavelengths import wavelengths_for
     from eovax_torch.kernels.attention import flash_attention, flash_attention_plain
+    from eovax_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
+    from eovax_torch.kernels.groupnorm import group_norm, group_norm_plain
+    from eovax_torch.utils.tiling import tiled_reconstruct
 
     t_start = time.perf_counter()
     card = card_line()
@@ -195,10 +393,29 @@ def main() -> int:
     def qkv(b, s, d, dtype):
         return [torch.randn(b, s, d, generator=g, device=dev, dtype=dtype) for _ in range(3)]
 
-    main_err = check_attention(*qkv(4, 4096, 512, torch.bfloat16), TOL_BF16, "512px-B4")
+    attn_err = check_attention(*qkv(4, 4096, 512, torch.bfloat16), TOL_BF16, "512px-B4")
     check_attention(*qkv(16, 1024, 512, torch.bfloat16), TOL_BF16, "256px-B16")
     check_attention(*qkv(3, 1037, 512, torch.bfloat16), TOL_BF16, "odd-S")
     check_attention(*qkv(2, 1037, 512, torch.float32), TOL_F32, "odd-S-fp32")
+
+    gn_errs = {}
+    for shape, dtype, tol in (((4, 128, 512, 512), torch.bfloat16, TOL_GN_BF16),
+                              ((4, 512, 64, 64), torch.bfloat16, TOL_GN_BF16),
+                              ((2, 96, 37, 53), torch.float32, TOL_GN_F32)):
+        b, c = shape[:2]
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        gn_errs[shape] = check_group_norm(x, w, bias, tol, "synthetic", gn_variants(b, c, g))
+        del x
+
+    conv_errs = {}
+    for shape, dtype, tol in (((4, 128, 128, 512, 512), torch.bfloat16, TOL_CONV_BF16),
+                              ((4, 512, 256, 256, 256), torch.bfloat16, TOL_CONV_BF16),
+                              ((4, 512, 512, 64, 64), torch.bfloat16, TOL_CONV_BF16),
+                              ((2, 64, 96, 37, 53), torch.float32, TOL_CONV_F32)):
+        conv_errs[shape] = check_conv(*conv_inputs(*shape, dtype, g), tol, "synthetic")
+    torch.cuda.empty_cache()
 
     # ---- 3. main path at full width ------------------------------------------
     model = EOFluxVAE(shipped_config(12), policy=DEFAULT_POLICY, device=dev, seed=0)
@@ -206,49 +423,65 @@ def main() -> int:
     model.core.load_state_dict(sd)
     print(f"model: {model.param_count()} params, bf16 compute, S2L2A 12 bands")
     s2 = wavelengths_for("S2L2A")
-    naip = SEN2NAIP_WAVELENGTHS
     x512 = torch.randn(4, 12, 512, 512, generator=g, device=dev)
 
-    captured = []
-    hook = model.core.encoder.mid.attn_1.register_forward_hook(
-        lambda mod, args, out: captured.append(args[0].clone()))
-    model.reconstruct(x512, s2)  # warm-up, and the hook's capture
-    hook.remove()
-    attn = model.core.encoder.mid.attn_1
-    with torch.inference_mode():
-        check_attention(*attn.qkv(captured[0]), TOL_BF16, "encoder-mid-attn_1-captured")
+    # Real activations of one reconstruct, captured with forward hooks.
+    captured = {}
+    core = model.core
 
-    attention.flash_attention.launches = 0
-    recon = model.reconstruct(x512, s2)
-    torch.cuda.synchronize()
-    main_launches = attention.flash_attention.launches
-    print(f"main path reconstruct [4,12,512,512]: out {tuple(recon.shape)} {recon.dtype}, "
-          f"flash_attention launches {main_launches}")
+    def capture(key):
+        def hook(mod, args, kwargs, out):  # returns None: the output stays as it is
+            captured[key] = (args[0].clone(), dict(kwargs))
+        return hook
+
+    hooks = [
+        core.encoder.mid.attn_1.register_forward_hook(capture("attn"), with_kwargs=True),
+        core.decoder.up[0].block[1].norm2.register_forward_hook(capture("norm2"),
+                                                                with_kwargs=True),
+        core.decoder.up[0].block[0].conv1.register_forward_hook(capture("conv1"),
+                                                                with_kwargs=True),
+    ]
+    model.reconstruct(x512, s2)  # warm-up, and the hooks' captures
+    for h in hooks:
+        h.remove()
+    with torch.inference_mode():
+        check_attention(*core.encoder.mid.attn_1.qkv(captured["attn"][0]), TOL_BF16,
+                        "encoder-mid-attn_1-captured")
+        norm2 = core.decoder.up[0].block[1].norm2
+        xn, kw = captured["norm2"]
+        check_group_norm(xn, norm2.weight, norm2.bias, TOL_GN_BF16,
+                         "decoder-up0-block1-norm2-captured", {"as-called": kw})
+        conv1 = core.decoder.up[0].block[0].conv1
+        check_conv(captured["conv1"][0], conv1.weight, conv1.bias, TOL_CONV_BF16,
+                   "decoder-up0-block0-conv1-captured")
+    del captured, xn, kw
+    torch.cuda.empty_cache()
+
+    recon, main_launches = drive("main path reconstruct [4,12,512,512] bf16",
+                                 lambda: model.reconstruct(x512, s2), launches(48, 52, 2))
     if tuple(recon.shape) != (4, 12, 512, 512) or not torch.isfinite(recon).all():
         raise AssertionError("reconstruct gave a wrong shape or non-finite values")
-    if main_launches != 2:
-        raise AssertionError(f"expected 2 flash_attention launches, got {main_launches}")
 
+    naip = SEN2NAIP_WVS
     x_naip = torch.randn(4, 4, 512, 512, generator=g, device=dev)
-    attention.flash_attention.launches = 0
-    z = model.encode_spatial_normalized(x_naip, naip)
-    recon_naip = model.decode_spatial_normalized(z, naip)
-    torch.cuda.synchronize()
-    bulk_launches = attention.flash_attention.launches
-    print(f"bulk encode/decode [4,4,512,512]: latent {tuple(z.shape)}, out "
-          f"{tuple(recon_naip.shape)}, flash_attention launches {bulk_launches}")
+    z, _ = drive("bulk encode_spatial_normalized [4,4,512,512]",
+                 lambda: model.encode_spatial_normalized(x_naip, naip), launches(20, 22, 1))
+    recon_naip, _ = drive("bulk decode_spatial_normalized [4,32,64,64]",
+                          lambda: model.decode_spatial_normalized(z, naip), launches(28, 30, 1))
+    print(f"bulk encode/decode: latent {tuple(z.shape)}, out {tuple(recon_naip.shape)}")
     if (tuple(z.shape) != (4, 32, 64, 64) or tuple(recon_naip.shape) != (4, 4, 512, 512)
             or not (torch.isfinite(z).all() and torch.isfinite(recon_naip).all())):
         raise AssertionError("bulk encode/decode gave a wrong shape or non-finite values")
-    if bulk_launches != 2:
-        raise AssertionError(f"expected 2 flash_attention launches, got {bulk_launches}")
+    del recon, recon_naip, z
 
     # Same weights on a small input: card (fp32 and bf16) vs CPU fp32.
     x_small = torch.randn(1, 12, 64, 64, generator=torch.Generator().manual_seed(1))
     ref = EOFluxVAE(shipped_config(12), sd, policy=FULL_PRECISION, device="cpu").reconstruct(
         x_small, s2)
     gpu32 = EOFluxVAE(shipped_config(12), sd, policy=FULL_PRECISION, device=dev)
-    for label, out, tol in (("fp32", gpu32.reconstruct(x_small, s2), TOL_MODEL_F32),
+    out32, _ = drive("reconstruct [1,12,64,64] fp32", lambda: gpu32.reconstruct(x_small, s2),
+                     launches(48, 52, 2))
+    for label, out, tol in (("fp32", out32, TOL_MODEL_F32),
                             ("bf16", model.reconstruct(x_small, s2), TOL_MODEL_BF16)):
         err, rel = rel_err(out.cpu(), ref)
         ok = rel <= tol and bool(torch.isfinite(out).all())
@@ -258,16 +491,41 @@ def main() -> int:
             raise AssertionError(f"full model ({label}) disagrees with the CPU reference")
     del gpu32
 
+    # Bulk encode CLI path: 2 batches of 4 Sen2NAIP pairs, both images of each encoded.
+    batches = sen2naip_batches(2, 4, seed=2)
+    enc_dir = ROOT / "build" / "chip_smoke_encode"
+    (n_aoi, stats), _ = drive("encode_split 2 x 4 Sen2NAIP pairs at 512²",
+                              lambda: run_encode_split(model, batches, enc_dir),
+                              launches(80, 88, 4))
+    check_encode_split(n_aoi, stats, enc_dir, expected=8)
+
+    scene = np.random.default_rng(3).standard_normal((12, 1024, 1024)).astype(np.float32)
+    tiled, _ = drive("tiled_reconstruct [12,1024,1024] tile 256 overlap 32 batch 16",
+                     lambda: tiled_reconstruct(model, scene, s2, tile=256, overlap=32,
+                                               batch_size=16), launches(96, 104, 4))
+    if tiled.shape != scene.shape or not np.isfinite(tiled).all():
+        raise AssertionError("tiled_reconstruct gave a wrong shape or non-finite values")
+    print(f"tiled_reconstruct: out {tiled.shape}, finite")
+
     # ---- 4. times ----------------------------------------------------------------
     x256 = torch.randn(16, 12, 256, 256, generator=g, device=dev)
     for label, x, iters in (("256px B=16", x256, 10), ("512px B=4", x512, 10)):
         ms = cuda_ms(lambda: model.reconstruct(x, s2), iters)
         print(f"time reconstruct {label}: {ms:.3f} ms/call, {x.shape[0] * 1e3 / ms:.2f} imgs/s "
               f"[{card}]")
+    del x256
+
+    for compress in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_encode_split(model, batches, enc_dir, compress=compress)
+        seconds = time.perf_counter() - t0
+        print(f"time encode_split 8 AOIs at 512² (compress={compress}): {seconds:.3f} s, "
+              f"{8 / seconds:.2f} AOIs/s [{card}]")
+    shutil.rmtree(enc_dir, ignore_errors=True)
 
     profile_reconstruct(model, x512, s2, card)
 
-    # Both shapes the main path gives the kernel; the 512² one goes in the JSON line.
     timings = {}
     for shape in ((16, 1024, 512), (4, 4096, 512)):
         q, k, v = qkv(*shape, torch.bfloat16)
@@ -277,24 +535,69 @@ def main() -> int:
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
         b, s, d = shape
         flops = 4.0 * b * s * s * d
-        nbytes = 4.0 * b * s * d * q.element_size()
-        t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-        timings[shape] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                              bound_by="operations" if t_ops >= t_bytes else "bytes",
-                              library_ms=library_ms)
+        timings["flash_attention", shape] = dict(
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            **bound(flops, H100_BF16_FLOPS, 4.0 * b * s * d * q.element_size()))
         print(f"time flash_attention {list(shape)} bf16: kernel {kernel_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{timings['flash_attention', shape]['bound_ms']:.4f} ms "
               f"({flops / kernel_ms / 1e9:.1f} TFLOP/s) [{card}]")
+        del q, k, v
 
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "eovax_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "eovax/kernels/attention.py:28",
-        "launches": main_launches,
-        "max_abs_err": main_err,
-        **timings[(4, 4096, 512)],
-    }]
+    # GroupNorm + swish (ResnetBlock norm1) at the main path's largest activation.
+    shape = (4, 128, 512, 512)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device=dev)
+    bias = 0.1 * torch.randn(shape[1], generator=g, device=dev)
+    wb, bb = w.bfloat16(), bias.bfloat16()
+    kernel_ms = cuda_ms(lambda: group_norm(x, w, bias, swish=True), 20)
+    plain_ms = cuda_ms(lambda: group_norm_plain(x, w, bias, swish=True), 20)
+    library_ms = cuda_ms(lambda: F.silu(F.group_norm(x, 32, wb, bb, 1e-6)), 20)
+    timings["group_norm", shape] = dict(
+        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(GN_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, 2.0 * x.numel() * 2))
+    print(f"time group_norm+swish {list(shape)} bf16: kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, F.group_norm+F.silu {library_ms:.4f} ms, bound "
+          f"{timings['group_norm', shape]['bound_ms']:.4f} ms "
+          f"({4.0 * x.numel() / kernel_ms / 1e6:.0f} GB/s of the least traffic) [{card}]")
+    del x
+
+    for shape in ((4, 128, 128, 512, 512), (4, 512, 256, 256, 256), (4, 512, 512, 64, 64)):
+        x, w, bias = conv_inputs(*shape, torch.bfloat16, g)
+        wb, bb = w.bfloat16(), bias.bfloat16()
+        kernel_ms = cuda_ms(lambda: conv3x3(x, w, bias), 10)
+        plain_ms = cuda_ms(lambda: conv3x3_plain(x, w, bias), 5)
+        library_ms = cuda_ms(lambda: F.conv2d(x, wb, bb, padding=1), 10)
+        b, ci, co, h, wd = shape
+        flops = 2.0 * b * h * wd * 9 * ci * co
+        nbytes = 2.0 * (x.numel() + w.numel() + co + b * co * h * wd)
+        timings["conv3x3", shape] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                         **bound(flops, H100_BF16_FLOPS, nbytes))
+        print(f"time conv3x3 {list(shape)} bf16: kernel {kernel_ms:.4f} ms "
+              f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN "
+              f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
+              f"{timings['conv3x3', shape]['bound_ms']:.4f} ms [{card}]")
+        del x, w, bias
+
+    kernels = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "eovax_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "eovax/kernels/attention.py:28",
+         "launches": main_launches["flash_attention"], "max_abs_err": attn_err,
+         **timings["flash_attention", (4, 4096, 512)]},
+        {"name": "group_norm", "route": "cuda",
+         "source": "eovax_torch/kernels/csrc/groupnorm.cu",
+         "replaces": "eovax/kernels/groupnorm.py:31",
+         "launches": main_launches["group_norm"],
+         "max_abs_err": gn_errs[(4, 128, 512, 512)]["swish"],
+         **timings["group_norm", (4, 128, 512, 512)]},
+        {"name": "conv3x3", "route": "cuda",
+         "source": "eovax_torch/kernels/csrc/conv3x3.cu",
+         "replaces": "eovax/kernels/conv3x3.py:53",
+         "launches": main_launches["conv3x3"],
+         "max_abs_err": conv_errs[(4, 512, 256, 256, 256)],
+         **timings["conv3x3", (4, 512, 256, 256, 256)]},
+    ]
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,9 +30,6 @@ class Policy:
     def cast_to_compute(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.compute_dtype)
 
-    def cast_to_norm(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.norm_dtype)
-
     def activate(self) -> None:
         """Run fp32 convs and matmuls in full fp32 (no TF32), the
         counterpart of ``jax.lax.Precision.HIGHEST``. Process-wide flags."""

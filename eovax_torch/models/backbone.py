@@ -30,7 +30,6 @@ from eovax_torch.nn.blocks import (
     ResnetBlock,
     Upsample,
     WavelengthConditioner,
-    swish,
 )
 from eovax_torch.nn.distributions import DiagonalGaussian
 from eovax_torch.nn.dynamic_conv import DynamicConv, DynamicConvDecoder
@@ -117,7 +116,7 @@ class Encoder(nn.Module):
             if hasattr(stage, "downsample"):
                 h = stage.downsample(h)
         h = _run_mid(self.mid, h, emb)
-        h = swish(self.norm_out(h))
+        h = self.norm_out(h, swish=True)
         return self.quant_conv(self.conv_out(h))
 
 
@@ -174,7 +173,7 @@ class Decoder(nn.Module):
                 h = block(h, emb)
             if hasattr(stage, "upsample"):
                 h = stage.upsample(h)
-        return swish(self.norm_out(h))
+        return self.norm_out(h, swish=True)
 
     def forward(self, z: torch.Tensor, wvs: torch.Tensor | None = None) -> torch.Tensor:
         h = self.penultimate(z, wvs)

@@ -140,7 +140,9 @@ class EOFluxVAE:
         return sum(p.numel() for p in self.core.parameters())
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        # Contiguous: a transposed view (NHWC batches made NCHW) would otherwise
+        # reach the kernels, which take contiguous NCHW only.
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device).contiguous()
 
     # -------------------------------------------------------------- inference
 

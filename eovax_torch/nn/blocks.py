@@ -1,10 +1,17 @@
 """Core conv and attention blocks of the Flux-derived VAE (NCHW).
 
 Port of ``eovax/nn/blocks.py``. Parameters are fp32; convolutions run in the
-policy's compute dtype; GroupNorm statistics are fp32 and the output is cast
-back to the compute dtype, at the same places as in the JAX package.
+policy's compute dtype; GroupNorm statistics are fp32 and the output is in
+the compute dtype.
 
-- GroupNorm: 32 groups, eps 1e-6.
+- GroupNorm: 32 groups, eps 1e-6, through
+  :func:`eovax_torch.kernels.groupnorm.group_norm`, which also applies the
+  swish and AdaIN that follow a norm in a ResnetBlock (one rounding to the
+  compute dtype where the JAX package rounds after the norm, then computes
+  AdaIN and swish in the compute dtype).
+- ResnetBlock ``conv1``/``conv2``: 3×3 SAME convs through
+  :func:`eovax_torch.kernels.conv3x3.conv3x3`, where the JAX package calls
+  ``policy_conv3x3``.
 - Downsample: asymmetric (0,1,0,1) pad, then a VALID 3×3 stride-2 conv.
 - Upsample: nearest ×2, then a 3×3 conv (the plain form; the JAX package's
   input-dilated lowering computes the same up to tap-sum reassociation).
@@ -22,10 +29,8 @@ from torch import nn
 
 from eovax_torch.core.precision import FULL_PRECISION, Policy
 from eovax_torch.kernels.attention import flash_attention
-
-
-def swish(x: torch.Tensor) -> torch.Tensor:
-    return F.silu(x)
+from eovax_torch.kernels.conv3x3 import conv3x3
+from eovax_torch.kernels.groupnorm import group_norm
 
 
 class Conv2d(nn.Conv2d):
@@ -41,17 +46,30 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(c(x), c(self.weight), c(self.bias), self.stride, self.padding)
 
 
+class Conv3x3(Conv2d):
+    """3×3 stride-1 SAME conv through the conv3x3 kernel (``Conv2d``'s parameters)."""
+
+    def __init__(self, in_channels: int, out_channels: int, policy: Policy = FULL_PRECISION):
+        super().__init__(in_channels, out_channels, 3, padding=1, policy=policy)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3x3(self.policy.cast_to_compute(x), self.weight, self.bias)
+
+
 class GroupNorm(nn.GroupNorm):
-    """32-group GroupNorm with fp32 statistics, output in the compute dtype."""
+    """32-group GroupNorm with fp32 statistics, output in the compute dtype;
+    optionally followed by AdaIN (``ada_scale``/``ada_shift``, [C] or [B, C])
+    and swish in the same kernel."""
 
     def __init__(self, num_channels: int, policy: Policy = FULL_PRECISION):
         super().__init__(32, num_channels, eps=1e-6)
         self.policy = policy
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(self.policy.cast_to_norm(x), self.num_groups, self.weight, self.bias,
-                         self.eps)
-        return self.policy.cast_to_compute(y)
+    def forward(self, x: torch.Tensor, *, ada_scale: torch.Tensor | None = None,
+                ada_shift: torch.Tensor | None = None, swish: bool = False) -> torch.Tensor:
+        return group_norm(self.policy.cast_to_compute(x), self.weight, self.bias,
+                          self.num_groups, self.eps, ada_scale=ada_scale, ada_shift=ada_shift,
+                          swish=swish)
 
 
 def sincos_embed_microns(embed_dim: int, wvs: torch.Tensor) -> torch.Tensor:
@@ -110,9 +128,9 @@ class ResnetBlock(nn.Module):
         super().__init__()
         self.out_channels = out_channels
         self.norm1 = GroupNorm(in_channels, policy)
-        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, policy=policy)
+        self.conv1 = Conv3x3(in_channels, out_channels, policy)
         self.norm2 = GroupNorm(out_channels, policy)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, policy=policy)
+        self.conv2 = Conv3x3(out_channels, out_channels, policy)
         self.nin_shortcut = (
             Conv2d(in_channels, out_channels, 1, policy=policy)
             if in_channels != out_channels else None
@@ -127,16 +145,12 @@ class ResnetBlock(nn.Module):
             self.emb_proj.bias[self.out_channels :] = 0.0
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor | None = None) -> torch.Tensor:
-        h = self.conv1(swish(self.norm1(x)))
-        h = self.norm2(h)
+        h = self.conv1(self.norm1(x, swish=True))
+        scale = shift = None
         if self.emb_proj is not None and emb is not None:
+            # [C] shared across the batch, or [B, C]
             scale, shift = self.emb_proj(emb.float()).chunk(2, dim=-1)
-            if scale.dim() == 1:  # shared across the batch
-                scale, shift = scale.view(1, -1, 1, 1), shift.view(1, -1, 1, 1)
-            else:  # [B, C]
-                scale, shift = scale[:, :, None, None], shift[:, :, None, None]
-            h = h * scale.to(h.dtype) + shift.to(h.dtype)
-        h = self.conv2(swish(h))
+        h = self.conv2(self.norm2(h, ada_scale=scale, ada_shift=shift, swish=True))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x.to(h.dtype) + h

@@ -1,0 +1,158 @@
+"""The port's 3×3 conv against the JAX package's, and its kernel on the card.
+
+``conv3x3_plain`` is what the port computes on the CPU; here it is held
+against ``eovax.kernels.conv3x3`` (its Pallas kernel in interpret mode in
+fp32, and its dispatch in bf16) on the same numpy inputs, NHWC/HWIO ↔
+NCHW/OIHW at the boundary. The tests marked ``gpu`` hold the CUDA kernel
+against ``conv3x3_plain`` on the card and skip without one. They import no
+JAX, so the card's machine runs them without it:
+
+    python -m pytest tests/test_torch_conv3x3.py -m gpu --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from eovax_torch.kernels import build, conv3x3
+
+# fp32 on both sides, nine tap sums in other orders: the JAX kernel test's tolerance.
+TOL_F32 = dict(rtol=1e-4, atol=1e-4)
+# bf16 operands and output: the sum over K = 9·Ci in another order plus one
+# output rounding, relative to max |reference|.
+TOL_BF16 = 2e-2
+
+
+def _data(b, ci, co, h, w, seed=0):
+    g = np.random.default_rng(seed)
+    x = g.standard_normal((b, ci, h, w)).astype(np.float32)
+    k = (g.standard_normal((co, ci, 3, 3)) * 0.05).astype(np.float32)
+    bias = g.standard_normal(co).astype(np.float32)
+    return x, k, bias
+
+
+def _to_jax(x, k, bias, dtype):
+    import jax.numpy as jnp
+
+    return (jnp.asarray(np.transpose(x, (0, 2, 3, 1)), dtype),
+            jnp.asarray(np.transpose(k, (2, 3, 1, 0)), dtype), jnp.asarray(bias, dtype))
+
+
+def _nchw(y):
+    return np.transpose(np.asarray(y, np.float32), (0, 3, 1, 2))
+
+
+@pytest.mark.parametrize(
+    "b,ci,co,h,w,tile_h",
+    [(1, 32, 32, 16, 16, 8), (2, 32, 48, 12, 20, 4), (1, 16, 64, 15, 9, 5), (2, 64, 32, 8, 8, 8)],
+    ids=["square", "ci-ne-co", "odd-hw", "ci-gt-co"],
+)
+def test_plain_matches_jax_pallas_kernel_fp32(b, ci, co, h, w, tile_h):
+    import jax.numpy as jnp
+
+    from eovax.kernels.conv3x3 import _conv3x3_pallas
+
+    x, k, bias = _data(b, ci, co, h, w)
+    ref = _nchw(_conv3x3_pallas(*_to_jax(x, k, bias, jnp.float32), tile_h))
+    out = conv3x3.conv3x3_plain(*map(torch.from_numpy, (x, k, bias))).numpy()
+    np.testing.assert_allclose(out, ref, **TOL_F32)
+
+
+@pytest.mark.parametrize(
+    "b,ci,co,h,w",
+    [(1, 128, 128, 16, 16), (2, 128, 256, 8, 16), (1, 32, 64, 9, 13)],
+    ids=["pallas-envelope", "ci-ne-co", "odd-hw"],
+)
+def test_plain_matches_jax_dispatch_bf16(b, ci, co, h, w):
+    """bf16 through the JAX dispatch: its Pallas kernel (interpret) inside
+    its envelope, its XLA conv outside."""
+    import jax.numpy as jnp
+
+    from eovax.kernels.conv3x3 import conv3x3 as jax_conv3x3
+
+    x, k, bias = _data(b, ci, co, h, w, seed=1)
+    ref = _nchw(jax_conv3x3(*_to_jax(x, k, bias, jnp.bfloat16)))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    out = conv3x3.conv3x3_plain(xt, torch.from_numpy(k), torch.from_numpy(bias))
+    assert out.dtype == torch.bfloat16
+    err = np.abs(out.float().numpy() - ref).max()
+    assert err <= TOL_BF16 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensor_takes_plain_path_without_launch(dtype):
+    x, k, bias = (torch.from_numpy(a) for a in _data(2, 32, 48, 7, 11, seed=2))
+    x = x.to(dtype)
+    before = conv3x3.conv3x3.launches
+    out = conv3x3.conv3x3(x, k, bias)
+    assert conv3x3.conv3x3.launches == before
+    assert out.dtype == dtype and out.shape == (2, 48, 7, 11)
+    torch.testing.assert_close(out, conv3x3.conv3x3_plain(x, k, bias), rtol=0, atol=0)
+
+
+def test_non_cpu_non_cuda_tensor_raises():
+    x = torch.empty(1, 16, 8, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv3x3.conv3x3(x, torch.empty(16, 16, 3, 3, device="meta"),
+                        torch.empty(16, device="meta"))
+
+
+def test_kernel_library_is_keyed_by_source_hash():
+    lib = build.library_path(conv3x3.SOURCE)
+    assert lib.parent == build.BUILD_DIR
+    assert lib.name.startswith("conv3x3_") and lib.suffix == ".so"
+    assert (build.CSRC / conv3x3.SOURCE).exists()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,ci,co,h,w,dtype,tol",
+    [
+        (2, 128, 128, 128, 128, torch.bfloat16, TOL_BF16),
+        (1, 512, 256, 64, 64, torch.bfloat16, TOL_BF16),
+        (2, 256, 512, 32, 32, torch.bfloat16, TOL_BF16),
+        (2, 64, 96, 37, 53, torch.bfloat16, TOL_BF16),
+        (2, 32, 64, 40, 40, torch.bfloat16, TOL_BF16),
+        (2, 64, 96, 37, 53, torch.float32, 1e-4),
+        (1, 12, 40, 9, 70, torch.float32, 1e-4),
+    ],
+)
+def test_kernel_matches_plain_on_card(cuda_device, b, ci, co, h, w, dtype, tol):
+    """bf16: the sum over K = 9·Ci in another order plus one output rounding;
+    fp32: another summation order. Both relative to max |reference|."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(b, ci, h, w, generator=g, device=cuda_device).to(dtype)
+    k = 0.05 * torch.randn(co, ci, 3, 3, generator=g, device=cuda_device)
+    bias = torch.randn(co, generator=g, device=cuda_device)
+    before = conv3x3.conv3x3.launches
+    out = conv3x3.conv3x3(x, k, bias)
+    torch.cuda.synchronize()
+    assert conv3x3.conv3x3.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, co, h, w)
+    ref = conv3x3.conv3x3_plain(x, k, bias).float()
+    assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    k = torch.zeros(16, 24, 3, 3, device=cuda_device)
+    bias = torch.zeros(16, device=cuda_device)
+    x = torch.zeros(1, 24, 8, 8, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        conv3x3.conv3x3(x, k, bias)
+    x = torch.zeros(1, 24, 8, 8, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        conv3x3.conv3x3(x, k, bias)
+    x = torch.zeros(1, 24, 8, 16, device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3.conv3x3(x, k, bias)
+    x = torch.zeros(1, 24, 8, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="w \\[Co, Ci, 3, 3\\]"):
+        conv3x3.conv3x3(x, k[:, :16], bias)

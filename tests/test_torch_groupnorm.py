@@ -1,0 +1,213 @@
+"""The port's GroupNorm against the JAX package's, and its kernels on the card.
+
+``gn_channel_sums_plain`` and ``group_norm_plain`` are what the port computes
+on the CPU; here they are held against ``eovax.kernels.groupnorm`` (its
+Pallas statistics kernel in interpret mode, and its plain path) on the same
+numpy inputs, transposed NHWC ↔ NCHW at the boundary, and the fused
+AdaIN + swish variants against the JAX ResnetBlock's own sequence. The tests
+marked ``gpu`` hold the CUDA kernels against the plain versions on the card
+and skip without one. They import no JAX, so the card's machine runs them
+without it:
+
+    python -m pytest tests/test_torch_groupnorm.py -m gpu --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from eovax_torch.kernels import build, groupnorm
+
+# fp32 on both sides, sums in other orders.
+TOL_F32 = dict(rtol=1e-5, atol=1e-5)
+# bf16 inputs, fp32 sums of up to 256 elements: the JAX kernel test's tolerance.
+TOL_SUMS_BF16 = dict(rtol=1e-3, atol=1e-2)
+
+
+def _x(shape, seed=0, loc=0.0):
+    return (np.random.default_rng(seed).standard_normal(shape) + loc).astype(np.float32)
+
+
+def _params(c, seed=1):
+    g = np.random.default_rng(seed)
+    return [(1.0 + 0.1 * g.standard_normal(c)).astype(np.float32),
+            (0.1 * g.standard_normal(c)).astype(np.float32)]
+
+
+def _nhwc(x):
+    return np.transpose(x, (0, 2, 3, 1))
+
+
+def _nchw(y):
+    return np.transpose(np.asarray(y, np.float32), (0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 16, 16), (2, 32, 8, 8), (1, 128, 32, 4)])
+def test_channel_sums_plain_matches_jax_kernel(shape, dtype):
+    import jax.numpy as jnp
+
+    from eovax.kernels.groupnorm import gn_channel_sums as jax_channel_sums
+
+    x = torch.from_numpy(_x(shape)).to(dtype)  # values exact in both dtypes from here on
+    xj = jnp.asarray(_nhwc(x.float().numpy())).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                      else jnp.float32)
+    ref_s, ref_s2 = jax_channel_sums(xj, interpret=True)
+    s, s2 = groupnorm.gn_channel_sums_plain(x)
+    tol = TOL_SUMS_BF16 if dtype == torch.bfloat16 else TOL_F32
+    np.testing.assert_allclose(s.numpy(), np.asarray(ref_s), **tol)
+    np.testing.assert_allclose(s2.numpy(), np.asarray(ref_s2), **tol)
+
+
+@pytest.mark.parametrize(
+    "shape,groups,loc",
+    [((2, 64, 8, 8), 32, 0.0), ((2, 32, 8, 8), 32, 0.0), ((1, 64, 5, 7), 8, 0.0),
+     ((2, 64, 8, 8), 32, 20.0)],
+    ids=["two-per-group", "one-per-group", "odd-hw", "large-mean"],
+)
+def test_group_norm_plain_matches_jax(shape, groups, loc):
+    """Against the JAX plain path and against its Pallas statistics (interpret)
+    composed with its ``_apply``."""
+    import jax.numpy as jnp
+
+    from eovax.kernels.groupnorm import _apply, _stats
+    from eovax.kernels.groupnorm import group_norm as jax_group_norm
+
+    x = _x(shape, loc=loc)
+    w, b = _params(shape[1])
+    xj, wj, bj = jnp.asarray(_nhwc(x)), jnp.asarray(w), jnp.asarray(b)
+    ref_plain = _nchw(jax_group_norm(xj, wj, bj, groups, 1e-6, False))
+    ref_kernel = _nchw(_apply(xj, *_stats(xj, groups, use_pallas=True, interpret=True), wj, bj,
+                              groups, 1e-6))
+    out = groupnorm.group_norm_plain(*map(torch.from_numpy, (x, w, b)), groups, 1e-6).numpy()
+    np.testing.assert_allclose(out, ref_plain, **TOL_F32)
+    # E[x²] − mean² of the TPU kernel cancels when |mean| ≫ std.
+    tol = TOL_F32 if loc == 0.0 else dict(rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(out, ref_kernel, **tol)
+
+
+@pytest.mark.parametrize("ada", [None, "shared", "batched"])
+def test_fused_adain_swish_matches_jax_resnet_sequence(ada):
+    """norm → (AdaIN) → swish as eovax/nn/blocks.py ResnetBlock writes it, in fp32."""
+    import flax.linen as fnn
+    import jax.numpy as jnp
+
+    from eovax.nn.blocks import swish
+
+    x = _x((2, 64, 8, 8), seed=2)
+    w, b = _params(64, seed=3)
+    g = np.random.default_rng(4)
+    ada_shape = {"shared": (64,), "batched": (2, 64)}.get(ada)
+    scale = shift = None
+    h = fnn.GroupNorm(num_groups=32, epsilon=1e-6, dtype=jnp.float32).apply(
+        {"params": {"scale": jnp.asarray(w), "bias": jnp.asarray(b)}}, jnp.asarray(_nhwc(x)))
+    if ada_shape:
+        scale = (1.0 + 0.2 * g.standard_normal(ada_shape)).astype(np.float32)
+        shift = (0.2 * g.standard_normal(ada_shape)).astype(np.float32)
+        expand = (lambda v: v[None, None, None, :]) if ada == "shared" else (
+            lambda v: v[:, None, None, :])
+        h = h * expand(jnp.asarray(scale)) + expand(jnp.asarray(shift))
+    ref = _nchw(swish(h))
+    t = (lambda v: None if v is None else torch.from_numpy(v))
+    out = groupnorm.group_norm_plain(t(x), t(w), t(b), 32, 1e-6, ada_scale=t(scale),
+                                     ada_shift=t(shift), swish=True).numpy()
+    np.testing.assert_allclose(out, ref, **TOL_F32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensor_takes_plain_path_without_launch(dtype):
+    x = torch.from_numpy(_x((2, 64, 6, 6), seed=5)).to(dtype)
+    w, b = map(torch.from_numpy, _params(64))
+    before = (groupnorm.group_norm.launches, groupnorm.gn_channel_sums.launches)
+    out = groupnorm.group_norm(x, w, b, swish=True)
+    sums = groupnorm.gn_channel_sums(x)
+    assert (groupnorm.group_norm.launches, groupnorm.gn_channel_sums.launches) == before
+    assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out, groupnorm.group_norm_plain(x, w, b, swish=True), rtol=0,
+                               atol=0)
+    for got, ref in zip(sums, groupnorm.gn_channel_sums_plain(x)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_non_cpu_non_cuda_tensor_raises():
+    x = torch.empty(1, 32, 4, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        groupnorm.group_norm(x, x[0, :, 0, 0], x[0, :, 0, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        groupnorm.gn_channel_sums(x)
+
+
+def test_kernel_library_is_keyed_by_source_hash():
+    lib = build.library_path(groupnorm.SOURCE)
+    assert lib.parent == build.BUILD_DIR
+    assert lib.name.startswith("groupnorm_") and lib.suffix == ".so"
+    assert (build.CSRC / groupnorm.SOURCE).exists()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _card_inputs(device, shape, dtype, ada, loc=0.0):
+    g = torch.Generator(device=device).manual_seed(0)
+    b, c = shape[:2]
+    x = (torch.randn(shape, generator=g, device=device) + loc).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(c, generator=g, device=device)
+    bias = 0.1 * torch.randn(c, generator=g, device=device)
+    ada_shape = {"shared": (c,), "batched": (b, c)}.get(ada)
+    kw = {}
+    if ada_shape:
+        kw = dict(ada_scale=1.0 + 0.2 * torch.randn(ada_shape, generator=g, device=device),
+                  ada_shift=0.2 * torch.randn(ada_shape, generator=g, device=device))
+    return x, w, bias, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,dtype,ada,swish,loc,tol",
+    [
+        ((2, 128, 256, 256), torch.bfloat16, None, True, 0.0, 1e-2),
+        ((4, 512, 64, 64), torch.bfloat16, "batched", True, 0.0, 1e-2),
+        ((2, 256, 32, 32), torch.bfloat16, "shared", True, 0.0, 1e-2),
+        ((2, 96, 37, 53), torch.float32, "shared", True, 0.0, 1e-5),
+        ((2, 96, 37, 53), torch.float32, None, False, 30.0, 1e-5),
+        ((2, 32, 40, 40), torch.float32, "batched", True, 0.0, 1e-5),
+        ((2, 32, 40, 40), torch.bfloat16, None, False, 0.0, 1e-2),
+    ],
+)
+def test_kernels_match_plain_on_card(cuda_device, shape, dtype, ada, swish, loc, tol):
+    """bf16: one rounding of the output; fp32: sums in another order. Both
+    relative to max |reference|."""
+    x, w, bias, kw = _card_inputs(cuda_device, shape, dtype, ada, loc)
+    before = groupnorm.group_norm.launches
+    out = groupnorm.group_norm(x, w, bias, swish=swish, **kw)
+    torch.cuda.synchronize()
+    assert groupnorm.group_norm.launches == before + 1
+    assert out.dtype == dtype
+    ref = groupnorm.group_norm_plain(x, w, bias, swish=swish, **kw).float()
+    assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+    sums = groupnorm.gn_channel_sums(x)
+    for got, want in zip(sums, groupnorm.gn_channel_sums_plain(x)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item() + 1e-3
+
+
+@pytest.mark.gpu
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    w = torch.ones(64, device=cuda_device)
+    x = torch.zeros(1, 64, 8, 8, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        groupnorm.group_norm(x, w, w)
+    x = torch.zeros(1, 64, 8, 16, device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        groupnorm.group_norm(x, w, w)
+    x = torch.zeros(1, 48, 8, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="groups"):
+        groupnorm.group_norm(x, w[:48], w[:48])
+    x = torch.zeros(2, 64, 8, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="AdaIN"):
+        groupnorm.group_norm(x, w, w, ada_scale=torch.ones(3, 64, device=cuda_device),
+                             ada_shift=torch.ones(3, 64, device=cuda_device))
