@@ -2,7 +2,7 @@
 
 Port of ``eovax/kernels/conv3x3.py``. On a CUDA tensor :func:`conv3x3`
 launches the hand-written Hopper kernel of ``csrc/conv3x3.cu``: an implicit
-GEMM on the bf16 tensor cores for the inference policy, a plain FMA kernel
+GEMM on ``wgmma`` for the bf16 inference policy, a plain FMA kernel
 for fp32 (``FULL_PRECISION``). On a CPU tensor it computes
 :func:`conv3x3_plain`, the plain PyTorch version of the same function. It
 never falls back from the kernel, and it raises on shapes outside the
@@ -81,9 +81,15 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
     th, tw = _PIXEL_TILE[x.dtype]
     if x.numel() == 0 or co == 0 or -(-h // th) * -(-wd // tw) > 65535 or b > 65535:
         raise ValueError(f"conv3x3: shape {tuple(x.shape)} is outside the kernel's grid")
-    # The kernel reads the weights as [tap_y, tap_x, Co, Ci] in x's dtype.
-    wt = torch.empty((3, 3, co, ci), dtype=x.dtype, device=x.device)
-    wt.copy_(w.permute(2, 3, 0, 1))
+    # The kernel reads the weights in x's dtype, bf16 as [tap_y, tap_x, Ci/8, Co, 8]
+    # (16-byte rows of 8 input channels, the layout of its shared memory), fp32
+    # as [tap_y, tap_x, Co, Ci]. One copy kernel either way.
+    if x.dtype == torch.bfloat16:
+        wt = torch.empty((3, 3, ci // 8, co, 8), dtype=x.dtype, device=x.device)
+        wt.copy_(w.reshape(co, ci // 8, 8, 3, 3).permute(3, 4, 1, 0, 2))
+    else:
+        wt = torch.empty((3, 3, co, ci), dtype=x.dtype, device=x.device)
+        wt.copy_(w.permute(2, 3, 0, 1))
     bias = bias.to(x.dtype).contiguous()
     out = torch.empty((b, co, h, wd), dtype=x.dtype, device=x.device)
     lib = _library()

@@ -1,5 +1,5 @@
-// 3×3 stride-1 SAME convolution with bias for Hopper (sm_90a), NCHW input,
-// output and weights laid out [3, 3, Co, Ci].
+// 3×3 stride-1 SAME convolution with bias for Hopper (sm_90a), NCHW input and
+// output.
 //
 // Replaces the Pallas TPU kernel `_kernel` / `_conv3x3_pallas` / `conv3x3` in
 // eovax/kernels/conv3x3.py (pallas_call at line 112): the conv as nine tap
@@ -7,32 +7,50 @@
 // added in fp32, and one rounding to the input type. Forward only.
 //
 // What bounds it on the H100: operations. A ResnetBlock conv at
-// [4, 128, 512, 512] 128→128 is 2·B·H·W·9·Ci·Co = 309 GFLOP against 537 MB
-// of input and output, about 580 FLOP per byte, above the card's ~295: the
-// least time is 0.31 ms at the 989 TFLOP/s bf16 tensor-core peak.
+// [4, 512, 256, 256] 512→256 is 2·B·H·W·9·Ci·Co = 618 GFLOP against 403 MB
+// of input and output, about 1,500 FLOP per byte, far above the card's ~295:
+// the least time is 0.63 ms at the 989 TFLOP/s bf16 tensor-core peak.
 //
-// Design (bf16): an implicit GEMM, out[co, p] = Σ_tap Σ_ci W_tap[co, ci] ·
-// x[ci, p + δ_tap], with M = Co, N = pixels, K = 9·Ci. No im2col and no
-// padded copy exist in device memory.
-//   - A block owns 64 output channels × 128 pixels (2 rows × 64 columns of
-//     one image) and walks K in chunks of 16 input channels. For a chunk it
-//     holds the weights of all nine taps, [tap][co][ci], and the halo slab of
-//     x, 4 rows × 66 columns, as [pixel][ci]: channels innermost, so that a
-//     tap's shift moves whole 48-byte pixel rows and every ldmatrix address
-//     stays 16-byte aligned. The slab's border zeros are written in the load.
-//   - NCHW keeps pixels, not channels, contiguous, so the slab is transposed
-//     on its way to shared memory: each thread loads the same pixel of two
-//     neighbouring channels and stores them as one 32-bit word. The next
-//     chunk's slab is loaded into registers, and its weights are copied with
-//     cp.async, while the tensor cores work on this chunk (two stages).
-//   - Four warps; warp w computes all 64 channels × pixels 32w .. 32w+31 of
-//     the tile with mma.sync m16n8k16 bf16 → fp32, operands by ldmatrix:
-//     per tap 4 A and 2 B ldmatrix.x4 feed 16 products.
-//   - Two blocks fit on an SM (79 KB of shared memory each).
+// Design (bf16): an implicit GEMM on `wgmma`, out[p, co] = Σ_tap Σ_ci
+// x[p + δ_tap, ci] · W_tap[ci, co], with M = pixels, N = Co, K = 9·Ci. No
+// im2col and no padded copy exist in device memory.
+//   - A block owns 4 output rows × 64 columns of one image × 128 output
+//     channels and runs two warpgroups; each owns 2 rows, i.e. two
+//     m64n128 accumulators (128 fp32 registers a thread). K is walked in
+//     chunks of 32 input channels, double-buffered in shared memory
+//     (2 × 99,072 bytes, one block an SM).
+//   - Both operands sit in shared memory in the no-swizzle core-matrix
+//     layout, channels innermost: the halo slab of x (6 rows × 66 columns)
+//     as [8-channel group][slab pixel][8 channels], the weights of all nine
+//     taps as [tap][8-channel group][co][8 channels]. An 8-pixel core matrix
+//     is then 128 contiguous bytes for any starting pixel, so a tap (dy, dx)
+//     is only an offset of ((r + dy)·66 + dx)·16 bytes in the A descriptor,
+//     and every tap reads the same slab. Descriptors: LBO = the stride
+//     between 8-channel groups (K), SBO = 128 bytes between 8-row groups.
+//   - N = 128 a instruction: with both operands in shared memory, an
+//     m64n64k16 reads 4 KB in the ~31 cycles its products take, above the
+//     SM's 128 bytes a cycle; m64n128k16 reads 6 KB in ~61 cycles.
+//   - Loads: the weights (laid out [3, 3, Ci/8, Co, 8] by the wrapper) with
+//     16-byte cp.async, 2 KB contiguous per (tap, group). NCHW keeps pixels
+//     contiguous, so the slab is read as 16-byte vectors of 8 pixels of one
+//     channel, two channels at a time, interleaved into 32-bit words with
+//     __byte_perm on the way to shared memory; the halo columns, images
+//     whose width is not a multiple of 8, and the border (zeros) go apart.
+//     The next chunk's slab is loaded into registers while this chunk's
+//     wgmma run; `wgmma.wait_group 1` and a barrier free the other stage.
+//   - fence.proxy.async after the threads' shared-memory writes (st.shared
+//     and cp.async) and before the barrier: wgmma reads through the async
+//     proxy.
+//   - Epilogue: bias in fp32, one rounding to bf16, the tile staged in
+//     shared memory as [co][64 pixels], written with 16-byte stores.
+// Left out (the next redesign): TMA halo and weight loads with mbarriers and
+// warp specialisation, setmaxnreg, a persistent grid, clusters, fusing the
+// residual add or the next GroupNorm. The block stays load-then-compute.
 //
-// The fp32 variant (FULL_PRECISION) is a plain FMA kernel: a block owns 16
-// output channels × 8 × 32 pixels, one pixel per thread, and walks the input
-// channels in chunks of 8 through shared memory.
+// The fp32 variant (FULL_PRECISION) is a plain FMA kernel on weights laid
+// out [3, 3, Co, Ci]: a block owns 16 output channels × 8 × 32 pixels, one
+// pixel per thread, and walks the input channels in chunks of 8 through
+// shared memory.
 //
 // Plain C interface, loaded with ctypes. Each entry point launches on the
 // given stream and returns cudaGetLastError() (0 on success).
@@ -45,199 +63,332 @@ namespace {
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int kBM = 64;                      // output channels per block
-constexpr int kTH = 2, kTW = 64;             // output rows × columns per block
-constexpr int kKC = 16;                      // input channels per K chunk
-constexpr int kLD = kKC + 8;                 // smem row stride (elements): 48 bytes
-constexpr int kSlabW = kTW + 2;
-constexpr int kSlabPix = (kTH + 2) * kSlabW;  // 264
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kWElems = 9 * kBM * kLD;       // one chunk's weights
-constexpr int kStage = kWElems + kSlabPix * kLD;
-constexpr size_t kSmemBytes = 2 * (size_t)kStage * sizeof(__nv_bfloat16);  // 80,640
-// Slab items: (channel pair, slab row, column) with columns padded to 9 groups of 8.
-constexpr int kSlabColGroups = (kSlabW + 7) / 8;
-constexpr int kSlabItems = (kKC / 2) * (kTH + 2) * kSlabColGroups * 8;  // 2304
-constexpr int kSlabPerThread = kSlabItems / kThreads;                   // 18
-constexpr int kWCopies = 9 * kBM * (kKC / 8);                           // 16-byte copies: 1152
-constexpr int kWPerThread = kWCopies / kThreads;                        // 9
-static_assert(kSlabItems % kThreads == 0 && kWCopies % kThreads == 0, "even split");
+constexpr int kBN = 128;                         // output channels per block (wgmma N)
+constexpr int kTW = 64;                          // output columns per block (wgmma M)
+#ifndef EOVAX_WG_ROWS
+#define EOVAX_WG_ROWS 1
+#endif
+constexpr int kWGRows = EOVAX_WG_ROWS;           // output rows per warpgroup
+constexpr int kWarpgroups = 2;
+constexpr int kTH = kWarpgroups * kWGRows;       // output rows per block
+constexpr int kThreads = kWarpgroups * 128;
+constexpr int kKC = 32;                          // input channels per K chunk
+constexpr int kKG = kKC / 8;                     // 8-channel groups per chunk
+constexpr int kSlabRows = kTH + 2, kSlabW = kTW + 2;
+constexpr int kSlabPix = kSlabRows * kSlabW;
+constexpr int kWBytes = 9 * kKG * kBN * 16;      // one chunk's weights: 73,728
+constexpr int kSlabBytes = kKG * kSlabPix * 16;  // one chunk's slab
+constexpr int kStageBytes = kWBytes + kSlabBytes;
+constexpr size_t kSmemBytes = 2 * (size_t)kStageBytes;
+constexpr int kEpiLD = kTW + 8;                  // epilogue row stride (elements): 144 bytes
+constexpr int kWCopies = 9 * kKG * kBN;          // 16-byte copies a chunk
+constexpr int kWPerThread = kWCopies / kThreads;
+constexpr int kSlabItems = (kKC / 2) * kSlabRows * (kTW / 8);  // channel pairs × rows × vectors
+constexpr int kSlabPerThread = kSlabItems / kThreads;
+constexpr int kHaloItems = (kKC / 2) * kSlabRows * 2;          // channel pairs × rows × 2 columns
+static_assert(kSmemBytes <= 232448, "shared memory of one block");
+static_assert((size_t)kTH * kBN * kEpiLD * 2 <= kSmemBytes, "epilogue tile fits the stages");
+static_assert(kWCopies % kThreads == 0 && kSlabItems % kThreads == 0, "even split");
+static_assert(kHaloItems <= kThreads, "one halo item a thread at most");
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+__device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem, bool pred) {
   int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem), "l"(gmem), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// c += a · b for one m16n8k16 tile: bf16 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// This thread's generic-proxy writes to shared memory become visible to wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of an accumulator register across
+// the wgmma fence, commit and wait.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Shared-memory matrix descriptor, no swizzle: start address, LBO (the stride
+// between core matrices along K) and SBO (along M or N), all in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t smem, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  return (uint64_t)((smem & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32);
+}
+
+// d[64 × 128] += A[64 × 16] · B[16 × 128], bf16 operands from shared memory, fp32 d.
+// d[4j + 2h + e]: row 16·warp + lane/4 + 8h, column 8j + 2·(lane % 4) + e.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 struct ConvShape {
   int Ci, Co, H, W, tiles_w;
 };
 
-// Weights of chunk ci0 (all nine taps, channels co0 .. co0+63) into sW with cp.async;
-// channels at or beyond Co are zero-filled.
-__device__ __forceinline__ void load_weights(__nv_bfloat16* sW, const __nv_bfloat16* wt,
+// Weights of chunk ci0 (all nine taps, channels co0 .. co0+127) into the stage
+// at sW with cp.async: copy i lands at byte 16·i, [tap][group][co][8]. Channels
+// at or beyond Co, and groups at or beyond Ci, are zero-filled.
+__device__ __forceinline__ void load_weights(uint32_t sW, const __nv_bfloat16* wt,
                                              const ConvShape& s, int co0, int ci0, int tid) {
+  const int groups = s.Ci / 8;
 #pragma unroll
   for (int k = 0; k < kWPerThread; ++k) {
     const int i = tid + k * kThreads;
-    const int half = i & 1, co = (i >> 1) % kBM, tap = i / (2 * kBM);
-    const bool ok = co0 + co < s.Co;
+    const int co = i % kBN, gg = ci0 / 8 + (i / kBN) % kKG, tap = i / (kBN * kKG);
+    const bool ok = co0 + co < s.Co && gg < groups;
     const __nv_bfloat16* src =
-        wt + ((size_t)tap * s.Co + (ok ? co0 + co : 0)) * s.Ci + ci0 + half * 8;
-    cp_async16(sW + (tap * kBM + co) * kLD + half * 8, src, ok);
+        wt + (((size_t)tap * groups + (ok ? gg : 0)) * s.Co + (ok ? co0 + co : 0)) * 8;
+    cp_async16(sW + 16 * i, src, ok);
   }
 }
 
-// Slab item i → (channel pair, slab row, slab column). Lanes 0-3 take four channel
-// pairs and lanes 4·k take column k of a group of 8, so the 32-bit stores of a warp
-// fall in 32 distinct banks.
-__device__ __forceinline__ void slab_item(int i, int& cp, int& r, int& col) {
-  const int cp_lo = i & 3, cc = (i >> 2) & 7, rest = i >> 5;
-  const int cg = rest % kSlabColGroups, rr = rest / kSlabColGroups;
-  r = rr % (kTH + 2);
-  cp = (rr / (kTH + 2)) * 4 + cp_lo;
-  col = cg * 8 + cc;
+// Slab item i → (channel pair in its group, slab row, 8-pixel vector, group).
+// The four pairs of a group take neighbouring lanes, then the rows.
+__device__ __forceinline__ void slab_item(int i, int& cpl, int& r, int& v, int& g) {
+  cpl = i & 3;
+  int rest = i >> 2;
+  r = rest % kSlabRows;
+  rest /= kSlabRows;
+  v = rest & 7;
+  g = rest >> 3;
 }
 
-// The slab of chunk ci0 into registers: two bf16 of neighbouring channels per word,
-// zero outside the image.
-__device__ __forceinline__ void load_slab(uint32_t (&regs)[kSlabPerThread],
-                                          const __nv_bfloat16* xb, const ConvShape& s, int ci0,
-                                          int y0, int x0, int tid) {
-  const unsigned short* xs = reinterpret_cast<const unsigned short*>(xb);
+// Halo item i → (channel pair in its group, slab row, slab column 0 or 65, group).
+__device__ __forceinline__ void halo_item(int i, int& cpl, int& r, int& col, int& g) {
+  cpl = i & 3;
+  int rest = i >> 2;
+  r = rest % kSlabRows;
+  rest /= kSlabRows;
+  col = (rest & 1) ? kSlabW - 1 : 0;
+  g = rest >> 1;
+}
+
+// Pixels x .. x+7 of one image row (x ≥ 0, a multiple of 8), zero at and past W.
+// One 16-byte load when W is a multiple of 8 (then the 8 are all in or all out).
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* row, int x, int W, bool vec) {
+  if (vec) return x < W ? __ldg(reinterpret_cast<const uint4*>(row + x)) : make_uint4(0, 0, 0, 0);
+  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t lo = x + 2 * e < W ? __ldg(r + x + 2 * e) : 0;
+    const uint32_t hi = x + 2 * e + 1 < W ? __ldg(r + x + 2 * e + 1) : 0;
+    w[e] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+struct SlabRegs {
+  uint4 a[kSlabPerThread], b[kSlabPerThread];  // 8 pixels of channels 2p and 2p + 1
+  uint32_t halo;                               // one pixel of both channels
+};
+
+// The slab of chunk ci0 into registers, zero outside the image and at or beyond Ci.
+__device__ __forceinline__ void load_slab(SlabRegs& regs, const __nv_bfloat16* xb,
+                                          const ConvShape& s, int ci0, int y0, int x0, int tid) {
   const size_t plane = (size_t)s.H * s.W;
+  const bool vec = (s.W & 7) == 0 && (reinterpret_cast<uintptr_t>(xb) & 15) == 0;
 #pragma unroll
   for (int k = 0; k < kSlabPerThread; ++k) {
-    int cp, r, col;
-    slab_item(tid + k * kThreads, cp, r, col);
-    const int y = y0 - 1 + r, xx = x0 - 1 + col;
-    uint32_t word = 0;
-    if (col < kSlabW && y >= 0 && y < s.H && xx >= 0 && xx < s.W) {
-      const size_t off = (size_t)(ci0 + 2 * cp) * plane + (size_t)y * s.W + xx;
-      word = (uint32_t)__ldg(xs + off) | ((uint32_t)__ldg(xs + off + plane) << 16);
+    int cpl, r, v, g;
+    slab_item(tid + k * kThreads, cpl, r, v, g);
+    const int c = ci0 + 8 * g + 2 * cpl, y = y0 - 1 + r;
+    regs.a[k] = regs.b[k] = make_uint4(0, 0, 0, 0);
+    if (c < s.Ci && y >= 0 && y < s.H) {  // Ci is even: c + 1 < Ci too
+      const __nv_bfloat16* row = xb + (size_t)c * plane + (size_t)y * s.W;
+      regs.a[k] = load8(row, x0 + 8 * v, s.W, vec);
+      regs.b[k] = load8(row + plane, x0 + 8 * v, s.W, vec);
     }
-    regs[k] = word;
+  }
+  regs.halo = 0;
+  if (tid < kHaloItems) {
+    int cpl, r, col, g;
+    halo_item(tid, cpl, r, col, g);
+    const int c = ci0 + 8 * g + 2 * cpl, y = y0 - 1 + r, xx = x0 - 1 + col;
+    if (c < s.Ci && y >= 0 && y < s.H && xx >= 0 && xx < s.W) {
+      const unsigned short* p =
+          reinterpret_cast<const unsigned short*>(xb) + (size_t)c * plane + (size_t)y * s.W + xx;
+      regs.halo = (uint32_t)__ldg(p) | ((uint32_t)__ldg(p + plane) << 16);
+    }
   }
 }
 
-__device__ __forceinline__ void store_slab(__nv_bfloat16* sX,
-                                           const uint32_t (&regs)[kSlabPerThread], int tid) {
+// The registers of load_slab into the slab at sX: [group][slab pixel][8 channels].
+__device__ __forceinline__ void store_slab(unsigned char* sX, const SlabRegs& regs, int tid) {
 #pragma unroll
   for (int k = 0; k < kSlabPerThread; ++k) {
-    int cp, r, col;
-    slab_item(tid + k * kThreads, cp, r, col);
-    if (col < kSlabW)
-      *reinterpret_cast<uint32_t*>(sX + (r * kSlabW + col) * kLD + 2 * cp) = regs[k];
+    int cpl, r, v, g;
+    slab_item(tid + k * kThreads, cpl, r, v, g);
+    unsigned char* base = sX + (g * kSlabPix + r * kSlabW + 1 + 8 * v) * 16 + cpl * 4;
+    const uint32_t a[4] = {regs.a[k].x, regs.a[k].y, regs.a[k].z, regs.a[k].w};
+    const uint32_t b[4] = {regs.b[k].x, regs.b[k].y, regs.b[k].z, regs.b[k].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      *reinterpret_cast<uint32_t*>(base + (2 * e) * 16) = __byte_perm(a[e], b[e], 0x5410);
+      *reinterpret_cast<uint32_t*>(base + (2 * e + 1) * 16) = __byte_perm(a[e], b[e], 0x7632);
+    }
+  }
+  if (tid < kHaloItems) {
+    int cpl, r, col, g;
+    halo_item(tid, cpl, r, col, g);
+    *reinterpret_cast<uint32_t*>(sX + (g * kSlabPix + r * kSlabW + col) * 16 + cpl * 4) =
+        regs.halo;
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+// This warpgroup's products of one chunk: 9 taps × 2 k-steps × kWGRows rows of
+// m64n128k16, committed as one group.
+__device__ __forceinline__ void mma_chunk(float (&acc)[kWGRows][64], uint32_t stage, int wg) {
+  const uint32_t sW = stage, sX = stage + kWBytes;
+#pragma unroll
+  for (int rr = 0; rr < kWGRows; ++rr)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_operand(acc[rr][i]);
+  wgmma_fence();
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+    for (int ks = 0; ks < kKG / 2; ++ks) {
+      const uint64_t db = make_desc(sW + (tap * kKG + 2 * ks) * kBN * 16, kBN * 16, 128);
+#pragma unroll
+      for (int rr = 0; rr < kWGRows; ++rr) {
+        const int r = wg * kWGRows + rr;
+        const uint64_t da =
+            make_desc(sX + (2 * ks * kSlabPix + (r + dy) * kSlabW + dx) * 16, kSlabPix * 16, 128);
+        wgmma_m64n128k16(acc[rr], da, db);
+      }
+    }
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int rr = 0; rr < kWGRows; ++rr)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_operand(acc[rr][i]);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
     conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
                         const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                         ConvShape s) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t smem_u = (uint32_t)__cvta_generic_to_shared(smem);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int co0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int co0 = blockIdx.x * kBN;
   const int y0 = (blockIdx.y / s.tiles_w) * kTH, x0 = (blockIdx.y % s.tiles_w) * kTW;
   const __nv_bfloat16* xb = x + (size_t)blockIdx.z * s.Ci * s.H * s.W;
-  const int wrow = warp >> 1, wcol = (warp & 1) * 32;  // this warp's output pixels
 
-  float acc[4][4][4];
+  float acc[kWGRows][64];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int rr = 0; rr < kWGRows; ++rr)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[rr][i] = 0.f;
 
-  uint32_t slab[kSlabPerThread];
-  load_weights(smem, wt, s, co0, 0, tid);
+  SlabRegs regs;
+  load_weights(smem_u, wt, s, co0, 0, tid);
   cp_async_commit();
-  load_slab(slab, xb, s, 0, y0, x0, tid);
-  store_slab(smem + kWElems, slab, tid);
+  load_slab(regs, xb, s, 0, y0, x0, tid);
+  store_slab(smem + kWBytes, regs, tid);
   cp_async_wait_all();
+  fence_proxy_async();
   __syncthreads();
 
-  const int nchunks = s.Ci / kKC;
+  const int nchunks = (s.Ci + kKC - 1) / kKC;
   for (int j = 0; j < nchunks; ++j) {
-    const __nv_bfloat16* sW = smem + (j & 1) * kStage;
-    const __nv_bfloat16* sX = sW + kWElems;
-    __nv_bfloat16* nW = smem + ((j + 1) & 1) * kStage;
-    const bool more = j + 1 < nchunks;
-    if (more) {
-      load_weights(nW, wt, s, co0, (j + 1) * kKC, tid);
+    mma_chunk(acc, smem_u + (j & 1) * kStageBytes, wg);
+    if (j + 1 < nchunks) {
+      const int next = ((j + 1) & 1) * kStageBytes;
+      load_slab(regs, xb, s, (j + 1) * kKC, y0, x0, tid);
+      wgmma_wait<1>();  // this warpgroup's chunk j − 1 is done ...
+      __syncthreads();  // ... and everyone's: the other stage is free
+      load_weights(smem_u + next, wt, s, co0, (j + 1) * kKC, tid);
       cp_async_commit();
-      load_slab(slab, xb, s, (j + 1) * kKC, y0, x0, tid);
+      store_slab(smem + next + kWBytes, regs, tid);
+      cp_async_wait_all();
+      fence_proxy_async();
+      __syncthreads();
     }
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(a[mi], sW + (tap * kBM + mi * 16 + (lane & 15)) * kLD + (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t b[4];
-        const int px = wcol + nj * 16 + (lane & 7) + (lane >> 4) * 8;
-        ldsm_x4(b, sX + ((wrow + dy) * kSlabW + px + dx) * kLD + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-
-    if (more) store_slab(nW + kWElems, slab, tid);
-    cp_async_wait_all();
-    __syncthreads();
   }
+  wgmma_wait<0>();
+  __syncthreads();  // every wgmma has read its operands: the stages become the epilogue tile
 
-  // acc[mi][ni][e]: channel co0 + 16·mi + g (+8 for e ≥ 2), pixel column wcol + 8·ni + 2t (+1 for odd e).
-  const int g = lane >> 2, t = lane & 3;
-  const int y = y0 + wrow;
-  if (y >= s.H) return;
-  __nv_bfloat16* ob = out + (size_t)blockIdx.z * s.Co * s.H * s.W + (size_t)y * s.W;
+  // Tile t = output row y0 + t as [co][64 pixels], rows kEpiLD apart.
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int warp = (tid % 128) / 32, lane = tid % 32;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = co0 + mi * 16 + g + 8 * h;
-      if (co >= s.Co) continue;
-      const float bv = __bfloat162float(bias[co]);
-      __nv_bfloat16* orow = ob + (size_t)co * s.H * s.W;
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * (lane % 4) + e;
+      const float bv = co0 + n < s.Co ? __bfloat162float(bias[co0 + n]) : 0.f;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+      for (int rr = 0; rr < kWGRows; ++rr)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int xx = x0 + wcol + ni * 8 + 2 * t + e;
-          if (xx < s.W) orow[xx] = __float2bfloat16(acc[mi][ni][2 * h + e] + bv);
+        for (int h = 0; h < 2; ++h) {
+          const int m = 16 * warp + lane / 4 + 8 * h;
+          tile[((wg * kWGRows + rr) * kBN + n) * kEpiLD + m] =
+              __float2bfloat16(acc[rr][4 * j + 2 * h + e] + bv);
         }
     }
+  __syncthreads();
+
+  const bool vec = (s.W & 7) == 0;
+  __nv_bfloat16* ob = out + (size_t)blockIdx.z * s.Co * s.H * s.W;
+  for (int i = tid; i < kTH * kBN * (kTW / 8); i += kThreads) {
+    const int q = i % (kTW / 8), n = (i / (kTW / 8)) % kBN, t = i / (kBN * (kTW / 8));
+    const int y = y0 + t, co = co0 + n, xx = x0 + 8 * q;
+    if (y >= s.H || co >= s.Co || xx >= s.W) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(tile + (t * kBN + n) * kEpiLD + 8 * q);
+    __nv_bfloat16* dst = ob + ((size_t)co * s.H + y) * s.W + xx;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = val;
+    } else {
+      const __nv_bfloat16* src = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (xx + e < s.W) dst[e] = src[e];
+    }
+  }
 }
 
 // ---------------------------------------------------------------- fp32 path
@@ -302,15 +453,15 @@ bool grid_fits(long tiles, int B) { return tiles <= 65535L && B <= 65535; }
 
 extern "C" {
 
-// x: contiguous [B, Ci, H, W] bf16; wt: contiguous [3, 3, Co, Ci] bf16; bias: [Co] bf16;
+// x: contiguous [B, Ci, H, W] bf16; wt: contiguous [3, 3, Ci/8, Co, 8] bf16; bias: [Co] bf16;
 // out: contiguous [B, Co, H, W] bf16. Ci must be a multiple of 16.
 int eovax_conv3x3_bf16(const void* x, const void* wt, const void* bias, void* out, int B, int Ci,
                        int Co, int H, int W, void* stream) {
-  if (B <= 0 || Ci <= 0 || Co <= 0 || H <= 0 || W <= 0 || Ci % kKC != 0)
+  if (B <= 0 || Ci <= 0 || Co <= 0 || H <= 0 || W <= 0 || Ci % 16 != 0)
     return (int)cudaErrorInvalidValue;
   ConvShape s{Ci, Co, H, W, (W + kTW - 1) / kTW};
   const long tiles = (long)((H + kTH - 1) / kTH) * s.tiles_w;
-  const long blocks_x = (Co + kBM - 1) / kBM;
+  const long blocks_x = (Co + kBN - 1) / kBN;
   if (!grid_fits(tiles, B)) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(conv3x3_bf16_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
@@ -322,7 +473,7 @@ int eovax_conv3x3_bf16(const void* x, const void* wt, const void* bias, void* ou
   return (int)cudaGetLastError();
 }
 
-// The same contract in fp32; any Ci.
+// The same contract in fp32 with wt: contiguous [3, 3, Co, Ci]; any Ci.
 int eovax_conv3x3_f32(const void* x, const void* wt, const void* bias, void* out, int B, int Ci,
                       int Co, int H, int W, void* stream) {
   if (B <= 0 || Ci <= 0 || Co <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;

@@ -120,6 +120,12 @@ def cuda_device():
         (2, 256, 512, 32, 32, torch.bfloat16, TOL_BF16),
         (2, 64, 96, 37, 53, torch.bfloat16, TOL_BF16),
         (2, 32, 64, 40, 40, torch.bfloat16, TOL_BF16),
+        # the wgmma tile's edges: half K chunk, Co past one or two 128-channel
+        # blocks, W not a multiple of 64 or of 8, one row, an odd batch
+        (1, 16, 96, 9, 64, torch.bfloat16, TOL_BF16),
+        (3, 48, 200, 1, 100, torch.bfloat16, TOL_BF16),
+        (1, 48, 96, 7, 53, torch.bfloat16, TOL_BF16),
+        (3, 16, 200, 5, 100, torch.bfloat16, TOL_BF16),
         (2, 64, 96, 37, 53, torch.float32, 1e-4),
         (1, 12, 40, 9, 70, torch.float32, 1e-4),
     ],
@@ -138,6 +144,28 @@ def test_kernel_matches_plain_on_card(cuda_device, b, ci, co, h, w, dtype, tol):
     assert out.dtype == dtype and out.shape == (b, co, h, w)
     ref = conv3x3.conv3x3_plain(x, k, bias).float()
     assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ci,co,h,w", [(1, 32, 128, 2, 64), (2, 48, 96, 3, 70)],
+                         ids=["one-chunk", "half-chunk-odd-tile"])
+@pytest.mark.parametrize("tap", range(9))
+def test_kernel_one_hot_tap_shifts_exactly(cuda_device, tap, b, ci, co, h, w):
+    """The identity over channels at one tap, zero elsewhere and zero bias:
+    the output is the input shifted by (dy − 1, dx − 1) with zeros at the
+    border, exactly in bf16 (one product of 1 and x per output)."""
+    dy, dx = divmod(tap, 3)
+    g = torch.Generator(device=cuda_device).manual_seed(tap)
+    x = torch.randn(b, ci, h, w, generator=g, device=cuda_device).to(torch.bfloat16)
+    k = torch.zeros(co, ci, 3, 3, device=cuda_device)
+    n = min(ci, co)
+    k[torch.arange(n), torch.arange(n), dy, dx] = 1.0
+    out = conv3x3.conv3x3(x, k, torch.zeros(co, device=cuda_device))
+    torch.cuda.synchronize()
+    ref = torch.zeros(b, co, h, w, dtype=torch.bfloat16, device=cuda_device)
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    ref[:, :n] = xp[:, :n, dy:dy + h, dx:dx + w]
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.gpu
