@@ -18,7 +18,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      and ``gn_channel_sums``: [4,128,512,512] and [4,512,64,64] bf16,
      [2,96,37,53] fp32, and the input of a decoder ResnetBlock ``norm2``;
    - ``conv3x3``: [4,128,512,512] 128→128, [4,512,256,256] 512→256 and
-     [4,512,64,64] 512→512 bf16, [2,64,37,53] 64→96 fp32, and the input of
+     [4,512,64,64] 512→512 bf16, [2,48,37,53] 48→96 bf16 (a width that is
+     not a multiple of 8 or 64), [2,64,37,53] 64→96 fp32, and the input of
      the decoder's level-0 ``conv1``.
 3. Drive the main path at full width: the shipped architecture (ch=128,
    ch_mult (1,2,4,4), 2 res blocks, z=32, wavelength stems with 4 layers
@@ -164,7 +165,7 @@ def build_kernels() -> float:
     for src, lib in zip(sources, libs):
         print(f"built {src} -> {lib}")
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  ptxas {line.strip()}")
     return seconds
 
@@ -413,6 +414,7 @@ def main() -> int:
     for shape, dtype, tol in (((4, 128, 128, 512, 512), torch.bfloat16, TOL_CONV_BF16),
                               ((4, 512, 256, 256, 256), torch.bfloat16, TOL_CONV_BF16),
                               ((4, 512, 512, 64, 64), torch.bfloat16, TOL_CONV_BF16),
+                              ((2, 48, 96, 37, 53), torch.bfloat16, TOL_CONV_BF16),
                               ((2, 64, 96, 37, 53), torch.float32, TOL_CONV_F32)):
         conv_errs[shape] = check_conv(*conv_inputs(*shape, dtype, g), tol, "synthetic")
     torch.cuda.empty_cache()
@@ -562,6 +564,7 @@ def main() -> int:
           f"({4.0 * x.numel() / kernel_ms / 1e6:.0f} GB/s of the least traffic) [{card}]")
     del x
 
+    conv_rates = []  # [B, Ci, Co, H, W] each: kernel and cuDNN TFLOP/s
     for shape in ((4, 128, 128, 512, 512), (4, 512, 256, 256, 256), (4, 512, 512, 64, 64)):
         x, w, bias = conv_inputs(*shape, torch.bfloat16, g)
         wb, bb = w.bfloat16(), bias.bfloat16()
@@ -573,6 +576,9 @@ def main() -> int:
         nbytes = 2.0 * (x.numel() + w.numel() + co + b * co * h * wd)
         timings["conv3x3", shape] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                                          **bound(flops, H100_BF16_FLOPS, nbytes))
+        conv_rates.append(dict(shape=list(shape), ms=kernel_ms, tflops=flops / kernel_ms / 1e9,
+                               library_ms=library_ms, library_tflops=flops / library_ms / 1e9,
+                               bound_ms=timings["conv3x3", shape]["bound_ms"]))
         print(f"time conv3x3 {list(shape)} bf16: kernel {kernel_ms:.4f} ms "
               f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN "
               f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
@@ -596,7 +602,7 @@ def main() -> int:
          "replaces": "eovax/kernels/conv3x3.py:53",
          "launches": main_launches["conv3x3"],
          "max_abs_err": conv_errs[(4, 512, 256, 256, 256)],
-         **timings["conv3x3", (4, 512, 256, 256, 256)]},
+         **timings["conv3x3", (4, 512, 256, 256, 256)], "shapes": conv_rates},
     ]
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,7 @@ from eovax_torch.kernels import build
 SOURCE = "conv3x3.cu"
 KERNEL_CI_MULTIPLE = 16  # the bf16 kernel's K chunk
 _ENTRY = {torch.bfloat16: "eovax_conv3x3_bf16", torch.float32: "eovax_conv3x3_f32"}
-_PIXEL_TILE = {torch.bfloat16: (2, 64), torch.float32: (8, 32)}  # rows × columns per block
+_PIXEL_TILE = {torch.bfloat16: (4, 64), torch.float32: (8, 32)}  # rows × columns per block
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

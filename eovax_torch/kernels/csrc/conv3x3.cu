@@ -16,9 +16,9 @@
 // im2col and no padded copy exist in device memory.
 //   - A block owns 4 output rows × 64 columns of one image × 128 output
 //     channels and runs two warpgroups; each owns 2 rows, i.e. two
-//     m64n128 accumulators (128 fp32 registers a thread). K is walked in
-//     chunks of 32 input channels, double-buffered in shared memory
-//     (2 × 99,072 bytes, one block an SM).
+//     m64n128 accumulators (128 fp32 registers a thread). Each chunk's
+//     weights serve 256 pixels: at 128 the block needed about one byte from
+//     L2 for every 128 FLOP, which the weight loads could not keep up with.
 //   - Both operands sit in shared memory in the no-swizzle core-matrix
 //     layout, channels innermost: the halo slab of x (6 rows × 66 columns)
 //     as [8-channel group][slab pixel][8 channels], the weights of all nine
@@ -26,25 +26,35 @@
 //     is then 128 contiguous bytes for any starting pixel, so a tap (dy, dx)
 //     is only an offset of ((r + dy)·66 + dx)·16 bytes in the A descriptor,
 //     and every tap reads the same slab. Descriptors: LBO = the stride
-//     between 8-channel groups (K), SBO = 128 bytes between 8-row groups.
+//     between 8-channel groups (K), SBO = 128 bytes between 8-row groups;
+//     the offsets are compile-time immediates added inside the asm.
 //   - N = 128 a instruction: with both operands in shared memory, an
 //     m64n64k16 reads 4 KB in the ~31 cycles its products take, above the
 //     SM's 128 bytes a cycle; m64n128k16 reads 6 KB in ~61 cycles.
+//   - K is walked in chunks of 16 input channels through a ring of 4 stages
+//     (4 × 49,536 bytes, one block an SM): while chunk j is computed, the
+//     loads of chunk j + 2 are in flight. With two stages of 32 channels the
+//     loads of one chunk had only one chunk of products to hide behind.
 //   - Loads: the weights (laid out [3, 3, Ci/8, Co, 8] by the wrapper) with
 //     16-byte cp.async, 2 KB contiguous per (tap, group). NCHW keeps pixels
 //     contiguous, so the slab is read as 16-byte vectors of 8 pixels of one
 //     channel, two channels at a time, interleaved into 32-bit words with
 //     __byte_perm on the way to shared memory; the halo columns, images
 //     whose width is not a multiple of 8, and the border (zeros) go apart.
-//     The next chunk's slab is loaded into registers while this chunk's
-//     wgmma run; `wgmma.wait_group 1` and a barrier free the other stage.
+//     A chunk's slab is loaded into registers one iteration before it is
+//     stored, so its latency hides behind a chunk of products too.
 //   - fence.proxy.async after the threads' shared-memory writes (st.shared
 //     and cp.async) and before the barrier: wgmma reads through the async
-//     proxy.
+//     proxy. One barrier a chunk; `wgmma.wait_group 1` keeps one chunk of
+//     products in flight across it.
+//   - The accumulators are never zeroed: the first product of the first
+//     chunk uses scale-d = 0. A zeroing move that meets the wgmma outputs
+//     at the loop head made ptxas serialize the wgmma (warning C7515).
 //   - Epilogue: bias in fp32, one rounding to bf16, the tile staged in
 //     shared memory as [co][64 pixels], written with 16-byte stores.
 // Left out (the next redesign): TMA halo and weight loads with mbarriers and
-// warp specialisation, setmaxnreg, a persistent grid, clusters, fusing the
+// warp specialisation, setmaxnreg, a persistent grid (each block's first
+// two chunks and its epilogue are not overlapped), clusters, fusing the
 // residual add or the next GroupNorm. The block stays load-then-compute.
 //
 // The fp32 variant (FULL_PRECISION) is a plain FMA kernel on weights laid
@@ -59,36 +69,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace {
 
 // ---------------------------------------------------------------- bf16 path
 
 constexpr int kBN = 128;                         // output channels per block (wgmma N)
 constexpr int kTW = 64;                          // output columns per block (wgmma M)
-#ifndef EOVAX_WG_ROWS
-#define EOVAX_WG_ROWS 1
-#endif
-constexpr int kWGRows = EOVAX_WG_ROWS;           // output rows per warpgroup
+constexpr int kWGRows = 2;                       // output rows per warpgroup
 constexpr int kWarpgroups = 2;
 constexpr int kTH = kWarpgroups * kWGRows;       // output rows per block
 constexpr int kThreads = kWarpgroups * 128;
-constexpr int kKC = 32;                          // input channels per K chunk
+constexpr int kKC = 16;                          // input channels per K chunk: one k-step
+constexpr int kStages = 4;                       // K chunks in flight in shared memory
 constexpr int kKG = kKC / 8;                     // 8-channel groups per chunk
 constexpr int kSlabRows = kTH + 2, kSlabW = kTW + 2;
 constexpr int kSlabPix = kSlabRows * kSlabW;
-constexpr int kWBytes = 9 * kKG * kBN * 16;      // one chunk's weights: 73,728
+constexpr int kWBytes = 9 * kKG * kBN * 16;      // one chunk's weights: 36,864
 constexpr int kSlabBytes = kKG * kSlabPix * 16;  // one chunk's slab
 constexpr int kStageBytes = kWBytes + kSlabBytes;
-constexpr size_t kSmemBytes = 2 * (size_t)kStageBytes;
+constexpr size_t kSmemBytes = kStages * (size_t)kStageBytes;
 constexpr int kEpiLD = kTW + 8;                  // epilogue row stride (elements): 144 bytes
 constexpr int kWCopies = 9 * kKG * kBN;          // 16-byte copies a chunk
 constexpr int kWPerThread = kWCopies / kThreads;
 constexpr int kSlabItems = (kKC / 2) * kSlabRows * (kTW / 8);  // channel pairs × rows × vectors
-constexpr int kSlabPerThread = kSlabItems / kThreads;
+constexpr int kSlabPerThread = (kSlabItems + kThreads - 1) / kThreads;
 constexpr int kHaloItems = (kKC / 2) * kSlabRows * 2;          // channel pairs × rows × 2 columns
 static_assert(kSmemBytes <= 232448, "shared memory of one block");
 static_assert((size_t)kTH * kBN * kEpiLD * 2 <= kSmemBytes, "epilogue tile fits the stages");
-static_assert(kWCopies % kThreads == 0 && kSlabItems % kThreads == 0, "even split");
+static_assert(kWCopies % kThreads == 0, "even split");
 static_assert(kHaloItems <= kThreads, "one halo item a thread at most");
 
 __device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem, bool pred) {
@@ -98,8 +108,10 @@ __device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem, bool
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Wait until at most N of this thread's most recent cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // This thread's generic-proxy writes to shared memory become visible to wgmma.
@@ -124,27 +136,39 @@ __device__ __forceinline__ void wgmma_wait() {
 // the wgmma fence, commit and wait.
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
-// Shared-memory matrix descriptor, no swizzle: start address, LBO (the stride
-// between core matrices along K) and SBO (along M or N), all in 16-byte units.
-__device__ __forceinline__ uint64_t make_desc(uint32_t smem, uint32_t lbo_bytes,
-                                              uint32_t sbo_bytes) {
-  return (uint64_t)((smem & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32);
+// Shared-memory matrix descriptors, no swizzle: bits 0-13 the start address,
+// 16-29 LBO (the stride between core matrices along K), 32-45 SBO (along M
+// or N), all in 16-byte units. Both operands here have SBO = 128 bytes, so a
+// descriptor is a 32-bit low word (address and LBO) and a constant high word.
+constexpr uint32_t kDescHi = 128 >> 4;
+
+__device__ __forceinline__ uint32_t desc_lo(uint32_t smem, uint32_t lbo_bytes) {
+  return ((smem & 0x3FFFF) >> 4) | ((lbo_bytes >> 4) << 16);
 }
 
-// d[64 × 128] += A[64 × 16] · B[16 × 128], bf16 operands from shared memory, fp32 d.
+// d[64 × 128] = A[64 × 16] · B[16 × 128] (+ d if accumulate), bf16 operands from
+// shared memory, fp32 d. The descriptors are lo_a + OA and lo_b + OB (offsets in
+// 16-byte units), added here so that only the two base words stay live.
 // d[4j + 2h + e]: row 16·warp + lane/4 + 8h, column 8j + 2·(lane % 4) + e.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint32_t lo_a, uint32_t lo_b,
+                                                 uint32_t accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
+      ".reg .b32 la, lb;\n"
+      ".reg .b64 da, db;\n"
       "setp.ne.b32 p, %66, 0;\n"
+      "add.u32 la, %64, %68;\n"
+      "add.u32 lb, %65, %69;\n"
+      "mov.b64 da, {la, %67};\n"
+      "mov.b64 db, {lb, %67};\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "da, db, p, 1, 1, 0, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -157,7 +181,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "r"(lo_a), "r"(lo_b), "r"(accumulate), "r"(kDescHi), "n"(OA), "n"(OB));
 }
 
 struct ConvShape {
@@ -166,7 +190,7 @@ struct ConvShape {
 
 // Weights of chunk ci0 (all nine taps, channels co0 .. co0+127) into the stage
 // at sW with cp.async: copy i lands at byte 16·i, [tap][group][co][8]. Channels
-// at or beyond Co, and groups at or beyond Ci, are zero-filled.
+// at or beyond Co are zero-filled.
 __device__ __forceinline__ void load_weights(uint32_t sW, const __nv_bfloat16* wt,
                                              const ConvShape& s, int co0, int ci0, int tid) {
   const int groups = s.Ci / 8;
@@ -174,9 +198,8 @@ __device__ __forceinline__ void load_weights(uint32_t sW, const __nv_bfloat16* w
   for (int k = 0; k < kWPerThread; ++k) {
     const int i = tid + k * kThreads;
     const int co = i % kBN, gg = ci0 / 8 + (i / kBN) % kKG, tap = i / (kBN * kKG);
-    const bool ok = co0 + co < s.Co && gg < groups;
-    const __nv_bfloat16* src =
-        wt + (((size_t)tap * groups + (ok ? gg : 0)) * s.Co + (ok ? co0 + co : 0)) * 8;
+    const bool ok = co0 + co < s.Co;
+    const __nv_bfloat16* src = wt + (((size_t)tap * groups + gg) * s.Co + (ok ? co0 + co : 0)) * 8;
     cp_async16(sW + 16 * i, src, ok);
   }
 }
@@ -222,7 +245,7 @@ struct SlabRegs {
   uint32_t halo;                               // one pixel of both channels
 };
 
-// The slab of chunk ci0 into registers, zero outside the image and at or beyond Ci.
+// The slab of chunk ci0 into registers, zero outside the image.
 __device__ __forceinline__ void load_slab(SlabRegs& regs, const __nv_bfloat16* xb,
                                           const ConvShape& s, int ci0, int y0, int x0, int tid) {
   const size_t plane = (size_t)s.H * s.W;
@@ -233,7 +256,7 @@ __device__ __forceinline__ void load_slab(SlabRegs& regs, const __nv_bfloat16* x
     slab_item(tid + k * kThreads, cpl, r, v, g);
     const int c = ci0 + 8 * g + 2 * cpl, y = y0 - 1 + r;
     regs.a[k] = regs.b[k] = make_uint4(0, 0, 0, 0);
-    if (c < s.Ci && y >= 0 && y < s.H) {  // Ci is even: c + 1 < Ci too
+    if (tid + k * kThreads < kSlabItems && y >= 0 && y < s.H) {
       const __nv_bfloat16* row = xb + (size_t)c * plane + (size_t)y * s.W;
       regs.a[k] = load8(row, x0 + 8 * v, s.W, vec);
       regs.b[k] = load8(row + plane, x0 + 8 * v, s.W, vec);
@@ -244,7 +267,7 @@ __device__ __forceinline__ void load_slab(SlabRegs& regs, const __nv_bfloat16* x
     int cpl, r, col, g;
     halo_item(tid, cpl, r, col, g);
     const int c = ci0 + 8 * g + 2 * cpl, y = y0 - 1 + r, xx = x0 - 1 + col;
-    if (c < s.Ci && y >= 0 && y < s.H && xx >= 0 && xx < s.W) {
+    if (y >= 0 && y < s.H && xx >= 0 && xx < s.W) {
       const unsigned short* p =
           reinterpret_cast<const unsigned short*>(xb) + (size_t)c * plane + (size_t)y * s.W + xx;
       regs.halo = (uint32_t)__ldg(p) | ((uint32_t)__ldg(p + plane) << 16);
@@ -256,6 +279,7 @@ __device__ __forceinline__ void load_slab(SlabRegs& regs, const __nv_bfloat16* x
 __device__ __forceinline__ void store_slab(unsigned char* sX, const SlabRegs& regs, int tid) {
 #pragma unroll
   for (int k = 0; k < kSlabPerThread; ++k) {
+    if (kSlabItems % kThreads != 0 && tid + k * kThreads >= kSlabItems) break;
     int cpl, r, v, g;
     slab_item(tid + k * kThreads, cpl, r, v, g);
     unsigned char* base = sX + (g * kSlabPix + r * kSlabW + 1 + 8 * v) * 16 + cpl * 4;
@@ -275,30 +299,36 @@ __device__ __forceinline__ void store_slab(unsigned char* sX, const SlabRegs& re
   }
 }
 
-// This warpgroup's products of one chunk: 9 taps × 2 k-steps × kWGRows rows of
-// m64n128k16, committed as one group.
-__device__ __forceinline__ void mma_chunk(float (&acc)[kWGRows][64], uint32_t stage, int wg) {
-  const uint32_t sW = stage, sX = stage + kWBytes;
+// Product I of a chunk: tap I / kWGRows, row I % kWGRows of this warpgroup. The
+// tap moves A by whole slab pixels. The first product of the first chunk
+// overwrites the accumulator: it is never zeroed by other instructions, which
+// would serialize the wgmma pipeline.
+template <int I>
+__device__ __forceinline__ void mma_step(float (&acc)[kWGRows][64], uint32_t lo_a, uint32_t lo_b,
+                                         bool first) {
+  constexpr int rr = I % kWGRows, tap = I / kWGRows, dy = tap / 3, dx = tap % 3;
+  wgmma_m64n128k16<(rr + dy) * kSlabW + dx, tap * kKG * kBN>(acc[rr], lo_a, lo_b,
+                                                             (tap == 0 && first) ? 0u : 1u);
+}
+
+template <int... I>
+__device__ __forceinline__ void mma_steps(float (&acc)[kWGRows][64], uint32_t lo_a, uint32_t lo_b,
+                                          bool first, std::integer_sequence<int, I...>) {
+  (mma_step<I>(acc, lo_a, lo_b, first), ...);
+}
+
+// This warpgroup's products of one chunk: 9 taps × kWGRows rows of m64n128k16,
+// committed as one group.
+__device__ __forceinline__ void mma_chunk(float (&acc)[kWGRows][64], uint32_t stage, int wg,
+                                          bool first) {
+  const uint32_t lo_b = desc_lo(stage, kBN * 16);
+  const uint32_t lo_a = desc_lo(stage + kWBytes + wg * kWGRows * kSlabW * 16, kSlabPix * 16);
 #pragma unroll
   for (int rr = 0; rr < kWGRows; ++rr)
 #pragma unroll
     for (int i = 0; i < 64; ++i) fence_operand(acc[rr][i]);
   wgmma_fence();
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-    for (int ks = 0; ks < kKG / 2; ++ks) {
-      const uint64_t db = make_desc(sW + (tap * kKG + 2 * ks) * kBN * 16, kBN * 16, 128);
-#pragma unroll
-      for (int rr = 0; rr < kWGRows; ++rr) {
-        const int r = wg * kWGRows + rr;
-        const uint64_t da =
-            make_desc(sX + (2 * ks * kSlabPix + (r + dy) * kSlabW + dx) * 16, kSlabPix * 16, 128);
-        wgmma_m64n128k16(acc[rr], da, db);
-      }
-    }
-  }
+  mma_steps(acc, lo_a, lo_b, first, std::make_integer_sequence<int, 9 * kWGRows>{});
   wgmma_commit();
 #pragma unroll
   for (int rr = 0; rr < kWGRows; ++rr)
@@ -318,36 +348,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int y0 = (blockIdx.y / s.tiles_w) * kTH, x0 = (blockIdx.y % s.tiles_w) * kTW;
   const __nv_bfloat16* xb = x + (size_t)blockIdx.z * s.Ci * s.H * s.W;
 
-  float acc[kWGRows][64];
-#pragma unroll
-  for (int rr = 0; rr < kWGRows; ++rr)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[rr][i] = 0.f;
+  float acc[kWGRows][64];  // written first by the first chunk's wgmma
 
+  // A ring of kStages chunks: chunk c lives in stage c % kStages. Iteration j
+  // computes chunk j and refills the stage of chunk j − 2 with chunk j + 2: its
+  // weights by cp.async, its slab from the registers loaded one iteration
+  // before; then it loads chunk j + 3's slab into the registers.
+  const int nchunks = s.Ci / kKC;
   SlabRegs regs;
-  load_weights(smem_u, wt, s, co0, 0, tid);
-  cp_async_commit();
-  load_slab(regs, xb, s, 0, y0, x0, tid);
-  store_slab(smem + kWBytes, regs, tid);
-  cp_async_wait_all();
-  fence_proxy_async();
-  __syncthreads();
-
-  const int nchunks = (s.Ci + kKC - 1) / kKC;
-  for (int j = 0; j < nchunks; ++j) {
-    mma_chunk(acc, smem_u + (j & 1) * kStageBytes, wg);
-    if (j + 1 < nchunks) {
-      const int next = ((j + 1) & 1) * kStageBytes;
-      load_slab(regs, xb, s, (j + 1) * kKC, y0, x0, tid);
-      wgmma_wait<1>();  // this warpgroup's chunk j − 1 is done ...
-      __syncthreads();  // ... and everyone's: the other stage is free
-      load_weights(smem_u + next, wt, s, co0, (j + 1) * kKC, tid);
-      cp_async_commit();
-      store_slab(smem + next + kWBytes, regs, tid);
-      cp_async_wait_all();
-      fence_proxy_async();
-      __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kStages - 2; ++c) {
+    if (c < nchunks) {
+      load_weights(smem_u + c * kStageBytes, wt, s, co0, c * kKC, tid);
+      load_slab(regs, xb, s, c * kKC, y0, x0, tid);
+      store_slab(smem + c * kStageBytes + kWBytes, regs, tid);
     }
+    cp_async_commit();
+  }
+  if (kStages - 2 < nchunks) load_slab(regs, xb, s, (kStages - 2) * kKC, y0, x0, tid);
+
+  for (int j = 0; j < nchunks; ++j) {
+    cp_async_wait<kStages - 3>();  // this thread's copies of chunk j have landed
+    fence_proxy_async();
+    __syncthreads();  // chunk j is in place, and every warpgroup is done with chunk j − 2
+    mma_chunk(acc, smem_u + (j % kStages) * kStageBytes, wg, j == 0);
+    const int refill = j + kStages - 2;
+    if (refill < nchunks) {
+      const int stage = (refill % kStages) * kStageBytes;
+      load_weights(smem_u + stage, wt, s, co0, refill * kKC, tid);
+      store_slab(smem + stage + kWBytes, regs, tid);
+      if (refill + 1 < nchunks) load_slab(regs, xb, s, (refill + 1) * kKC, y0, x0, tid);
+    }
+    cp_async_commit();
+    wgmma_wait<1>();  // this warpgroup's chunk j − 1 is done
   }
   wgmma_wait<0>();
   __syncthreads();  // every wgmma has read its operands: the stages become the epilogue tile
@@ -454,10 +487,10 @@ bool grid_fits(long tiles, int B) { return tiles <= 65535L && B <= 65535; }
 extern "C" {
 
 // x: contiguous [B, Ci, H, W] bf16; wt: contiguous [3, 3, Ci/8, Co, 8] bf16; bias: [Co] bf16;
-// out: contiguous [B, Co, H, W] bf16. Ci must be a multiple of 16.
+// out: contiguous [B, Co, H, W] bf16. Ci must be a multiple of 16 (the K chunk).
 int eovax_conv3x3_bf16(const void* x, const void* wt, const void* bias, void* out, int B, int Ci,
                        int Co, int H, int W, void* stream) {
-  if (B <= 0 || Ci <= 0 || Co <= 0 || H <= 0 || W <= 0 || Ci % 16 != 0)
+  if (B <= 0 || Ci <= 0 || Co <= 0 || H <= 0 || W <= 0 || Ci % kKC != 0)
     return (int)cudaErrorInvalidValue;
   ConvShape s{Ci, Co, H, W, (W + kTW - 1) / kTW};
   const long tiles = (long)((H + kTH - 1) / kTH) * s.tiles_w;
