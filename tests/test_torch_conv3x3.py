@@ -120,8 +120,9 @@ def cuda_device():
         (2, 256, 512, 32, 32, torch.bfloat16, TOL_BF16),
         (2, 64, 96, 37, 53, torch.bfloat16, TOL_BF16),
         (2, 32, 64, 40, 40, torch.bfloat16, TOL_BF16),
-        # the wgmma tile's edges: half K chunk, Co past one or two 128-channel
-        # blocks, W not a multiple of 64 or of 8, one row, an odd batch
+        # the wgmma tile's edges: fewer 16-channel chunks than the 4-stage ring,
+        # Co past one or two 128-channel blocks, W not a multiple of 64 or of 8,
+        # one row, an odd batch
         (1, 16, 96, 9, 64, torch.bfloat16, TOL_BF16),
         (3, 48, 200, 1, 100, torch.bfloat16, TOL_BF16),
         (1, 48, 96, 7, 53, torch.bfloat16, TOL_BF16),
@@ -148,7 +149,7 @@ def test_kernel_matches_plain_on_card(cuda_device, b, ci, co, h, w, dtype, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,ci,co,h,w", [(1, 32, 128, 2, 64), (2, 48, 96, 3, 70)],
-                         ids=["one-chunk", "half-chunk-odd-tile"])
+                         ids=["two-chunks", "three-chunks-odd-tile"])
 @pytest.mark.parametrize("tap", range(9))
 def test_kernel_one_hot_tap_shifts_exactly(cuda_device, tap, b, ci, co, h, w):
     """The identity over channels at one tap, zero elsewhere and zero bias:
