@@ -13,7 +13,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    main path's shapes, at odd shapes, in fp32, and on real activations of
    the main path captured with forward hooks:
    - ``flash_attention``: [4,4096,512], [16,1024,512], odd S, fp32, and the
-     q/k/v of the encoder's ``mid.attn_1``;
+     q/k/v of the encoder's ``mid.attn_1``; and a one-hot permutation case at
+     [2,512,512] that must give V[π] exactly;
    - ``group_norm`` (affine; + swish; + AdaIN + swish with [C] and [B, C])
      and ``gn_channel_sums``: [4,128,512,512] and [4,512,64,64] bf16,
      [2,96,37,53] fp32, and the input of a decoder ResnetBlock ``norm2``;
@@ -40,7 +41,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    after warm-up (kernel, plain version, the one PyTorch call computing the
    same function, and the card's bound), break one 512² ``reconstruct``
    down by kernel with ``torch.profiler``, and print one
-   ``{"kernels": [...]}`` line.
+   ``{"kernels": [...]}`` line (flash_attention and conv3x3 also with their
+   TFLOP/s at each timed shape; flash_attention with the bytes its blocks
+   read from L2 and the rate they imply).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with an error before any result.
@@ -192,6 +195,33 @@ def check_attention(q, k, v, tol: float, label: str) -> float:
     torch.cuda.synchronize()
     return check("flash_attention", f"{label} {tuple(q.shape)} {q.dtype}", out,
                  flash_attention_plain(q, k, v), tol)
+
+
+def check_attention_permutation(b: int, s: int, d: int, g) -> float:
+    """K = the first S rows of the identity (S ≤ D), Q = c·K[π] with c the power
+    of two that makes the logit gap c/√D at least 30: softmax is one-hot to far
+    below half a bf16 ulp, so the kernel must return V[π] bit for bit."""
+    import math
+
+    import torch
+
+    from eovax_torch.kernels.attention import flash_attention
+
+    dev = g.device
+    c = 2.0 ** math.ceil(math.log2(30.0 * math.sqrt(d)))
+    eye = torch.eye(s, d, device=dev, dtype=torch.bfloat16)
+    perm = torch.stack([torch.randperm(s, generator=g, device=dev) for _ in range(b)])
+    v = torch.randn(b, s, d, generator=g, device=dev, dtype=torch.bfloat16)
+    out = flash_attention((c * eye[perm]).contiguous(), eye.expand(b, s, d).contiguous(), v)
+    torch.cuda.synchronize()
+    expected = v[torch.arange(b, device=dev)[:, None], perm]
+    err = (out.float() - expected.float()).abs().max().item()
+    ok = torch.equal(out, expected)
+    print(f"kernel permutation flash_attention {(b, s, d)} bf16: max_abs_err={err:.3e} tol=0 "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_attention does not return V[π] exactly on one-hot inputs")
+    return err
 
 
 def gn_variants(b: int, c: int, g) -> dict:
@@ -398,6 +428,7 @@ def main() -> int:
     check_attention(*qkv(16, 1024, 512, torch.bfloat16), TOL_BF16, "256px-B16")
     check_attention(*qkv(3, 1037, 512, torch.bfloat16), TOL_BF16, "odd-S")
     check_attention(*qkv(2, 1037, 512, torch.float32), TOL_F32, "odd-S-fp32")
+    check_attention_permutation(2, 512, 512, g)
 
     gn_errs = {}
     for shape, dtype, tol in (((4, 128, 512, 512), torch.bfloat16, TOL_GN_BF16),
@@ -529,6 +560,7 @@ def main() -> int:
     profile_reconstruct(model, x512, s2, card)
 
     timings = {}
+    attn_rates = []  # [B, S, D] each: TFLOP/s and the L2 traffic of the kernel's blocks
     for shape in ((16, 1024, 512), (4, 4096, 512)):
         q, k, v = qkv(*shape, torch.bfloat16)
         with torch.inference_mode():
@@ -537,13 +569,20 @@ def main() -> int:
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
         b, s, d = shape
         flops = 4.0 * b * s * s * d
+        # Each block of 64 query rows reads all of K and V of its image: B·S²·D/16 bytes.
+        l2_bytes = b * -(-s // 64) * 2.0 * s * d * q.element_size()
         timings["flash_attention", shape] = dict(
             ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             **bound(flops, H100_BF16_FLOPS, 4.0 * b * s * d * q.element_size()))
-        print(f"time flash_attention {list(shape)} bf16: kernel {kernel_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{timings['flash_attention', shape]['bound_ms']:.4f} ms "
-              f"({flops / kernel_ms / 1e9:.1f} TFLOP/s) [{card}]")
+        attn_rates.append(dict(shape=list(shape), ms=kernel_ms, tflops=flops / kernel_ms / 1e9,
+                               library_ms=library_ms, library_tflops=flops / library_ms / 1e9,
+                               bound_ms=timings["flash_attention", shape]["bound_ms"],
+                               l2_bytes=l2_bytes, l2_tb_per_s=l2_bytes / kernel_ms / 1e9))
+        print(f"time flash_attention {list(shape)} bf16: kernel {kernel_ms:.4f} ms "
+              f"({flops / kernel_ms / 1e9:.1f} TFLOP/s; L2 {l2_bytes / 1e9:.3f} GB at "
+              f"{l2_bytes / kernel_ms / 1e9:.2f} TB/s), plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {timings['flash_attention', shape]['bound_ms']:.4f} ms "
+              f"[{card}]")
         del q, k, v
 
     # GroupNorm + swish (ResnetBlock norm1) at the main path's largest activation.
@@ -590,7 +629,7 @@ def main() -> int:
          "source": "eovax_torch/kernels/csrc/flash_attention.cu",
          "replaces": "eovax/kernels/attention.py:28",
          "launches": main_launches["flash_attention"], "max_abs_err": attn_err,
-         **timings["flash_attention", (4, 4096, 512)]},
+         **timings["flash_attention", (4, 4096, 512)], "shapes": attn_rates},
         {"name": "group_norm", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/groupnorm.cu",
          "replaces": "eovax/kernels/groupnorm.py:31",

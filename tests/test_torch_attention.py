@@ -25,6 +25,29 @@ def _qkv(b, s, d, seed=0):
     return [g.standard_normal((b, s, d), dtype=np.float32) for _ in range(3)]
 
 
+# (B, S, D) of the permutation cases: S ≤ D, and (2, 100, 128) and (2, 300, 512)
+# end in a partial key tile.
+PERMUTATION_SHAPES = [(1, 64, 64), (2, 100, 128), (1, 512, 512), (2, 300, 512)]
+
+
+def permutation_qkv(b, s, d, device, seed=0):
+    """bf16 q, k, v whose attention is a row permutation of v, and that permutation of v.
+
+    K is the first S rows of the identity and Q = c·K[π] for a random
+    permutation π of each batch row, with c the power of two that makes the
+    logit gap c/√D at least 30: softmax is then one-hot to far below half a
+    bf16 ulp, so the output is V[π] exactly in bf16.
+    """
+    rng = np.random.default_rng(seed)
+    c = 2.0 ** np.ceil(np.log2(30.0 * np.sqrt(d)))
+    eye = np.eye(s, d, dtype=np.float32)
+    perm = np.stack([rng.permutation(s) for _ in range(b)])
+    arrays = (c * eye[perm], np.repeat(eye[None], b, axis=0),
+              rng.standard_normal((b, s, d), dtype=np.float32))
+    q, k, v = (torch.from_numpy(a).to(device, torch.bfloat16) for a in arrays)
+    return q, k, v, v[torch.arange(b)[:, None], torch.from_numpy(perm).to(device)]
+
+
 @pytest.mark.parametrize("s,d,block", [(256, 64, 128), (512, 128, 256), (1024, 512, 512)])
 def test_plain_matches_jax_flash_kernel(s, d, block):
     import jax.numpy as jnp
@@ -48,6 +71,14 @@ def test_cpu_tensor_takes_plain_path_without_launch(dtype):
     assert attention.flash_attention.launches == before
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out, attention.flash_attention_plain(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,s,d", PERMUTATION_SHAPES)
+def test_permutation_inputs_are_one_hot_in_the_plain_version(b, s, d):
+    """The premise of the card's permutation test, on the CPU: the plain
+    version (fp32 softmax, one rounding) gives V[π] exactly."""
+    q, k, v, expected = permutation_qkv(b, s, d, "cpu")
+    assert torch.equal(attention.flash_attention(q, k, v), expected)
 
 
 def test_non_cpu_non_cuda_tensor_raises():
@@ -78,6 +109,13 @@ def cuda_device():
         (16, 1024, 512, torch.bfloat16, 2e-2),
         (3, 1037, 512, torch.bfloat16, 2e-2),
         (2, 200, 64, torch.bfloat16, 2e-2),
+        # the wgmma kernel's tile edges: one key, one query and key tile short
+        # of full, one past it, two past; D = 256 with a partial last tile
+        (2, 1, 512, torch.bfloat16, 2e-2),
+        (2, 63, 512, torch.bfloat16, 2e-2),
+        (2, 65, 512, torch.bfloat16, 2e-2),
+        (2, 129, 512, torch.bfloat16, 2e-2),
+        (2, 1000, 256, torch.bfloat16, 2e-2),
         (2, 1037, 512, torch.float32, 1e-4),
         (2, 77, 128, torch.float32, 1e-4),
     ],
@@ -96,6 +134,20 @@ def test_kernel_matches_plain_on_card(cuda_device, b, s, d, dtype, tol):
     ref = attention.flash_attention_plain(q, k, v).float()
     err = (out.float() - ref).abs().max().item()
     assert err <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d", PERMUTATION_SHAPES)
+def test_kernel_permutation_is_exact(cuda_device, b, s, d):
+    """One-hot softmax: the output is V[π] bit for bit. This pins the Q, K
+    and V descriptors (LBO, SBO, the k-step offsets, each warpgroup's half of
+    D), the register-P fragments of P·V and the fences."""
+    q, k, v, expected = permutation_qkv(b, s, d, cuda_device)
+    before = attention.flash_attention.launches
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == before + 1
+    assert torch.equal(out, expected)
 
 
 @pytest.mark.gpu
