@@ -199,8 +199,9 @@ def check_attention(q, k, v, tol: float, label: str) -> float:
 
 def check_attention_permutation(b: int, s: int, d: int, g) -> float:
     """K = the first S rows of the identity (S ≤ D), Q = c·K[π] with c the power
-    of two that makes the logit gap c/√D at least 30: softmax is one-hot to far
-    below half a bf16 ulp, so the kernel must return V[π] bit for bit."""
+    of two that makes the logit gap c/√D at least 30, and |V| ≥ 1/4: softmax is
+    one-hot to far below half a bf16 ulp of any output, so the kernel must
+    return V[π] bit for bit."""
     import math
 
     import torch
@@ -211,7 +212,8 @@ def check_attention_permutation(b: int, s: int, d: int, g) -> float:
     c = 2.0 ** math.ceil(math.log2(30.0 * math.sqrt(d)))
     eye = torch.eye(s, d, device=dev, dtype=torch.bfloat16)
     perm = torch.stack([torch.randperm(s, generator=g, device=dev) for _ in range(b)])
-    v = torch.randn(b, s, d, generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(b, s, d, generator=g, device=dev)
+    v = torch.where(v >= 0, v + 0.25, v - 0.25).to(torch.bfloat16)
     out = flash_attention((c * eye[perm]).contiguous(), eye.expand(b, s, d).contiguous(), v)
     torch.cuda.synchronize()
     expected = v[torch.arange(b, device=dev)[:, None], perm]

@@ -35,15 +35,16 @@ def permutation_qkv(b, s, d, device, seed=0):
 
     K is the first S rows of the identity and Q = c·K[π] for a random
     permutation π of each batch row, with c the power of two that makes the
-    logit gap c/√D at least 30: softmax is then one-hot to far below half a
-    bf16 ulp, so the output is V[π] exactly in bf16.
+    logit gap c/√D at least 30. V is bounded away from zero (|v| ≥ 1/4), so
+    the weight softmax leaves on the other keys (below e^-30 each) stays far
+    below half a bf16 ulp of every output, and the output is V[π] exactly.
     """
     rng = np.random.default_rng(seed)
     c = 2.0 ** np.ceil(np.log2(30.0 * np.sqrt(d)))
     eye = np.eye(s, d, dtype=np.float32)
     perm = np.stack([rng.permutation(s) for _ in range(b)])
-    arrays = (c * eye[perm], np.repeat(eye[None], b, axis=0),
-              rng.standard_normal((b, s, d), dtype=np.float32))
+    v = rng.standard_normal((b, s, d), dtype=np.float32)
+    arrays = (c * eye[perm], np.repeat(eye[None], b, axis=0), v + np.copysign(np.float32(0.25), v))
     q, k, v = (torch.from_numpy(a).to(device, torch.bfloat16) for a in arrays)
     return q, k, v, v[torch.arange(b)[:, None], torch.from_numpy(perm).to(device)]
 
