@@ -47,8 +47,6 @@
 //     read only 64 bytes of a line conflict-free; its loads reached less than
 //     half the L2 rate.) With the two partial-logit buffers that is 230,400
 //     bytes at D = 512, alignment included: one block an SM.
-//   - The blocks of one image walk the key tiles from different starting
-//     tiles, so that they do not all read the same tile from L2 at once.
 //   - V_j is loaded while Q·K_jᵀ and the softmax run, K_{j+1} while P·V_j
 //     runs; fence.proxy.async after the copies land and before the barrier
 //     that hands a tile to wgmma.
@@ -382,13 +380,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const __nv_bfloat16* kb = k + base;
   const __nv_bfloat16* vb = v + base;
 
-  // The blocks of one image walk the key tiles from different starting
-  // points, so that they do not all read the same tile from L2 at once.
-  const int ntiles = (S + kBK - 1) / kBK;
-  const int first = blockIdx.x % ntiles;
   load_tile<D>(sQ, q + base, q0, S, tid);
-  load_tile<D>(sK, kb, first * kBK, S, tid);
-  cp_async_commit();  // group: Q, the first K tile
+  load_tile<D>(sK, kb, 0, S, tid);
+  cp_async_commit();  // group: Q, K_0
 
   const uint32_t half = col_offset(wg * D / 2);
   const uint32_t lo_q = desc_lo(sQ + half, kQKLBO);
@@ -405,12 +399,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m_i[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (log2 units)
   float l_i[2] = {0.f, 0.f};              // running sum over this thread's columns
 
-  // Iteration j computes key tile `tile`, the j-th of the block's walk.
-  for (int j = 0, tile = first; j < ntiles; ++j, tile = tile + 1 == ntiles ? 0 : tile + 1) {
+  const int ntiles = (S + kBK - 1) / kBK;
+  for (int j = 0; j < ntiles; ++j) {
     cp_async_wait<0>();  // K_j (and Q) have landed
     fence_proxy_async();
     __syncthreads();  // K_j is in place; both warpgroups are done with V_{j-1} and the partials
-    load_tile<D>(sV, vb, tile * kBK, S, tid);
+    load_tile<D>(sV, vb, j * kBK, S, tid);
     cp_async_commit();  // group: V_j
 
     float s[32];  // written first by the first k-step
@@ -427,11 +421,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 8; ++i)
       mine[i * 128] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
     warpgroups_sync();  // both partials are written, both warpgroups are done with K_j
-    if (j + 1 < ntiles) load_tile<D>(sK, kb, (tile + 1 == ntiles ? 0 : tile + 1) * kBK, S, tid);
+    if (j + 1 < ntiles) load_tile<D>(sK, kb, (j + 1) * kBK, S, tid);
     cp_async_commit();  // group: K_{j+1} (empty after the last tile)
 
     // The full logits (own + other's: the same sum in both warpgroups), masked and in log2 units.
-    const int key0 = tile * kBK + 2 * t;
+    const int key0 = j * kBK + 2 * t;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
