@@ -90,8 +90,8 @@ constexpr int kBQ = 64;           // query rows per block: the M of every wgmma
 constexpr int kBK = 64;           // keys per tile: the N of Q·Kᵀ
 constexpr int kThreads = 256;     // two warpgroups
 constexpr int kPart = kBQ * kBK;  // floats of one warpgroup's partial logits
-constexpr int kAtomBytes = 8 * 128;      // one 128-byte swizzle atom: 8 rows × 128 bytes
-constexpr int kColBytes = 64 * 128;      // 64 columns of d of all 64 rows of a tile: 8 atoms
+constexpr int kAtomBytes = 8 * 128;  // one 128-byte swizzle atom: 8 rows × 128 bytes
+constexpr int kColBytes = 64 * 128;  // 64 columns of d of all 64 rows of a tile: 8 atoms
 
 template <int D>
 struct Smem {
@@ -151,15 +151,14 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "
 // Shared-memory matrix descriptors with the 128-byte swizzle: bits 0-13 the
 // start address, 16-29 LBO, 32-45 SBO (all in 16-byte units), 62-63 the layout
 // (1: 128-byte swizzle). The low word (address and LBO) is built once a block;
-// the high word is a constant of the layout.
+// the high word (SBO and layout) is the same for all three operands.
 //   Q, K (K-major): SBO = 1024 bytes between 8-row groups; LBO is not used, as
 //   a k-step's 32 bytes of a row lie inside its 128-byte atom row.
 //   V (MN-major): LBO = kColBytes between 64-column blocks of d (N), SBO = 1024
 //   bytes between 8-key groups (K).
 constexpr uint32_t kQKLBO = 16;
-constexpr uint32_t kDescHiK = (kAtomBytes >> 4) | (1u << 30);
 constexpr uint32_t kVLBO = kColBytes;
-constexpr uint32_t kDescHiMN = (kAtomBytes >> 4) | (1u << 30);
+constexpr uint32_t kDescHi = (kAtomBytes >> 4) | (1u << 30);
 // Descriptor offsets (16-byte units) of k-step kk: 16 columns of d for Q·Kᵀ,
 // 16 keys (two atoms) for P·V.
 __host__ __device__ constexpr int qk_step(int kk) { return col_offset(16 * kk) / 16; }
@@ -203,7 +202,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint32_t lo_a
       "da, db, p, 1, 1, 0, 0;\n"
       "}\n"
       : EOVAX_F32(d, 0)
-      : "r"(lo_a), "r"(lo_b), "r"(accumulate), "r"(kDescHiK), "n"(OA), "n"(OB));
+      : "r"(lo_a), "r"(lo_b), "r"(accumulate), "r"(kDescHi), "n"(OA), "n"(OB));
 }
 
 // d[64 × N] = A[64 × 16] · B[16 × N] (+ d if accumulate): A bf16 in registers,
@@ -233,7 +232,7 @@ struct WgmmaRS<32> {
         "}\n"
         : EOVAX_F8(d, 0), EOVAX_F8(d, 8)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(lo_b), "r"(accumulate),
-          "r"(kDescHiMN), "n"(OB));
+          "r"(kDescHi), "n"(OB));
   }
 };
 
@@ -257,7 +256,7 @@ struct WgmmaRS<64> {
         "}\n"
         : EOVAX_F32(d, 0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(lo_b), "r"(accumulate),
-          "r"(kDescHiMN), "n"(OB));
+          "r"(kDescHi), "n"(OB));
   }
 };
 
@@ -283,7 +282,7 @@ struct WgmmaRS<128> {
         "}\n"
         : EOVAX_F32(d, 0), EOVAX_F32(d, 32)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(lo_b), "r"(accumulate),
-          "r"(kDescHiMN), "n"(OB));
+          "r"(kDescHi), "n"(OB));
   }
 };
 
@@ -314,7 +313,7 @@ struct WgmmaRS<256> {
         "}\n"
         : EOVAX_F32(d, 0), EOVAX_F32(d, 32), EOVAX_F32(d, 64), EOVAX_F32(d, 96)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(lo_b), "r"(accumulate),
-          "r"(kDescHiMN), "n"(OB));
+          "r"(kDescHi), "n"(OB));
   }
 };
 
