@@ -40,10 +40,25 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 4. Time ``reconstruct``, ``encode_split`` and each kernel with CUDA events
    after warm-up (kernel, plain version, the one PyTorch call computing the
    same function, and the card's bound), break one 512² ``reconstruct``
-   down by kernel with ``torch.profiler``, and print one
-   ``{"kernels": [...]}`` line (flash_attention and conv3x3 also with their
-   TFLOP/s at each timed shape; flash_attention with the bytes its blocks
-   read from L2 and the rate they imply).
+   down by kernel with ``torch.profiler``.
+5. Train: the stage-2 generator step (``eovax_torch.train.stage2``) at full
+   width, 12-band 256² B=16 bf16, Charbonnier + MS-SSIM (start step 0), Adam
+   at the shipped base lr 1e-4 with the clip at 1.0 (the 2000-step warmup
+   cut), the posterior's mode. The backward kernels against their plain versions at the main
+   path's shapes, at odd shapes and in fp32, and on the activations and
+   output gradients of one train step captured with hooks (``conv3x3_dx``:
+   the decoder's level-0 ``conv1``; ``group_norm_backward``: the decoder's
+   level-0 ``norm2``); exact launches per step: forward 48 / 52 / 2 and
+   backward 48 ``conv3x3_dx``, 52 ``group_norm_backward`` and 2 attention
+   backward calls; all parameter gradients of the full model in train mode on
+   the card (fp32 and bf16) against fp32 on the CPU at [1,12,64,64]; 2
+   warm-up and 10 timed steps (CUDA events) on one fixed batch, whose loss
+   must be finite and fall; ms/step, imgs/s, peak memory, the kernel rows of
+   one profiled step; the backward kernels' times beside their plain
+   versions, library calls and bounds. Then one ``{"kernels": [...]}`` line
+   (flash_attention and conv3x3 also with their TFLOP/s at each timed shape;
+   flash_attention with the bytes its blocks read from L2 and the rate they
+   imply).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with an error before any result.
@@ -81,6 +96,15 @@ TOL_MODEL_F32 = 1e-3
 #  Full model, bf16 on the card vs fp32 on the CPU: bf16 activations
 #  between every layer.
 TOL_MODEL_BF16 = 1e-1
+#  GroupNorm backward: dx in bf16 takes TOL_GN_BF16 (one output rounding);
+#  dx in fp32 and every parameter gradient are fp32 sums in another order.
+TOL_GN_BWD_F32 = 1e-4
+#  All parameter gradients of the full model, card vs CPU fp32, as the norm of
+#  the difference over the norm of the CPU's: fp32, other summation orders
+#  through ~60 layers and back; bf16, bf16 activations and gradients between
+#  every layer.
+TOL_GRAD_F32 = 1e-3
+TOL_GRAD_BF16 = 1e-1
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # fp32 outside the tensor cores
@@ -88,8 +112,18 @@ H100_BYTES_PER_S = 3.35e12
 # fp32 operations per element of one GroupNorm + swish: statistics (x − K,
 # two adds, one FMA) and apply (subtract, FMA, SiLU's exp, add and divide).
 GN_FLOPS_PER_ELEMENT = 11
+# fp32 operations per element of one GroupNorm + swish backward: each of its
+# two passes recomputes x̂ (2), z (2), σ(z) (exp, add, divide) and dz (5); the
+# reduction adds 3 for its two sums, the apply 4 for dx.
+GN_BWD_FLOPS_PER_ELEMENT = 31
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
+
+
+def stamp(label: str) -> None:
+    """Print the script's wall time so far, at the end of a phase."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {label}")
 
 
 def card_line() -> str:
@@ -121,30 +155,36 @@ def bound(flops: float, flops_per_s: float, nbytes: float) -> dict:
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_reconstruct(model, x, wvs, card: str, calls: int = 2) -> None:
-    """Kernel time by name over ``calls`` reconstructs (torch.profiler, kernel
+def profile_kernels(label: str, fn, card: str, calls: int = 2) -> None:
+    """Kernel time by name over ``calls`` calls of ``fn`` (torch.profiler, kernel
     rows only), each hand kernel's share, and the device-busy share of the
-    profiled wall time."""
+    profiled wall time. Only the device is traced: tracing the host's operators
+    as well lengthened the profiled call and so understated the device-busy
+    share (``PERF.md`` §5)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            model.reconstruct(x, wvs)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # Device rows only; a user annotation's device range (the optimizer step's)
+    # spans kernels that have rows of their own.
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
-    print(f"profile reconstruct {tuple(x.shape)}: wall {wall_ms:.3f} ms/call (profiler on), "
+    print(f"profile {label}: wall {wall_ms:.3f} ms/call (profiler on), "
           f"kernels {busy_ms:.3f} ms/call, device busy {busy_ms / wall_ms:.3f} [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         ms = e.self_device_time_total / 1e3 / calls
         print(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count // calls:<4d} {e.key[:96]}")
-    for group, tag in (("conv3x3", "conv3x3_"), ("group_norm", "gn_"),
-                       ("flash_attention", "flash_")):
+    for group, tag in (("conv3x3", "conv3x3_"), ("group_norm", "gn_apply_kernel"),
+                       ("group_norm statistics", "gn_stats_"),
+                       ("group_norm_backward", "gn_bwd_"), ("flash_attention", "flash_")):
         ours = [e for e in kernels if tag in e.key]
         ms = sum(e.self_device_time_total for e in ours) / 1e3 / calls
         count = sum(e.count for e in ours) // calls
@@ -277,6 +317,41 @@ def check_conv(x, w, bias, tol: float, label: str) -> float:
                  conv3x3_plain(x, w, bias), tol)
 
 
+def check_conv_dx(grad, w, tol: float, label: str) -> float:
+    import torch
+
+    from eovax_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_dx_plain
+
+    out = conv3x3_dx(grad, w)
+    torch.cuda.synchronize()
+    return check("conv3x3_dx", f"{label} {tuple(grad.shape)}→{w.shape[1]} {grad.dtype}", out,
+                 conv3x3_dx_plain(grad, w), tol)
+
+
+def check_gn_backward(grad, x, weight, bias, label: str, **kw) -> float:
+    """group_norm_backward's five gradients vs the plain backward; returns the
+    max abs error of dx."""
+    import torch
+
+    from eovax_torch.kernels.groupnorm import (
+        group_norm_backward,
+        group_norm_backward_plain,
+        group_stats_plain,
+    )
+
+    stats = group_stats_plain(x, 32, 1e-6)
+    got = group_norm_backward(grad, x, *stats, weight, bias, **kw)
+    torch.cuda.synchronize()
+    ref = group_norm_backward_plain(grad, x, *stats, weight, bias, **kw)
+    tol_dx = TOL_GN_BF16 if x.dtype == torch.bfloat16 else TOL_GN_BWD_F32
+    errs = []
+    for name, a, r in zip(("dx", "dweight", "dbias", "d_ada_scale", "d_ada_shift"), got, ref):
+        if r is not None:
+            errs.append(check("group_norm_backward", f"{label} {name} {tuple(x.shape)} {x.dtype}",
+                              a, r, tol_dx if name == "dx" else TOL_GN_BWD_F32))
+    return errs[0]
+
+
 def conv_inputs(b, ci, co, h, w, dtype, g):
     import torch
 
@@ -318,21 +393,29 @@ def drive(label: str, fn, expected: dict):
 
     from eovax_torch.kernels import attention, conv3x3, groupnorm
 
-    wrappers = {"conv3x3": conv3x3.conv3x3, "group_norm": groupnorm.group_norm,
-                "flash_attention": attention.flash_attention}
-    for f in wrappers.values():
-        f.launches = 0
+    # (wrapper, its count): the kernels' launches, and the attention backward's
+    # calls (tensor ops, no kernel of its own).
+    counters = {"conv3x3": (conv3x3.conv3x3, "launches"),
+                "group_norm": (groupnorm.group_norm, "launches"),
+                "flash_attention": (attention.flash_attention, "launches"),
+                "conv3x3_dx": (conv3x3.conv3x3_dx, "launches"),
+                "group_norm_backward": (groupnorm.group_norm_backward, "launches"),
+                "flash_attention_backward": (attention.flash_attention_backward, "calls")}
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
     out = fn()
     torch.cuda.synchronize()
-    got = {name: f.launches for name, f in wrappers.items()}
+    got = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
     print(f"{label}: launches {got}")
     if got != expected:
         raise AssertionError(f"{label}: expected launches {expected}, got {got}")
     return out, got
 
 
-def launches(conv: int, gn: int, attn: int) -> dict:
-    return {"conv3x3": conv, "group_norm": gn, "flash_attention": attn}
+def launches(conv: int, gn: int, attn: int, conv_dx: int = 0, gn_bwd: int = 0,
+             attn_bwd: int = 0) -> dict:
+    return {"conv3x3": conv, "group_norm": gn, "flash_attention": attn, "conv3x3_dx": conv_dx,
+            "group_norm_backward": gn_bwd, "flash_attention_backward": attn_bwd}
 
 
 def sen2naip_batches(n_batches: int, batch: int, seed: int) -> list[dict]:
@@ -392,6 +475,208 @@ def check_encode_split(n: int, stats: dict, out_dir: Path, expected: int) -> Non
           f"latent_stats keys ok and finite (count {stats['hr_latent']['count'][0]:.0f})")
 
 
+def train_config(bands: int):
+    """The shipped architecture with the shipped optimizer settings, the warmup cut
+    (constant base lr), and the posterior's mode instead of a sample, so that the
+    loss on one fixed batch is a function of the weights alone."""
+    import dataclasses
+
+    return dataclasses.replace(shipped_config(bands), base_lr=1e-4, final_lr=None,
+                               clip_grad=1.0, sample_posterior=False)
+
+
+def train_loss():
+    from eovax_torch.losses import EOConsistencyLoss
+
+    return EOConsistencyLoss(rec_loss_type="char", pixel_weight=1.0, msssim_weight=1.0,
+                             msssim_start_step=0)
+
+
+def model_grads(sd: dict, policy, device, x, wvs) -> dict:
+    """All parameter gradients of one train-mode forward (posterior mode) and the
+    Charbonnier loss, in fp32 on the CPU."""
+    import torch
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.losses.consistency import charbonnier_loss
+
+    core = EOFluxVAE(train_config(12), sd, policy=policy, device=device).core
+    x, wvs = x.to(device), wvs.to(device)
+    recon, _ = core(x, wvs, sample_posterior=False, train=True)
+    charbonnier_loss(recon, x).backward()
+    return {n: p.grad.float().cpu() for n, p in core.named_parameters()}
+
+
+def check_model_grads(label: str, got: dict, ref: dict, tol: float) -> float:
+    """Relative global norm of the difference; prints the worst tensor among those
+    holding at least a thousandth of the global norm."""
+    import torch
+
+    ref_norm = torch.sqrt(sum(g.double().square().sum() for g in ref.values())).item()
+    diff = {n: (got[n].double() - g.double()).norm().item() for n, g in ref.items()}
+    rel = (sum(d * d for d in diff.values()) ** 0.5) / ref_norm
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    worst = max((d / ref[n].double().norm().item(), n) for n, d in diff.items()
+                if ref[n].double().norm().item() >= 1e-3 * ref_norm)
+    ok = finite and rel <= tol
+    print(f"full model gradients {label} on the card vs fp32 on the CPU [1,12,64,64]: "
+          f"|diff|/|ref| = {rel:.3e} (tol {tol:g}) over {len(ref)} tensors; worst tensor "
+          f"{worst[1]} {worst[0]:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"full-model gradients ({label}) disagree with the CPU")
+    return rel
+
+
+def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
+    """Phase 5; returns the launches of one train step, the backward kernels'
+    errors at the main path's shapes, and their times."""
+    import torch
+    import torch.nn.functional as F
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.kernels.conv3x3 import conv3x3_dx, conv3x3_dx_plain
+    from eovax_torch.kernels.groupnorm import (
+        group_norm_backward,
+        group_norm_backward_plain,
+        group_stats_plain,
+    )
+    from eovax_torch.train import stage2
+
+    dev = g.device
+    errs, timings = {}, {}
+
+    # Backward kernels vs plain at the main path's shapes, odd shapes and fp32.
+    for b, ci, co, h, w, dtype, tol in ((16, 128, 128, 256, 256, torch.bfloat16, TOL_CONV_BF16),
+                                        (16, 512, 512, 32, 32, torch.bfloat16, TOL_CONV_BF16),
+                                        (2, 48, 96, 37, 53, torch.bfloat16, TOL_CONV_BF16),
+                                        (2, 64, 96, 37, 53, torch.float32, TOL_CONV_F32)):
+        grad = torch.randn(b, co, h, w, generator=g, device=dev).to(dtype)
+        k = 0.05 * torch.randn(co, ci, 3, 3, generator=g, device=dev)
+        errs["conv3x3_dx", (b, ci, co, h, w)] = check_conv_dx(grad, k, tol, "synthetic")
+    for shape, dtype in (((16, 128, 256, 256), torch.bfloat16), ((16, 512, 32, 32), torch.bfloat16),
+                         ((2, 96, 37, 53), torch.bfloat16), ((2, 96, 37, 53), torch.float32)):
+        b, c = shape[:2]
+        x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+        grad = torch.randn(shape, generator=g, device=dev).to(dtype)
+        w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        for name, kw in gn_variants(b, c, g).items():
+            err = check_gn_backward(grad, x, w, bias, f"synthetic {name}", **kw)
+            errs.setdefault(("group_norm_backward", shape), {})[name] = err
+        del x, grad
+    torch.cuda.empty_cache()
+    stamp("phase 5: backward kernels vs plain")
+
+    # The main path: the stage-2 train step at full width, 12-band 256² B=16 bf16.
+    s2 = torch.tensor(wavelengths_for("S2L2A"), device=dev)
+    cfg = train_config(12)
+    model = EOFluxVAE(cfg, sd, policy=DEFAULT_POLICY, device=dev)
+    core = model.core
+    opt, schedule = stage2.make_optimizer(cfg, core.parameters())
+    step = stage2.make_train_step(core, train_loss(), opt, cfg, schedule=schedule)
+    state = stage2.TrainState()
+    x = torch.randn(16, 12, 256, 256, generator=g, device=dev)
+
+    captured = {}
+
+    def capture(key):
+        def hook(mod, args, kwargs, out):  # returns None: the output stays as it is
+            captured[key] = (args[0].detach().clone(), dict(kwargs))
+            out.register_hook(lambda grad: captured.__setitem__(key + "/grad", grad.clone()))
+        return hook
+
+    conv1 = core.decoder.up[0].block[0].conv1
+    norm2 = core.decoder.up[0].block[1].norm2
+    hooks = [conv1.register_forward_hook(capture("conv1"), with_kwargs=True),
+             norm2.register_forward_hook(capture("norm2"), with_kwargs=True)]
+    losses = [step(state, x, s2)["train/loss_total"]]  # the first warm-up step
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        check_conv_dx(captured["conv1/grad"].contiguous(), conv1.weight, TOL_CONV_BF16,
+                      "decoder-up0-block0-conv1-captured")
+        xn, kw = captured["norm2"]
+        check_gn_backward(captured["norm2/grad"].contiguous(), xn, norm2.weight, norm2.bias,
+                          "decoder-up0-block1-norm2-captured", **kw)
+    del captured, xn, kw
+
+    logs, counts = drive("train step [16,12,256,256] bf16", lambda: step(state, x, s2),
+                         launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+    losses.append(logs["train/loss_total"])
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: losses.append(step(state, x, s2)["train/loss_total"]), 10,
+                 warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    print(f"train losses over {len(losses)} steps on one batch: "
+          f"{', '.join(f'{v:.5f}' for v in losses)}")
+    if not all(torch.isfinite(torch.tensor(losses))) or losses[-1] >= losses[0]:
+        raise AssertionError("the train loss is not finite or did not fall")
+    print(f"time train step [16,12,256,256] bf16: {ms:.3f} ms/step, {16e3 / ms:.2f} imgs/s, "
+          f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+    stamp("phase 5: timed train steps")
+    profile_kernels("train step [16,12,256,256] bf16", lambda: step(state, x, s2), card,
+                    calls=1)
+    del model, core, opt, step, x
+    torch.cuda.empty_cache()
+    stamp("phase 5: train steps")
+
+    # Full-model gradients: card (fp32, bf16) vs fp32 on the CPU, same weights.
+    x_small = torch.randn(1, 12, 64, 64, generator=torch.Generator().manual_seed(4))
+    s2_cpu = s2.cpu()
+    ref = model_grads(sd, FULL_PRECISION, "cpu", x_small, s2_cpu)
+    for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
+                               ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
+        check_model_grads(label, model_grads(sd, policy, dev, x_small, s2_cpu), ref, tol)
+    del ref
+    stamp("phase 5: full-model gradients")
+
+    # Backward kernels' times at the largest main-path shapes.
+    b, ci, co, h, w = 16, 128, 128, 256, 256
+    grad = torch.randn(b, co, h, w, generator=g, device=dev).to(torch.bfloat16)
+    k = 0.05 * torch.randn(co, ci, 3, 3, generator=g, device=dev)
+    kb = k.bfloat16()
+    kernel_ms = cuda_ms(lambda: conv3x3_dx(grad, k), 10)
+    plain_ms = cuda_ms(lambda: conv3x3_dx_plain(grad, k), 3)
+    library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input((b, ci, h, w), kb, grad, padding=1),
+                         10)
+    flops = 2.0 * b * h * w * 9 * ci * co
+    timings["conv3x3_dx"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 **bound(flops, H100_BF16_FLOPS,
+                                         2.0 * (grad.numel() + k.numel() + b * ci * h * w)))
+    print(f"time conv3x3_dx [{b},{co}→{ci},{h},{w}] bf16: kernel {kernel_ms:.4f} ms "
+          f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN dgrad "
+          f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
+          f"{timings['conv3x3_dx']['bound_ms']:.4f} ms [{card}]")
+    del grad, k, kb
+
+    shape = (16, 128, 256, 256)
+    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(torch.bfloat16)
+    grad = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device=dev)
+    bias = 0.1 * torch.randn(shape[1], generator=g, device=dev)
+    stats = group_stats_plain(x, 32, 1e-6)
+    kernel_ms = cuda_ms(lambda: group_norm_backward(grad, x, *stats, w, bias, swish=True), 20)
+    plain_ms = cuda_ms(lambda: group_norm_backward_plain(grad, x, *stats, w, bias, swish=True), 5)
+    xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w.bfloat16(), bias.bfloat16()))
+    y = F.silu(F.group_norm(xr, 32, wr, br, 1e-6))
+    library_ms = cuda_ms(lambda: torch.autograd.grad(y, (xr, wr, br), grad, retain_graph=True),
+                         20)
+    timings["group_norm_backward"] = dict(
+        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound(GN_BWD_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, 3.0 * x.numel() * 2))
+    print(f"time group_norm_backward+swish {list(shape)} bf16: kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, autograd of F.silu(F.group_norm) {library_ms:.4f} ms, bound "
+          f"{timings['group_norm_backward']['bound_ms']:.4f} ms "
+          f"({5.0 * x.numel() * 2 / kernel_ms / 1e6:.0f} GB/s of its two passes' traffic) "
+          f"[{card}]")
+    del x, grad, xr, y
+    torch.cuda.empty_cache()
+    return counts, errs, timings
+
+
 def main() -> int:
     import torch
 
@@ -412,7 +697,6 @@ def main() -> int:
     from eovax_torch.kernels.groupnorm import group_norm, group_norm_plain
     from eovax_torch.utils.tiling import tiled_reconstruct
 
-    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -451,6 +735,7 @@ def main() -> int:
                               ((2, 64, 96, 37, 53), torch.float32, TOL_CONV_F32)):
         conv_errs[shape] = check_conv(*conv_inputs(*shape, dtype, g), tol, "synthetic")
     torch.cuda.empty_cache()
+    stamp("phase 2: kernels vs plain")
 
     # ---- 3. main path at full width ------------------------------------------
     model = EOFluxVAE(shipped_config(12), policy=DEFAULT_POLICY, device=dev, seed=0)
@@ -525,6 +810,7 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"full model ({label}) disagrees with the CPU reference")
     del gpu32
+    stamp("phase 3: reconstruct, bulk encode/decode, card vs CPU")
 
     # Bulk encode CLI path: 2 batches of 4 Sen2NAIP pairs, both images of each encoded.
     batches = sen2naip_batches(2, 4, seed=2)
@@ -533,6 +819,7 @@ def main() -> int:
                               lambda: run_encode_split(model, batches, enc_dir),
                               launches(80, 88, 4))
     check_encode_split(n_aoi, stats, enc_dir, expected=8)
+    stamp("phase 3: encode_split")
 
     scene = np.random.default_rng(3).standard_normal((12, 1024, 1024)).astype(np.float32)
     tiled, _ = drive("tiled_reconstruct [12,1024,1024] tile 256 overlap 32 batch 16",
@@ -541,6 +828,7 @@ def main() -> int:
     if tiled.shape != scene.shape or not np.isfinite(tiled).all():
         raise AssertionError("tiled_reconstruct gave a wrong shape or non-finite values")
     print(f"tiled_reconstruct: out {tiled.shape}, finite")
+    stamp("phase 3: tiled_reconstruct")
 
     # ---- 4. times ----------------------------------------------------------------
     x256 = torch.randn(16, 12, 256, 256, generator=g, device=dev)
@@ -558,8 +846,10 @@ def main() -> int:
         print(f"time encode_split 8 AOIs at 512² (compress={compress}): {seconds:.3f} s, "
               f"{8 / seconds:.2f} AOIs/s [{card}]")
     shutil.rmtree(enc_dir, ignore_errors=True)
+    stamp("phase 4: reconstruct and encode_split times")
 
-    profile_reconstruct(model, x512, s2, card)
+    profile_kernels(f"reconstruct {tuple(x512.shape)}", lambda: model.reconstruct(x512, s2), card)
+    stamp("phase 4: reconstruct profile")
 
     timings = {}
     attn_rates = []  # [B, S, D] each: TFLOP/s and the L2 traffic of the kernel's blocks
@@ -625,6 +915,9 @@ def main() -> int:
               f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
               f"{timings['conv3x3', shape]['bound_ms']:.4f} ms [{card}]")
         del x, w, bias
+    stamp("phase 4: times")
+
+    train_counts, bwd_errs, bwd_timings = train_phase(sd, card, g)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -644,8 +937,20 @@ def main() -> int:
          "launches": main_launches["conv3x3"],
          "max_abs_err": conv_errs[(4, 512, 256, 256, 256)],
          **timings["conv3x3", (4, 512, 256, 256, 256)], "shapes": conv_rates},
+        {"name": "conv3x3_dx", "route": "cuda",
+         "source": "eovax_torch/kernels/csrc/conv3x3.cu",
+         "replaces": "eovax/kernels/conv3x3.py:186",
+         "launches": train_counts["conv3x3_dx"],
+         "max_abs_err": bwd_errs["conv3x3_dx", (16, 128, 128, 256, 256)],
+         **bwd_timings["conv3x3_dx"]},
+        {"name": "group_norm_backward", "route": "cuda",
+         "source": "eovax_torch/kernels/csrc/groupnorm.cu",
+         "replaces": "eovax/kernels/groupnorm.py:124",
+         "launches": train_counts["group_norm_backward"],
+         "max_abs_err": bwd_errs["group_norm_backward", (16, 128, 256, 256)]["swish"],
+         **bwd_timings["group_norm_backward"]},
     ]
-    print(f"wall time: {time.perf_counter() - t_start:.1f} s")
+    print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,8 @@ Subpackages
 - ``eovax_torch.kernels``  CUDA kernels, their wrappers and plain versions
 - ``eovax_torch.nn``       blocks, hypernetwork stems, latent plumbing
 - ``eovax_torch.models``   the EO-VAE backbone and the ``EOFluxVAE`` API
+- ``eovax_torch.losses``   the stage-2 reconstruction losses
+- ``eovax_torch.train``    the stage-2 train step, its optimizer and schedule
 - ``eovax_torch.utils``    the JAX-variables → state-dict bridge
 """
 

@@ -11,6 +11,12 @@ function. It never falls back from the kernel.
 The kernel takes bf16 (the inference policy) and fp32 (``FULL_PRECISION``),
 with D in :data:`KERNEL_HEAD_DIMS`; the logits, softmax statistics and the
 P·V accumulator are fp32, and the output has the input's dtype.
+
+When an input requires grad, :func:`flash_attention` is a
+``torch.autograd.Function`` whose backward, :func:`flash_attention_backward`,
+recomputes the fp32 probabilities from the saved q, k and v in tensor ops: the
+JAX trainer's gradient is autodiff of ``sdpa_auto``'s plain einsum, outside any
+Pallas kernel, and this is that gradient.
 """
 
 from __future__ import annotations
@@ -44,12 +50,28 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q kᵀ / √D) v for single-head [B, S, D] tensors.
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of softmax(q kᵀ / √D) v for the output gradient ``do``, in tensor
+    ops (adds one to ``flash_attention_backward.calls``).
 
-    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (and add one to ``flash_attention.launches``) or raise.
+    As autodiff of the JAX package's ``sdpa_auto``: fp32 logits and softmax, P
+    rounded to the compute dtype before dV = Pᵀ·dO and dP = dO·Vᵀ in the compute
+    dtype, dS = P∘(dP − rowsum(dP∘P)) in fp32, and dQ, dK from dS times the scale.
     """
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    do = do.to(q.dtype)
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.to(v.dtype).transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2)).float()
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, k.float()).to(q.dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype)
+    flash_attention_backward.calls += 1
+    return dq, dk, dv
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     if q.device.type != "cuda":
@@ -85,4 +107,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_backward(*ctx.saved_tensors, do)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q kᵀ / √D) v for single-head [B, S, D] tensors.
+
+    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
+    kernel (and add one to ``flash_attention.launches``) or raise. Where grad
+    is enabled and an input requires it, the output carries the backward of
+    :func:`flash_attention_backward`.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return _forward(q, k, v)
+
+
 flash_attention.launches = 0
+flash_attention_backward.calls = 0

@@ -1,4 +1,4 @@
-"""3×3 stride-1 SAME convolution with bias over NCHW tensors.
+"""3×3 stride-1 SAME convolution with bias over NCHW tensors, and its gradient.
 
 Port of ``eovax/kernels/conv3x3.py``. On a CUDA tensor :func:`conv3x3`
 launches the hand-written Hopper kernel of ``csrc/conv3x3.cu``: an implicit
@@ -10,6 +10,13 @@ kernel's envelope (bf16: input channels a multiple of :data:`KERNEL_CI_MULTIPLE`
 
 The products accumulate in fp32; the bias, in the input's dtype, is added in
 fp32 before the one rounding to the input's dtype, as in the TPU kernel.
+
+When an input requires grad, :func:`conv3x3` is a ``torch.autograd.Function``
+whose backward is the JAX package's ``_bwd``: the data gradient through the
+same kernel on the flipped, in/out-transposed weights without bias
+(:func:`conv3x3_dx`), the weight gradient as the library's conv weight
+gradient in the compute dtype (the JAX package leaves it to XLA), and the bias
+gradient as Σg in fp32; each is cast to its input's dtype.
 """
 
 from __future__ import annotations
@@ -28,9 +35,9 @@ _ENTRY = {torch.bfloat16: "eovax_conv3x3_bf16", torch.float32: "eovax_conv3x3_f3
 _PIXEL_TILE = {torch.bfloat16: (4, 64), torch.float32: (8, 32)}  # rows × columns per block
 
 
-def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """The nine tap products of NCHW ``x`` and OIHW ``w`` (cast to ``x.dtype``)
-    summed in fp32, plus the bias in ``x.dtype``, rounded to ``x.dtype``."""
+    summed in fp32, plus the bias (if any) in ``x.dtype``, rounded to ``x.dtype``."""
     h, wd = x.shape[2:]
     xp = F.pad(x.float(), (1, 1, 1, 1))
     wf = w.to(x.dtype).float()
@@ -39,7 +46,30 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch
         for dx in range(3):
             tap = torch.einsum("oi,bihw->bohw", wf[:, :, dy, dx], xp[:, :, dy:dy + h, dx:dx + wd])
             acc = tap if acc is None else acc + tap
-    return (acc + bias.to(x.dtype).float()[None, :, None, None]).to(x.dtype)
+    if bias is not None:
+        acc = acc + bias.to(x.dtype).float()[None, :, None, None]
+    return acc.to(x.dtype)
+
+
+def flipped(w: torch.Tensor) -> torch.Tensor:
+    """OIHW weights of the data gradient: taps flipped, in and out swapped."""
+    return w.flip(2, 3).transpose(0, 1)
+
+
+def conv3x3_dx_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Data gradient of :func:`conv3x3` for the output gradient ``g``."""
+    return conv3x3_plain(g, flipped(w), None)
+
+
+def _weight_grad(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return torch.nn.grad.conv2d_weight(x, w.shape, g, padding=1).to(w.dtype)
+
+
+def conv3x3_backward_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dw, db) of :func:`conv3x3` in plain PyTorch."""
+    g = g.to(x.dtype)
+    return conv3x3_dx_plain(g, w), _weight_grad(x, w, g), g.float().sum((0, 2, 3)).to(bias.dtype)
 
 
 @functools.cache
@@ -52,35 +82,29 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """3×3 stride-1 SAME conv of NCHW ``x`` with OIHW ``w`` and bias [Co].
-
-    CPU tensors take :func:`conv3x3_plain`; CUDA tensors launch the kernel
-    (and add one to ``conv3x3.launches``) or raise.
-    """
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w, bias)
+def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, what: str) -> torch.Tensor:
+    """Check the operands and launch the kernel on a CUDA tensor (no count)."""
     if x.device.type != "cuda":
-        raise ValueError(f"conv3x3: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _ENTRY:
-        raise ValueError(f"conv3x3: dtype must be bfloat16 or float32, got {x.dtype}")
+        raise ValueError(f"{what}: dtype must be bfloat16 or float32, got {x.dtype}")
     if x.dim() != 4 or w.dim() != 4 or w.shape[1:] != (x.shape[1], 3, 3):
-        raise ValueError(f"conv3x3: x [B, Ci, H, W] and w [Co, Ci, 3, 3] expected, got "
+        raise ValueError(f"{what}: x [B, Ci, H, W] and w [Co, Ci, 3, 3] expected, got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
     b, ci, h, wd = x.shape
     co = w.shape[0]
-    if bias.shape != (co,):
-        raise ValueError(f"conv3x3: bias must be [{co}], got {tuple(bias.shape)}")
-    if w.device != x.device or bias.device != x.device:
-        raise ValueError("conv3x3: x, w and bias must be on one device")
+    if bias is not None and bias.shape != (co,):
+        raise ValueError(f"{what}: bias must be [{co}], got {tuple(bias.shape)}")
+    if w.device != x.device or (bias is not None and bias.device != x.device):
+        raise ValueError(f"{what}: x, w and bias must be on one device")
     if not x.is_contiguous():
-        raise ValueError("conv3x3: x must be contiguous")
+        raise ValueError(f"{what}: x must be contiguous")
     if x.dtype == torch.bfloat16 and ci % KERNEL_CI_MULTIPLE:
-        raise ValueError(f"conv3x3: bf16 kernel needs Ci a multiple of {KERNEL_CI_MULTIPLE}, "
+        raise ValueError(f"{what}: bf16 kernel needs Ci a multiple of {KERNEL_CI_MULTIPLE}, "
                          f"got Ci={ci}")
     th, tw = _PIXEL_TILE[x.dtype]
     if x.numel() == 0 or co == 0 or -(-h // th) * -(-wd // tw) > 65535 or b > 65535:
-        raise ValueError(f"conv3x3: shape {tuple(x.shape)} is outside the kernel's grid")
+        raise ValueError(f"{what}: shape {tuple(x.shape)} is outside the kernel's grid")
     # The kernel reads the weights in x's dtype, bf16 as [tap_y, tap_x, Ci/8, Co, 8]
     # (16-byte rows of 8 input channels, the layout of its shared memory), fp32
     # as [tap_y, tap_x, Co, Ci]. One copy kernel either way.
@@ -90,17 +114,71 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
     else:
         wt = torch.empty((3, 3, co, ci), dtype=x.dtype, device=x.device)
         wt.copy_(w.permute(2, 3, 0, 1))
-    bias = bias.to(x.dtype).contiguous()
+    bias_ptr = None
+    if bias is not None:
+        bias = bias.to(x.dtype).contiguous()
+        bias_ptr = bias.data_ptr()
     out = torch.empty((b, co, h, wd), dtype=x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         code = getattr(lib, _ENTRY[x.dtype])(
-            x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), b, ci, co, h, wd,
+            x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), b, ci, co, h, wd,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    build.check(lib, code, "conv3x3")
+    build.check(lib, code, what)
+    return out
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, bias)
+    out = _launch(x, w, bias, "conv3x3")
     conv3x3.launches += 1
     return out
 
 
+def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Data gradient of :func:`conv3x3` for the contiguous output gradient
+    ``g`` [B, Co, H, W]: the conv of ``g`` with :func:`flipped` ``w`` and no bias.
+
+    CPU tensors take :func:`conv3x3_dx_plain`; CUDA tensors launch the conv3x3
+    kernel (and add one to ``conv3x3_dx.launches``) or raise.
+    """
+    if g.device.type == "cpu":
+        return conv3x3_dx_plain(g, w)
+    out = _launch(g, flipped(w), None, "conv3x3_dx")
+    conv3x3_dx.launches += 1
+    return out
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        ctx.bias_dtype = bias.dtype
+        return _forward(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        need_x, need_w, need_b = ctx.needs_input_grad
+        return (conv3x3_dx(g, w) if need_x else None,
+                _weight_grad(x, w, g) if need_w else None,
+                g.float().sum((0, 2, 3)).to(ctx.bias_dtype) if need_b else None)
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """3×3 stride-1 SAME conv of NCHW ``x`` with OIHW ``w`` and bias [Co].
+
+    CPU tensors take :func:`conv3x3_plain`; CUDA tensors launch the kernel
+    (and add one to ``conv3x3.launches``) or raise. Where grad is enabled and
+    an input requires it, the output carries the backward described above.
+    """
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or bias.requires_grad):
+        return _Conv3x3.apply(x, w, bias)
+    return _forward(x, w, bias)
+
+
 conv3x3.launches = 0
+conv3x3_dx.launches = 0

@@ -4,7 +4,10 @@
 // Replaces the Pallas TPU kernel `_kernel` / `_conv3x3_pallas` / `conv3x3` in
 // eovax/kernels/conv3x3.py (pallas_call at line 112): the conv as nine tap
 // matrix products into an fp32 accumulator, the bias (in the input type)
-// added in fp32, and one rounding to the input type. Forward only.
+// added in fp32, and one rounding to the input type. The same entry points
+// compute the data gradient of the backward (`_bwd` there, line 186): the
+// conv of the output gradient with the flipped, in/out-transposed weights and
+// no bias (a null bias pointer).
 //
 // What bounds it on the H100: operations. A ResnetBlock conv at
 // [4, 512, 256, 256] 512→256 is 2·B·H·W·9·Ci·Co = 618 GFLOP against 403 MB
@@ -393,7 +396,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int n = 8 * j + 2 * (lane % 4) + e;
-      const float bv = co0 + n < s.Co ? __bfloat162float(bias[co0 + n]) : 0.f;
+      const float bv =
+          bias != nullptr && co0 + n < s.Co ? __bfloat162float(bias[co0 + n]) : 0.f;
 #pragma unroll
       for (int rr = 0; rr < kWGRows; ++rr)
 #pragma unroll
@@ -476,7 +480,8 @@ __global__ void __launch_bounds__(kFThreads)
   float* ob = out + (size_t)blockIdx.z * s.Co * plane + (size_t)y * s.W + xx;
 #pragma unroll
   for (int co = 0; co < kFCo; ++co)
-    if (co0 + co < s.Co) ob[(size_t)(co0 + co) * plane] = acc[co] + bias[co0 + co];
+    if (co0 + co < s.Co)
+      ob[(size_t)(co0 + co) * plane] = acc[co] + (bias != nullptr ? bias[co0 + co] : 0.f);
 }
 
 // Grid (channel blocks, pixel tiles, batch): y and z are limited to 65535.
@@ -486,7 +491,8 @@ bool grid_fits(long tiles, int B) { return tiles <= 65535L && B <= 65535; }
 
 extern "C" {
 
-// x: contiguous [B, Ci, H, W] bf16; wt: contiguous [3, 3, Ci/8, Co, 8] bf16; bias: [Co] bf16;
+// x: contiguous [B, Ci, H, W] bf16; wt: contiguous [3, 3, Ci/8, Co, 8] bf16; bias: [Co] bf16
+// or null (no bias);
 // out: contiguous [B, Co, H, W] bf16. Ci must be a multiple of 16 (the K chunk).
 int eovax_conv3x3_bf16(const void* x, const void* wt, const void* bias, void* out, int B, int Ci,
                        int Co, int H, int W, void* stream) {

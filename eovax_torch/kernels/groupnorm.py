@@ -1,4 +1,4 @@
-"""GroupNorm over NCHW tensors: fp32 statistics, then one fused apply.
+"""GroupNorm over NCHW tensors: fp32 statistics, then one fused apply; and its gradient.
 
 Port of ``eovax/kernels/groupnorm.py``. On a CUDA tensor :func:`group_norm`
 launches the two hand-written Hopper kernels of ``csrc/groupnorm.cu``: the
@@ -11,6 +11,12 @@ version. Neither falls back from the kernel.
 
 Both kernels take bf16 (the inference policy) and fp32 (``FULL_PRECISION``);
 statistics and arithmetic are fp32, and the output has the input's dtype.
+
+When an input requires grad, :func:`group_norm` is a ``torch.autograd.Function``
+that saves x and the per-group fp32 mean and rstd, and whose backward is
+:func:`group_norm_backward`: the JAX package's closed form ``_gn_bwd``
+carried through the affine, AdaIN and SiLU, as two more hand-written kernels
+(a per-plane reduction and an apply) around a few [B, C] tensor ops.
 """
 
 from __future__ import annotations
@@ -39,22 +45,44 @@ def _per_channel(v: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, 1, 1) if v.dim() == 1 else v[:, :, None, None]
 
 
-def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                     groups: int = 32, eps: float = 1e-6, *, ada_scale: torch.Tensor | None = None,
-                     ada_shift: torch.Tensor | None = None, swish: bool = False) -> torch.Tensor:
-    """Two-pass fp32 GroupNorm, affine, optional AdaIN (y·s + t) and SiLU,
-    rounded once to ``x.dtype``."""
-    b = x.shape[0]
+def group_stats_plain(x: torch.Tensor, groups: int, eps: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-pass fp32 (mean, rstd) per (B, group)."""
+    xf = x.float().reshape(x.shape[0], groups, -1)
+    mean = xf.mean(dim=-1)
+    var = (xf - mean[..., None]).square().mean(dim=-1)
+    return mean, torch.rsqrt(var + eps)
+
+
+def _group_stats_from_planes(stats: torch.Tensor, b: int, groups: int, n: int, eps: float
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, rstd) per (B, group) from the statistics kernel's per-plane (mean, M2)
+    of ``n`` elements each, combined with Chan's formula as the apply kernel does."""
+    mean, m2 = stats.view(2, b, groups, -1)
+    gm = mean.mean(dim=-1)
+    gm2 = (m2 + n * (mean - gm[..., None]).square()).sum(dim=-1)
+    return gm, torch.rsqrt(gm2 / (n * mean.shape[-1]) + eps)
+
+
+def _normalize_plain(x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
+    b, groups = mean.shape
     xf = x.float().reshape(b, groups, -1)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = ((xf - mean[..., None]) * rstd[..., None]).reshape(x.shape)
     y = y * _per_channel(weight) + _per_channel(bias)
     if ada_scale is not None:
         y = y * _per_channel(ada_scale) + _per_channel(ada_shift)
     if swish:
         y = F.silu(y)
     return y.to(x.dtype)
+
+
+def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     groups: int = 32, eps: float = 1e-6, *, ada_scale: torch.Tensor | None = None,
+                     ada_shift: torch.Tensor | None = None, swish: bool = False) -> torch.Tensor:
+    """Two-pass fp32 GroupNorm, affine, optional AdaIN (y·s + t) and SiLU,
+    rounded once to ``x.dtype``."""
+    mean, rstd = group_stats_plain(x, groups, eps)
+    return _normalize_plain(x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
 
 
 @functools.cache
@@ -68,6 +96,10 @@ def _library() -> ctypes.CDLL:
         apply.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                           + [ctypes.c_long, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         apply.restype = ctypes.c_int
+        bwd = getattr(lib, f"eovax_gn_bwd_{suffix}")
+        bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                        + [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p])
+        bwd.restype = ctypes.c_int
     return lib
 
 
@@ -113,6 +145,186 @@ def gn_channel_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return mean * n, m2 + mean * mean * n
 
 
+def _check_params(x, weight, bias, groups, ada_scale, ada_shift, what) -> int:
+    """Check the operands of the kernels; returns the AdaIN stride (0: [C], C: [B, C])."""
+    _check_input(x, what)
+    b, c = x.shape[:2]
+    if x.numel() == 0 or c % groups:
+        raise ValueError(f"{what}: {tuple(x.shape)} with {groups} groups")
+    params = [weight, bias]
+    if (ada_scale is None) != (ada_shift is None):
+        raise ValueError(f"{what}: ada_scale and ada_shift go together")
+    ada_stride = 0
+    if ada_scale is not None:
+        if ada_scale.shape != ada_shift.shape or ada_scale.shape not in ((c,), (b, c)):
+            raise ValueError(f"{what}: AdaIN scale/shift must be [{c}] or [{b}, {c}], got "
+                             f"{tuple(ada_scale.shape)}, {tuple(ada_shift.shape)}")
+        ada_stride = 0 if ada_scale.dim() == 1 else c
+        params += [ada_scale, ada_shift]
+    if weight.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"{what}: weight and bias must be [{c}]")
+    if any(p.device != x.device for p in params):
+        raise ValueError(f"{what}: parameters must be on the input's device")
+    return ada_stride
+
+
+def _fp32(*tensors):
+    """Contiguous fp32 copies (or the tensors themselves) of the optional operands."""
+    return [None if t is None else t.float().contiguous() for t in tensors]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats):
+    """The forward on either device; with ``with_stats`` also (mean, rstd) [B, G]."""
+    if x.device.type == "cpu":
+        mean, rstd = group_stats_plain(x, groups, eps)
+        out = _normalize_plain(x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
+        return (out, mean, rstd) if with_stats else out
+    ada_stride = _check_params(x, weight, bias, groups, ada_scale, ada_shift, "group_norm")
+    b, c, h, w = x.shape
+    weight, bias, ada_scale, ada_shift = _fp32(weight, bias, ada_scale, ada_shift)
+    scale_ptr, shift_ptr = _ptr(ada_scale), _ptr(ada_shift)
+    lib = _library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stats = _channel_stats(lib, x, "group_norm")
+        code = getattr(lib, f"eovax_gn_apply_{_SUFFIX[x.dtype]}")(
+            x.data_ptr(), out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), scale_ptr, shift_ptr, ada_stride, b, c, groups,
+            h * w, eps, int(swish), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(lib, code, "group_norm")
+    group_norm.launches += 1
+    if not with_stats:
+        return out
+    return (out, *_group_stats_from_planes(stats, b, groups, h * w, eps))
+
+
+def _plane_coefficients(x, mean, rstd, weight, bias, ada_scale, ada_shift):
+    """fp32 [B, C] (μ, r, a, c) with x̂ = (x − μ)·r and z = x̂·a + c, as the kernels
+    work them out for each plane."""
+    b, c = x.shape[:2]
+    per_channel = (lambda v: v.float().repeat_interleave(c // mean.shape[1], dim=1))
+    s = (ada_scale if ada_scale is not None else torch.ones_like(weight)).float().expand(b, c)
+    t = (ada_shift if ada_shift is not None else torch.zeros_like(bias)).float().expand(b, c)
+    return per_channel(mean), per_channel(rstd), weight.float() * s, bias.float() * s + t
+
+
+def _xhat_dz(x, g, coef, swish):
+    mu, r, a, c = (v[:, :, None, None] for v in coef)
+    xh = (x.float() - mu) * r
+    dz = g.float()
+    if swish:
+        z = xh * a + c
+        sg = torch.sigmoid(z)
+        dz = dz * sg * (1.0 + z * (1.0 - sg))
+    return xh, dz
+
+
+def _backward_plain(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
+    """The two kernels' contract in plain PyTorch: (dx, S1 = Σ dz, S2 = Σ dz·x̂)."""
+    coef = _plane_coefficients(x, mean, rstd, weight, bias, ada_scale, ada_shift)
+    xh, dz = _xhat_dz(x, g, coef, swish)
+    s1, s2 = dz.sum(dim=(2, 3)), (dz * xh).sum(dim=(2, 3))
+    b, c = s1.shape
+    groups, a, r = mean.shape[1], coef[2], coef[1]
+    # _gn_bwd's per-group means of g·γ' and g·γ'·x̂, with γ' = a the scale of x̂ in z.
+    group_mean = (lambda v: (v.view(b, groups, -1).sum(dim=-1) / x[0, : c // groups].numel())
+                  .repeat_interleave(c // groups, dim=1)[:, :, None, None])
+    dx = r[:, :, None, None] * (a[:, :, None, None] * dz - group_mean(a * s1)
+                                - xh * group_mean(a * s2))
+    return dx.to(x.dtype), s1, s2
+
+
+def _backward_kernel(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
+    groups = mean.shape[-1]
+    ada_stride = _check_params(x, weight, bias, groups, ada_scale, ada_shift,
+                               "group_norm_backward")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
+        raise ValueError("group_norm_backward: g must be a contiguous tensor like x")
+    b, c, h, w = x.shape
+    if (mean.shape != (b, groups) or rstd.shape != mean.shape
+            or mean.device != x.device or rstd.device != x.device):
+        raise ValueError(f"group_norm_backward: mean and rstd must be [{b}, groups] on x's "
+                         f"device, got {tuple(mean.shape)}, {tuple(rstd.shape)}")
+    mean, rstd, weight, bias, ada_scale, ada_shift = _fp32(mean, rstd, weight, bias, ada_scale,
+                                                           ada_shift)
+    dx = torch.empty_like(x)
+    sums = torch.empty(2, b, c, device=x.device, dtype=torch.float32)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        code = getattr(lib, f"eovax_gn_bwd_{_SUFFIX[x.dtype]}")(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), _ptr(ada_scale), _ptr(ada_shift), ada_stride,
+            sums[0].data_ptr(), sums[1].data_ptr(), b, c, groups, h * w, int(swish),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(lib, code, "group_norm_backward")
+    return dx, sums[0], sums[1]
+
+
+def _backward(passes, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
+    dx, s1, s2 = passes(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
+    if ada_scale is None:
+        return dx, s2.sum(dim=0), s1.sum(dim=0), None, None
+    s = ada_scale.float().expand_as(s1)
+    d_scale, d_shift = weight.float() * s2 + bias.float() * s1, s1
+    if ada_scale.dim() == 1:
+        d_scale, d_shift = d_scale.sum(dim=0), d_shift.sum(dim=0)
+    return dx, (s * s2).sum(dim=0), (s * s1).sum(dim=0), d_scale, d_shift
+
+
+def group_norm_backward(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                        weight: torch.Tensor, bias: torch.Tensor, *,
+                        ada_scale: torch.Tensor | None = None,
+                        ada_shift: torch.Tensor | None = None, swish: bool = False):
+    """Gradients of :func:`group_norm` for the output gradient ``g`` (x's dtype and
+    shape, contiguous), from the saved ``x`` and fp32 per-group ``mean`` and
+    ``rstd`` [B, G]: (dx in x's dtype, dweight, dbias, d_ada_scale, d_ada_shift)
+    in fp32, the AdaIN ones None without AdaIN and summed over B for a [C] AdaIN.
+
+    CPU tensors take :func:`group_norm_backward_plain`; CUDA tensors launch the
+    reduction and apply kernels (and add one to ``group_norm_backward.launches``)
+    or raise. The parameter gradients are a few tensor ops on the kernels'
+    per-plane sums.
+    """
+    if x.device.type == "cpu":
+        return group_norm_backward_plain(g, x, mean, rstd, weight, bias, ada_scale=ada_scale,
+                                         ada_shift=ada_shift, swish=swish)
+    out = _backward(_backward_kernel, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
+    group_norm_backward.launches += 1
+    return out
+
+
+def group_norm_backward_plain(g, x, mean, rstd, weight, bias, *, ada_scale=None, ada_shift=None,
+                              swish=False):
+    """:func:`group_norm_backward` with its two kernels' passes in plain PyTorch."""
+    return _backward(_backward_plain, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, ada_scale, ada_shift, groups, eps, swish):
+        out, mean, rstd = _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish,
+                                   with_stats=True)
+        ctx.save_for_backward(x, mean, rstd, weight, bias, ada_scale, ada_shift)
+        ctx.swish = swish
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, weight, bias, ada_scale, ada_shift = ctx.saved_tensors
+        dx, dw, db, ds, dt = group_norm_backward(
+            g.to(x.dtype).contiguous(), x, mean, rstd, weight, bias, ada_scale=ada_scale,
+            ada_shift=ada_shift, swish=ctx.swish)
+        cast = (lambda d, p: None if d is None else d.to(p.dtype))
+        return (dx, cast(dw, weight), cast(db, bias), cast(ds, ada_scale), cast(dt, ada_shift),
+                None, None, None)
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int = 32,
                eps: float = 1e-6, *, ada_scale: torch.Tensor | None = None,
                ada_shift: torch.Tensor | None = None, swish: bool = False) -> torch.Tensor:
@@ -122,44 +334,15 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups
 
     CPU tensors take :func:`group_norm_plain`; CUDA tensors launch the
     statistics and apply kernels (and add one to ``group_norm.launches``) or
-    raise.
+    raise. Where grad is enabled and an input requires it, the output carries
+    the backward of :func:`group_norm_backward`.
     """
-    if x.device.type == "cpu":
-        return group_norm_plain(x, weight, bias, groups, eps, ada_scale=ada_scale,
-                                ada_shift=ada_shift, swish=swish)
-    _check_input(x, "group_norm")
-    b, c, h, w = x.shape
-    if x.numel() == 0 or c % groups:
-        raise ValueError(f"group_norm: {tuple(x.shape)} with {groups} groups")
-    params = [weight, bias]
-    if (ada_scale is None) != (ada_shift is None):
-        raise ValueError("group_norm: ada_scale and ada_shift go together")
-    ada_stride = 0
-    if ada_scale is not None:
-        if ada_scale.shape != ada_shift.shape or ada_scale.shape not in ((c,), (b, c)):
-            raise ValueError(f"group_norm: AdaIN scale/shift must be [{c}] or [{b}, {c}], got "
-                             f"{tuple(ada_scale.shape)}, {tuple(ada_shift.shape)}")
-        ada_stride = 0 if ada_scale.dim() == 1 else c
-        params += [ada_scale, ada_shift]
-    if weight.shape != (c,) or bias.shape != (c,):
-        raise ValueError(f"group_norm: weight and bias must be [{c}]")
-    if any(p.device != x.device for p in params):
-        raise ValueError("group_norm: parameters must be on the input's device")
-    weight, bias, *ada = [p.float().contiguous() for p in params]
-    scale_ptr, shift_ptr = (ada[0].data_ptr(), ada[1].data_ptr()) if ada else (None, None)
-    lib = _library()
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        mean, m2 = _channel_stats(lib, x, "group_norm")
-        code = getattr(lib, f"eovax_gn_apply_{_SUFFIX[x.dtype]}")(
-            x.data_ptr(), out.data_ptr(), mean.data_ptr(), m2.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), scale_ptr, shift_ptr, ada_stride, b, c, groups, h * w, eps,
-            int(swish), torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(lib, code, "group_norm")
-    group_norm.launches += 1
-    return out
+    inputs = (x, weight, bias, ada_scale, ada_shift)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return _GroupNorm.apply(x, weight, bias, ada_scale, ada_shift, groups, eps, swish)
+    return _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats=False)
 
 
 gn_channel_sums.launches = 0
 group_norm.launches = 0
+group_norm_backward.launches = 0

@@ -10,8 +10,9 @@ num_res_blocks=2, z_channels=32 — three downsamples, a [B, 32, H/8, W/8]
 latent and ~95.5M parameters. The mid-block attention runs over (H/8)·(W/8)
 tokens of width ch·ch_mult[-1] = 512.
 
-Training-only pieces of the JAX module (rematerialization, latent noise,
-``forward_gan``) are not ported yet.
+:meth:`EOVAECore.forward` takes the JAX module's training arguments: latent
+BatchNorm batch statistics (``train``), latent noise, and ``remat`` of the
+encoder's and decoder's level ResnetBlocks. ``forward_gan`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def _run_mid(mid: nn.Module, h: torch.Tensor, emb: torch.Tensor | None) -> torch
 class Encoder(nn.Module):
     """Image → latent moments [B, 2·z_channels, H/8, W/8]."""
 
-    def __init__(self, cfg: EncoderConfig, policy: Policy = FULL_PRECISION):
+    def __init__(self, cfg: EncoderConfig, policy: Policy = FULL_PRECISION, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.policy = policy
@@ -89,7 +90,7 @@ class Encoder(nn.Module):
             stage = nn.Module()
             stage.block = nn.ModuleList()
             for _ in range(cfg.num_res_blocks):
-                stage.block.append(ResnetBlock(block_in, block_out, cond_dim, policy))
+                stage.block.append(ResnetBlock(block_in, block_out, cond_dim, policy, remat))
                 block_in = block_out
             if i != len(cfg.ch_mult) - 1:
                 stage.downsample = Downsample(block_in, policy)
@@ -123,7 +124,7 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     """Latent [B, z_channels, H/8, W/8] → image."""
 
-    def __init__(self, cfg: DecoderConfig, policy: Policy = FULL_PRECISION):
+    def __init__(self, cfg: DecoderConfig, policy: Policy = FULL_PRECISION, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.policy = policy
@@ -144,7 +145,7 @@ class Decoder(nn.Module):
             stage = nn.Module()
             stage.block = nn.ModuleList()
             for _ in range(cfg.num_res_blocks + 1):
-                stage.block.append(ResnetBlock(block_in, block_out, cond_dim, policy))
+                stage.block.append(ResnetBlock(block_in, block_out, cond_dim, policy, remat))
                 block_in = block_out
             if i != 0:
                 stage.upsample = Upsample(block_in, policy)
@@ -191,15 +192,19 @@ class Decoder(nn.Module):
 
 
 class EOVAECore(nn.Module):
-    """Full VAE: encoder, 2×2 patch shuffle, latent BatchNorm, decoder."""
+    """Full VAE: encoder, 2×2 patch shuffle, latent BatchNorm, decoder.
+
+    ``remat`` recomputes the encoder's and decoder's level ResnetBlocks in the
+    backward (the mid blocks are kept, as in the JAX module)."""
 
     def __init__(self, encoder_cfg: EncoderConfig, decoder_cfg: DecoderConfig,
-                 policy: Policy = FULL_PRECISION, ps: tuple[int, int] = (2, 2)):
+                 policy: Policy = FULL_PRECISION, ps: tuple[int, int] = (2, 2),
+                 remat: bool = False):
         super().__init__()
         self.policy = policy
         self.ps = ps
-        self.encoder = Encoder(encoder_cfg, policy)
-        self.decoder = Decoder(decoder_cfg, policy)
+        self.encoder = Encoder(encoder_cfg, policy, remat)
+        self.decoder = Decoder(decoder_cfg, policy, remat)
         self.bn = LatentBatchNorm(ps[0] * ps[1] * encoder_cfg.z_channels)
 
     # --- primitives -----------------------------------------------------------
@@ -208,9 +213,11 @@ class EOVAECore(nn.Module):
         """Image → posterior over the raw (unshuffled) latent."""
         return DiagonalGaussian.from_moments(self.encoder(x, wvs).float())
 
-    def decode(self, z: torch.Tensor, wvs: torch.Tensor) -> torch.Tensor:
-        """Normalized packed latent [B, 4z, H/16, W/16] → image."""
-        return self.decoder(patch_unshuffle(self.bn.inverse(z), self.ps), wvs)
+    def decode(self, z: torch.Tensor, wvs: torch.Tensor,
+               bn_stats: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+        """Normalized packed latent [B, 4z, H/16, W/16] → image (de-normalized
+        with the running statistics, or with ``bn_stats``)."""
+        return self.decoder(patch_unshuffle(self.bn.inverse(z, bn_stats), self.ps), wvs)
 
     def decode_raw(self, z: torch.Tensor, wvs: torch.Tensor) -> torch.Tensor:
         """Raw (unshuffled, unnormalized) latent → image."""
@@ -224,16 +231,30 @@ class EOVAECore(nn.Module):
     def forward(self, x: torch.Tensor, wvs: torch.Tensor, *,
                 generator: torch.Generator | None = None, sample_posterior: bool = True,
                 scale: float | tuple[float, float] | None = None,
-                angle: int | None = None) -> tuple[torch.Tensor, DiagonalGaussian]:
-        """Encode → (EQ-VAE scale / rotation) → shuffle → BN → decode."""
+                angle: int | None = None, train: bool = False, latent_noise_p: float = 0.0,
+                noise_tau: float = 0.8) -> tuple[torch.Tensor, DiagonalGaussian]:
+        """Encode → (EQ-VAE scale / rotation) → shuffle → BN → (latent noise) → decode.
+
+        ``train`` normalizes the latent with its batch statistics, updates the
+        running ones and de-normalizes with the updated ones. In train mode
+        with ``latent_noise_p`` > 0, the whole batch's latent gets, with
+        probability ``latent_noise_p``, Gaussian noise of a per-sample σ drawn
+        uniform in [0, ``noise_tau``). Every draw comes from ``generator``.
+        """
         posterior = self.encode(x, wvs)
         z = posterior.sample(generator) if sample_posterior else posterior.mode()
         if scale is not None:
             z = self._apply_scale(z, scale)
         if angle is not None:
             z = torch.rot90(z, k=angle, dims=(3, 2))  # the JAX package's NHWC axes (2, 1)
-        z = self.normalize_latent(patch_shuffle(z, self.ps), train=False)
-        return self.decode(z, wvs), posterior
+        z, bn_stats = patch_shuffle(z, self.ps), None
+        if train:  # the updated running statistics, with their gradient, de-normalize
+            z, bn_stats = self.bn.normalize_batch(z)
+        else:
+            z = self.bn(z, use_running_average=True)
+        if train and latent_noise_p > 0.0:
+            z = self._latent_noise(z, latent_noise_p, noise_tau, generator)
+        return self.decode(z, wvs, bn_stats), posterior
 
     def encode_to_latent(self, x: torch.Tensor, wvs: torch.Tensor, *,
                          train: bool = False) -> torch.Tensor:
@@ -254,6 +275,15 @@ class EOVAECore(nn.Module):
         return recon
 
     # --- helpers --------------------------------------------------------------
+
+    @staticmethod
+    def _latent_noise(z: torch.Tensor, p: float, tau: float,
+                      generator: torch.Generator | None) -> torch.Tensor:
+        draw = dict(generator=generator, device=z.device)
+        gate = torch.rand((), **draw) < p
+        sigma = tau * torch.rand((z.shape[0], 1, 1, 1), **draw)
+        noise = sigma * torch.randn(z.shape, **draw)
+        return torch.where(gate, z + noise.to(z.dtype), z)
 
     def _apply_scale(self, z: torch.Tensor, scale) -> torch.Tensor:
         """Bilinear latent rescale snapped to patch multiples (half-pixel

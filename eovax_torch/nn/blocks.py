@@ -19,6 +19,11 @@ the compute dtype.
   :func:`eovax_torch.kernels.attention.flash_attention`, with a residual
   1×1 output projection.
 - AdaIN ``emb_proj`` init: zero weight, bias [1]*C ++ [0]*C.
+- ResnetBlock ``remat``: recompute the block in the backward
+  (``torch.utils.checkpoint``), the JAX package's ``nn.remat``.
+
+The three kernel wrappers carry their own backward (hand kernels for the conv
+data gradient and the GroupNorm), so the blocks train as they infer.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from eovax_torch.core.precision import FULL_PRECISION, Policy
 from eovax_torch.kernels.attention import flash_attention
@@ -121,12 +127,16 @@ class Upsample(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """GN → swish → conv, twice, with optional AdaIN modulation after norm2."""
+    """GN → swish → conv, twice, with optional AdaIN modulation after norm2.
+
+    With ``remat`` the block keeps only its inputs for the backward and runs
+    its forward again there (off by default, as in the JAX package)."""
 
     def __init__(self, in_channels: int, out_channels: int, cond_dim: int | None = None,
-                 policy: Policy = FULL_PRECISION):
+                 policy: Policy = FULL_PRECISION, remat: bool = False):
         super().__init__()
         self.out_channels = out_channels
+        self.remat = remat
         self.norm1 = GroupNorm(in_channels, policy)
         self.conv1 = Conv3x3(in_channels, out_channels, policy)
         self.norm2 = GroupNorm(out_channels, policy)
@@ -145,6 +155,11 @@ class ResnetBlock(nn.Module):
             self.emb_proj.bias[self.out_channels :] = 0.0
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor | None = None) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, emb, use_reentrant=False)
+        return self._forward(x, emb)
+
+    def _forward(self, x: torch.Tensor, emb: torch.Tensor | None) -> torch.Tensor:
         h = self.conv1(self.norm1(x, swish=True))
         scale = shift = None
         if self.emb_proj is not None and emb is not None:

@@ -8,6 +8,12 @@ whose running statistics belong to the public checkpoint.
 - eps is 1e-5 for the forward normalization and 1e-4 for the inverse.
 - Train mode updates ``running_var`` with the unbiased batch variance but
   normalizes with the biased one, as torch's BatchNorm2d does.
+- :meth:`LatentBatchNorm.normalize_batch` also returns the updated running
+  statistics as tensors that carry the gradient of the batch statistics. In
+  the JAX package the inverse of the same train step reads the updated
+  statistics from the mutable collection, so its gradient flows through them
+  into the batch mean and variance; the port's train step passes them to
+  :meth:`LatentBatchNorm.inverse` to compute the same gradient.
 """
 
 from __future__ import annotations
@@ -46,24 +52,37 @@ class LatentBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor, *, use_running_average: bool) -> torch.Tensor:
+    def normalize_batch(self, x: torch.Tensor
+                        ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+        """Train mode: normalize with the batch statistics and update the running
+        ones; returns the output and the updated (running_mean, running_var)."""
         xf = x.float()
-        if use_running_average:
-            mean, var = self.running_mean, self.running_var
-        else:
-            dims = (0, 2, 3)
-            mean = xf.mean(dim=dims)
-            var = (xf - mean[None, :, None, None]).square().mean(dim=dims)  # biased
-            n = xf.numel() // xf.shape[1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-                self.num_batches_tracked.add_(1)
-        y = (xf - mean[None, :, None, None]) * torch.rsqrt(var + self.eps)[None, :, None, None]
-        return y.to(x.dtype)
+        dims = (0, 2, 3)
+        mean = xf.mean(dim=dims)
+        var = (xf - mean[None, :, None, None]).square().mean(dim=dims)  # biased
+        n = xf.numel() // xf.shape[1]
+        m = self.momentum
+        new_mean = (1 - m) * self.running_mean + m * mean
+        new_var = (1 - m) * self.running_var + m * var * (n / max(n - 1, 1))
+        with torch.no_grad():
+            self.running_mean.copy_(new_mean)
+            self.running_var.copy_(new_var)
+            self.num_batches_tracked.add_(1)
+        return self._normalize(x, mean, var), (new_mean, new_var)
 
-    def inverse(self, z: torch.Tensor) -> torch.Tensor:
-        """De-normalize with the running statistics: z·sqrt(var + 1e-4) + mean."""
-        y = z.float() * torch.sqrt(self.running_var + self.inv_eps)[None, :, None, None]
-        return (y + self.running_mean[None, :, None, None]).to(z.dtype)
+    def _normalize(self, x, mean, var):
+        rstd = torch.rsqrt(var + self.eps)
+        return ((x.float() - mean[None, :, None, None]) * rstd[None, :, None, None]).to(x.dtype)
+
+    def forward(self, x: torch.Tensor, *, use_running_average: bool) -> torch.Tensor:
+        if use_running_average:
+            return self._normalize(x, self.running_mean, self.running_var)
+        return self.normalize_batch(x)[0]
+
+    def inverse(self, z: torch.Tensor,
+                stats: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+        """De-normalize with the running statistics (or ``stats``):
+        z·sqrt(var + 1e-4) + mean."""
+        mean, var = stats if stats is not None else (self.running_mean, self.running_var)
+        y = z.float() * torch.sqrt(var + self.inv_eps)[None, :, None, None]
+        return (y + mean[None, :, None, None]).to(z.dtype)

@@ -2,9 +2,11 @@
 
 ``flash_attention_plain`` is what the port computes on the CPU; here it is
 held against ``eovax.kernels.attention.flash_attention`` run in Pallas
-interpret mode. The tests marked ``gpu`` hold the CUDA kernel against
-``flash_attention_plain`` on the card and skip without one. They import no
-JAX, so the card's machine runs them without it:
+interpret mode, and its backward against ``jax.vjp`` of ``sdpa_auto``, which
+is what the JAX trainer differentiates. The tests marked ``gpu`` hold the
+CUDA kernel against ``flash_attention_plain`` on the card, and the port's
+backward through the model on the card against the CPU, and skip without
+one. They import no JAX, so the card's machine runs them without it:
 
     python -m pytest tests/test_torch_attention.py -m gpu --noconftest
 """
@@ -62,6 +64,39 @@ def test_plain_matches_jax_flash_kernel(s, d, block):
     )
     out = attention.flash_attention_plain(*map(torch.from_numpy, (q, k, v)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 100, 64), (1, 256, 512)])
+def test_backward_matches_jax_sdpa_auto(b, s, d):
+    """fp32 (dq, dk, dv) against autodiff of the JAX package's plain attention."""
+    import jax
+    import jax.numpy as jnp
+
+    from eovax.kernels.attention import sdpa_auto
+
+    q, k, v = _qkv(b, s, d, seed=2)
+    g = np.random.default_rng(3).standard_normal((b, s, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: sdpa_auto(*a, precision=jax.lax.Precision.HIGHEST),
+                     *map(jnp.asarray, (q, k, v)))
+    refs = vjp(jnp.asarray(g))
+    inputs = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    before = attention.flash_attention_backward.calls
+    out = attention.flash_attention(*inputs)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    grads = torch.autograd.grad(out, inputs, torch.from_numpy(g))
+    assert attention.flash_attention_backward.calls == before + 1
+    for got, ref in zip(grads, refs):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_backward_rounds_probabilities_to_the_compute_dtype_before_dv():
+    """bf16: dV = (P in bf16)ᵀ·dO, as sdpa_auto rounds probs to v's dtype."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(1, 40, 64, seed=4))
+    do = torch.ones(1, 40, 64, dtype=torch.bfloat16)
+    p = torch.softmax(q.float() @ k.float().transpose(-1, -2) / 8.0, dim=-1)
+    _, _, dv = attention.flash_attention_backward(q, k, v, do)
+    assert dv.dtype == torch.bfloat16
+    torch.testing.assert_close(dv, p.to(torch.bfloat16).transpose(-1, -2) @ do, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -186,3 +221,67 @@ def test_tiny_model_on_card_launches_kernel_and_matches_cpu(cuda_device, policy_
     assert attention.flash_attention.launches == before + 2
     ref = cpu.reconstruct(x, wvs)
     assert (out - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_backward_on_card_has_grad_fn_and_matches_the_cpu(cuda_device, dtype, tol):
+    """The kernel's output carries the backward; its gradients match the same
+    backward on the CPU in fp32. bf16: P and dP rounded to bf16. Relative to
+    max |reference|."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(2, 333, 512, generator=g, device=cuda_device).to(dtype)
+               .requires_grad_() for _ in range(3))
+    before = (attention.flash_attention.launches, attention.flash_attention_backward.calls)
+    out = attention.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    do = torch.randn(out.shape, generator=g, device=cuda_device).to(dtype)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (attention.flash_attention.launches, attention.flash_attention_backward.calls) == (
+        before[0] + 1, before[1] + 1)
+    refs = attention.flash_attention_backward(*(t.detach().float().cpu() for t in (q, k, v)),
+                                              do.float().cpu())
+    for got, ref in zip((q.grad, k.grad, v.grad), refs):
+        assert (got.float().cpu() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy_name,tol", [("fp32", 1e-3), ("bf16", 1e-1)])
+def test_tiny_model_backward_on_card_matches_cpu(cuda_device, policy_name, tol):
+    """backward() through EOVAECore in train mode on the card against the same
+    weights on the CPU in fp32: every conv3x3 data gradient on the kernel, every
+    GroupNorm backward on its kernels, and the relative global norm of the
+    difference of all parameter gradients within tol (fp32: other summation
+    orders; bf16: bf16 activations and gradients between layers)."""
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.core import config
+    from eovax_torch.core.precision import FULL_PRECISION, policy_from_name
+    from eovax_torch.kernels import conv3x3, groupnorm
+    from eovax_torch.nn.blocks import Conv3x3, GroupNorm
+
+    stem = config.StemConfig(num_layers=1, wv_planes=32, use_adain=True)
+    kw = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=8, stem=stem)
+    cfg = config.VAEConfig(encoder=config.EncoderConfig(**kw), decoder=config.DecoderConfig(**kw))
+    cpu = EOFluxVAE(cfg, policy=FULL_PRECISION, device="cpu", seed=0)
+    card = EOFluxVAE(cfg, cpu.core.state_dict(), policy=policy_from_name(policy_name))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 4, 40, 40))
+                         .astype(np.float32))
+    wvs = torch.tensor([0.665, 0.56, 0.49, 0.842])
+    grads = []
+    for model, device in ((cpu, "cpu"), (card, cuda_device)):
+        before = (conv3x3.conv3x3_dx.launches, groupnorm.group_norm_backward.launches,
+                  attention.flash_attention_backward.calls)
+        recon, _ = model.core(x.to(device), wvs.to(device), sample_posterior=False, train=True)
+        (recon.float() - x.to(device)).square().mean().backward()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            n_conv = sum(isinstance(m, Conv3x3) for m in model.core.modules())
+            n_gn = sum(isinstance(m, GroupNorm) for m in model.core.modules())
+            assert (conv3x3.conv3x3_dx.launches - before[0],
+                    groupnorm.group_norm_backward.launches - before[1],
+                    attention.flash_attention_backward.calls - before[2]) == (n_conv, n_gn, 2)
+        grads.append({n: p.grad.float().cpu() for n, p in model.core.named_parameters()})
+    ref_norm = torch.sqrt(sum(g.square().sum() for g in grads[0].values()))
+    diff_norm = torch.sqrt(sum((grads[1][n] - g).square().sum() for n, g in grads[0].items()))
+    assert diff_norm.item() <= tol * ref_norm.item()

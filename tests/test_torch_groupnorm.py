@@ -4,10 +4,12 @@
 on the CPU; here they are held against ``eovax.kernels.groupnorm`` (its
 Pallas statistics kernel in interpret mode, and its plain path) on the same
 numpy inputs, transposed NHWC ↔ NCHW at the boundary, and the fused
-AdaIN + swish variants against the JAX ResnetBlock's own sequence. The tests
-marked ``gpu`` hold the CUDA kernels against the plain versions on the card
-and skip without one. They import no JAX, so the card's machine runs them
-without it:
+AdaIN + swish variants against the JAX ResnetBlock's own sequence; the
+backward against ``jax.vjp`` of the JAX package's ``group_norm`` (its
+``custom_vjp``, ``_gn_bwd``) composed with AdaIN and swish in jnp. The tests
+marked ``gpu`` hold the CUDA kernels, forward and backward, against the plain
+versions on the card and skip without one. They import no JAX, so the card's
+machine runs them without it:
 
     python -m pytest tests/test_torch_groupnorm.py -m gpu --noconftest
 """
@@ -114,6 +116,82 @@ def test_fused_adain_swish_matches_jax_resnet_sequence(ada):
     np.testing.assert_allclose(out, ref, **TOL_F32)
 
 
+# The closed-form backward against autodiff through _gn_bwd: fp32 sums over a
+# group (and over B·H·W for the parameters) in other orders.
+TOL_BWD = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("swish", [False, True], ids=["no-swish", "swish"])
+@pytest.mark.parametrize("ada", [None, "shared", "batched"])
+def test_backward_matches_jax_gn_bwd_with_adain_and_swish(ada, swish):
+    """dx, dweight, dbias, d(ada_scale), d(ada_shift) of norm → (AdaIN) →
+    (swish), in the ResnetBlock's order, against jax.vjp in fp32."""
+    import jax
+    import jax.numpy as jnp
+
+    from eovax.kernels.groupnorm import group_norm as jax_group_norm
+    from eovax.nn.blocks import swish as jax_swish
+
+    b, c, groups = 2, 64, 32
+    x = _x((b, c, 7, 9), seed=10, loc=0.5)
+    w, bias = _params(c, seed=11)
+    rng = np.random.default_rng(12)
+    ada_shape = {"shared": (c,), "batched": (b, c)}.get(ada)
+    extra = []
+    if ada_shape:
+        extra = [(1.0 + 0.2 * rng.standard_normal(ada_shape)).astype(np.float32),
+                 (0.2 * rng.standard_normal(ada_shape)).astype(np.float32)]
+    g = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jax_fn(xx, ww, bb, *st):
+        y = jax_group_norm(xx, ww, bb, groups, 1e-6, False)
+        if st:
+            expand = (lambda v: v[None, None, None, :]) if st[0].ndim == 1 else (
+                lambda v: v[:, None, None, :])
+            y = y * expand(st[0]) + expand(st[1])
+        return jax_swish(y) if swish else y
+
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(_nhwc(x)), jnp.asarray(w), jnp.asarray(bias),
+                     *map(jnp.asarray, extra))
+    refs = vjp(jnp.asarray(_nhwc(g)))
+    refs = [_nchw(refs[0])] + [np.asarray(r) for r in refs[1:]]
+
+    inputs = [torch.from_numpy(a).requires_grad_() for a in [x, w, bias] + extra]
+    kw = dict(ada_scale=inputs[3], ada_shift=inputs[4]) if extra else {}
+    out = groupnorm.group_norm(*inputs[:3], groups, 1e-6, swish=swish, **kw)
+    assert type(out.grad_fn).__name__ == "_GroupNormBackward"
+    grads = torch.autograd.grad(out, inputs, torch.from_numpy(g))
+    for got, ref in zip(grads, refs):
+        np.testing.assert_allclose(got.numpy(), ref, **TOL_BWD)
+
+
+def test_backward_saves_the_forward_statistics_and_launches_nothing_on_cpu():
+    x = torch.from_numpy(_x((2, 64, 5, 6), seed=13)).requires_grad_()
+    w, b = (torch.from_numpy(a).requires_grad_() for a in _params(64))
+    before = (groupnorm.group_norm.launches, groupnorm.group_norm_backward.launches)
+    out = groupnorm.group_norm(x, w, b, swish=True)
+    out.backward(torch.ones_like(out))
+    assert (groupnorm.group_norm.launches, groupnorm.group_norm_backward.launches) == before
+    mean, rstd = groupnorm.group_stats_plain(x.detach(), 32, 1e-6)
+    ref = groupnorm.group_norm_backward_plain(torch.ones_like(out), x.detach(), mean, rstd,
+                                              w.detach(), b.detach(), swish=True)
+    for got, want in zip((x.grad, w.grad, b.grad), ref):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with torch.inference_mode():
+        assert groupnorm.group_norm(x, w, b).grad_fn is None
+
+
+def test_kernel_statistics_combine_to_the_plain_ones():
+    """The per-plane (mean, M2) of the statistics kernel, combined with Chan's
+    formula, give the two-pass group mean and rstd (here from plain planes)."""
+    x = torch.from_numpy(_x((2, 64, 9, 7), seed=14, loc=3.0))
+    xf = x.reshape(2 * 64, -1)
+    planes = torch.stack([xf.mean(dim=1), (xf - xf.mean(dim=1, keepdim=True)).square().sum(1)])
+    got = groupnorm._group_stats_from_planes(planes, 2, 32, 63, 1e-6)
+    for a, ref in zip(got, groupnorm.group_stats_plain(x, 32, 1e-6)):
+        torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_tensor_takes_plain_path_without_launch(dtype):
     x = torch.from_numpy(_x((2, 64, 6, 6), seed=5)).to(dtype)
@@ -211,3 +289,79 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="AdaIN"):
         groupnorm.group_norm(x, w, w, ada_scale=torch.ones(3, 64, device=cuda_device),
                              ada_shift=torch.ones(3, 64, device=cuda_device))
+
+
+# Backward on the card: dx bf16 one output rounding; fp32 and every parameter
+# gradient, fp32 sums in another order. Relative to max |reference|.
+TOL_BWD_CARD = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,dtype,ada,swish",
+    [
+        ((2, 96, 37, 53), torch.bfloat16, None, True),
+        ((2, 96, 37, 53), torch.bfloat16, "batched", True),
+        ((2, 96, 37, 53), torch.float32, "shared", True),
+        ((2, 96, 37, 53), torch.float32, None, False),
+        ((2, 128, 64, 64), torch.bfloat16, "shared", True),
+        ((3, 512, 16, 16), torch.bfloat16, None, False),
+        ((2, 32, 5, 7), torch.float32, "batched", True),
+    ],
+)
+def test_backward_kernels_match_plain_on_card(cuda_device, shape, dtype, ada, swish):
+    x, w, bias, kw = _card_inputs(cuda_device, shape, dtype, ada, loc=0.5)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    grad = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    mean, rstd = groupnorm.group_stats_plain(x, 32, 1e-6)
+    before = groupnorm.group_norm_backward.launches
+    got = groupnorm.group_norm_backward(grad, x, mean, rstd, w, bias, swish=swish, **kw)
+    torch.cuda.synchronize()
+    assert groupnorm.group_norm_backward.launches == before + 1
+    ref = groupnorm.group_norm_backward_plain(grad, x, mean, rstd, w, bias, swish=swish, **kw)
+    assert got[0].dtype == dtype
+    for name, a, r in zip(("dx", "dw", "db", "ds", "dt"), got, ref):
+        if r is None:
+            assert a is None
+            continue
+        tol = TOL_BWD_CARD[dtype] if name == "dx" else 1e-4
+        assert (a.float() - r.float()).abs().max().item() <= tol * r.abs().max().item(), name
+
+
+@pytest.mark.gpu
+def test_backward_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
+    x, w, bias, _ = _card_inputs(cuda_device, (2, 64, 8, 8), torch.float32, None)
+    mean, rstd = groupnorm.group_stats_plain(x, 32, 1e-6)
+    for bad_mean, bad_rstd in ((mean[:1], rstd[:1]), (mean, rstd[:, :16]), (mean.cpu(), rstd)):
+        with pytest.raises(ValueError, match="mean and rstd"):
+            groupnorm.group_norm_backward(x, x, bad_mean, bad_rstd, w, bias)
+    with pytest.raises(ValueError, match="g must be"):
+        groupnorm.group_norm_backward(x.bfloat16(), x, mean, rstd, w, bias)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_function_on_card_saves_kernel_statistics_and_launches_the_backward(cuda_device, dtype):
+    """Autograd through group_norm on the card: a grad_fn, one forward launch, one
+    backward launch, and the gradients of the plain backward from the plain
+    statistics."""
+    x, w, bias, kw = _card_inputs(cuda_device, (2, 64, 24, 40), dtype, "batched", loc=1.0)
+    x, w = x.requires_grad_(), w.requires_grad_()
+    kw = {k: v.requires_grad_() for k, v in kw.items()}
+    before = (groupnorm.group_norm.launches, groupnorm.group_norm_backward.launches)
+    out = groupnorm.group_norm(x, w, bias, swish=True, **kw)
+    assert out.grad_fn is not None
+    grad = torch.randn(out.shape, device=cuda_device).to(dtype)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert (groupnorm.group_norm.launches, groupnorm.group_norm_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    mean, rstd = groupnorm.group_stats_plain(x.detach(), 32, 1e-6)
+    ref = groupnorm.group_norm_backward_plain(
+        grad, x.detach(), mean, rstd, w.detach(), bias, swish=True,
+        **{k: v.detach() for k, v in kw.items()})
+    for name, a, r in zip(("dx", "dw", "ds", "dt"), (x.grad, w.grad, kw["ada_scale"].grad,
+                                                      kw["ada_shift"].grad),
+                          (ref[0], ref[1], ref[3], ref[4])):
+        tol = TOL_BWD_CARD[dtype] if name == "dx" else 1e-4
+        assert (a.float() - r.float()).abs().max().item() <= tol * r.abs().max().item(), name
