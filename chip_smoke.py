@@ -53,12 +53,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    backward calls; all parameter gradients of the full model in train mode on
    the card (fp32 and bf16) against fp32 on the CPU at [1,12,64,64]; 2
    warm-up and 10 timed steps (CUDA events) on one fixed batch, whose loss
-   must be finite and fall; ms/step, imgs/s, peak memory, the kernel rows of
-   one profiled step; the backward kernels' times beside their plain
+   must be finite and fall; ms/step, imgs/s, peak memory, the optimizer
+   step's host time, the kernel rows of one profiled step; the backward kernels' times beside their plain
    versions, library calls and bounds. Then one ``{"kernels": [...]}`` line
    (flash_attention and conv3x3 also with their TFLOP/s at each timed shape;
    flash_attention with the bytes its blocks read from L2 and the rate they
    imply).
+6. Trainer: ``Stage2Trainer`` at full width in bf16 (the shipped VAE
+   settings, the posterior sampled, the warmup cut) over 6 synthetic batches
+   (B=16, 256², S2L2A/S1RTC/S2RGB drawn from seed 0), a checkpoint and a
+   validation (2 batches of 32 S2L2A) after steps 3 and 6: exact launches
+   over the fit (per step 48 / 52 / 2 forward and 48 / 52 / 2 backward, per
+   validation three forwards), the CSV rows and PNGs on disk, each save's
+   blocking host copy and its write (waited for at once, so timed alone),
+   the steps' device gaps, the validation time and the peak memory; a fresh
+   trainer resumes at step 6 with the model and Adam's state ``torch.equal``
+   to the first's and takes 2 steps; 4 steady steps before a save, 4 with its
+   write in flight (and what was left of the write after them) and 4 after
+   it, beside phase 5's bare step; a 4-step fit with ``accumulate_steps=2`` whose
+   parameters move only at steps 2 and 4; the train CLI
+   (``eovax_torch.cli.train.main``, ``--synthetic-data --max-steps 4``),
+   whose ``eo-vae-final.pt`` must reconstruct a batch. Its files go to a
+   temporary directory under ``build/``, removed at the end.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with an error before any result.
@@ -616,6 +632,20 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
         raise AssertionError("the train loss is not finite or did not fall")
     print(f"time train step [16,12,256,256] bf16: {ms:.3f} ms/step, {16e3 / ms:.2f} imgs/s, "
           f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+    timings["train_step_ms"] = ms
+    # The optimizer step alone, on the last step's gradients: the host's time to
+    # issue its foreach passes, and the time until the card has run them.
+    host, total = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        total.append((time.perf_counter() - t0) * 1e3)
+    print(f"time optimizer step (ClippedAdam, {sum(p.numel() for p in opt.params)} params): "
+          f"host {min(host):.3f}-{max(host):.3f} ms, until the card is done "
+          f"{min(total):.3f}-{max(total):.3f} ms (5 calls) [{card}]")
     stamp("phase 5: timed train steps")
     profile_kernels("train step [16,12,256,256] bf16", lambda: step(state, x, s2), card,
                     calls=1)
@@ -675,6 +705,242 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
     del x, grad, xr, y
     torch.cuda.empty_cache()
     return counts, errs, timings
+
+
+def timed_batches(batches, events: list, probe=None):
+    """Yield ``batches``, recording a CUDA event (and calling ``probe``) before
+    each one and after the last: the events' gaps are the device time of each
+    step and of what follows it in the loop, with no synchronisation added."""
+    import torch
+
+    for batch in batches:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        if probe is not None:
+            probe()
+        yield batch
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    if probe is not None:
+        probe()
+
+
+def step_gaps_ms(events: list) -> list[float]:
+    import torch
+
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def trainer_phase(sd: dict, card: str, bare_ms: float) -> None:
+    """Phase 6: ``Stage2Trainer`` and the train CLI at full width, bf16."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.cli import train as train_cli
+    from eovax_torch.core.precision import DEFAULT_POLICY
+    from eovax_torch.data.synthetic import synthetic_terramesh_batches
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.train import stage2
+    from eovax_torch.utils.image_logger import ImageLogger
+    from eovax_torch.utils.logging import CSVLogger
+
+    dev = torch.device("cuda")
+    # The shipped VAE settings (the posterior sampled) with the warmup cut: at
+    # lr 0 the first update would not move the parameters.
+    cfg = dataclasses.replace(shipped_config(12), base_lr=1e-4, final_lr=None, clip_grad=1.0)
+    batches = list(synthetic_terramesh_batches(batch_size=16, target_size=(256, 256), seed=0,
+                                               num_batches=6))
+    val_batches = list(synthetic_terramesh_batches(batch_size=32, target_size=(256, 256),
+                                                   mode="S2L2A", seed=1, num_batches=2))
+    print(f"trainer batches: {[b['modality'] for b in batches]} x16 at 256², validation "
+          f"2 x32 S2L2A")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=ROOT / "build"))
+    ckpt_dir = tmp / "checkpoints"
+
+    saves, val_s = [], []
+
+    class TimedTrainer(stage2.Stage2Trainer):
+        """Times each save and validation of the fit around the public methods. A
+        save's write is waited for at once, so that it is timed alone; the steps
+        beside a write in flight are timed after the fit."""
+
+        def save_checkpoint(self, state):
+            torch.cuda.synchronize()  # the blocking copy alone, not the queued step
+            t0 = time.perf_counter()
+            started = super().save_checkpoint(state)
+            t1 = time.perf_counter()
+            self.checkpointer.wait()
+            if started:
+                saves.append({"step": state.step, "copy_ms": (t1 - t0) * 1e3,
+                              "write_ms": (time.perf_counter() - t1) * 1e3})
+            return started
+
+        def validate(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means = super().validate(*args, **kw)
+            torch.cuda.synchronize()
+            val_s.append(time.perf_counter() - t0)
+            return means
+
+    def trainer(cls=stage2.Stage2Trainer, **kw):
+        model = EOFluxVAE(cfg, sd, policy=DEFAULT_POLICY, device=dev)
+        return cls(model=model, loss_obj=train_loss(), cfg=cfg, **kw)
+
+    try:
+        # -- the fit: 6 steps, a save and a validation after steps 3 and 6.
+        first = trainer(TimedTrainer, max_steps=6, ckpt_dir=str(ckpt_dir), ckpt_every=3,
+                        val_every=3, val_max_batches=2, log_every=3,
+                        logger=CSVLogger(str(tmp)), image_logger=ImageLogger(str(tmp)),
+                        norm_scheme="custom")
+        events = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # Per step 48/52/2 forward and 48/52/2 backward; per validation 2 sampled
+        # eval forwards and the image grid's forward of the posterior's mode.
+        state, counts = drive("trainer fit 6 steps [16,C,256,256] bf16, 2 validations",
+                              lambda: first.fit(timed_batches(batches, events),
+                                                lambda: iter(val_batches)),
+                              launches(6 * 48 + 2 * 3 * 48, 6 * 52 + 2 * 3 * 52,
+                                       6 * 2 + 2 * 3 * 2, 6 * 48, 6 * 52, 6 * 2))
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        gaps = step_gaps_ms(events)
+        if state.step != 6 or [s["step"] for s in saves] != [3, 6]:
+            raise AssertionError(f"fit ended at step {state.step}, saved {saves}")
+        rows = CSVLogger(str(tmp)).path
+        with open(rows) as f:
+            lines = f.read().splitlines()
+        pngs = sorted((tmp / "image_log" / "val").glob("*.png"))
+        head = lines[0].split(",")
+        if ([ln.split(",")[0] for ln in lines[1:]] != ["3", "3", "6", "6"] or len(pngs) != 2
+                or "train/loss_total" not in head or "val/loss_rec" not in head):
+            raise AssertionError(f"metrics.csv {lines[:1]} {len(lines) - 1} rows, {len(pngs)} PNGs")
+        losses = [float(v) for ln in lines[1:] for k, v in zip(head, ln.split(","))
+                  if k in ("train/loss_total", "val/loss_total") and v]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite logged losses {losses}")
+        print(f"trainer fit: {fit_s:.3f} s for 6 steps, step gaps (device, the gap after "
+              f"steps 3 and 6 holds the save, its write, the validation and the best save) "
+              f"{', '.join(f'{v:.3f}' for v in gaps)} ms; validation {', '.join(f'{v:.3f}' for v in val_s)} s "
+              f"(2 x32 S2L2A, image grid, best checkpoint); peak memory {peak / 2**30:.2f} GiB "
+              f"[{card}]")
+        for s in saves:
+            print(f"trainer save step {s['step']}: blocking host copy {s['copy_ms']:.1f} ms, "
+                  f"write {s['write_ms']:.1f} ms (waited for at once) [{card}]")
+        print(f"trainer files: metrics.csv {len(lines) - 1} rows, {[p.name for p in pngs]}, "
+              f"checkpoints {sorted(p.name for p in ckpt_dir.iterdir())}")
+        stamp("phase 6: trainer fit")
+
+        # -- a fresh trainer on the same directory resumes at step 6 and takes 2 steps.
+        second = trainer(max_steps=8, ckpt_dir=str(ckpt_dir))
+        resumed = []
+
+        def same_state():
+            if resumed:
+                return
+            model_b = second.core.state_dict()
+            same = [torch.equal(x, model_b[k]) for k, x in first.core.state_dict().items()]
+            a, b = first.optimizer.state_dict(), second.optimizer.state_dict()
+            same += [torch.equal(x, y) for key in ("mu", "nu") for x, y in
+                     zip(a[key], b[key], strict=True)]
+            resumed.append(all(same) and a["count"] == b["count"])
+
+        more = list(synthetic_terramesh_batches(batch_size=16, target_size=(256, 256), seed=2,
+                                                num_batches=2))
+        state2, _ = drive("trainer resume at step 6, 2 more steps",
+                          lambda: second.fit(timed_batches(more, [], same_state)),
+                          launches(2 * 48, 2 * 52, 2 * 2, 2 * 48, 2 * 52, 2 * 2))
+        if resumed != [True] or state2.step != 8:
+            raise AssertionError(f"resume: state equal {resumed}, ended at step {state2.step}")
+        print(f"trainer resume: {len(sd)} tensors of the model and Adam's moments and count "
+              f"torch.equal to the first trainer's at step 6; ended at step {state2.step}")
+        del first
+        torch.cuda.empty_cache()
+
+        # -- steady steps, without and with a checkpoint write in flight: 2 warm-up
+        # steps, 4 quiet, a save and 4 while it writes, 4 quiet after it ended.
+        def steps(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for batch in batches[:n]:
+                second.train_on_batch(state2, batch)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / n
+
+        steps(2)
+        quiet_ms = steps(4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second.save_checkpoint(state2)
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = steps(4)
+        t0 = time.perf_counter()
+        second.checkpointer.wait()
+        left_ms = (time.perf_counter() - t0) * 1e3
+        after_ms = steps(4)
+        print(f"time trainer steps (4 steps, mixed modalities): {quiet_ms:.3f} ms/step before "
+              f"a save, {busy_ms:.3f} ms/step with its write in flight (copy {copy_ms:.1f} ms; "
+              f"the write went on for {left_ms:.1f} ms after the 4 steps), {after_ms:.3f} "
+              f"ms/step after it; phase 5's bare step {bare_ms:.3f} ms/step [{card}]")
+        del second
+        torch.cuda.empty_cache()
+        stamp("phase 6: resume and steady steps")
+
+        # -- accumulate_steps=2: the parameters move only at steps 2 and 4, the
+        # latent BatchNorm statistics at every step.
+        third = trainer(max_steps=4, accumulate_steps=2, log_every=0)
+        params = list(third.core.parameters())
+        seen, moved = [], []
+
+        def probe():
+            now = ([p.detach().clone() for p in params], third.core.bn.running_mean.clone())
+            if seen:
+                moved.append((any(not torch.equal(a, b) for a, b in zip(now[0], seen[-1][0])),
+                              not torch.equal(now[1], seen[-1][1])))
+                seen.pop()
+            seen.append(now)
+
+        drive("trainer fit 4 steps accumulate_steps=2",
+              lambda: third.fit(timed_batches(batches[:4], [], probe)),
+              launches(4 * 48, 4 * 52, 4 * 2, 4 * 48, 4 * 52, 4 * 2))
+        if moved != [(False, True), (True, True), (False, True), (True, True)]:
+            raise AssertionError(f"accumulate_steps=2: (parameters, BN) moved at steps 1-4 {moved}")
+        print(f"trainer accumulate_steps=2: parameters moved at steps "
+              f"{[i + 1 for i, (p, _) in enumerate(moved) if p]}, BN statistics at every step; "
+              f"{third.optimizer.count} updates")
+        del third, params, seen
+        torch.cuda.empty_cache()
+        stamp("phase 6: accumulation")
+
+        # -- the train CLI's own body: 4 steps on synthetic batches, then its final model.
+        exp = tmp / "cli"
+        t0 = time.perf_counter()
+        drive("train CLI --synthetic-data --max-steps 4",
+              lambda: train_cli.main(["--config", str(ROOT / "configs" / "eo-vae.yaml"),
+                                      "--synthetic-data", "--max-steps", "4",
+                                      "--resume-dir", str(exp)]),
+              launches(4 * 48, 4 * 52, 4 * 2, 4 * 48, 4 * 52, 4 * 2))
+        cli_s = time.perf_counter() - t0
+        model = EOFluxVAE.from_config(str(ROOT / "configs" / "eo-vae.yaml"),
+                                      str(exp / "eo-vae-final.pt"), policy=DEFAULT_POLICY)
+        x = torch.from_numpy(val_batches[0]["image"][:4]).to(dev).permute(0, 3, 1, 2)
+        recon = model.reconstruct(x, wavelengths_for("S2L2A"))
+        if tuple(recon.shape) != (4, 12, 256, 256) or not torch.isfinite(recon).all():
+            raise AssertionError("the CLI's eo-vae-final.pt reconstructs wrong or non-finite")
+        print(f"train CLI: {cli_s:.3f} s, {sorted(p.name for p in exp.iterdir())}; "
+              f"eo-vae-final.pt reconstructs [4,12,256,256] finite")
+        del model
+        torch.cuda.empty_cache()
+        stamp("phase 6: train CLI")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -918,6 +1184,7 @@ def main() -> int:
     stamp("phase 4: times")
 
     train_counts, bwd_errs, bwd_timings = train_phase(sd, card, g)
+    trainer_phase(sd, card, bwd_timings["train_step_ms"])
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",

@@ -9,13 +9,13 @@ built with ``nvcc`` at first use.
 Subpackages
 -----------
 - ``eovax_torch.core``     config dataclasses and dtype policies
-- ``eovax_torch.data``     wavelength tables
+- ``eovax_torch.data``     wavelength tables, normalization, Sen2NAIP and synthetic batches
 - ``eovax_torch.kernels``  CUDA kernels, their wrappers and plain versions
 - ``eovax_torch.nn``       blocks, hypernetwork stems, latent plumbing
 - ``eovax_torch.models``   the EO-VAE backbone and the ``EOFluxVAE`` API
 - ``eovax_torch.losses``   the stage-2 reconstruction losses
-- ``eovax_torch.train``    the stage-2 train step, its optimizer and schedule
-- ``eovax_torch.utils``    the JAX-variables → state-dict bridge
+- ``eovax_torch.train``    the stage-2 train step, its optimizer and schedule, the trainer
+- ``eovax_torch.utils``    the JAX-variables → state-dict bridge, checkpoints, logging
 """
 
 from eovax_torch.models.eo_flux_vae import EOFluxVAE

@@ -18,22 +18,13 @@ from typing import Any, Mapping
 import torch
 
 from eovax_torch.core.config import VAEConfig, load_model_config
+from eovax_torch.core.device import resolve_device
 from eovax_torch.core.precision import FULL_PRECISION, Policy
 from eovax_torch.models.backbone import EOVAECore
 from eovax_torch.nn.distributions import DiagonalGaussian
 from eovax_torch.nn.init import init_parameters
 
 _STEM_PREFIXES = {"encoder": "encoder.conv_in", "decoder": "decoder.conv_out"}
-
-
-def _resolve_device(device: str | torch.device | None) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "EOFluxVAE runs on CUDA by default and no CUDA device is available; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 def _read_checkpoint(path: str) -> dict[str, Any]:
@@ -58,7 +49,7 @@ class EOFluxVAE:
                  seed: int = 0) -> None:
         self.config = config
         self.policy = policy
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         policy.activate()
         self.core = EOVAECore(config.encoder, config.decoder, policy)
         if variables is None:

@@ -1,1 +1,1 @@
-"""Training: the stage-2 generator step and its schedule. Port of ``eovax/train``."""
+"""Training: the stage-2 generator step, its schedule and the trainer. Port of ``eovax/train``."""

@@ -2,7 +2,7 @@
 # Compare two versions of the port on one card: run the full chip_smoke.py of
 # the parent and of this checkout in turns (parent, change, change, parent) and
 # print each run's reconstruct, flash_attention and train-step times, the backward
-# kernels' times and the profile summaries.
+# kernels' times, the profile summaries and the trainer's times.
 # The full outputs go to build/pair/.
 #
 # Before the run, unpack the parent commit into build/parent (ignored by git):
@@ -17,5 +17,5 @@ for side in parent change change parent; do
   if [ "$side" = parent ]; then dir=build/parent; else dir=.; fi
   (cd "$dir" && python3 chip_smoke.py) > "build/pair/$i-$side.txt" 2>&1
   echo "$i $side rc=$?"
-  grep -h "time reconstruct\|time flash_attention\|wall time\|profile reconstruct\|time train step\|time conv3x3_dx\|time group_norm_backward\|profile train step" "build/pair/$i-$side.txt"
+  grep -h "time reconstruct\|time flash_attention\|wall time\|profile reconstruct\|time train step\|time conv3x3_dx\|time group_norm_backward\|profile train step\|trainer fit:\|trainer save\|time trainer" "build/pair/$i-$side.txt"
 done

@@ -121,10 +121,10 @@ def _torch_run(cfg, variables, image, scale, angle):
     grads = []
     clip_and_step = opt.step
 
-    def spy(t):  # the gradients the optimizer is handed, before its clip
+    def spy():  # the gradients the optimizer is handed, before its clip
         grads.append({n: p.grad.clone() for n, p in core.named_parameters()
                       if p.grad is not None})
-        return clip_and_step(t)
+        return clip_and_step()
 
     opt.step = spy
     state, x, wvs = stage2.TrainState(), torch.from_numpy(image), torch.from_numpy(WVS)
@@ -204,11 +204,24 @@ def test_schedule_matches_jax():
 
 
 def test_make_optimizer_without_schedule_and_accumulation():
-    cfg = _cfg(tcfg, final_lr=None)
-    opt, schedule = stage2.make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(3))])
+    """A constant learning rate, and accumulate_steps=2 as optax.MultiSteps: the
+    parameters move on every second micro-step, by Adam on the mean gradient."""
+    import optax
+
+    cfg, jc = _cfg(tcfg, final_lr=None), _cfg(jcfg, final_lr=None)
+    p = torch.nn.Parameter(torch.zeros(3))
+    opt, schedule = stage2.make_optimizer(cfg, [p], accumulate_steps=2)
     assert schedule == BASE_LR and opt.lr(7) == BASE_LR
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        stage2.make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(3))], accumulate_steps=2)
+    tx, _ = jstage2.make_optimizer(jc, accumulate_steps=2)
+    ref, state = jnp.zeros(3), tx.init(jnp.zeros(3))
+    for t, g in enumerate(np.random.default_rng(9).standard_normal((4, 3)).astype(np.float32)):
+        before = p.detach().clone()
+        p.grad = torch.from_numpy(g.copy())
+        opt.step()
+        updates, state = tx.update(jnp.asarray(g), state, ref)
+        ref = optax.apply_updates(ref, updates)
+        assert torch.equal(p.detach(), before) == (t % 2 == 0)
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref), rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("norm_scale", [0.5, 1.0, 3.0])
@@ -221,7 +234,7 @@ def test_clip_is_optax_clip_by_global_norm(norm_scale):
     p = torch.nn.Parameter(torch.zeros(10))
     opt = stage2.ClippedAdam([p], 0.0, clip_grad=1.0)
     p.grad = torch.from_numpy(g.copy())
-    norm = opt.step(0)
+    norm = opt.step()
     ref, _ = optax.clip_by_global_norm(1.0).update(jnp.asarray(g), None)
     np.testing.assert_allclose(norm.item(), norm_scale, rtol=1e-6)
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref), rtol=1e-6, atol=0)
