@@ -48,14 +48,20 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    path's shapes, at odd shapes and in fp32, and on the activations and
    output gradients of one train step captured with hooks (``conv3x3_dx``:
    the decoder's level-0 ``conv1``; ``group_norm_backward``: the decoder's
-   level-0 ``norm2``); exact launches per step: forward 48 / 52 / 2 and
+   level-0 ``norm2``); ``group_norm_backward`` at each of the step's 8
+   GroupNorm shapes, at two whose slices are streamed (bf16 [2,128,512,512],
+   fp32 [2,256,256,256]) and at odd shapes, each with its cluster plan and
+   ``cudaOccupancyMaxActiveClusters``, and two calls bit-identical; exact
+   launches per step: forward 48 / 52 / 2 and
    backward 48 ``conv3x3_dx``, 52 ``group_norm_backward`` and 2 attention
    backward calls; all parameter gradients of the full model in train mode on
    the card (fp32 and bf16) against fp32 on the CPU at [1,12,64,64]; 2
    warm-up and 10 timed steps (CUDA events) on one fixed batch, whose loss
    must be finite and fall; ms/step, imgs/s, peak memory, the optimizer
-   step's host time, the kernel rows of one profiled step; the backward kernels' times beside their plain
-   versions, library calls and bounds. Then one ``{"kernels": [...]}`` line
+   step's host time, the kernel rows of one profiled step (52 ``gn_bwd_``
+   launches); the backward kernels' times beside their plain
+   versions, library calls and bounds (``group_norm_backward`` at
+   [16,128,256,256] and [16,256,256,256]). Then one ``{"kernels": [...]}`` line
    (flash_attention and conv3x3 also with their TFLOP/s at each timed shape;
    flash_attention with the bytes its blocks read from L2 and the rate they
    imply).
@@ -129,9 +135,14 @@ H100_BYTES_PER_S = 3.35e12
 # two adds, one FMA) and apply (subtract, FMA, SiLU's exp, add and divide).
 GN_FLOPS_PER_ELEMENT = 11
 # fp32 operations per element of one GroupNorm + swish backward: each of its
-# two passes recomputes x̂ (2), z (2), σ(z) (exp, add, divide) and dz (5); the
+# two steps recomputes x̂ (2), z (2), σ(z) (exp, add, divide) and dz (5); the
 # reduction adds 3 for its two sums, the apply 4 for dx.
 GN_BWD_FLOPS_PER_ELEMENT = 31
+# The stage-2 train step's GroupNorm shapes (12-band 256² B=16, the shipped
+# architecture) with their calls a step: 52 backward calls.
+TRAIN_GN_SHAPES = {(16, 128, 256, 256): 10, (16, 256, 256, 256): 1, (16, 128, 128, 128): 1,
+                   (16, 256, 128, 128): 8, (16, 512, 128, 128): 1, (16, 256, 64, 64): 1,
+                   (16, 512, 64, 64): 9, (16, 512, 32, 32): 21}
 
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
@@ -171,12 +182,12 @@ def bound(flops: float, flops_per_s: float, nbytes: float) -> dict:
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_kernels(label: str, fn, card: str, calls: int = 2) -> None:
+def profile_kernels(label: str, fn, card: str, calls: int = 2) -> dict:
     """Kernel time by name over ``calls`` calls of ``fn`` (torch.profiler, kernel
     rows only), each hand kernel's share, and the device-busy share of the
     profiled wall time. Only the device is traced: tracing the host's operators
     as well lengthened the profiled call and so understated the device-busy
-    share (``PERF.md`` §5)."""
+    share (``PERF.md`` §5). Returns each kernel name's launches per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -206,6 +217,7 @@ def profile_kernels(label: str, fn, card: str, calls: int = 2) -> None:
         count = sum(e.count for e in ours) // calls
         print(f"  {group} kernels: {ms:.3f} ms/call x{count}, {100 * ms / busy_ms:.2f}% of "
               "kernel time")
+    return {e.key: e.count // calls for e in kernels}
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -366,6 +378,38 @@ def check_gn_backward(grad, x, weight, bias, label: str, **kw) -> float:
             errs.append(check("group_norm_backward", f"{label} {name} {tuple(x.shape)} {x.dtype}",
                               a, r, tol_dx if name == "dx" else TOL_GN_BWD_F32))
     return errs[0]
+
+
+def check_gn_backward_repeat(grad, x, weight, bias, label: str, **kw) -> None:
+    """Two backward kernel calls give bit-identical dx, S1 and S2 (the per-plane
+    sums the parameter gradients come from)."""
+    import torch
+
+    from eovax_torch.kernels.groupnorm import _backward_kernel, group_stats_plain
+
+    args = (grad, x, *group_stats_plain(x, 32, 1e-6), weight, bias, kw.get("ada_scale"),
+            kw.get("ada_shift"), kw.get("swish", False))
+    first, second = _backward_kernel(*args), _backward_kernel(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"kernel repeat group_norm_backward {label} {tuple(x.shape)} {x.dtype}: dx, S1, S2 "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"group_norm_backward differs between two calls at {label}")
+
+
+def gn_backward_plan_line(shape, dtype) -> str:
+    """The backward kernel's plan for ``shape`` and how many of its clusters the
+    card holds at once."""
+    import torch
+
+    from eovax_torch.kernels.groupnorm import _bwd_plan, bwd_active_clusters
+
+    b, c, h, w = shape
+    plan = _bwd_plan(b, c, 32, h * w, torch.tensor([], dtype=dtype).element_size())
+    vec = (h * w) % (16 // torch.tensor([], dtype=dtype).element_size()) == 0
+    return (f"{plan._asdict()}, {'16-byte vectors' if vec else 'scalar loads'}, "
+            f"cudaOccupancyMaxActiveClusters {bwd_active_clusters(plan, dtype, vec)}")
 
 
 def conv_inputs(b, ci, co, h, w, dtype, g):
@@ -571,18 +615,26 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
         grad = torch.randn(b, co, h, w, generator=g, device=dev).to(dtype)
         k = 0.05 * torch.randn(co, ci, 3, 3, generator=g, device=dev)
         errs["conv3x3_dx", (b, ci, co, h, w)] = check_conv_dx(grad, k, tol, "synthetic")
-    for shape, dtype in (((16, 128, 256, 256), torch.bfloat16), ((16, 512, 32, 32), torch.bfloat16),
-                         ((2, 96, 37, 53), torch.bfloat16), ((2, 96, 37, 53), torch.float32)):
+    # group_norm_backward at the step's 8 shapes, two streamed ones and odd ones.
+    gn_shapes = ([(shape, torch.bfloat16) for shape in TRAIN_GN_SHAPES]
+                 + [((2, 128, 512, 512), torch.bfloat16), ((2, 256, 256, 256), torch.float32),
+                    ((2, 96, 37, 53), torch.bfloat16), ((2, 96, 37, 53), torch.float32)])
+    for shape, dtype in gn_shapes:
+        print(f"group_norm_backward plan {list(shape)} {dtype}: "
+              f"{gn_backward_plan_line(shape, dtype)}")
         b, c = shape[:2]
         x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
         grad = torch.randn(shape, generator=g, device=dev).to(dtype)
         w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
         bias = 0.1 * torch.randn(c, generator=g, device=dev)
-        for name, kw in gn_variants(b, c, g).items():
+        variants = gn_variants(b, c, g)
+        for name, kw in variants.items():
             err = check_gn_backward(grad, x, w, bias, f"synthetic {name}", **kw)
             errs.setdefault(("group_norm_backward", shape), {})[name] = err
+        check_gn_backward_repeat(grad, x, w, bias, "adain[B,C]+swish",
+                                 **variants["adain[B,C]+swish"])
         del x, grad
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     stamp("phase 5: backward kernels vs plain")
 
     # The main path: the stage-2 train step at full width, 12-band 256² B=16 bf16.
@@ -647,8 +699,12 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
           f"host {min(host):.3f}-{max(host):.3f} ms, until the card is done "
           f"{min(total):.3f}-{max(total):.3f} ms (5 calls) [{card}]")
     stamp("phase 5: timed train steps")
-    profile_kernels("train step [16,12,256,256] bf16", lambda: step(state, x, s2), card,
-                    calls=1)
+    rows = profile_kernels("train step [16,12,256,256] bf16", lambda: step(state, x, s2), card,
+                           calls=1)
+    gn_bwd_rows = {k: v for k, v in rows.items() if "gn_bwd_" in k}
+    if (sum(gn_bwd_rows.values()) != sum(TRAIN_GN_SHAPES.values())
+            or any("gn_bwd_reduce" in k or "gn_bwd_apply" in k for k in gn_bwd_rows)):
+        raise AssertionError(f"the profiled step's GroupNorm backward rows: {gn_bwd_rows}")
     del model, core, opt, step, x
     torch.cuda.empty_cache()
     stamp("phase 5: train steps")
@@ -682,28 +738,32 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
           f"{timings['conv3x3_dx']['bound_ms']:.4f} ms [{card}]")
     del grad, k, kb
 
-    shape = (16, 128, 256, 256)
-    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(torch.bfloat16)
-    grad = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-    w = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device=dev)
-    bias = 0.1 * torch.randn(shape[1], generator=g, device=dev)
-    stats = group_stats_plain(x, 32, 1e-6)
-    kernel_ms = cuda_ms(lambda: group_norm_backward(grad, x, *stats, w, bias, swish=True), 20)
-    plain_ms = cuda_ms(lambda: group_norm_backward_plain(grad, x, *stats, w, bias, swish=True), 5)
-    xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w.bfloat16(), bias.bfloat16()))
-    y = F.silu(F.group_norm(xr, 32, wr, br, 1e-6))
-    library_ms = cuda_ms(lambda: torch.autograd.grad(y, (xr, wr, br), grad, retain_graph=True),
-                         20)
-    timings["group_norm_backward"] = dict(
-        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-        **bound(GN_BWD_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, 3.0 * x.numel() * 2))
-    print(f"time group_norm_backward+swish {list(shape)} bf16: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, autograd of F.silu(F.group_norm) {library_ms:.4f} ms, bound "
-          f"{timings['group_norm_backward']['bound_ms']:.4f} ms "
-          f"({5.0 * x.numel() * 2 / kernel_ms / 1e6:.0f} GB/s of its two passes' traffic) "
-          f"[{card}]")
-    del x, grad, xr, y
-    torch.cuda.empty_cache()
+    for shape in ((16, 128, 256, 256), (16, 256, 256, 256)):
+        x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(torch.bfloat16)
+        grad = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(shape[1], generator=g, device=dev)
+        bias = 0.1 * torch.randn(shape[1], generator=g, device=dev)
+        stats = group_stats_plain(x, 32, 1e-6)
+        kernel_ms = cuda_ms(lambda: group_norm_backward(grad, x, *stats, w, bias, swish=True), 20)
+        plain_ms = cuda_ms(lambda: group_norm_backward_plain(grad, x, *stats, w, bias, swish=True),
+                           5)
+        xr, wr, br = (t.detach().clone().requires_grad_()
+                      for t in (x, w.bfloat16(), bias.bfloat16()))
+        y = F.silu(F.group_norm(xr, 32, wr, br, 1e-6))
+        library_ms = cuda_ms(lambda: torch.autograd.grad(y, (xr, wr, br), grad, retain_graph=True),
+                             20)
+        # The least traffic: x and g read once, dx written once.
+        nbytes = 3.0 * x.numel() * x.element_size()
+        timings["group_norm_backward", shape] = dict(
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            **bound(GN_BWD_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, nbytes))
+        print(f"time group_norm_backward+swish {list(shape)} bf16: kernel {kernel_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, autograd of F.silu(F.group_norm) {library_ms:.4f} ms, "
+              f"bound {timings['group_norm_backward', shape]['bound_ms']:.4f} ms "
+              f"({nbytes / kernel_ms / 1e6:.0f} GB/s of its 3-access traffic; plan "
+              f"{gn_backward_plan_line(shape, torch.bfloat16)}) [{card}]")
+        del x, grad, xr, y
+        torch.cuda.empty_cache()
     return counts, errs, timings
 
 
@@ -1215,7 +1275,9 @@ def main() -> int:
          "replaces": "eovax/kernels/groupnorm.py:124",
          "launches": train_counts["group_norm_backward"],
          "max_abs_err": bwd_errs["group_norm_backward", (16, 128, 256, 256)]["swish"],
-         **bwd_timings["group_norm_backward"]},
+         **bwd_timings["group_norm_backward", (16, 128, 256, 256)],
+         "shapes": [dict(shape=list(shape), **bwd_timings["group_norm_backward", shape])
+                    for shape in ((16, 128, 256, 256), (16, 256, 256, 256))]},
     ]
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -27,34 +27,57 @@
 // with (s, t) the optional AdaIN scale and shift ([C] shared or [B, C]), then
 // the optional SiLU, and rounds once to the input type.
 //
-// Backward (`gn_bwd_reduce_kernel`, `gn_bwd_apply_kernel`). The JAX package
-// differentiates `group_norm` with the closed form `_gn_bwd` (line 124 there)
-// in jnp, and AdaIN and SiLU by autodiff outside it; the port's forward fuses
-// all three, so its backward is one closed form over the chain
+// Backward (`gn_bwd_kernel`). Replaces the JAX package's `_gn_bwd`
+// (eovax/kernels/groupnorm.py:124-147, the closed-form backward of its
+// `group_norm` custom_vjp, in jnp) together with the autodiff of the AdaIN and
+// SiLU that follow the norm in its ResnetBlock. The port's forward fuses all
+// three, so its backward is one closed form over the chain
 //   x̂ = (x − μ)·r,  z = x̂·a + c  (a = γ·s, c = β·s + t),  y = SiLU(z) or z,
-// with μ, r the forward's per-group mean and rstd. Both kernels recompute x̂,
-// z and σ(z) in fp32 from x, and never read the forward's rounded output.
-// With g = dL/dy and dz = g·σ(z)·(1 + z·(1 − σ(z))) (or g without SiLU):
-//   - the reduction, one block per (b, c) plane, writes S1 = Σ dz and
-//     S2 = Σ dz·x̂ (the wrapper turns these [B, C] sums into the parameter
-//     gradients: dβ = Σ_b s·S1, dγ = Σ_b s·S2, dt = S1, ds = γ·S2 + β·S1);
-//   - the apply, laid out as the forward's, first combines its group's sums
-//     into the two per-group means of `_gn_bwd`, of a·dz and of a·dz·x̂, then
-//     writes dx = r·(a·dz − mean(a·dz) − x̂·mean(a·dz·x̂)), rounded once.
-// As in the forward's apply, thread 0 of a block works out the block's
-// coefficients from the per-group and per-channel vectors, so no tensor op
-// runs between the two launches.
-// What bounds it: bytes. x and g are read twice and dx written once, 5 bytes
-// of traffic per byte of x (the least is 3: x and g read once, dx written
-// once): at [16, 128, 256, 256] bf16, 1.34 GB, 0.40 ms at 3.35 TB/s. Only two
-// fp32 numbers per plane go to device memory in between.
+// with μ, r the forward's per-group mean and rstd. With g = dL/dy and
+// dz = g·σ(z)·(1 + z·(1 − σ(z))) (or g without SiLU), it needs per channel
+// S1 = Σ dz and S2 = Σ dz·x̂ (the wrapper turns these [B, C] sums into the
+// parameter gradients: dβ = Σ_b s·S1, dγ = Σ_b s·S2, dt = S1, ds = γ·S2 + β·S1),
+// then dx = k1·dz + k0 + k2·x̂ with k1 = r·a, k0 = −r·mean(a·dz) and
+// k2 = −r·mean(a·dz·x̂), the means over the (b, group).
+// What bounds it: bytes. x and g read once and dx written once, 3 bytes of
+// traffic per byte of x: at [16, 128, 256, 256] bf16, 805 MB, 0.24 ms at
+// 3.35 TB/s. The group's sums must be complete before its first dx, so a
+// kernel that streams x and g from device memory reads them twice (5 bytes per
+// byte of x). This design reads them once and keeps them on chip in between:
+// in NCHW a (b, group) is one contiguous run of cpg·n elements, and one thread
+// block cluster of k CTAs owns it (the grid is B·G clusters). The run is cut
+// into k slices on channel boundaries (each plane in k/cpg parts, or cpg/k
+// whole planes a CTA), so that a CTA's partial sums are per channel. Each CTA
+//   1. copies its slice of x and g into dynamic shared memory with 1-D bulk
+//      copies (cp.async.bulk, no tensor map), in up to kMaxChunks chunks with
+//      one mbarrier each, and reduces each chunk as it lands, recomputing x̂,
+//      z and σ(z) in fp32 from x (never from the forward's rounded output);
+//      it leaves its per-channel S1, S2 partials in its shared memory;
+//   2. after one cluster barrier, reads every CTA's partials through
+//      distributed shared memory and sums them in rank order: no atomics, so
+//      the result is bit-identical from call to call. The CTA that holds a
+//      channel's first element writes the channel's S1 and S2;
+//   3. writes dx from its shared-memory copy with 16-byte stores, then waits
+//      at a last cluster barrier, arrived at right after step 2's remote
+//      reads, so that no CTA exits while another still reads its partials.
+// A slice longer than the plan's resident length keeps its first part in
+// shared memory and reads the rest from device memory in steps 1 and 3 (the
+// second read mostly from L2): fp32 at full width, and 512² training. A ragged
+// n (not a whole number of 16-byte vectors) takes scalar loads, and step 1
+// copies the resident part into shared memory itself. The plan (cluster size,
+// slice, resident length, shared-memory bytes) is chosen by the wrapper
+// (`_bwd_plan` in groupnorm.py) and checked here; a plan that cannot launch,
+// by its shape or because no cluster of it fits on the card, returns an error.
 //
 // Plain C interface, loaded with ctypes. Each entry point launches on the
 // given stream and returns cudaGetLastError() (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -219,10 +242,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dL/dz from dL/dy at the pre-SiLU value z.
+// dL/dz from dL/dy at the pre-SiLU value z. σ(z) from the hardware's exp2 and
+// reciprocal (__expf, __fdividef: a few ulp in fp32): with the IEEE expf and
+// divide the kernel took 0.54 ms at [16, 128, 256, 256] bf16 on an H100 SXM
+// (700 W), with these 0.41 (scripts/ablate_gn_backward.py, `exact-math`): its
+// two steps evaluate σ(z) for every element.
 __device__ __forceinline__ float dz_of(float g, float z, int swish) {
   if (!swish) return g;
-  const float sg = 1.f / (1.f + expf(-z));
+  const float sg = __fdividef(1.f, 1.f + __expf(-z));
   return g * sg * fmaf(z, 1.f - sg, 1.f);
 }
 
@@ -239,41 +266,126 @@ struct Chain {
   int ada_stride, C, cpg;
 };
 
-__device__ __forceinline__ float ada_s(const Chain& p, int b, int c) {
-  return p.ada_scale != nullptr ? p.ada_scale[(size_t)b * p.ada_stride + c] : 1.f;
+// (a, c) of channel ch of image b: z = x̂·a + c.
+__device__ __forceinline__ float2 channel_coef(const Chain& p, int b, int ch) {
+  const size_t i = (size_t)b * p.ada_stride + ch;
+  const float s = p.ada_scale != nullptr ? p.ada_scale[i] : 1.f;
+  const float t = p.ada_shift != nullptr ? p.ada_shift[i] : 0.f;
+  return make_float2(p.gamma[ch] * s, p.beta[ch] * s + t);
 }
 
-// (μ, r, a, c) of plane b·C + ch: x̂ = (x − μ)·r, z = x̂·a + c.
-__device__ __forceinline__ float4 plane_coef(const Chain& p, int plane) {
-  const int b = plane / p.C, ch = plane % p.C;
-  const int grp = b * (p.C / p.cpg) + ch / p.cpg;
-  const float s = ada_s(p, b, ch);
-  const float t = p.ada_shift != nullptr ? p.ada_shift[(size_t)b * p.ada_stride + ch] : 0.f;
-  return make_float4(p.mean[grp], p.rstd[grp], p.gamma[ch] * s, p.beta[ch] * s + t);
-}
+constexpr int kMaxSegments = 64;  // channels in one CTA's slice
+constexpr int kMaxChunks = 4;     // bulk copies of a slice's resident part, one mbarrier each
+constexpr int kMaxCluster = 16;   // above 8 only with the non-portable cluster size
 
-// One block per (b, c) plane of n elements: S1 = Σ dz and S2 = Σ dz·x̂.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g, Chain p,
-                         float* __restrict__ s1, float* __restrict__ s2, long n, int swish) {
-  __shared__ float red[kThreads / 32];
-  __shared__ float4 coef_s;
-  const int plane = blockIdx.x;
-  if (threadIdx.x == 0) coef_s = plane_coef(p, plane);
+// Sums of a and b over the block; valid in thread 0.
+__device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
+  constexpr int kWarps = kThreads / 32;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[warp] = a;
+    red[kWarps + warp] = b;
+  }
   __syncthreads();
-  const float mu = coef_s.x, r = coef_s.y, a = coef_s.z, c = coef_s.w;
-  const T* xp = x + (size_t)plane * n;
-  const T* gp = g + (size_t)plane * n;
-  float t1 = 0.f, t2 = 0.f;
-  if (kVec) {
+  a = b = 0.f;
+  if (threadIdx.x < 32) {
+    a = threadIdx.x < kWarps ? red[threadIdx.x] : 0.f;
+    b = threadIdx.x < kWarps ? red[kWarps + threadIdx.x] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+      b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+  }
+  __syncthreads();
+  return make_float2(a, b);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Arrive once and add `bytes` to the transaction count of the barrier's phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from device to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// One 16-byte vector from shared memory or, with kGlobal, device memory.
+template <typename T, bool kGlobal>
+__device__ __forceinline__ void load_any(const T* p, float (&v)[vec_n<T>()]) {
+  if constexpr (kGlobal) {
+    load_vec(p, v);
+  } else {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < vec_n<T>(); ++i) v[i] = to_float(e[i]);
+  }
+}
+
+// Step 1 over the slice's elements [lo, hi): adds Σ dz and Σ dz·x̂ to t1, t2.
+// xp, gp point at the slice's first element, in shared memory or, with
+// kGlobal, in device memory. With kKeep (scalar loads only) each element is
+// also stored at xk, gk: the copy into shared memory of a ragged slice.
+template <typename T, bool kVec, bool kGlobal, bool kKeep = false>
+__device__ __forceinline__ void reduce_range(const T* xp, const T* gp, long lo, long hi,
+                                             float mu, float r, float a, float c, int swish,
+                                             float& t1, float& t2, T* xk = nullptr,
+                                             T* gk = nullptr) {
+  if constexpr (kVec) {
     constexpr int V = vec_n<T>();
-    const long nv = n / V;
 #pragma unroll 2
-    for (long i = threadIdx.x; i < nv; i += kThreads) {
+    for (long i = lo / V + threadIdx.x; i < hi / V; i += kThreads) {
       float xv[V], gv[V];
-      load_vec(xp + i * V, xv);
-      load_vec(gp + i * V, gv);
+      load_any<T, kGlobal>(xp + i * V, xv);
+      load_any<T, kGlobal>(gp + i * V, gv);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float xh = (xv[j] - mu) * r;
@@ -283,77 +395,166 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   } else {
-    for (long i = threadIdx.x; i < n; i += kThreads) {
-      const float xh = (to_float(xp[i]) - mu) * r;
-      const float dz = dz_of(to_float(gp[i]), fmaf(xh, a, c), swish);
+    for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const T xe = xp[i], ge = gp[i];
+      if constexpr (kKeep) {
+        xk[i] = xe;
+        gk[i] = ge;
+      }
+      const float xh = (to_float(xe) - mu) * r;
+      const float dz = dz_of(to_float(ge), fmaf(xh, a, c), swish);
       t1 += dz;
       t2 = fmaf(dz, xh, t2);
     }
   }
-  t1 = block_sum(t1, red);
-  t2 = block_sum(t2, red);
-  if (threadIdx.x == 0) {
-    s1[plane] = t1;
-    s2[plane] = t2;
-  }
 }
 
-// grid (chunks of one plane, B·C planes). dx = k1·dz + k0 + k2·x̂ with
-// k1 = r·a, k0 = −r·mean(a·dz), k2 = −r·mean(a·dz·x̂) over the plane's group.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
-                        Chain p, const float* __restrict__ s1, const float* __restrict__ s2,
-                        long n, long chunk, int swish) {
-  __shared__ float coef[7];  // μ, r, a, c, k1, k0, k2 of this block's plane
-  const int plane = blockIdx.y;
-  if (threadIdx.x == 0) {
-    const float4 pc = plane_coef(p, plane);
-    const int b = plane / p.C, first = plane - plane % p.cpg;  // the group's first plane
-    float ga = 0.f, gx = 0.f;
-    for (int i = 0; i < p.cpg; ++i) {
-      const int ch = (first + i) % p.C;
-      const float ai = p.gamma[ch] * ada_s(p, b, ch);
-      ga = fmaf(ai, s1[first + i], ga);
-      gx = fmaf(ai, s2[first + i], gx);
-    }
-    const float inv = 1.f / ((float)n * (float)p.cpg);
-    coef[0] = pc.x;
-    coef[1] = pc.y;
-    coef[2] = pc.z;
-    coef[3] = pc.w;
-    coef[4] = pc.y * pc.z;
-    coef[5] = -pc.y * ga * inv;
-    coef[6] = -pc.y * gx * inv;
-  }
-  __syncthreads();
-  const float mu = coef[0], r = coef[1], a = coef[2], c = coef[3];
-  const float k1 = coef[4], k0 = coef[5], k2 = coef[6];
-  const size_t base = (size_t)plane * n;
-  const long lo = (long)blockIdx.x * chunk;
-  const long hi = lo + chunk < n ? lo + chunk : n;
-  if (kVec) {
+// Step 3 over [lo, hi): dx = k1·dz + k0 + k2·x̂, rounded once, into dp (the
+// slice's first element of dx in device memory).
+template <typename T, bool kVec, bool kGlobal>
+__device__ __forceinline__ void apply_range(const T* xp, const T* gp, T* dp, long lo, long hi,
+                                            float mu, float r, float a, float c, float k1,
+                                            float k0, float k2, int swish) {
+  if constexpr (kVec) {
     constexpr int V = vec_n<T>();
 #pragma unroll 2
-    for (long i = lo + threadIdx.x * V; i < hi; i += kThreads * V) {
+    for (long i = lo / V + threadIdx.x; i < hi / V; i += kThreads) {
       float xv[V], gv[V];
-      load_vec(x + base + i, xv);
-      load_vec(g + base + i, gv);
+      load_any<T, kGlobal>(xp + i * V, xv);
+      load_any<T, kGlobal>(gp + i * V, gv);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float xh = (xv[j] - mu) * r;
         const float dz = dz_of(gv[j], fmaf(xh, a, c), swish);
         xv[j] = fmaf(k2, xh, fmaf(k1, dz, k0));
       }
-      store_vec(dx + base + i, xv);
+      store_vec(dp + i * V, xv);
     }
   } else {
     for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
-      const float xh = (to_float(x[base + i]) - mu) * r;
-      const float dz = dz_of(to_float(g[base + i]), fmaf(xh, a, c), swish);
-      dx[base + i] = from_float<T>(fmaf(k2, xh, fmaf(k1, dz, k0)));
+      const float xh = (to_float(xp[i]) - mu) * r;
+      const float dz = dz_of(to_float(gp[i]), fmaf(xh, a, c), swish);
+      dp[i] = from_float<T>(fmaf(k2, xh, fmaf(k1, dz, k0)));
     }
   }
+}
+
+// One cluster of k CTAs per (b, group), grid B·G·k. CTA `rank` owns elements
+// [rank·slice, (rank + 1)·slice) of the group's contiguous run of cpg·n, the
+// first `resident` of them in dynamic shared memory (x, then g).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 3)
+    gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx, Chain p,
+                  float* __restrict__ s1, float* __restrict__ s2, long n, long slice,
+                  long resident, int swish) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2 * kThreads / 32];
+  __shared__ float part[2 * kMaxSegments];  // this CTA's S1 partials per channel, then S2's
+  __shared__ float2 group_sums;             // Σ a·S1 and Σ a·S2 over the group
+  __shared__ __align__(8) uint64_t bar[kMaxChunks];
+  T* xs = reinterpret_cast<T*>(smem);
+  T* gs = xs + resident;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bg = blockIdx.x / cluster.num_blocks();  // b·G + group
+  const int b = bg / (p.C / p.cpg);
+  const int ch_base = (bg % (p.C / p.cpg)) * p.cpg;  // the group's first channel
+  const long seg = slice < n ? slice : n;            // elements of one channel in the slice
+  const int nseg = (int)(slice / seg);
+  const int ch0 = ch_base + (int)((long)rank * slice / n);  // the slice's first channel
+  const size_t off = (size_t)bg * p.cpg * n + (size_t)rank * slice;
+  const T* xg = x + off;
+  const T* gg = g + off;
+  T* dxg = dx + off;
+
+  // The resident part in up to kMaxChunks bulk copies each of x and g.
+  constexpr int V = vec_n<T>();
+  const long chunk = ((resident + kMaxChunks - 1) / kMaxChunks + V - 1) / V * V;
+  if (kVec && threadIdx.x == 0 && resident > 0) {
+    for (int q = 0; q * chunk < resident; ++q) mbar_init(&bar[q], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (kVec && threadIdx.x == 0) {
+    for (int q = 0; q * chunk < resident; ++q) {
+      const long e0 = q * chunk;
+      const uint32_t bytes = (uint32_t)((resident - e0 < chunk ? resident - e0 : chunk) * sizeof(T));
+      mbar_expect_tx(&bar[q], 2 * bytes);
+      bulk_load(xs + e0, xg + e0, bytes, &bar[q]);
+      bulk_load(gs + e0, gg + e0, bytes, &bar[q]);
+    }
+  }
+
+  // 1. Per-channel partial sums, each resident chunk as it lands, then the
+  // streamed rest.
+  const float mu = p.mean[bg], r = p.rstd[bg];
+  for (int j = 0; j < nseg; ++j) {
+    const float2 ac = channel_coef(p, b, ch0 + j);
+    const long e0 = j * seg, e1 = e0 + seg;
+    const long r1 = e1 < resident ? e1 : resident, lo = e0 > resident ? e0 : resident;
+    float t1 = 0.f, t2 = 0.f;
+    if constexpr (kVec) {
+      for (long q0 = e0; q0 < r1;) {
+        const int q = (int)(q0 / chunk);
+        const long q1 = (q + 1) * chunk < r1 ? (q + 1) * chunk : r1;
+        mbar_wait(&bar[q], 0);
+        reduce_range<T, true, false>(xs, gs, q0, q1, mu, r, ac.x, ac.y, swish, t1, t2);
+        q0 = q1;
+      }
+    } else if (e0 < r1) {
+      reduce_range<T, false, true, true>(xg, gg, e0, r1, mu, r, ac.x, ac.y, swish, t1, t2, xs,
+                                         gs);
+    }
+    if (lo < e1) reduce_range<T, kVec, true>(xg, gg, lo, e1, mu, r, ac.x, ac.y, swish, t1, t2);
+    const float2 t = block_sum2(t1, t2, red);
+    if (threadIdx.x == 0) {
+      part[j] = t.x;
+      part[kMaxSegments + j] = t.y;
+    }
+  }
+
+  // 2. Every CTA's partials, summed per channel in rank order.
+  cluster.sync();
+  float ga = 0.f, gx = 0.f;
+  for (int cc = threadIdx.x; cc < p.cpg; cc += kThreads) {
+    const long first = (long)cc * n;  // the channel's first element in the group
+    const int q0 = (int)(first / slice), nq = slice < n ? (int)(n / slice) : 1;
+    const int jj = (int)((first - (long)q0 * slice) / n);  // its segment in CTA q0
+    float c1 = 0.f, c2 = 0.f;
+    for (int q = q0; q < q0 + nq; ++q) {
+      const float* rp = cluster.map_shared_rank(&part[0], q);
+      c1 += rp[jj];
+      c2 += rp[kMaxSegments + jj];
+    }
+    const int ch = ch_base + cc;
+    const float a = channel_coef(p, b, ch).x;
+    ga = fmaf(a, c1, ga);
+    gx = fmaf(a, c2, gx);
+    if (q0 == rank) {
+      s1[(size_t)b * p.C + ch] = c1;
+      s2[(size_t)b * p.C + ch] = c2;
+    }
+  }
+  cluster_arrive();  // done with the other CTAs' shared memory
+  const float2 gsum = block_sum2(ga, gx, red);
+  if (threadIdx.x == 0) group_sums = gsum;
+  __syncthreads();
+
+  // 3. dx, from shared memory where resident.
+  const float inv = 1.f / ((float)n * (float)p.cpg);
+  const float k0 = -r * group_sums.x * inv, k2 = -r * group_sums.y * inv;
+  for (int j = 0; j < nseg; ++j) {
+    const float2 ac = channel_coef(p, b, ch0 + j);
+    const float k1 = r * ac.x;
+    const long e0 = j * seg, e1 = e0 + seg;
+    const long r1 = e1 < resident ? e1 : resident, lo = e0 > resident ? e0 : resident;
+    if (e0 < r1)
+      apply_range<T, kVec, false>(xs, gs, dxg, e0, r1, mu, r, ac.x, ac.y, k1, k0, k2, swish);
+    if (lo < e1)
+      apply_range<T, kVec, true>(xg, gg, dxg, lo, e1, mu, r, ac.x, ac.y, k1, k0, k2, swish);
+  }
+  cluster_wait();
 }
 
 // Vectors need n to be a whole number of 16-byte vectors and x, y 16-byte aligned.
@@ -406,51 +607,126 @@ Chain make_chain(const void* mean, const void* rstd, const void* gamma, const vo
                C / groups};
 }
 
+// The wrapper's plan, checked: `cluster` (a power of two up to kMaxCluster)
+// slices of the group's cpg·n elements, each a whole number of planes or a
+// whole fraction of one plane, at most kMaxSegments channels a slice; the first
+// `resident` elements of a slice in `smem` bytes of shared memory (x and g);
+// with 16-byte vectors, slice and resident whole vectors.
 template <typename T>
-int launch_bwd_reduce(const void* x, const void* g, const Chain& p, float* s1, float* s2, int B,
-                      long n, int swish, cudaStream_t stream) {
-  const int planes = B * p.C;
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  if (vectorizable<T>(x, g, n))
-    gn_bwd_reduce_kernel<T, true><<<planes, kThreads, 0, stream>>>(xt, gt, p, s1, s2, n, swish);
-  else
-    gn_bwd_reduce_kernel<T, false><<<planes, kThreads, 0, stream>>>(xt, gt, p, s1, s2, n, swish);
-  return (int)cudaGetLastError();
+bool plan_ok(int cpg, long n, int cluster, long slice, long resident, int smem, bool vec) {
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0) return false;
+  if (slice <= 0 || slice * cluster != (long)cpg * n) return false;
+  if (slice % n != 0 && n % slice != 0) return false;
+  if (slice / (slice < n ? slice : n) > kMaxSegments) return false;
+  if (resident < 0 || resident > slice || (long)smem != 2 * resident * (long)sizeof(T))
+    return false;
+  return !vec || (slice % vec_n<T>() == 0 && resident % vec_n<T>() == 0);
 }
 
-template <typename T>
-int launch_bwd_apply(const void* x, const void* g, void* dx, const Chain& p, const float* s1,
-                     const float* s2, int B, long n, int swish, cudaStream_t stream) {
-  const long chunk = (long)kThreads * vec_n<T>() * kVecIters;
-  const dim3 grid((unsigned)((n + chunk - 1) / chunk), (unsigned)(B * p.C));
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  T* dxt = static_cast<T*>(dx);
-  if (vectorizable<T>(x, g, n) && vectorizable<T>(dx, dx, n))
-    gn_bwd_apply_kernel<T, true><<<grid, kThreads, 0, stream>>>(xt, gt, dxt, p, s1, s2, n, chunk,
-                                                                 swish);
-  else
-    gn_bwd_apply_kernel<T, false><<<grid, kThreads, 0, stream>>>(xt, gt, dxt, p, s1, s2, n,
-                                                                  chunk, swish);
-  return (int)cudaGetLastError();
+cudaLaunchConfig_t bwd_config(unsigned clusters, int cluster, int smem, cudaStream_t stream,
+                              cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * (unsigned)cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
-// Both passes of the backward, on one stream.
+// An error code of a runtime call, with the runtime's last error cleared: a
+// refused plan must not fail the library's next launch, whose check reads it.
+int refused(cudaError_t err) {
+  cudaGetLastError();
+  return (int)err;
+}
+
+// How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
+// memory the card holds at once (cudaOccupancyMaxActiveClusters), into *count.
+// Sets the kernel's attributes first: 16-CTA clusters allowed, shared memory
+// preferred over L1, and the dynamic shared memory the plan asks for. The
+// attributes and the answers are kept per instance (not thread-safe).
+template <typename T, bool kVec>
+int active_clusters(int cluster, int smem, int* count) {
+  constexpr int kCache = 32;
+  static int smem_set = -1, cached = 0, keys[kCache][2], values[kCache];
+  const void* kernel = reinterpret_cast<const void*>(gn_bwd_kernel<T, kVec>);
+  for (int i = 0; i < cached; ++i) {
+    if (keys[i][0] == cluster && keys[i][1] == smem) {
+      *count = values[i];
+      return 0;
+    }
+  }
+  cudaError_t err;
+  if (smem_set < 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return refused(err);
+    smem_set = 0;
+  }
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return refused(err);
+    smem_set = smem;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = bwd_config(1, cluster, smem, nullptr, &attr);
+  err = cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+  if (err != cudaSuccess) return refused(err);
+  if (cached < kCache) {
+    keys[cached][0] = cluster;
+    keys[cached][1] = smem;
+    values[cached++] = *count;
+  }
+  return 0;
+}
+
+template <typename T, bool kVec>
+int launch_bwd_kernel(const void* x, const void* g, void* dx, const Chain& p, float* s1,
+                      float* s2, int B, long n, int cluster, long slice, long resident, int smem,
+                      int swish, cudaStream_t stream) {
+  int active = 0;
+  const int code = active_clusters<T, kVec>(cluster, smem, &active);
+  if (code != 0) return code;
+  if (active < 1) return (int)cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      bwd_config((unsigned)(B * (p.C / p.cpg)), cluster, smem, stream, &attr);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, gn_bwd_kernel<T, kVec>, static_cast<const T*>(x),
+                         static_cast<const T*>(g), static_cast<T*>(dx), p, s1, s2, n, slice,
+                         resident, swish);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// The backward in one launch, on the wrapper's plan.
 template <typename T>
 int launch_bwd(const void* x, const void* g, void* dx, const void* mean, const void* rstd,
                const void* gamma, const void* beta, const void* ada_scale, const void* ada_shift,
                int ada_stride, void* s1, void* s2, int B, int C, int groups, long n, int swish,
-               cudaStream_t stream) {
+               int cluster, long slice, long resident, int smem, cudaStream_t stream) {
   if (B <= 0 || C <= 0 || groups <= 0 || C % groups != 0 || n <= 0)
     return (int)cudaErrorInvalidValue;
+  if ((long)B * groups * cluster > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
   const Chain p = make_chain(mean, rstd, gamma, beta, ada_scale, ada_shift, ada_stride, C, groups);
+  const bool vec = vectorizable<T>(x, g, n) && vectorizable<T>(dx, dx, n);
+  if (!plan_ok<T>(p.cpg, n, cluster, slice, resident, smem, vec))
+    return (int)cudaErrorInvalidValue;
   float* s1f = static_cast<float*>(s1);
   float* s2f = static_cast<float*>(s2);
-  const int code = launch_bwd_reduce<T>(x, g, p, s1f, s2f, B, n, swish, stream);
-  if (code != 0) return code;
-  return launch_bwd_apply<T>(x, g, dx, p, s1f, s2f, B, n, swish, stream);
+  if (vec)
+    return launch_bwd_kernel<T, true>(x, g, dx, p, s1f, s2f, B, n, cluster, slice, resident, smem,
+                                      swish, stream);
+  return launch_bwd_kernel<T, false>(x, g, dx, p, s1f, s2f, B, n, cluster, slice, resident, smem,
+                                     swish, stream);
 }
 
 }  // namespace
@@ -495,22 +771,38 @@ int eovax_gn_apply_f32(const void* x, void* y, const void* mean, const void* m2,
 
 // Backward. x, g, dx: contiguous [B, C, n] in one dtype; mean, rstd: fp32 [B, groups];
 // gamma, beta: fp32 [C]; ada_scale, ada_shift as for the apply, or both null; s1, s2:
-// fp32 [B, C] outputs, Σ dz and Σ dz·x̂ per plane.
+// fp32 [B, C] outputs, Σ dz and Σ dz·x̂ per plane. cluster, slice, resident, smem: the
+// plan (see plan_ok).
 int eovax_gn_bwd_bf16(const void* x, const void* g, void* dx, const void* mean, const void* rstd,
                       const void* gamma, const void* beta, const void* ada_scale,
                       const void* ada_shift, int ada_stride, void* s1, void* s2, int B, int C,
-                      int groups, long n, int swish, void* stream) {
+                      int groups, long n, int swish, int cluster, long slice, long resident,
+                      int smem, void* stream) {
   return launch_bwd<__nv_bfloat16>(x, g, dx, mean, rstd, gamma, beta, ada_scale, ada_shift,
-                                   ada_stride, s1, s2, B, C, groups, n, swish,
-                                   static_cast<cudaStream_t>(stream));
+                                   ada_stride, s1, s2, B, C, groups, n, swish, cluster, slice,
+                                   resident, smem, static_cast<cudaStream_t>(stream));
 }
 
 int eovax_gn_bwd_f32(const void* x, const void* g, void* dx, const void* mean, const void* rstd,
                      const void* gamma, const void* beta, const void* ada_scale,
                      const void* ada_shift, int ada_stride, void* s1, void* s2, int B, int C,
-                     int groups, long n, int swish, void* stream) {
+                     int groups, long n, int swish, int cluster, long slice, long resident,
+                     int smem, void* stream) {
   return launch_bwd<float>(x, g, dx, mean, rstd, gamma, beta, ada_scale, ada_shift, ada_stride,
-                           s1, s2, B, C, groups, n, swish, static_cast<cudaStream_t>(stream));
+                           s1, s2, B, C, groups, n, swish, cluster, slice, resident, smem,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// cudaOccupancyMaxActiveClusters of the backward's vectorized (vec != 0) or
+// scalar instance for a plan's cluster size and shared-memory bytes, into *count.
+int eovax_gn_bwd_clusters_bf16(int cluster, int smem, int vec, int* count) {
+  return vec ? active_clusters<__nv_bfloat16, true>(cluster, smem, count)
+             : active_clusters<__nv_bfloat16, false>(cluster, smem, count);
+}
+
+int eovax_gn_bwd_clusters_f32(int cluster, int smem, int vec, int* count) {
+  return vec ? active_clusters<float, true>(cluster, smem, count)
+             : active_clusters<float, false>(cluster, smem, count);
 }
 
 const char* eovax_cuda_error_string(int code) {

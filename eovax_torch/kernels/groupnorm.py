@@ -15,14 +15,16 @@ statistics and arithmetic are fp32, and the output has the input's dtype.
 When an input requires grad, :func:`group_norm` is a ``torch.autograd.Function``
 that saves x and the per-group fp32 mean and rstd, and whose backward is
 :func:`group_norm_backward`: the JAX package's closed form ``_gn_bwd``
-carried through the affine, AdaIN and SiLU, as two more hand-written kernels
-(a per-plane reduction and an apply) around a few [B, C] tensor ops.
+carried through the affine, AdaIN and SiLU, as one more hand-written kernel
+(one thread-block cluster per (batch, group) that reads x and the output
+gradient once, on the plan of :func:`_bwd_plan`) and a few [B, C] tensor ops.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -87,7 +89,11 @@ def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+    return _bind(build.load(SOURCE))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a library built from ``SOURCE``."""
     for suffix in _SUFFIX.values():
         stats = getattr(lib, f"eovax_gn_stats_{suffix}")
         stats.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
@@ -98,8 +104,13 @@ def _library() -> ctypes.CDLL:
         apply.restype = ctypes.c_int
         bwd = getattr(lib, f"eovax_gn_bwd_{suffix}")
         bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                        + [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p])
+                        + [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_int]
+                        + [ctypes.c_int, ctypes.c_long, ctypes.c_long, ctypes.c_int]
+                        + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
+        clusters = getattr(lib, f"eovax_gn_bwd_clusters_{suffix}")
+        clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        clusters.restype = ctypes.c_int
     return lib
 
 
@@ -225,7 +236,7 @@ def _xhat_dz(x, g, coef, swish):
 
 
 def _backward_plain(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
-    """The two kernels' contract in plain PyTorch: (dx, S1 = Σ dz, S2 = Σ dz·x̂)."""
+    """The kernel's contract in plain PyTorch: (dx, S1 = Σ dz, S2 = Σ dz·x̂)."""
     coef = _plane_coefficients(x, mean, rstd, weight, bias, ada_scale, ada_shift)
     xh, dz = _xhat_dz(x, g, coef, swish)
     s1, s2 = dz.sum(dim=(2, 3)), (dz * xh).sum(dim=(2, 3))
@@ -237,6 +248,80 @@ def _backward_plain(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
     dx = r[:, :, None, None] * (a[:, :, None, None] * dz - group_mean(a * s1)
                                 - xh * group_mean(a * s2))
     return dx.to(x.dtype), s1, s2
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel cuts one (b, group), a contiguous run of cpg·n
+    elements in NCHW: a cluster of ``cluster`` CTAs, each owning ``slice``
+    elements on channel boundaries, the first ``resident`` of them (x and g)
+    in ``smem_bytes`` of shared memory and the rest read from device memory."""
+
+    cluster: int
+    slice: int
+    resident: int
+    smem_bytes: int
+
+
+_CLUSTER_SIZES = (1, 2, 4, 8, 16)  # above 8 the card's non-portable cluster size
+_MAX_SEGMENTS = 64  # channels in one CTA's slice (kMaxSegments in csrc/groupnorm.cu)
+# x and g of one CTA's slice in shared memory: three CTAs fit on an SM (228 KB),
+# as many as the kernel's registers allow. At [16, 256, 256, 256] bf16 a 64 KiB
+# resident part (three CTAs an SM) beat 96 KiB (two) on an H100 SXM at 700 W
+# (scripts/ablate_gn_backward.py).
+_BWD_SMEM_TARGET = 64 * 1024
+# Grow the cluster (where the slices allow) until the grid has this many CTAs:
+# two per SM of the H100's 132.
+_BWD_MIN_CTAS = 264
+
+
+def _bwd_cluster_sizes(cpg: int, n: int, itemsize: int) -> list[int]:
+    """The cluster sizes that cut a group of ``cpg`` planes of ``n`` elements on
+    channel boundaries: cpg/k whole planes a CTA (at most ``_MAX_SEGMENTS``),
+    or 1/m of one plane (k = m·cpg), a whole number of 16-byte vectors where n
+    is one."""
+    vec = 16 // itemsize
+
+    def splits(k):
+        if cpg % k == 0:
+            return cpg // k <= _MAX_SEGMENTS
+        m = k // cpg
+        return k % cpg == 0 and n % m == 0 and (n % vec != 0 or (n // m) % vec == 0)
+
+    return [k for k in _CLUSTER_SIZES if splits(k)]
+
+
+def _bwd_plan(b: int, c: int, groups: int, n: int, itemsize: int) -> BwdPlan:
+    """The backward kernel's plan for x of shape [b, c, n] (n = H·W) in
+    ``groups`` groups and elements of ``itemsize`` bytes.
+
+    The smallest cluster whose slices fit in ``_BWD_SMEM_TARGET`` (grown until
+    the grid has ``_BWD_MIN_CTAS`` CTAs); where none fits, the largest, with
+    the resident part cut to the target and the rest streamed."""
+    cpg = c // groups
+    span, vec = cpg * n, 16 // itemsize
+    sizes = _bwd_cluster_sizes(cpg, n, itemsize)
+    if not sizes:
+        raise ValueError(f"group_norm_backward: no cluster plan for {cpg} channels a group")
+    fits = [k for k in sizes if 2 * itemsize * (span // k) <= _BWD_SMEM_TARGET]
+    k = fits[0] if fits else sizes[-1]
+    for m in sizes:
+        if m > k and b * groups * k < _BWD_MIN_CTAS:
+            k = m
+    slice_ = span // k
+    resident = min(slice_, _BWD_SMEM_TARGET // (2 * itemsize) // vec * vec)
+    return BwdPlan(k, slice_, resident, 2 * itemsize * resident)
+
+
+def bwd_active_clusters(plan: BwdPlan, dtype: torch.dtype, vec: bool = True) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the backward kernel (its vectorized
+    or scalar instance) for ``plan``: how many of its clusters the card holds at
+    once."""
+    lib = _library()
+    count = ctypes.c_int()
+    code = getattr(lib, f"eovax_gn_bwd_clusters_{_SUFFIX[dtype]}")(
+        plan.cluster, plan.smem_bytes, int(vec), ctypes.byref(count))
+    build.check(lib, code, "bwd_active_clusters")
+    return count.value
 
 
 def _backward_kernel(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
@@ -252,6 +337,7 @@ def _backward_kernel(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish
                          f"device, got {tuple(mean.shape)}, {tuple(rstd.shape)}")
     mean, rstd, weight, bias, ada_scale, ada_shift = _fp32(mean, rstd, weight, bias, ada_scale,
                                                            ada_shift)
+    plan = _bwd_plan(b, c, groups, h * w, x.element_size())
     dx = torch.empty_like(x)
     sums = torch.empty(2, b, c, device=x.device, dtype=torch.float32)
     lib = _library()
@@ -259,7 +345,7 @@ def _backward_kernel(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish
         code = getattr(lib, f"eovax_gn_bwd_{_SUFFIX[x.dtype]}")(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), _ptr(ada_scale), _ptr(ada_shift), ada_stride,
-            sums[0].data_ptr(), sums[1].data_ptr(), b, c, groups, h * w, int(swish),
+            sums[0].data_ptr(), sums[1].data_ptr(), b, c, groups, h * w, int(swish), *plan,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(lib, code, "group_norm_backward")
@@ -287,8 +373,8 @@ def group_norm_backward(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor, rs
     in fp32, the AdaIN ones None without AdaIN and summed over B for a [C] AdaIN.
 
     CPU tensors take :func:`group_norm_backward_plain`; CUDA tensors launch the
-    reduction and apply kernels (and add one to ``group_norm_backward.launches``)
-    or raise. The parameter gradients are a few tensor ops on the kernels'
+    backward kernel once (and add one to ``group_norm_backward.launches``) or
+    raise. The parameter gradients are a few tensor ops on the kernel's
     per-plane sums.
     """
     if x.device.type == "cpu":
@@ -301,7 +387,7 @@ def group_norm_backward(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor, rs
 
 def group_norm_backward_plain(g, x, mean, rstd, weight, bias, *, ada_scale=None, ada_shift=None,
                               swish=False):
-    """:func:`group_norm_backward` with its two kernels' passes in plain PyTorch."""
+    """:func:`group_norm_backward` with its kernel's work in plain PyTorch."""
     return _backward(_backward_plain, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
 
 

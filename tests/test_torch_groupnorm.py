@@ -222,6 +222,164 @@ def test_kernel_library_is_keyed_by_source_hash():
     assert (build.CSRC / groupnorm.SOURCE).exists()
 
 
+# The stage-2 train step's GroupNorm shapes (12-band 256² B=16, the shipped
+# architecture), and two whose slices do not fit in shared memory whole.
+TRAIN_STEP_SHAPES = [(16, 128, 256, 256), (16, 256, 256, 256), (16, 128, 128, 128),
+                     (16, 256, 128, 128), (16, 512, 128, 128), (16, 256, 64, 64),
+                     (16, 512, 64, 64), (16, 512, 32, 32)]
+STREAMED_SHAPES = [((2, 128, 512, 512), 2), ((2, 256, 256, 256), 4)]
+MAX_SMEM = 232448  # the H100's shared memory for one block (227 KB)
+
+
+def _check_plan(plan, b, c, groups, n, itemsize):
+    cpg, vec = c // groups, 16 // itemsize
+    assert plan.cluster in (1, 2, 4, 8, 16)
+    assert plan.slice * plan.cluster == cpg * n
+    # On channel boundaries: whole planes (at most 64 a slice) or a whole fraction of one.
+    assert plan.slice % n == 0 and plan.slice // n <= 64 or n % plan.slice == 0
+    assert 0 < plan.resident <= plan.slice
+    assert plan.smem_bytes == 2 * itemsize * plan.resident <= MAX_SMEM
+    if n % vec == 0:
+        assert plan.slice % vec == 0 and plan.resident % vec == 0
+    # Resident and streamed parts cover each CTA's slice, and the slices the span, once.
+    cover = np.zeros(cpg * n, np.int32)
+    for q in range(plan.cluster):
+        lo = q * plan.slice
+        cover[lo:lo + plan.resident] += 1
+        cover[lo + plan.resident:lo + plan.slice] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize(
+    "shape,itemsize,streamed",
+    [(s, 2, s == (16, 256, 256, 256)) for s in TRAIN_STEP_SHAPES]
+    + [(s, i, True) for s, i in STREAMED_SHAPES]
+    + [((2, 32, 16, 16), 2, False), ((2, 32, 256, 256), 4, False),
+       ((2, 512, 8, 8), 4, False), ((2, 96, 37, 53), 2, False), ((1, 64, 5, 7), 4, False)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v),
+)
+def test_bwd_plan_partitions_each_group_on_channel_boundaries(shape, itemsize, streamed):
+    """Train-step shapes, the two streamed ones, cpg 1 and 16, and ragged n."""
+    b, c, h, w = shape
+    plan = groupnorm._bwd_plan(b, c, 32, h * w, itemsize)
+    _check_plan(plan, b, c, 32, h * w, itemsize)
+    assert (plan.resident < plan.slice) == streamed
+    if streamed:
+        assert plan.cluster == 16 and plan.smem_bytes == groupnorm._BWD_SMEM_TARGET
+    elif c * 2 * itemsize * h * w // 32 >= groupnorm._BWD_SMEM_TARGET:
+        # A group larger than one slice: three CTAs' slices fit on an SM.
+        assert plan.smem_bytes <= groupnorm._BWD_SMEM_TARGET
+
+
+def _replay_plan(plan, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
+    """The kernel's partition in plain PyTorch: per CTA of each (b, group) cluster
+    and per channel of its slice, partial Σ dz and Σ dz·x̂ (the resident part,
+    then the streamed rest); per channel the partials of its CTAs in rank order;
+    then dx = k1·dz + k0 + k2·x̂ from the group's Σ a·S1 and Σ a·S2."""
+    b, c, h, w = x.shape
+    groups, n = mean.shape[1], h * w
+    cpg = c // groups
+    coef = groupnorm._plane_coefficients(x, mean, rstd, weight, bias, ada_scale, ada_shift)
+    xh, dz = groupnorm._xhat_dz(x, g, coef, swish)
+    xh, dz = xh.reshape(b, groups, cpg * n), dz.reshape(b, groups, cpg * n)
+    seg = min(plan.slice, n)
+    parts = {}
+    for q in range(plan.cluster):
+        for j in range(plan.slice // seg):
+            lo = q * plan.slice + j * seg
+            res = min(lo + seg, q * plan.slice + plan.resident)
+            pieces = [(lo, max(lo, res)), (max(lo, res), lo + seg)]
+            parts[q, j] = [sum(v[..., a:e].sum(-1) for a, e in pieces)
+                           for v in (dz, dz * xh)]
+    s1, s2 = torch.zeros(b, groups, cpg), torch.zeros(b, groups, cpg)
+    for cc in range(cpg):
+        q0 = cc * n // plan.slice
+        nq = n // plan.slice if plan.slice < n else 1
+        jj = (cc * n - q0 * plan.slice) // n
+        for q in range(q0, q0 + nq):
+            s1[..., cc] += parts[q, jj][0]
+            s2[..., cc] += parts[q, jj][1]
+    mu, r, a, _ = coef
+    a = a.reshape(b, groups, cpg)
+    inv = 1.0 / (n * cpg)
+    k0 = -r.reshape(b, groups, cpg)[..., :1] * (a * s1).sum(-1, keepdim=True) * inv
+    k2 = -r.reshape(b, groups, cpg)[..., :1] * (a * s2).sum(-1, keepdim=True) * inv
+    k1 = (r.reshape(b, groups, cpg) * a)
+    expand = (lambda v: v.repeat_interleave(n, dim=-1))
+    dx = expand(k1) * dz + expand(k0.expand(-1, -1, cpg)) + expand(k2.expand(-1, -1, cpg)) * xh
+    return dx.reshape(x.shape).to(x.dtype), s1.reshape(b, c), s2.reshape(b, c)
+
+
+# form: (shape, _BWD_SMEM_TARGET for fp32, scaled with the element size), each
+# plan form at a tiny shape, the target cut (and the cluster not grown for the
+# grid's size) so that the plan takes it.
+PLAN_FORMS = {
+    "plane-parts": ((2, 64, 8, 8), 128),    # k = m·cpg: cpg 2, 8 CTAs, a quarter plane each
+    "whole-planes": ((2, 128, 4, 4), 256),  # cpg = m·k: cpg 4, 2 CTAs of 2 planes
+    "streamed": ((2, 64, 8, 16), 64),       # 16 CTAs of 1/8 plane each, half of it resident
+    "ragged": ((1, 128, 5, 7), 1024),       # n = 35: whole planes, scalar loads
+}
+
+
+def _plan_form(monkeypatch, form, itemsize=4):
+    shape, target = PLAN_FORMS[form]
+    monkeypatch.setattr(groupnorm, "_BWD_SMEM_TARGET", target * itemsize // 4)
+    monkeypatch.setattr(groupnorm, "_BWD_MIN_CTAS", 0)
+    b, c, h, w = shape
+    plan = groupnorm._bwd_plan(b, c, 32, h * w, itemsize)
+    _check_plan(plan, b, c, 32, h * w, itemsize)
+    cpg = c // 32
+    assert {"plane-parts": plan.cluster > cpg, "whole-planes": plan.slice >= 2 * h * w,
+            "streamed": plan.resident < plan.slice,
+            "ragged": h * w % 4 != 0 and plan.cluster > 1}[form], plan
+    return shape, plan
+
+
+@pytest.mark.parametrize("swish,ada", [(True, "batched"), (False, None)],
+                         ids=["adain-swish", "plain"])
+@pytest.mark.parametrize("form", list(PLAN_FORMS))
+def test_plan_replay_matches_jax_vjp(monkeypatch, form, swish, ada):
+    """The kernel's partition and rank-order combine, replayed in fp32, against
+    jax.vjp through the JAX package's group_norm (``_gn_bwd``), AdaIN and SiLU."""
+    import jax
+    import jax.numpy as jnp
+
+    from eovax.kernels.groupnorm import group_norm as jax_group_norm
+    from eovax.nn.blocks import swish as jax_swish
+
+    shape, plan = _plan_form(monkeypatch, form)
+    b, c = shape[:2]
+    x = _x(shape, seed=20, loc=0.5)
+    w, bias = _params(c, seed=21)
+    rng = np.random.default_rng(22)
+    extra = []
+    if ada:
+        extra = [(1.0 + 0.2 * rng.standard_normal((b, c))).astype(np.float32),
+                 (0.2 * rng.standard_normal((b, c))).astype(np.float32)]
+    g = rng.standard_normal(shape).astype(np.float32)
+
+    def jax_fn(xx, ww, bb, *st):
+        y = jax_group_norm(xx, ww, bb, 32, 1e-6, False)
+        if st:
+            y = y * st[0][:, None, None, :] + st[1][:, None, None, :]
+        return jax_swish(y) if swish else y
+
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(_nhwc(x)), jnp.asarray(w), jnp.asarray(bias),
+                     *map(jnp.asarray, extra))
+    refs = vjp(jnp.asarray(_nhwc(g)))
+    refs = [_nchw(refs[0])] + [np.asarray(r) for r in refs[1:]]
+
+    t = [torch.from_numpy(a) for a in [x, w, bias] + extra]
+    ada_scale, ada_shift = (t[3], t[4]) if extra else (None, None)
+    mean, rstd = groupnorm.group_stats_plain(t[0], 32, 1e-6)
+    got = groupnorm._backward(lambda *args: _replay_plan(plan, *args), torch.from_numpy(g), t[0],
+                              mean, rstd, t[1], t[2], ada_scale, ada_shift, swish)
+    got = [v for v in got if v is not None]
+    assert len(got) == len(refs)
+    for a, ref in zip(got, refs):
+        np.testing.assert_allclose(a.numpy(), ref, **TOL_BWD)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -365,3 +523,53 @@ def test_function_on_card_saves_kernel_statistics_and_launches_the_backward(cuda
                           (ref[0], ref[1], ref[3], ref[4])):
         tol = TOL_BWD_CARD[dtype] if name == "dx" else 1e-4
         assert (a.float() - r.float()).abs().max().item() <= tol * r.abs().max().item(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", list(PLAN_FORMS))
+def test_backward_kernel_plan_forms_match_plain_on_card(cuda_device, monkeypatch, form, dtype):
+    """Each plan form against the plain backward; two calls bit-identical."""
+    shape, plan = _plan_form(monkeypatch, form, itemsize=torch.tensor([], dtype=dtype)
+                             .element_size())
+    x, w, bias, kw = _card_inputs(cuda_device, shape, dtype, "batched", loc=0.5)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    grad = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    mean, rstd = groupnorm.group_stats_plain(x, 32, 1e-6)
+    args = (grad, x, mean, rstd, w, bias, kw["ada_scale"], kw["ada_shift"], True)
+    first = groupnorm._backward_kernel(*args)
+    second = groupnorm._backward_kernel(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    ref = groupnorm._backward_plain(*args)
+    for name, a, r in zip(("dx", "s1", "s2"), first, ref):
+        tol = TOL_BWD_CARD[dtype] if name == "dx" else 1e-4
+        assert (a.float() - r.float()).abs().max().item() <= tol * r.abs().max().item(), name
+
+
+# (shape, plan) that the kernel refuses: a cluster size that is not a power of
+# two; slices of 1.5 planes (cpg 3); shared memory that is not the resident
+# part's; more shared memory than a block has (fp32, cpg 2, 128² whole).
+REFUSED_PLANS = {
+    "cluster-3": ((2, 96, 8, 8), groupnorm.BwdPlan(3, 64, 64, 512)),
+    "slice-straddles": ((2, 96, 8, 8), groupnorm.BwdPlan(2, 96, 96, 768)),
+    "smem-mismatch": ((2, 64, 8, 8), groupnorm.BwdPlan(1, 128, 128, 512)),
+    "smem-too-large": ((2, 64, 128, 128), groupnorm.BwdPlan(1, 32768, 32768, 262144)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", list(REFUSED_PLANS))
+def test_backward_wrapper_raises_on_a_plan_the_kernel_refuses(cuda_device, monkeypatch, bad):
+    shape, plan = REFUSED_PLANS[bad]
+    x, w, bias, _ = _card_inputs(cuda_device, shape, torch.float32, None)
+    mean, rstd = groupnorm.group_stats_plain(x, 32, 1e-6)
+    monkeypatch.setattr(groupnorm, "_bwd_plan", lambda *args: plan)
+    before = groupnorm.group_norm_backward.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        groupnorm.group_norm_backward(x, x, mean, rstd, w, bias)
+    assert groupnorm.group_norm_backward.launches == before
+    # The refusal leaves no error behind for the library's next launch.
+    groupnorm.group_norm(x, w, bias)
+    torch.cuda.synchronize()
