@@ -81,6 +81,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    (``eovax_torch.cli.train.main``, ``--synthetic-data --max-steps 4``),
    whose ``eo-vae-final.pt`` must reconstruct a batch. Its files go to a
    temporary directory under ``build/``, removed at the end.
+7. Data: the TerraMesh path into the trainer. A shard tree under
+   ``build/chip_smoke_data_*`` (removed at the end), written with
+   ``tests/_zarr_helpers.py`` under ``SPLIT_FILES`` names (one present shard
+   per subset, split and modality; the other names missing): S2L2A int16 at
+   256² (every other ssl4eos12 sample after the S2 baseline change, so
+   harmonised and promoted to fp32), S1RTC float32 at 256², S2RGB uint8 at
+   264² (resized by the collate). The first decode (it builds the native
+   decoder), then the reader alone with 1 and 4 threads
+   (samples/s, MB/s, each missing shard skipped with a warning), and its two
+   stages apart: the tar read alone, and the decode alone in 1 and 4 threads;
+   the train
+   collate's ms a batch of each modality, host and ``device_prep``; the
+   shipped datamodule block's first 4 train and 2 val batches (seed 7)
+   built both ways, placed on the card by the trainer, ``torch.equal``; ``device_prepare`` on the card
+   ``torch.equal`` to the CPU over the 16 D4 cases, and its time beside its
+   bytes bound; ``eovax_torch.cli.train.main`` from the shards on the
+   shipped config (``limit_train_batches: 3``, ``limit_val_batches: 1``,
+   ``--max-steps 6 --seed 7``): exact launches (per step 48 / 52 / 2 forward and
+   backward, per validation two forwards), the CSV, two checkpoints, two
+   PNGs and ``eo-vae-final.pt``, finite losses, the steps' device gaps
+   beside phase 6's synthetic step, the device's idle share over steps 4-6
+   (profiled), the bytes copied per step and the peak memory.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with an error before any result.
@@ -792,8 +814,9 @@ def step_gaps_ms(events: list) -> list[float]:
     return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
 
-def trainer_phase(sd: dict, card: str, bare_ms: float) -> None:
-    """Phase 6: ``Stage2Trainer`` and the train CLI at full width, bf16."""
+def trainer_phase(sd: dict, card: str, bare_ms: float) -> float:
+    """Phase 6: ``Stage2Trainer`` and the train CLI at full width, bf16. Returns
+    the steady ms/step of the synthetic batches before a save."""
     import dataclasses
     import tempfile
 
@@ -1000,6 +1023,400 @@ def trainer_phase(sd: dict, card: str, bare_ms: float) -> None:
         torch.cuda.empty_cache()
         stamp("phase 6: train CLI")
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return quiet_ms
+
+
+# Phase 7's TerraMesh tree: (split, shard name, samples, modalities), named as in
+# SPLIT_FILES; every other name of the split tables is missing. majortom holds
+# S2L2A, S1RTC and S2RGB, ssl4eos12 S2L2A and S2RGB (it has no S1RTC).
+DATA_SHARDS = [("train", "majortom_shard_000001.tar", 48, ("S2L2A", "S1RTC", "S2RGB")),
+               ("train", "ssl4eos12_shard_000794.tar", 48, ("S2L2A", "S2RGB")),
+               ("val", "majortom_shard_000001.tar", 32, ("S2L2A", "S1RTC", "S2RGB")),
+               ("val", "ssl4eos12_shard_000009.tar", 32, ("S2L2A", "S2RGB"))]
+DATA_MODALITIES = ["S2L2A", "S1RTC", "S2RGB"]
+# The seed of the train CLI and of the pipelines held against each other: on
+# the tree above its first 6 train batches draw S1RTC, S2L2A int16, S2RGB,
+# S2L2A int16, S2L2A fp32 (harmonised) and S2RGB.
+DATA_SEED = 7
+# The shard names of each subset's train table (SPLIT_FILES), one of them present.
+TRAIN_SHARD_NAMES = {"majortom": 793, "ssl4eos12": 96}
+
+
+def zarr_helpers():
+    """``tests/_zarr_helpers.py`` (the TerraMesh shard writer of the tests), loaded
+    by its path: ``tests/`` is no package, and its conftest imports JAX."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_zarr_helpers",
+                                                  ROOT / "tests" / "_zarr_helpers.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_shard_tree(root: Path, seed: int) -> int:
+    """The DATA_SHARDS tree at the shipped widths, from ``seed``: S2L2A int16 in
+    0-10000 at 256² (majortom's stamped before the S2 baseline change, every
+    other ssl4eos12 sample after it, so that `custom` harmonises those and
+    promotes their batches to fp32), S1RTC float32 dB at 256², S2RGB uint8 at
+    264² (the collate resizes it). Returns the bytes written."""
+    import numpy as np
+
+    from eovax_torch.data.terramesh import S2L2A_BASELINE_CUTOFF_NS as cutoff
+
+    helpers = zarr_helpers()
+    g = np.random.default_rng(seed)
+    jobs = []
+    for split, name, n, mods in DATA_SHARDS:
+        for mod in mods:
+            samples = []
+            for i in range(n):
+                if mod == "S2L2A":
+                    bands = g.integers(0, 10001, (1, 12, 256, 256)).astype("<i2")
+                    after = name.startswith("ssl4eos12") and i % 2 == 1
+                elif mod == "S1RTC":
+                    bands, after = g.normal(-14.0, 4.0, (1, 2, 256, 256)).astype("<f4"), False
+                else:
+                    bands, after = g.integers(0, 256, (1, 3, 264, 264)).astype("u1"), False
+                stamp = cutoff + i * 10**9 if after else cutoff - (i + 1) * 10**9
+                samples.append({"bands": bands, "time": stamp})
+            path = root / split / mod / name
+            path.parent.mkdir(parents=True, exist_ok=True)
+            jobs.append((str(path), samples))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: helpers.write_terramesh_shard(*job), jobs))
+    return sum(p.stat().st_size for p in root.rglob("*.tar"))
+
+
+def reader_rates(root: Path, card: str, step_ms: float) -> None:
+    """The reader alone (decode, no batching) over the train split with 1 and 4
+    threads, after a first decode that builds the native decoder: samples/s and
+    decoded MB/s; every missing name of the split tables skipped with a warning
+    (one per modality of its subset)."""
+    import warnings
+
+    import numpy as np
+
+    from eovax_torch.data.terramesh import build_terramesh_dataset, decode_sample, iter_tar_samples
+
+    # The first decode builds the native decoder; it is timed apart from the rates.
+    t0 = time.perf_counter()
+    decode_sample(next(iter_tar_samples(str(root / "train" / "S2L2A" / DATA_SHARDS[0][1]))))
+    print(f"first decode, which builds the native blosc decoder with g++: "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+    n_expected = sum(n for split, _, n, _ in DATA_SHARDS if split == "train")
+    skips_expected = (TRAIN_SHARD_NAMES["majortom"] - 1) * 3 + (TRAIN_SHARD_NAMES["ssl4eos12"] - 1) * 2
+    for threads in (1, 4):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            n = nbytes = 0
+            for sample in build_terramesh_dataset(str(root), DATA_MODALITIES, "train",
+                                                  batch_size=None, harmonize_s2l2a=True,
+                                                  decode_dtype=None, num_reader_threads=threads):
+                n += 1
+                nbytes += sum(v.nbytes for v in sample.values() if isinstance(v, np.ndarray))
+            seconds = time.perf_counter() - t0
+        skips = sum("Skipping corrupt shard" in str(w.message) for w in caught)
+        if n != n_expected or skips != skips_expected:
+            raise AssertionError(f"reader, {threads} threads: {n} samples (expected {n_expected}), "
+                                 f"{skips} missing shards skipped (expected {skips_expected})")
+        print(f"reader, {threads} thread(s): {n} samples of S2L2A+S1RTC+S2RGB (or S2L2A+S2RGB) "
+              f"256², {nbytes / 1e6:.1f} MB decoded in {seconds:.3f} s: {n / seconds:.1f} "
+              f"samples/s, {nbytes / 1e6 / seconds:.1f} MB/s ({skips} missing shards skipped "
+              f"with a warning); a B=16 step of {step_ms:.1f} ms needs "
+              f"{16e3 / step_ms:.1f} samples/s [{card}]")
+    reader_stages(root, card)
+
+
+def reader_stages(root: Path, card: str) -> None:
+    """The reader's two stages apart, over the train shards: the tar read alone
+    (members to bytes, merged by key, in one thread as the reader reads them; the
+    files are in the page cache, just written) and the decode alone of those raw
+    samples (``decode_sample`` as the reader calls it) in 1 thread and in a pool
+    of 4 (``Executor.map``, as the reader)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from eovax_torch.data.terramesh import decode_sample, iter_multi_tar_samples
+
+    t0 = time.perf_counter()
+    raws = [raw for split, name, _, mods in DATA_SHARDS if split == "train"
+            for raw in iter_multi_tar_samples([str(root / split / m / name) for m in mods])]
+    read_s = time.perf_counter() - t0
+    n_expected = sum(n for split, _, n, _ in DATA_SHARDS if split == "train")
+    if len(raws) != n_expected:
+        raise AssertionError(f"tar read: {len(raws)} samples, expected {n_expected}")
+    raw_mb = sum(len(v) for raw in raws for v in raw.values() if isinstance(v, bytes)) / 1e6
+
+    def decode(raw):
+        return decode_sample(raw, harmonize_s2l2a=True, dtype=None)
+
+    t0 = time.perf_counter()
+    for raw in raws:
+        decode(raw)
+    one_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(4) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(decode, raws, chunksize=1))
+        four_s = time.perf_counter() - t0
+    n = len(raws)
+    print(f"reader stages, {n} samples ({raw_mb:.1f} MB of members): tar read alone "
+          f"{read_s:.3f} s, {n / read_s:.1f} samples/s; decode alone, 1 thread {one_s:.3f} s, "
+          f"{n / one_s:.1f} samples/s; 4 threads {four_s:.3f} s, {n / four_s:.1f} samples/s; "
+          f"read then decode in series {n / (read_s + one_s):.1f} samples/s [{card}]")
+
+
+def collate_times(root: Path, card: str) -> None:
+    """The train collate of each modality on the first 6 raw B=16 batches that
+    hold it, host (normalize, resize, D4 in numpy) and device_prep
+    (descriptors only; the S2RGB resize stays on the host), in ms a batch."""
+    import itertools
+
+    from eovax_torch.data.collate import deterministic_modality_collate
+    from eovax_torch.data.terramesh import build_terramesh_dataset
+
+    it = build_terramesh_dataset(str(root), DATA_MODALITIES, "train", batch_size=16, shuffle=True,
+                                 seed=0, harmonize_s2l2a=True, repeat=True, decode_dtype=None,
+                                 num_reader_threads=4)
+    raws = list(itertools.islice(it, 6))
+    it.close()
+    for device_prep in (False, True):
+        times = {}
+        for mod in DATA_MODALITIES:
+            collate = deterministic_modality_collate(mod, norm_scheme="custom",
+                                                     target_size=(256, 256), mode="train",
+                                                     seed=0, device_prep=device_prep)
+            for raw in raws:
+                if mod in raw:
+                    t0 = time.perf_counter()
+                    collate(raw)
+                    times.setdefault(mod, []).append((time.perf_counter() - t0) * 1e3)
+        print(f"collate {'device_prep' if device_prep else 'host'}: "
+              + ", ".join(f"{m} {sum(v) / len(v):.2f} ms/batch (x{len(v)})"
+                          for m, v in times.items()) + f" [{card}]")
+
+
+def tiny_trainer(device):
+    """A ``Stage2Trainer`` on a tiny model: phase 7 uses its batch placement only."""
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.core import config as tcfg
+    from eovax_torch.train import stage2
+
+    stem = tcfg.StemConfig(num_layers=1, wv_planes=32)
+    kw = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=8, stem=stem)
+    cfg = tcfg.VAEConfig(encoder=tcfg.EncoderConfig(in_channels=4, **kw),
+                         decoder=tcfg.DecoderConfig(out_ch=4, **kw))
+    return stage2.Stage2Trainer(model=EOFluxVAE(cfg, device=device), loss_obj=train_loss(),
+                                cfg=cfg)
+
+
+def check_two_paths(root: Path, dm: dict, device) -> list[dict]:
+    """The shipped datamodule block's first 4 train and 2 val batches (with the
+    train CLI's default of 4 reader threads), built twice: device_prep (raw, placed and prepared on ``device`` by the trainer)
+    and host-collated (copied to ``device``). Raises unless torch.equal on
+    every batch; returns the device_prep val batches."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from eovax_torch.data.terramesh import TerraMeshPipeline
+
+    trainer = tiny_trainer(device)
+    val_batches = []
+    for split, n in (("train_batches", 4), ("val_batches", 2)):
+        both = []
+        for device_prep in (True, False):
+            pipe = TerraMeshPipeline(
+                str(root), dm["modalities"], batch_size=dm["batch_size"],
+                eval_batch_size=dm["eval_batch_size"],
+                train_collate_mode=dm["train_collate_mode"],
+                val_collate_mode=dm["val_collate_mode"], normalize=dm["normalize"],
+                norm_scheme=dm["norm_scheme"], target_size=tuple(dm["target_size"]),
+                seed=DATA_SEED,
+                num_workers=dm.get("num_workers", 4), device_prep=device_prep)
+            it = getattr(pipe, split)()
+            both.append(list(itertools.islice(it, n)))
+            it.close()
+        for i, (raw, host) in enumerate(zip(*both)):
+            image, wvs = trainer._place(raw)
+            ref, ref_wvs = trainer._place(host)
+            same = torch.equal(image, ref) and torch.equal(wvs, ref_wvs)
+            print(f"two paths {split[:-8]} batch {i}: {raw['modality']} raw {raw['image'].dtype} "
+                  f"{list(raw['image'].shape)} ({raw['image'].nbytes / 1e6:.2f} MB copied, "
+                  f"host-collated {host['image'].nbytes / 1e6:.2f} MB), d4 {'d4' in raw}: "
+                  f"device_prep {'==' if same else '!='} host-collated on {image.device}")
+            if not same:
+                raise AssertionError(f"device_prep and host batches differ: {split} batch {i}")
+            if split == "val_batches":
+                val_batches.append(raw)
+        if split == "val_batches":
+            dtypes = {b["image"].dtype for b in both[0]}
+            if dtypes != {np.dtype(np.int16), np.dtype(np.float32)}:
+                raise AssertionError(f"val batches should be int16 and harmonised fp32: {dtypes}")
+    return val_batches
+
+
+def check_device_prepare(batch: dict, card: str) -> None:
+    """``device_prepare`` on the card against the CPU over all 16 D4 cases ([3]
+    and [B,3]), per-sample rows that differ and no d4 (torch.equal); its time
+    at [16,256,256,12] int16 with a per-sample d4 on the host as the trainer
+    passes it (one draw in every row, as a single-process collate gives, and
+    four draws of four rows each), and at [32,256,256,12] without, beside the bytes bound (each
+    input on the card read once, the fp32 output written once)."""
+    import torch
+
+    from eovax_torch.data.device_prep import device_prepare
+
+    dev = torch.device("cuda")
+    leaves = [torch.from_numpy(batch[k]) for k in ("image", "norm_mean", "norm_std", "norm_clip")]
+    if leaves[0].dtype != torch.int16:
+        raise AssertionError(f"expected a raw int16 S2L2A batch, got {leaves[0].dtype}")
+    small = [t[:4] for t in leaves]
+    cases = [torch.tensor([c >> 3, (c >> 2) & 1, c & 3], dtype=torch.int32) for c in range(16)]
+    rows = torch.tensor([[0, 0, 0], [1, 0, 1], [0, 1, 2], [1, 1, 3]], dtype=torch.int32)
+    for d4 in cases + [c.expand(4, 3).contiguous() for c in cases] + [rows, None]:
+        ref = device_prepare(*small, d4)
+        got = device_prepare(*(t.to(dev) for t in small), None if d4 is None else d4.to(dev))
+        if not torch.equal(got.cpu(), ref):
+            raise AssertionError(f"device_prepare on the card differs from the CPU, d4 {d4}")
+    print(f"device_prepare: card == CPU (torch.equal) on [4,256,256,12] int16 custom for the 16 "
+          f"D4 cases as [3] and [B,3], per-sample rows that differ, and no d4")
+    on_card = [t.to(dev) for t in leaves]
+    for b, d4, what in ((16, torch.tensor([[1, 0, 1]], dtype=torch.int32).expand(16, 3),
+                         " with d4, one draw"), (16, rows.repeat_interleave(4, 0), " with d4, four draws"),
+                        (32, None, "")):
+        args = [t[:b] for t in on_card]
+        ms = cuda_ms(lambda: device_prepare(*args, d4), iters=20)
+        nbytes = sum(t.nbytes for t in args) + args[0].numel() * 4
+        print(f"time device_prepare [{b},256,256,12] int16{what}: {ms:.4f} ms, bound "
+              f"{nbytes / H100_BYTES_PER_S * 1e3:.4f} ms (bytes, {nbytes / 1e6:.1f} MB) [{card}]")
+
+
+def data_phase(card: str, synthetic_ms: float) -> None:
+    """Phase 7: the TerraMesh data path into the stage-2 trainer at full width."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from eovax_torch.cli import train as train_cli
+    from eovax_torch.core.config import load_yaml
+    from eovax_torch.train import stage2
+    from eovax_torch.utils.checkpoint import TrainCheckpointer
+
+    shipped = ROOT / "configs" / "eo-vae.yaml"
+    dm = load_yaml(str(shipped))["datamodule"]
+    if not (dm["device_prep"] and dm["norm_scheme"] == "custom"):
+        raise AssertionError(f"the shipped datamodule block changed: {dm}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_data_", dir=ROOT / "build"))
+    root = tmp / "terramesh"
+    real_step = stage2.Stage2Trainer.train_on_batch
+    filters = warnings.filters[:]
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_shard_tree(root, seed=7)
+        print(f"shard tree: {sum(len(m) for *_, m in DATA_SHARDS)} shards, "
+              f"{nbytes / 1e6:.1f} MB written in {time.perf_counter() - t0:.2f} s [{card}]")
+        reader_rates(root, card, synthetic_ms)
+        stamp("phase 7: reader")
+        # The readers warn once for each missing shard name on every pass; the
+        # reader's check above counted them.
+        warnings.filterwarnings("ignore", message="Skipping corrupt shard")
+        collate_times(root, card)
+        val = check_two_paths(root, dm, torch.device("cuda"))
+        check_device_prepare(next(b for b in val if b["image"].dtype == np.int16), card)
+        stamp("phase 7: collate, two paths, device_prepare")
+
+        # -- the train CLI on the shards: the shipped config with data_path set,
+        # validating and saving every 3 steps on 1 val batch.
+        text = shipped.read_text()
+        edits = {"data_path: /data/terramesh": f"data_path: {root}",
+                 "limit_train_batches: 2000": "limit_train_batches: 3\n  limit_val_batches: 1"}
+        for old, new in edits.items():
+            if text.count(old) != 1:
+                raise AssertionError(f"configs/eo-vae.yaml no longer holds {old!r} once")
+            text = text.replace(old, new)
+        config = tmp / "eo-vae-shards.yaml"
+        config.write_text(text)
+        exp = tmp / "cli"
+        seen = {"events": [], "bytes": [], "loss": [], "window": None}
+
+        def recorded(self, state, batch):
+            """The trainer's step, with a CUDA event at its entry, the bytes the batch
+            copies to the card, and steps 4-6 profiled (device only)."""
+            if state.step == 3:
+                torch.cuda.synchronize()
+                seen["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                seen["prof"].__enter__()
+                seen["t0"] = time.perf_counter()
+            seen["events"].append(torch.cuda.Event(enable_timing=True))
+            seen["events"][-1].record()
+            seen["bytes"].append(sum(np.asarray(batch[k]).nbytes for k in
+                                     ("image", "norm_mean", "norm_std", "norm_clip", "d4")
+                                     if k in batch))
+            logs = real_step(self, state, batch)
+            seen["loss"].append(logs["train/loss_total"])
+            if state.step == 6:
+                seen["events"].append(torch.cuda.Event(enable_timing=True))
+                seen["events"][-1].record()
+                torch.cuda.synchronize()
+                seen["window"] = (time.perf_counter() - seen["t0"]) * 1e3
+                seen["prof"].__exit__(None, None, None)
+            return logs
+
+        stage2.Stage2Trainer.train_on_batch = recorded
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # Per step 48/52/2 forward and 48/52/2 backward; per validation one
+        # sampled eval forward and the image grid's forward.
+        drive("train CLI from shards --max-steps 6 (device_prep, 4 reader threads)",
+              lambda: train_cli.main(["--config", str(config), "--max-steps", "6",
+                                      "--seed", str(DATA_SEED), "--resume-dir", str(exp)]),
+              launches(6 * 48 + 2 * 2 * 48, 6 * 52 + 2 * 2 * 52, 6 * 2 + 2 * 2 * 2,
+                       6 * 48, 6 * 52, 6 * 2))
+        cli_s = time.perf_counter() - t0
+        stage2.Stage2Trainer.train_on_batch = real_step
+        peak = torch.cuda.max_memory_allocated()
+        gaps = step_gaps_ms(seen["events"])
+        kernels = [e for e in seen["prof"].key_averages() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+        losses = torch.stack(seen["loss"]).float().cpu()
+        rows = (exp / "metrics.csv").read_text().splitlines()
+        head = rows[0].split(",")
+        val_losses = [float(v) for row in rows[1:] for k, v in zip(head, row.split(","))
+                      if k == "val/loss_total" and v]
+        pngs = sorted((exp / "image_log" / "val").glob("*.png"))
+        steps = TrainCheckpointer(str(exp / "checkpoints")).all_steps()
+        if (len(losses) != 6 or not torch.isfinite(losses).all() or len(val_losses) != 2
+                or not np.isfinite(val_losses).all() or len(pngs) != 2 or steps != [3, 6]
+                or not (exp / "eo-vae-final.pt").exists()):
+            raise AssertionError(f"train CLI from shards: losses {losses.tolist()}, val "
+                                 f"{val_losses}, {len(pngs)} PNGs, checkpoints {steps}, "
+                                 f"{sorted(p.name for p in exp.iterdir())}")
+        steady = [gaps[i] for i in (1, 3, 4)]  # entries 2→3, 4→5, 5→6
+        print(f"train CLI from shards: {cli_s:.3f} s, train losses "
+              f"{', '.join(f'{v:.4f}' for v in losses.tolist())}, val {val_losses}, checkpoints "
+              f"{steps}, {[p.name for p in pngs]}, {sorted(p.name for p in exp.iterdir())} "
+              f"[{card}]")
+        print(f"time disk-fed steps (device gaps between step entries; the gap after step 3 holds "
+              f"the save and the validation): {', '.join(f'{v:.3f}' for v in gaps)} ms; steady "
+              f"{sum(steady) / len(steady):.3f} ms/step against phase 6's synthetic "
+              f"{synthetic_ms:.3f} ms/step; steps 4-6 profiled: wall {seen['window']:.3f} ms, "
+              f"kernels {busy_ms:.3f} ms, device idle {1 - busy_ms / seen['window']:.3f}; copied "
+              f"{sum(seen['bytes']) / len(seen['bytes']) / 1e6:.2f} MB/step to the card "
+              f"({', '.join(f'{b / 1e6:.2f}' for b in seen['bytes'])}); peak memory "
+              f"{peak / 2**30:.2f} GiB [{card}]")
+        stamp("phase 7: train CLI from shards")
+    finally:
+        stage2.Stage2Trainer.train_on_batch = real_step
+        warnings.filters[:] = filters
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1244,7 +1661,8 @@ def main() -> int:
     stamp("phase 4: times")
 
     train_counts, bwd_errs, bwd_timings = train_phase(sd, card, g)
-    trainer_phase(sd, card, bwd_timings["train_step_ms"])
+    synthetic_ms = trainer_phase(sd, card, bwd_timings["train_step_ms"])
+    data_phase(card, synthetic_ms)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",

@@ -4,7 +4,7 @@ Port of ``eovax/cli/train.py``; runs on the card unless ``--device`` says
 otherwise.
 
 Usage:
-    python -m eovax_torch.cli.train --config configs/eo-vae.yaml --synthetic-data \
+    python -m eovax_torch.cli.train --config configs/eo-vae.yaml [--synthetic-data] \
         [--distilled-ckpt distilled_final.pt] [--flux-ckpt ae.safetensors] \
         [--max-steps N] [--debug] [--resume-dir DIR] [--device cuda]
 
@@ -13,8 +13,11 @@ the Flux body, builds the consistency loss, and runs ``Stage2Trainer`` with
 CSV (and optional W&B) logging, validation image grids and checkpoints in a
 timestamped experiment directory. It ends with ``eo-vae-final.pt`` and, once
 validation has run, ``eo-vae-best.pt`` (each ``{"state_dict": ...}``).
-``--debug`` turns logging and checkpoints off. ``--synthetic-data`` trains
-on random batches; the TerraMesh pipeline is not ported yet.
+``--debug`` turns logging and checkpoints off. The batches come from the
+TerraMesh tar shards under the config's ``datamodule.data_path``
+(``TerraMeshPipeline``, with the ``datamodule`` block's keys and the JAX
+CLI's defaults; ``device_prep: true`` normalizes and augments on the
+device); ``--synthetic-data`` trains on random batches instead.
 """
 
 from __future__ import annotations
@@ -60,7 +63,6 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
     from eovax_torch.cli.common import create_experiment_dir, snapshot_config
     from eovax_torch.core.config import VAEConfig
     from eovax_torch.core.precision import policy_from_name
-    from eovax_torch.data.synthetic import synthetic_terramesh_batches
     from eovax_torch.losses.factory import build_loss_from_config
     from eovax_torch.models.eo_flux_vae import EOFluxVAE
     from eovax_torch.train.schedule import STAGE2_STEPS_PER_EPOCH
@@ -85,11 +87,6 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
         raise NotImplementedError(
             "training_mode 'flow-refine' (FluxAutoencoderKL's refiner) is not ported yet: "
             "ROADMAP Queue 1 item 7")
-    if not args.synthetic_data:
-        raise NotImplementedError(
-            "the TerraMesh data pipeline is not ported yet (ROADMAP Queue 1 item 3c): "
-            "pass --synthetic-data")
-
     model = EOFluxVAE(cfg, policy=policy, device=args.device, seed=args.seed)
     # Component-wise loading: the Flux body, then the distilled stems.
     if args.flux_ckpt:
@@ -135,20 +132,7 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
             )
 
     dm_cfg = raw_cfg.get("datamodule", {})
-    mods = tuple(m for m in dm_cfg.get("modalities", ["S2L2A", "S1RTC", "S2RGB"])
-                 if m != "S1GRD")
-    size = dm_cfg.get("target_size", (256, 256))
-    size = (size, size) if isinstance(size, int) else tuple(size)
-    train_iter = synthetic_terramesh_batches(
-        batch_size=dm_cfg.get("batch_size", 16), target_size=size, modalities=mods,
-        seed=args.seed,
-    )
-
-    def val_factory():
-        return synthetic_terramesh_batches(
-            batch_size=dm_cfg.get("eval_batch_size", 32), target_size=size,
-            modalities=("S2L2A",), mode="S2L2A", seed=args.seed + 1, num_batches=10,
-        )
+    train_iter, val_factory = _batches(dm_cfg, args)
 
     trainer = Stage2Trainer(
         model=model,
@@ -165,7 +149,10 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
         norm_scheme=dm_cfg.get("norm_scheme", "legacy"),
         seed=args.seed,
     )
-    trainer.fit(train_iter, val_factory)
+    try:
+        trainer.fit(train_iter, val_factory)
+    finally:
+        train_iter.close()  # stops the reader's threads
 
     if exp_dir:
         save_variables(os.path.join(exp_dir, "eo-vae-final.pt"), trainer.export_variables())
@@ -179,6 +166,51 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
                 f"@ step {info['step']}) to {exp_dir}/eo-vae-best.pt"
             )
     return exp_dir
+
+
+def _batches(dm_cfg: dict[str, Any], args: argparse.Namespace):
+    """The train batch generator and the validation iterator factory: the
+    TerraMesh pipeline of the ``datamodule`` block, or synthetic batches."""
+    size = dm_cfg.get("target_size", (256, 256))
+    size = (size, size) if isinstance(size, int) else tuple(size)
+    if args.synthetic_data:
+        from eovax_torch.data.synthetic import synthetic_terramesh_batches
+
+        mods = tuple(m for m in dm_cfg.get("modalities", ["S2L2A", "S1RTC", "S2RGB"])
+                     if m != "S1GRD")
+        train_iter = synthetic_terramesh_batches(
+            batch_size=dm_cfg.get("batch_size", 16), target_size=size, modalities=mods,
+            seed=args.seed,
+        )
+
+        def val_factory():
+            return synthetic_terramesh_batches(
+                batch_size=dm_cfg.get("eval_batch_size", 32), target_size=size,
+                modalities=("S2L2A",), mode="S2L2A", seed=args.seed + 1, num_batches=10,
+            )
+
+        return train_iter, val_factory
+
+    from eovax_torch.data.terramesh import TerraMeshPipeline
+
+    pipeline = TerraMeshPipeline(
+        data_path=dm_cfg["data_path"],
+        modalities=dm_cfg.get("modalities", ["S2L2A", "S1RTC", "S2RGB"]),
+        batch_size=dm_cfg.get("batch_size", 16),
+        eval_batch_size=dm_cfg.get("eval_batch_size", 32),
+        train_collate_mode=dm_cfg.get("train_collate_mode", "random"),
+        val_collate_mode=dm_cfg.get("val_collate_mode", "S2L2A"),
+        normalize=dm_cfg.get("normalize", True),
+        norm_scheme=dm_cfg.get("norm_scheme", "legacy"),
+        target_size=size,
+        seed=args.seed,
+        num_workers=dm_cfg.get("num_workers", 4),
+        # One process until data parallel (ROADMAP Queue 1 item 3d).
+        process_index=0,
+        process_count=1,
+        device_prep=dm_cfg.get("device_prep", False),
+    )
+    return pipeline.train_batches(), pipeline.val_batches
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The device the port runs on: CUDA unless the caller asks for another."""
+"""The device the port runs on: CUDA unless the caller asks for another; the
+number of processes of the run."""
 
 from __future__ import annotations
 
@@ -15,3 +16,9 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def process_count() -> int:
+    """The world size of the initialised ``torch.distributed`` group, else 1."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

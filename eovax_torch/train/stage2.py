@@ -14,8 +14,11 @@ rate of the n-th applied update is ``schedule(n)`` with n counted from 0,
 ``train/grad_norm`` is the norm after the freeze mask and before the clip,
 and accumulation is ``optax.MultiSteps``' (see :class:`ClippedAdam`).
 
-Not ported yet: the adversarial branch (ROADMAP Queue 1 item 4), the
-TerraMesh batches and their on-device preparation (item 3c) and data
+A batch collated in ``device_prep`` mode (the TerraMesh pipeline's, with
+per-sample normalization and D4 descriptors) is copied to the device in its
+stored dtype and prepared there by ``data.device_prep.device_prepare``.
+
+Not ported yet: the adversarial branch (ROADMAP Queue 1 item 4) and data
 parallelism (item 3d).
 """
 
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from eovax_torch.core.config import VAEConfig
-from eovax_torch.core.device import resolve_device
+from eovax_torch.core.device import process_count, resolve_device
+from eovax_torch.data.device_prep import device_prepare
 from eovax_torch.models.backbone import EOVAECore
 from eovax_torch.train.schedule import STAGE2_STEPS_PER_EPOCH, cosine_warmup_schedule
 from eovax_torch.utils.checkpoint import TrainCheckpointer, host_copy
@@ -304,6 +308,7 @@ class Stage2Trainer:
         self._rng = random.Random(self.seed)
         self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._ckptr = None
+        self._wvs_cache: dict[str, torch.Tensor] = {}  # device_prep: wvs per modality
 
     # -- loops -----------------------------------------------------------------
 
@@ -350,10 +355,33 @@ class Stage2Trainer:
         return self._train_step(state, image, wvs, self._generator, scale=scale, angle=angle)
 
     def _place(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """The NHWC numpy batch as a contiguous NCHW tensor on the model's
-        device (the kernels take contiguous NCHW only), and its wavelengths."""
-        image = torch.from_numpy(np.asarray(batch["image"], np.float32)).to(self.device)
-        wvs = torch.from_numpy(np.asarray(batch["wvs"], np.float32)).to(self.device)
+        """The NHWC numpy batch as a contiguous NCHW fp32 tensor on the model's
+        device (the kernels take contiguous NCHW only), and its wavelengths.
+
+        A ``device_prep`` batch (one with ``norm_mean``) is copied in its
+        stored dtype (int16 stays int16, half the bytes of an fp32 copy) with
+        its per-sample descriptors, and normalized and augmented on the device
+        by ``device_prepare``, which reads the ``d4`` draw on the host; its
+        ``wvs`` are placed once per modality. Eval batches carry no ``d4`` and
+        are not augmented."""
+        if "norm_mean" not in batch:
+            image = torch.from_numpy(np.asarray(batch["image"], np.float32)).to(self.device)
+            wvs = torch.from_numpy(np.asarray(batch["wvs"], np.float32)).to(self.device)
+            return image.permute(0, 3, 1, 2).contiguous(), wvs
+        if process_count() > 1:
+            # Several processes must agree on the raw batch's dtype (the JAX
+            # trainer unifies it to fp32 across hosts): part of data parallel.
+            raise NotImplementedError(
+                "device_prep batches in a multi-process run are not ported yet: "
+                "ROADMAP Queue 1 item 3d (torch.distributed)")
+        modality = batch.get("modality", "?")
+        wvs = self._wvs_cache.get(modality)
+        if wvs is None:
+            wvs = torch.from_numpy(np.asarray(batch["wvs"], np.float32)).to(self.device)
+            self._wvs_cache[modality] = wvs
+        leaves = [torch.from_numpy(np.asarray(batch[k])).to(self.device)
+                  for k in ("image", "norm_mean", "norm_std", "norm_clip")]
+        image = device_prepare(*leaves, batch.get("d4"))  # the D4 draw stays on the host
         return image.permute(0, 3, 1, 2).contiguous(), wvs
 
     def validate(self, state: TrainState, val_iter: Iterator[dict],

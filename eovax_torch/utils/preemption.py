@@ -22,16 +22,11 @@ from __future__ import annotations
 import signal
 import threading
 
-import torch
+from eovax_torch.core.device import process_count
 
 # Module-level so nested or successive guards share one flag: a signal that
 # arrives between two fit() calls must still stop the next one.
 _flag = threading.Event()
-
-
-def _process_count() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 class PreemptionGuard:
@@ -83,7 +78,7 @@ class PreemptionGuard:
         """True once training should stop; once True, stays True."""
         if self._stopped:
             return True
-        if _process_count() == 1:
+        if process_count() == 1:
             self._stopped = _flag.is_set()
             return self._stopped
         raise NotImplementedError(

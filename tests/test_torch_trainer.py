@@ -627,8 +627,6 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
 
     cpu = ["--device", "cpu", "--precision", "32-true", "--debug"]
     config = _write_tiny_yaml(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        train.main(["--config", config] + cpu)
     with pytest.raises(SystemExit, match="int8"):
         train.main(["--config", config, "--synthetic-data", "--device", "cpu",
                     "--precision", "int8"])
