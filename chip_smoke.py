@@ -103,6 +103,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    PNGs and ``eo-vae-final.pt``, finite losses, the steps' device gaps
    beside phase 6's synthetic step, the device's idle share over steps 4-6
    (profiled), the bytes copied per step and the peak memory.
+8. SR sampling: the stage-3 UNet of ``configs_superres/eo_vae_latent.yaml`` at
+   full width (in = out = cond = 32, widths 256/128/64, 3 blocks a level,
+   bottom attention; 23,775,712 parameters N(0, 0.02) from a seed), bf16,
+   ``SimpleDenoiser`` with ``RectifiedSchedule``, on [8,32,64,64] latents
+   (a 512² Sen2NAIP pair's). The kernels against their plain versions at the
+   UNet's shapes in bf16 and fp32 (``flash_attention`` [8,256,64];
+   ``group_norm`` with a [B, C] FiLM and swish at [8,512,64,64] and
+   [8,64,16,16], 2 channels a group; ``conv3x3`` [8,512,64,64] 512→256 and
+   [8,128,16,16] 128→64) and on the hooked inputs of the first up block of
+   level 0 (``conv1``, ``norm2`` with its FiLM) and of the mid attention;
+   exact launches (conv3x3 / group_norm / flash_attention): one UNet eval
+   46 / 48 / 1, DDIM-50 through ``DiffusionSuperRes.sample`` 2300 / 2400 / 50,
+   DPM++(2M)-25 1150 / 1200 / 25, cached DDIM-50 (``cache_every`` 2)
+   1750 / 1825 / 25; the UNet on [2,32,32,32] and DDIM-4 and DPM++(2M)-4 from
+   one x1 on the card against the CPU; times (one UNet eval at B = 8 and 16
+   beside its operations bound from the layers' shapes, the three samplers
+   at B = 8, the pipeline of ``eovax/cli/benchmark.py`` at its ``--all``
+   settings with its timing keys, one profiled DDIM step, each kernel at
+   the UNet's shapes with its device time); and
+   ``eovax_torch.cli.eval_metric_super_res.main`` on 8 AOIs of latents that
+   the port's ``encode_split`` writes under ``build/`` (removed at the end),
+   with exact launches and finite RMSE / PSNR / SSIM / SAM.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with an error before any result.
@@ -1420,6 +1442,356 @@ def data_phase(card: str, synthetic_ms: float) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 8's SR model: the shipped latent-SR config, at full width.
+SR_CONFIG = ROOT / "configs_superres" / "eo_vae_latent.yaml"
+# Samplers on the card (fp32, TF32 off) vs the CPU from one injected x1: four
+# UNet evals through the update, each in other summation orders.
+TOL_SAMPLER_F32 = 1e-3
+# Launches of one UNet eval (conv3x3 / group_norm / flash_attention): 23
+# residual blocks with two convs and two norms each, the mid attention's norm
+# and norm_out, the mid attention. Its decoder path alone: 12 up blocks and norm_out.
+UNET_EVAL = (46, 48, 1)
+UNET_DECODE = (24, 25, 0)
+
+
+def sr_state_dict(unet, seed: int) -> dict:
+    """N(0, 0.02) for every parameter of the UNet, from ``seed``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return {name: torch.empty(t.shape).normal_(0.0, 0.02, generator=g)
+            for name, t in unet.state_dict().items()}
+
+
+def unet_flops(unet, x, t, cond) -> dict:
+    """FLOPs of one UNet eval on these inputs, from the shapes its layers see: the
+    hand kernel's 3×3 convs, the library's convs, and the attention (its products
+    and its q/k/v and output projections)."""
+    import torch
+    from torch import nn
+
+    from eovax_torch.models.unet import SelfAttention
+    from eovax_torch.nn.blocks import Conv3x3
+
+    flops = {"conv3x3": 0.0, "library convs": 0.0, "attention": 0.0}
+
+    def conv_hook(m, args, out):  # the attention's 1×1 convs run as matmuls, unhooked
+        co, ci, kh, kw = m.weight.shape
+        key = "conv3x3" if isinstance(m, Conv3x3) else "library convs"
+        flops[key] += 2.0 * out.shape[0] * out.shape[2] * out.shape[3] * co * ci * kh * kw
+
+    def attn_hook(m, args, out):
+        b, c, h, w = out.shape
+        flops["attention"] += 4.0 * b * (h * w) ** 2 * c + 8.0 * b * h * w * c * c
+
+    hooks = [m.register_forward_hook(attn_hook if isinstance(m, SelfAttention) else conv_hook)
+             for m in unet.modules() if isinstance(m, (SelfAttention, nn.Conv2d))]
+    with torch.inference_mode():
+        unet(x, t, cond)
+    for h in hooks:
+        h.remove()
+    return flops
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """The device's time for one ``fn()``: its kernels' times summed (torch.profiler).
+    Beside ``cuda_ms``, which at small shapes reads the host's rate of issuing calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3 / calls
+
+
+def time_kernel_shape(name, shape, kernel, plain, library, flops, flops_per_s, nbytes,
+                      err, card) -> dict:
+    """Kernel, plain and library device times at one shape (profiled; the kernel's with
+    its wrapper's weight relayout and casts), the bound, and beside them CUDA events
+    over back-to-back calls (``*issue_ms``), which at these sizes read the host's rate
+    of issuing calls, not the device's."""
+    row = dict(shape=list(shape), ms=device_ms(kernel), plain_ms=device_ms(plain, 5),
+               library_ms=device_ms(library) if library is not None else None,
+               issue_ms=cuda_ms(kernel, 20), plain_issue_ms=cuda_ms(plain, 5),
+               library_issue_ms=cuda_ms(library, 20) if library is not None else None,
+               max_abs_err=err, **bound(flops, flops_per_s, nbytes))
+    lib = "null" if library is None else (f"{row['library_ms']:.4f} ms (issue "
+                                          f"{row['library_issue_ms']:.4f})")
+    print(f"time {name} {list(shape)}: device kernel {row['ms']:.4f} ms (issue "
+          f"{row['issue_ms']:.4f}), plain {row['plain_ms']:.4f} ms (issue "
+          f"{row['plain_issue_ms']:.4f}), library {lib}, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}) [{card}]")
+    return row
+
+
+def sr_phase(vae, vae_sd: dict, card: str, g) -> dict:
+    """Phase 8: stage-3 latent SR sampling at the full width of the shipped config.
+    Returns the SR launches of each kernel and its timed UNet shapes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from eovax_torch.cli import eval_metric_super_res
+    from eovax_torch.cli.train_super_res import build_denoiser_from_config
+    from eovax_torch.core.config import load_yaml
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.sen2naip import SEN2NAIP_WVS
+    from eovax_torch.kernels.attention import flash_attention, flash_attention_plain
+    from eovax_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
+    from eovax_torch.kernels.groupnorm import group_norm, group_norm_plain
+    from eovax_torch.models.sr_diffusion import (
+        CachedDDIMSampler,
+        DDIMSampler,
+        DPMSolverPlusPlus2M,
+    )
+    from eovax_torch.train.sr import DiffusionSuperRes
+
+    dev = g.device
+    lm = load_yaml(str(SR_CONFIG))["lightning_module"]
+    denoiser, unet = build_denoiser_from_config(lm, policy=DEFAULT_POLICY, device=dev)
+    sd = sr_state_dict(unet, seed=10)
+    unet.load_state_dict(sd)
+    print(f"SR UNet ({SR_CONFIG.name}): {sum(p.numel() for p in unet.parameters())} params, "
+          f"{type(denoiser).__name__} + {type(denoiser.schedule).__name__}, bf16 compute, "
+          f"N(0, 0.02) weights")
+
+    # ---- kernels vs plain at the UNet's shapes, bf16 and fp32 ------------------
+    errs, shapes = {}, {}
+    for dtype, tol_a, tol_g, tol_c in ((torch.bfloat16, TOL_BF16, TOL_GN_BF16, TOL_CONV_BF16),
+                                       (torch.float32, TOL_F32, TOL_GN_F32, TOL_CONV_F32)):
+        q, k, v = (torch.randn(8, 256, 64, generator=g, device=dev, dtype=dtype)
+                   for _ in range(3))
+        errs["flash_attention", dtype] = check_attention(q, k, v, tol_a, "SR mid_attn")
+        shapes["flash_attention", dtype] = (q, k, v)
+        for shape in ((8, 512, 64, 64), (8, 64, 16, 16)):
+            b, c = shape[:2]
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+            bias = 0.1 * torch.randn(c, generator=g, device=dev)
+            film = dict(swish=True,
+                        ada_scale=1.0 + 0.2 * torch.randn(b, c, generator=g, device=dev),
+                        ada_shift=0.2 * torch.randn(b, c, generator=g, device=dev))
+            errs["group_norm", shape, dtype] = check_group_norm(
+                x, w, bias, tol_g, f"SR {c // 32} channels a group", {"FiLM[B,C]+swish": film}
+            )["FiLM[B,C]+swish"]
+            shapes["group_norm", shape, dtype] = (x, w, bias, film)
+        for shape in ((8, 512, 256, 64, 64), (8, 128, 64, 16, 16)):
+            inputs = conv_inputs(*shape, dtype, g)
+            errs["conv3x3", shape, dtype] = check_conv(*inputs, tol_c, "SR")
+            shapes["conv3x3", shape, dtype] = inputs
+
+    # The hooked inputs of the first up block of level 0 and of the mid attention.
+    x8 = torch.randn(8, 32, 64, 64, generator=g, device=dev)
+    cond8 = torch.randn(8, 32, 64, 64, generator=g, device=dev)
+    t8 = torch.rand(8, generator=g, device=dev)
+    captured = {}
+
+    def capture(key):
+        def hook(mod, args, kwargs, out):  # returns None: the output stays as it is
+            captured[key] = (args[0].clone(), dict(kwargs))
+        return hook
+
+    block = unet.up[0].block[0]
+    hooks = [block.conv1.register_forward_hook(capture("conv1"), with_kwargs=True),
+             block.norm2.register_forward_hook(capture("norm2"), with_kwargs=True),
+             unet.mid_attn.register_forward_hook(capture("attn"), with_kwargs=True)]
+    with torch.inference_mode():
+        unet(x8, t8, cond8)
+        for h in hooks:
+            h.remove()
+        check_conv(captured["conv1"][0], block.conv1.weight, block.conv1.bias, TOL_CONV_BF16,
+                   "SR up0-block0-conv1-captured")
+        xn, kw = captured["norm2"]
+        check_group_norm(xn, block.norm2.weight, block.norm2.bias, TOL_GN_BF16,
+                         "SR up0-block0-norm2-captured", {"FiLM as called": kw})
+        check_attention(*unet.mid_attn.qkv_tokens(captured["attn"][0]), TOL_BF16,
+                        "SR mid_attn-captured")
+    del captured, xn, kw
+    stamp("phase 8: kernels vs plain at the UNet's shapes")
+
+    # ---- the main path, with exact launches ------------------------------------
+    def expect(evals: int, decodes: int = 0) -> dict:
+        return launches(*(evals * a + decodes * b for a, b in zip(UNET_EVAL, UNET_DECODE)))
+
+    with torch.inference_mode():
+        out, _ = drive("SR UNet eval [8,32,64,64] bf16", lambda: unet(x8, t8, cond8),
+                       expect(1))
+        if tuple(out.shape) != (8, 32, 64, 64) or not torch.isfinite(out).all():
+            raise AssertionError("the UNet gave a wrong shape or non-finite values")
+    sr = DiffusionSuperRes(denoiser=denoiser, init_params=unet,
+                           sampler_steps=lm["sampler"]["steps"])
+    state = sr.init_state()
+    samples, sr_launches = drive(
+        "SR sample DDIM-50 [8,32,64,64] bf16 (DiffusionSuperRes.sample)",
+        lambda: sr.sample(state, x8.shape, cond8, seed=0), expect(50))
+    ddim = DDIMSampler(denoiser, steps=50)
+    dpm = DPMSolverPlusPlus2M(denoiser, steps=25)
+    cached = CachedDDIMSampler(denoiser, steps=50, cache_every=2)
+    x1 = ddim.init(torch.Generator(dev).manual_seed(0), x8.shape)
+    with torch.inference_mode():
+        for label, sampler, evals, decodes in (("DPM++(2M)-25", dpm, 25, 0),
+                                               ("cached DDIM-50 (cache_every 2)", cached, 25, 25)):
+            out, _ = drive(f"SR {label} [8,32,64,64] bf16",
+                           lambda: sampler(state.model, x1, cond8), expect(evals, decodes))
+            if tuple(out.shape) != (8, 32, 64, 64) or not torch.isfinite(out).all():
+                raise AssertionError(f"{label} gave a wrong shape or non-finite values")
+        ref = ddim(state.model, x1, cond8)
+    if tuple(samples.shape) != (8, 32, 64, 64) or not torch.isfinite(samples).all():
+        raise AssertionError("DDIM-50 gave a wrong shape or non-finite values")
+    err, _ = rel_err(samples, ref)
+    print(f"SR samples: [8,32,64,64] finite; DiffusionSuperRes.sample vs DDIMSampler from "
+          f"Generator(cuda).manual_seed(0)'s x1: max_abs_err={err:.3e}")
+    if err != 0.0:
+        raise AssertionError("DiffusionSuperRes.sample differs from DDIMSampler on its x1")
+    del samples, ref, out
+    stamp("phase 8: SR UNet and samplers, launches")
+
+    # ---- the card against the CPU, same weights --------------------------------
+    cpu_den, cpu_unet = build_denoiser_from_config(lm, policy=FULL_PRECISION, device="cpu")
+    cpu_unet.load_state_dict(sd)
+    _, unet32 = build_denoiser_from_config(lm, policy=FULL_PRECISION, device=dev)
+    unet32.load_state_dict(sd)
+    FULL_PRECISION.activate()
+    gc = torch.Generator().manual_seed(11)
+    x2, cond2 = torch.randn(2, 32, 32, 32, generator=gc), torch.randn(2, 32, 32, 32, generator=gc)
+    t2 = torch.tensor([0.9, 0.35])
+    with torch.inference_mode():
+        ref = cpu_unet(x2, t2, cond2)
+        outs = [(label, model(x2.to(dev), t2.to(dev), cond2.to(dev)), tol)
+                for label, model, tol in (("fp32", unet32, TOL_MODEL_F32),
+                                          ("bf16", unet, TOL_MODEL_BF16))]
+        for sampler in (DDIMSampler(cpu_den, steps=4), DPMSolverPlusPlus2M(cpu_den, steps=4)):
+            name = f"{type(sampler).__name__}-4 fp32"
+            outs.append((name, sampler(unet32, x2.to(dev), cond2.to(dev)), TOL_SAMPLER_F32))
+        refs = [ref, ref] + [s(cpu_unet, x2, cond2) for s in (
+            DDIMSampler(cpu_den, steps=4), DPMSolverPlusPlus2M(cpu_den, steps=4))]
+    for (label, out, tol), r in zip(outs, refs):
+        err, rel = rel_err(out.cpu(), r)
+        ok = rel <= tol and bool(torch.isfinite(out).all())
+        print(f"SR {label} on the card vs fp32 on the CPU [2,32,32,32]: max_abs_err={err:.3e} "
+              f"rel={rel:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"SR {label} disagrees with the CPU reference")
+    del cpu_unet, unet32, outs, refs
+    stamp("phase 8: card vs CPU")
+
+    # ---- times -----------------------------------------------------------------------
+    per_sample = unet_flops(unet, x8[:1], t8[:1], cond8[:1])
+    total = sum(per_sample.values())
+    print("SR UNet eval FLOPs per sample at 64²: "
+          + ", ".join(f"{k} {v / 1e9:.3f} G" for k, v in per_sample.items())
+          + f", total {total / 1e9:.3f} G")
+    unet_ms = {}
+    with torch.inference_mode():
+        for b in (8, 16):
+            x, c, t = (torch.randn(b, 32, 64, 64, generator=g, device=dev),
+                       torch.randn(b, 32, 64, 64, generator=g, device=dev),
+                       torch.rand(b, generator=g, device=dev))
+            ms = cuda_ms(lambda: unet(x, t, c), 10)
+            unet_ms[b] = ms
+            print(f"time SR UNet eval [{b},32,64,64] bf16: {ms:.3f} ms, bound "
+                  f"{b * total / H100_BF16_FLOPS * 1e3:.3f} ms (operations; "
+                  f"{b * per_sample['conv3x3'] / ms / 1e9:.1f} TFLOP/s of hand-kernel convs, "
+                  f"{b * total / ms / 1e9:.1f} TFLOP/s in all) [{card}]")
+        for label, sampler in (("DDIM-50", ddim), ("DPM++(2M)-25", dpm),
+                               ("cached DDIM-50", cached)):
+            t0 = time.perf_counter()
+            ms = cuda_ms(lambda: sampler(unet, x1, cond8), 3, warmup=1)
+            print(f"time SR {label} [8,32,64,64] bf16: {ms:.3f} ms a sample batch, "
+                  f"{8e3 / ms:.2f} latents/s (host wall {(time.perf_counter() - t0) * 1e3 / 4:.3f} "
+                  f"ms a call) [{card}]")
+        profile_kernels("SR DDIM step [8,32,64,64] bf16",
+                        lambda: DDIMSampler(denoiser, steps=1)(unet, x1, cond8), card)
+
+        # The pipeline of eovax/cli/benchmark.py (its --all settings): encode a 4-band
+        # LR 128² image, sample its latent, decode.
+        naip = SEN2NAIP_WVS
+        lr = torch.randn(1, 4, 128, 128, generator=g, device=dev)
+        z_lr = vae.encode_spatial_normalized(lr, naip)
+        for tag, sampler in (("ddim50", ddim), ("dpmpp2m25", dpm)):
+            x1_lr = sampler.init(torch.Generator(dev).manual_seed(2), z_lr.shape)
+            pred = sampler(unet, x1_lr, z_lr)
+            img = vae.decode_spatial_normalized(pred, naip)
+            if tuple(img.shape) != (1, 4, 128, 128) or not torch.isfinite(img).all():
+                raise AssertionError(f"SR pipeline {tag} gave a wrong shape or non-finite values")
+            timing = {"encode": cuda_ms(lambda: vae.encode_spatial_normalized(lr, naip), 20),
+                      "sr_forward": cuda_ms(lambda: sampler(unet, x1_lr, z_lr), 5, warmup=1),
+                      "decode": cuda_ms(lambda: vae.decode_spatial_normalized(pred, naip), 20)}
+            timing["total"] = sum(timing.values())
+            print(f"sr_pipeline_512_{tag} " + json.dumps(
+                {"timing_ms": timing, "throughput_imgs_per_sec": 1e3 / timing["total"],
+                 "latent": list(z_lr.shape)}) + f" [{card}]")
+
+    # Each kernel at the UNet's shapes: kernel, plain, library, bound.
+    rows = {"flash_attention": [], "group_norm": [], "conv3x3": []}
+    with torch.inference_mode():
+        q, k, v = shapes["flash_attention", torch.bfloat16]
+        b, s, d = q.shape
+        rows["flash_attention"].append(time_kernel_shape(
+            "flash_attention", q.shape, lambda: flash_attention(q, k, v),
+            lambda: flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v), 4.0 * b * s * s * d,
+            H100_BF16_FLOPS, 4.0 * q.numel() * 2, errs["flash_attention", torch.bfloat16], card))
+        for shape in ((8, 512, 64, 64), (8, 64, 16, 16)):
+            x, w, bias, film = shapes["group_norm", shape, torch.bfloat16]
+            # No one library call computes the FiLM form: library_ms is null.
+            rows["group_norm"].append(time_kernel_shape(
+                "group_norm+FiLM[B,C]+swish", shape, lambda: group_norm(x, w, bias, **film),
+                lambda: group_norm_plain(x, w, bias, **film), None,
+                GN_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS,
+                2.0 * x.numel() * 2 + 4.0 * 2 * film["ada_scale"].numel(),
+                errs["group_norm", shape, torch.bfloat16], card))
+        for shape in ((8, 512, 256, 64, 64), (8, 128, 64, 16, 16)):
+            x, w, bias = shapes["conv3x3", shape, torch.bfloat16]
+            wb, bb = w.bfloat16(), bias.bfloat16()
+            b, ci, co, h, wd = shape
+            rows["conv3x3"].append(time_kernel_shape(
+                "conv3x3", shape, lambda: conv3x3(x, w, bias), lambda: conv3x3_plain(x, w, bias),
+                lambda: F.conv2d(x, wb, bb, padding=1), 2.0 * b * h * wd * 9 * ci * co,
+                H100_BF16_FLOPS, 2.0 * (x.numel() + w.numel() + co + b * co * h * wd),
+                errs["conv3x3", shape, torch.bfloat16], card))
+    del shapes
+    torch.cuda.empty_cache()
+    stamp("phase 8: times")
+
+    # ---- the eval CLI end to end, on latents written by the port's encode_split ----
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sr_", dir=ROOT / "build"))
+    try:
+        n, stats = run_encode_split(vae, sen2naip_batches(2, 4, seed=5), tmp / "latents")
+        (tmp / "latents" / "latent_stats.json").write_text(json.dumps(stats))
+        torch.save({"state_dict": vae_sd}, tmp / "eo-vae.ckpt")
+        torch.save(sd, tmp / "unet.pt")
+        args = ["--vae-config", str(ROOT / "configs" / "eo-vae.yaml"),
+                "--vae-ckpt", str(tmp / "eo-vae.ckpt"), "--sr-ckpt", str(tmp / "unet.pt"),
+                "--data-root", str(tmp / "latents"), "--split", "train", "--batch-size", "4",
+                "--num-batches", "2", "--output", str(tmp / "out")]
+        t0 = time.perf_counter()
+        # Per batch: DDIM-50 and two decodes (prediction and ground truth) of 28 / 30 / 1.
+        drive("eval_metric_super_res.main, 2 batches of 4 Sen2NAIP latents, DDIM-50",
+              lambda: eval_metric_super_res.main(args),
+              launches(*(2 * (50 * a + 2 * d) for a, d in zip(UNET_EVAL, (28, 30, 1)))))
+        seconds = time.perf_counter() - t0
+        metrics = json.loads((tmp / "out" / "all_metrics.json").read_text())
+        if sorted(metrics) != ["psnr", "rmse", "sam", "ssim"] or not all(
+                np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"eval_metric_super_res gave {metrics}")
+        print(f"eval_metric_super_res: {n} AOIs encoded, metrics {metrics} finite, "
+              f"{seconds:.3f} s with the models' load [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stamp("phase 8: eval CLI")
+    return {"launches": {k: sr_launches[k] for k in rows}, "shapes": rows, "unet_ms": unet_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1663,25 +2035,30 @@ def main() -> int:
     train_counts, bwd_errs, bwd_timings = train_phase(sd, card, g)
     synthetic_ms = trainer_phase(sd, card, bwd_timings["train_step_ms"])
     data_phase(card, synthetic_ms)
+    sr = sr_phase(model, sd, card, g)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/flash_attention.cu",
          "replaces": "eovax/kernels/attention.py:28",
          "launches": main_launches["flash_attention"], "max_abs_err": attn_err,
-         **timings["flash_attention", (4, 4096, 512)], "shapes": attn_rates},
+         **timings["flash_attention", (4, 4096, 512)], "shapes": attn_rates,
+         "sr_launches": sr["launches"]["flash_attention"],
+         "sr_shapes": sr["shapes"]["flash_attention"]},
         {"name": "group_norm", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/groupnorm.cu",
          "replaces": "eovax/kernels/groupnorm.py:31",
          "launches": main_launches["group_norm"],
          "max_abs_err": gn_errs[(4, 128, 512, 512)]["swish"],
-         **timings["group_norm", (4, 128, 512, 512)]},
+         **timings["group_norm", (4, 128, 512, 512)],
+         "sr_launches": sr["launches"]["group_norm"], "sr_shapes": sr["shapes"]["group_norm"]},
         {"name": "conv3x3", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/conv3x3.cu",
          "replaces": "eovax/kernels/conv3x3.py:53",
          "launches": main_launches["conv3x3"],
          "max_abs_err": conv_errs[(4, 512, 256, 256, 256)],
-         **timings["conv3x3", (4, 512, 256, 256, 256)], "shapes": conv_rates},
+         **timings["conv3x3", (4, 512, 256, 256, 256)], "shapes": conv_rates,
+         "sr_launches": sr["launches"]["conv3x3"], "sr_shapes": sr["shapes"]["conv3x3"]},
         {"name": "conv3x3_dx", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/conv3x3.cu",
          "replaces": "eovax/kernels/conv3x3.py:186",

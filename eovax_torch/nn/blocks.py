@@ -63,12 +63,12 @@ class Conv3x3(Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """32-group GroupNorm with fp32 statistics, output in the compute dtype;
-    optionally followed by AdaIN (``ada_scale``/``ada_shift``, [C] or [B, C])
-    and swish in the same kernel."""
+    """GroupNorm (32 groups unless told otherwise) with fp32 statistics, output
+    in the compute dtype; optionally followed by AdaIN (``ada_scale``/``ada_shift``,
+    [C] or [B, C]) and swish in the same kernel."""
 
-    def __init__(self, num_channels: int, policy: Policy = FULL_PRECISION):
-        super().__init__(32, num_channels, eps=1e-6)
+    def __init__(self, num_channels: int, policy: Policy = FULL_PRECISION, groups: int = 32):
+        super().__init__(groups, num_channels, eps=1e-6)
         self.policy = policy
 
     def forward(self, x: torch.Tensor, *, ada_scale: torch.Tensor | None = None,

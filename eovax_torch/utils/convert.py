@@ -9,7 +9,8 @@ becomes ``in_proj_weight``/``in_proj_bias``, norm ``scale`` becomes
 ``weight``, and the latent BatchNorm's ``mean``/``var`` become
 ``running_mean``/``running_var``. Feeding the result to
 ``load_state_dict(strict=True)`` makes the port compute what the JAX
-package computes with the same variables.
+package computes with the same variables. The same rules map the SR UNet's
+params (``eovax_torch.models.unet.UNet`` names its modules to match).
 """
 
 from __future__ import annotations
