@@ -18,6 +18,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    - ``group_norm`` (affine; + swish; + AdaIN + swish with [C] and [B, C])
      and ``gn_channel_sums``: [4,128,512,512] and [4,512,64,64] bf16,
      [2,96,37,53] fp32, and the input of a decoder ResnetBlock ``norm2``;
+     the forward's plan (cluster, slice, resident part, active clusters)
+     at each shape, its saved [B, G] mean and rstd against the plain
+     statistics and two calls bit-identical, there and at its plan edges:
+     [4,256,512,512] and [4,512,256,256] bf16 (4 and 2 MiB groups, streamed
+     slices), [2,256,256,256] fp32 at loc 30, [2,32,64,64] fp32 (one
+     channel a group), [8,64,16,16] bf16 (two, a warp a group);
    - ``conv3x3``: [4,128,512,512] 128→128, [4,512,256,256] 512→256 and
      [4,512,64,64] 512→512 bf16, [2,48,37,53] 48→96 bf16 (a width that is
      not a multiple of 8 or 64), [2,64,37,53] 64→96 fp32, and the input of
@@ -40,7 +46,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 4. Time ``reconstruct``, ``encode_split`` and each kernel with CUDA events
    after warm-up (kernel, plain version, the one PyTorch call computing the
    same function, and the card's bound), break one 512² ``reconstruct``
-   down by kernel with ``torch.profiler``.
+   down by kernel with ``torch.profiler`` (52 ``gn_fwd_kernel`` rows a call
+   and none of the two kernels it replaced); the GroupNorm forward's device
+   time at the train step's 8 shapes, the 512² call's 2-4 MiB groups and
+   the SR UNet's two, beside ``F.group_norm`` + ``F.silu``, its bound, the
+   share of it, its plan and active clusters.
 5. Train: the stage-2 generator step (``eovax_torch.train.stage2``) at full
    width, 12-band 256² B=16 bf16, Charbonnier + MS-SSIM (start step 0), Adam
    at the shipped base lr 1e-4 with the clip at 1.0 (the 2000-step warmup
@@ -58,8 +68,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    the card (fp32 and bf16) against fp32 on the CPU at [1,12,64,64]; 2
    warm-up and 10 timed steps (CUDA events) on one fixed batch, whose loss
    must be finite and fall; ms/step, imgs/s, peak memory, the optimizer
-   step's host time, the kernel rows of one profiled step (52 ``gn_bwd_``
-   launches); the backward kernels' times beside their plain
+   step's host time, the kernel rows of one profiled step (52 ``gn_fwd_``
+   and 52 ``gn_bwd_`` launches); the backward kernels' times beside their plain
    versions, library calls and bounds (``group_norm_backward`` at
    [16,128,256,256] and [16,256,256,256]). Then one ``{"kernels": [...]}`` line
    (flash_attention and conv3x3 also with their TFLOP/s at each timed shape;
@@ -120,7 +130,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    one x1 on the card against the CPU; times (one UNet eval at B = 8 and 16
    beside its operations bound from the layers' shapes, the three samplers
    at B = 8, the pipeline of ``eovax/cli/benchmark.py`` at its ``--all``
-   settings with its timing keys, one profiled DDIM step, each kernel at
+   settings with its timing keys, one profiled DDIM step with 48
+   ``gn_fwd_`` rows, each kernel at
    the UNet's shapes with its device time); and
    ``eovax_torch.cli.eval_metric_super_res.main`` on 8 AOIs of latents that
    the port's ``encode_split`` writes under ``build/`` (removed at the end),
@@ -187,6 +198,20 @@ GN_BWD_FLOPS_PER_ELEMENT = 31
 TRAIN_GN_SHAPES = {(16, 128, 256, 256): 10, (16, 256, 256, 256): 1, (16, 128, 128, 128): 1,
                    (16, 256, 128, 128): 8, (16, 512, 128, 128): 1, (16, 256, 64, 64): 1,
                    (16, 512, 64, 64): 9, (16, 512, 32, 32): 21}
+# The GroupNorm forward's timed shapes, with a [B, C] FiLM (True) or plain
+# swish: the train step's 8, the 2-4 MiB groups of a 512² reconstruct, the SR
+# UNet's two.
+GN_TIMED_SHAPES = {**{shape: False for shape in TRAIN_GN_SHAPES},
+                   (4, 128, 512, 512): False, (4, 512, 256, 256): False,
+                   (4, 256, 512, 512): False, (8, 512, 64, 64): True, (8, 64, 16, 16): True}
+# The forward's plan edges besides phase 2's main-path shapes (shape, dtype,
+# loc): 4 MiB and 2 MiB groups (bf16, 16-CTA clusters with streamed slices),
+# fp32 1 MiB groups at loc 30 (streamed; the shifted sums' cancellation case),
+# one channel a group, and the SR UNet's two channels a group at 16² (the warp
+# plan: a warp a group).
+GN_FWD_EDGES = (((4, 256, 512, 512), "bfloat16", 0.0), ((4, 512, 256, 256), "bfloat16", 0.0),
+                ((2, 256, 256, 256), "float32", 30.0), ((2, 32, 64, 64), "float32", 0.0),
+                ((8, 64, 16, 16), "bfloat16", 0.0))
 
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
@@ -253,8 +278,7 @@ def profile_kernels(label: str, fn, card: str, calls: int = 2) -> dict:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         ms = e.self_device_time_total / 1e3 / calls
         print(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count // calls:<4d} {e.key[:96]}")
-    for group, tag in (("conv3x3", "conv3x3_"), ("group_norm", "gn_apply_kernel"),
-                       ("group_norm statistics", "gn_stats_"),
+    for group, tag in (("conv3x3", "conv3x3_"), ("group_norm", "gn_fwd_"),
                        ("group_norm_backward", "gn_bwd_"), ("flash_attention", "flash_")):
         ours = [e for e in kernels if tag in e.key]
         ms = sum(e.self_device_time_total for e in ours) / 1e3 / calls
@@ -262,6 +286,18 @@ def profile_kernels(label: str, fn, card: str, calls: int = 2) -> dict:
         print(f"  {group} kernels: {ms:.3f} ms/call x{count}, {100 * ms / busy_ms:.2f}% of "
               "kernel time")
     return {e.key: e.count // calls for e in kernels}
+
+
+def check_gn_forward_rows(label: str, rows: dict, expected: int) -> None:
+    """A profile's kernel rows per call hold ``expected`` GroupNorm forward
+    launches of the one-launch kernel and no row of the two kernels it replaced."""
+    fwd = sum(v for k, v in rows.items() if "gn_fwd_" in k)
+    old = {k: v for k, v in rows.items() if "gn_stats_" in k or "gn_apply_" in k}
+    print(f"profile {label}: {fwd} gn_fwd_kernel rows a call (expected {expected}), "
+          f"gn_stats_/gn_apply_ rows {old or 'none'}")
+    if fwd != expected or old:
+        raise AssertionError(f"{label}: GroupNorm forward rows {fwd} (expected {expected}), "
+                             f"earlier kernels {old}")
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -378,6 +414,31 @@ def check_group_norm(x, weight, bias, tol: float, label: str, variants: dict) ->
     return errs
 
 
+def check_gn_forward(x, weight, bias, tol: float, label: str, **kw) -> float:
+    """group_norm's one launch with its saved [B, G] mean and rstd against the
+    plain versions, and two calls bit-identical; returns the output's max abs
+    error."""
+    import torch
+
+    from eovax_torch.kernels.groupnorm import _forward, group_norm_plain, group_stats_plain
+
+    args = (x, weight, bias, 32, 1e-6, kw.get("ada_scale"), kw.get("ada_shift"),
+            kw.get("swish", False))
+    first, second = _forward(*args, with_stats=True), _forward(*args, with_stats=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"kernel repeat group_norm {label} {tuple(x.shape)} {x.dtype}: y, mean, rstd "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"group_norm differs between two calls at {label}")
+    err = check("group_norm", f"{label} {tuple(x.shape)} {x.dtype}", first[0],
+                group_norm_plain(x, weight, bias, **kw), tol)
+    for name, got, ref in zip(("mean", "rstd"), first[1:], group_stats_plain(x, 32, 1e-6)):
+        check("group_norm saved", f"{label} {name} {tuple(x.shape)} {x.dtype}", got, ref,
+              TOL_GN_F32)
+    return err
+
+
 def check_conv(x, w, bias, tol: float, label: str) -> float:
     import torch
 
@@ -442,18 +503,27 @@ def check_gn_backward_repeat(grad, x, weight, bias, label: str, **kw) -> None:
         raise AssertionError(f"group_norm_backward differs between two calls at {label}")
 
 
-def gn_backward_plan_line(shape, dtype) -> str:
-    """The backward kernel's plan for ``shape`` and how many of its clusters the
-    card holds at once."""
+def gn_plan(shape, dtype, forward: bool) -> tuple:
+    """The forward's or the backward's plan for ``shape``, whether it takes 16-byte
+    vectors, and how many of its clusters the card holds at once."""
     import torch
 
-    from eovax_torch.kernels.groupnorm import _bwd_plan, bwd_active_clusters
+    from eovax_torch.kernels.groupnorm import _bwd_plan, _fwd_plan, active_clusters
 
     b, c, h, w = shape
-    plan = _bwd_plan(b, c, 32, h * w, torch.tensor([], dtype=dtype).element_size())
-    vec = (h * w) % (16 // torch.tensor([], dtype=dtype).element_size()) == 0
-    return (f"{plan._asdict()}, {'16-byte vectors' if vec else 'scalar loads'}, "
-            f"cudaOccupancyMaxActiveClusters {bwd_active_clusters(plan, dtype, vec)}")
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    plan = (_fwd_plan if forward else _bwd_plan)(b, c, 32, h * w, itemsize)
+    vec = (h * w) % (16 // itemsize) == 0
+    return plan, vec, active_clusters(plan, dtype, vec)
+
+
+def gn_plan_line(shape, dtype, forward: bool) -> str:
+    plan, vec, clusters = gn_plan(shape, dtype, forward)
+    if plan.cluster == 0:
+        return f"{plan._asdict()}: the warp plan, a warp a group in registers"
+    streamed = f", {plan.slice - plan.resident} streamed" if plan.resident < plan.slice else ""
+    return (f"{plan._asdict()}{streamed}, {'16-byte vectors' if vec else 'scalar loads'}, "
+            f"cudaOccupancyMaxActiveClusters {clusters}")
 
 
 def conv_inputs(b, ci, co, h, w, dtype, g):
@@ -665,7 +735,7 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
                     ((2, 96, 37, 53), torch.bfloat16), ((2, 96, 37, 53), torch.float32)])
     for shape, dtype in gn_shapes:
         print(f"group_norm_backward plan {list(shape)} {dtype}: "
-              f"{gn_backward_plan_line(shape, dtype)}")
+              f"{gn_plan_line(shape, dtype, forward=False)}")
         b, c = shape[:2]
         x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
         grad = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -745,6 +815,7 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
     stamp("phase 5: timed train steps")
     rows = profile_kernels("train step [16,12,256,256] bf16", lambda: step(state, x, s2), card,
                            calls=1)
+    check_gn_forward_rows("train step [16,12,256,256] bf16", rows, sum(TRAIN_GN_SHAPES.values()))
     gn_bwd_rows = {k: v for k, v in rows.items() if "gn_bwd_" in k}
     if (sum(gn_bwd_rows.values()) != sum(TRAIN_GN_SHAPES.values())
             or any("gn_bwd_reduce" in k or "gn_bwd_apply" in k for k in gn_bwd_rows)):
@@ -805,7 +876,7 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
               f"plain {plain_ms:.4f} ms, autograd of F.silu(F.group_norm) {library_ms:.4f} ms, "
               f"bound {timings['group_norm_backward', shape]['bound_ms']:.4f} ms "
               f"({nbytes / kernel_ms / 1e6:.0f} GB/s of its 3-access traffic; plan "
-              f"{gn_backward_plan_line(shape, torch.bfloat16)}) [{card}]")
+              f"{gn_plan_line(shape, torch.bfloat16, forward=False)}) [{card}]")
         del x, grad, xr, y
         torch.cuda.empty_cache()
     return counts, errs, timings
@@ -1493,9 +1564,11 @@ def unet_flops(unet, x, t, cond) -> dict:
     return flops
 
 
-def device_ms(fn, calls: int = 20) -> float:
-    """The device's time for one ``fn()``: its kernels' times summed (torch.profiler).
-    Beside ``cuda_ms``, which at small shapes reads the host's rate of issuing calls."""
+def device_profile(fn, calls: int = 20) -> tuple[float, float]:
+    """The device's time for one ``fn()``, its kernels' times summed (torch.profiler),
+    and the kernel records the trace kept per call (a whole number where it kept them
+    all). Beside ``cuda_ms``, which at small shapes reads the host's rate of issuing
+    calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1506,19 +1579,47 @@ def device_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)) / 1e3 / calls
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
+            sum(e.count for e in events) / calls)
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """The device's time for one ``fn()``: ``calls`` calls captured in one CUDA graph,
+    its replays timed by CUDA events, so that the host's issue rate does not enter.
+    Phase 8 takes it in place of the profiler, whose traces there kept from none to
+    half of the kernel records of 20 calls."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def time_kernel_shape(name, shape, kernel, plain, library, flops, flops_per_s, nbytes,
                       err, card) -> dict:
-    """Kernel, plain and library device times at one shape (profiled; the kernel's with
-    its wrapper's weight relayout and casts), the bound, and beside them CUDA events
-    over back-to-back calls (``*issue_ms``), which at these sizes read the host's rate
-    of issuing calls, not the device's."""
-    row = dict(shape=list(shape), ms=device_ms(kernel), plain_ms=device_ms(plain, 5),
-               library_ms=device_ms(library) if library is not None else None,
+    """Kernel, plain and library device times at one shape (CUDA-graph replays; the
+    kernel's with its wrapper's weight relayout and casts), the bound, and beside them
+    CUDA events over back-to-back calls (``*issue_ms``), which at these sizes read the
+    host's rate of issuing calls, not the device's."""
+    row = dict(shape=list(shape), ms=graph_ms(kernel), plain_ms=graph_ms(plain, 5),
+               library_ms=graph_ms(library) if library is not None else None,
                issue_ms=cuda_ms(kernel, 20), plain_issue_ms=cuda_ms(plain, 5),
                library_issue_ms=cuda_ms(library, 20) if library is not None else None,
                max_abs_err=err, **bound(flops, flops_per_s, nbytes))
@@ -1709,8 +1810,9 @@ def sr_phase(vae, vae_sd: dict, card: str, g) -> dict:
             print(f"time SR {label} [8,32,64,64] bf16: {ms:.3f} ms a sample batch, "
                   f"{8e3 / ms:.2f} latents/s (host wall {(time.perf_counter() - t0) * 1e3 / 4:.3f} "
                   f"ms a call) [{card}]")
-        profile_kernels("SR DDIM step [8,32,64,64] bf16",
-                        lambda: DDIMSampler(denoiser, steps=1)(unet, x1, cond8), card)
+        rows = profile_kernels("SR DDIM step [8,32,64,64] bf16",
+                               lambda: DDIMSampler(denoiser, steps=1)(unet, x1, cond8), card)
+        check_gn_forward_rows("SR DDIM step [8,32,64,64] bf16", rows, UNET_EVAL[1])
 
         # The pipeline of eovax/cli/benchmark.py (its --all settings): encode a 4-band
         # LR 128² image, sample its latent, decode.
@@ -1839,7 +1941,22 @@ def main() -> int:
         x = torch.randn(shape, generator=g, device=dev).to(dtype)
         w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
         bias = 0.1 * torch.randn(c, generator=g, device=dev)
-        gn_errs[shape] = check_group_norm(x, w, bias, tol, "synthetic", gn_variants(b, c, g))
+        print(f"group_norm plan {list(shape)} {dtype}: {gn_plan_line(shape, dtype, forward=True)}")
+        variants = gn_variants(b, c, g)
+        gn_errs[shape] = check_group_norm(x, w, bias, tol, "synthetic", variants)
+        check_gn_forward(x, w, bias, tol, "synthetic adain[B,C]+swish",
+                         **variants["adain[B,C]+swish"])
+        del x
+    for shape, dtype, loc in GN_FWD_EDGES:
+        dtype = getattr(torch, dtype)
+        print(f"group_norm plan {list(shape)} {dtype}: {gn_plan_line(shape, dtype, forward=True)}")
+        b, c = shape[:2]
+        x = (torch.randn(shape, generator=g, device=dev) + loc).to(dtype)
+        w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        check_gn_forward(x, w, bias, TOL_GN_BF16 if dtype == torch.bfloat16 else TOL_GN_F32,
+                         f"plan edge loc {loc:g} adain[B,C]+swish",
+                         **gn_variants(b, c, g)["adain[B,C]+swish"])
         del x
 
     conv_errs = {}
@@ -1963,7 +2080,9 @@ def main() -> int:
     shutil.rmtree(enc_dir, ignore_errors=True)
     stamp("phase 4: reconstruct and encode_split times")
 
-    profile_kernels(f"reconstruct {tuple(x512.shape)}", lambda: model.reconstruct(x512, s2), card)
+    rows = profile_kernels(f"reconstruct {tuple(x512.shape)}", lambda: model.reconstruct(x512, s2),
+                           card)
+    check_gn_forward_rows(f"reconstruct {tuple(x512.shape)}", rows, 52)
     stamp("phase 4: reconstruct profile")
 
     timings = {}
@@ -2009,6 +2128,35 @@ def main() -> int:
           f"{timings['group_norm', shape]['bound_ms']:.4f} ms "
           f"({4.0 * x.numel() / kernel_ms / 1e6:.0f} GB/s of the least traffic) [{card}]")
     del x
+    gn_rows = []  # the forward at each of GN_TIMED_SHAPES, profiled device times
+    for shape, film in GN_TIMED_SHAPES.items():
+        b, c = shape[:2]
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        wb, bb = w.bfloat16(), bias.bfloat16()
+        kw = gn_variants(b, c, g)["adain[B,C]+swish"] if film else dict(swish=True)
+        with torch.inference_mode():
+            kernel_ms, recorded = device_profile(lambda: group_norm(x, w, bias, **kw))
+            # No one library call computes the FiLM form: library_ms is null there.
+            library_ms = None if film else device_profile(
+                lambda: F.silu(F.group_norm(x, 32, wb, bb, 1e-6)))[0]
+        nbytes = 2.0 * x.numel() * 2 + (4.0 * 2 * b * c if film else 0.0)
+        plan, _, clusters = gn_plan(shape, torch.bfloat16, forward=True)
+        row = dict(shape=list(shape), form="FiLM[B,C]+swish" if film else "swish", ms=kernel_ms,
+                   library_ms=library_ms,
+                   **bound(GN_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, nbytes),
+                   plan=plan._asdict(), active_clusters=clusters, kernels_recorded=recorded)
+        row["bound_share"] = row["bound_ms"] / kernel_ms
+        gn_rows.append(row)
+        lib = "null (no one call)" if film else f"{library_ms:.4f} ms"
+        print(f"time group_norm+{row['form']} {list(shape)} bf16: device kernel {kernel_ms:.4f} ms "
+              f"({recorded:g} kernels recorded a call), "
+              f"F.group_norm+F.silu {lib}, bound {row['bound_ms']:.4f} ms "
+              f"({100 * row['bound_share']:.1f}% of it; plan "
+              f"{gn_plan_line(shape, torch.bfloat16, forward=True)}) [{card}]")
+        del x
+    torch.cuda.empty_cache()
 
     conv_rates = []  # [B, Ci, Co, H, W] each: kernel and cuDNN TFLOP/s
     for shape in ((4, 128, 128, 512, 512), (4, 512, 256, 256, 256), (4, 512, 512, 64, 64)):
@@ -2050,7 +2198,7 @@ def main() -> int:
          "replaces": "eovax/kernels/groupnorm.py:31",
          "launches": main_launches["group_norm"],
          "max_abs_err": gn_errs[(4, 128, 512, 512)]["swish"],
-         **timings["group_norm", (4, 128, 512, 512)],
+         **timings["group_norm", (4, 128, 512, 512)], "shapes": gn_rows,
          "sr_launches": sr["launches"]["group_norm"], "sr_shapes": sr["shapes"]["group_norm"]},
         {"name": "conv3x3", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/conv3x3.cu",

@@ -1,31 +1,66 @@
-// GroupNorm for Hopper (sm_90a), NCHW: statistics, then one fused normalize /
-// affine / AdaIN / SiLU pass; and the backward of that chain.
+// GroupNorm for Hopper (sm_90a), NCHW: the forward (normalize, affine, AdaIN,
+// SiLU) in one launch, the per-(B, C) statistics of the TPU kernel's contract,
+// and the backward of the forward's chain.
 //
 // Replaces the Pallas TPU kernel `_stats_kernel` / `gn_channel_sums` in
 // eovax/kernels/groupnorm.py (pallas_call at line 70), which takes per-(B, C)
 // fp32 sums and sums of squares in one streaming pass, and the apply of
-// `group_norm` there (`_apply`), which the JAX package leaves to XLA. Forward
-// and, below, its backward.
+// `group_norm` there (`_apply`), which the JAX package leaves to XLA.
 //
-// What bounds it on the H100: bytes. One GroupNorm reads x twice (once per
-// kernel) and writes y once, a few FLOPs per element: at [4, 128, 512, 512]
-// bf16 the least traffic (x read once, y written once) is 537 MB, 0.16 ms at
-// 3.35 TB/s. The design streams x with 16-byte loads and keeps every
-// intermediate but two fp32 numbers per (b, c) out of device memory.
+// Channel sums (`gn_stats_kernel`, for `gn_channel_sums`). In NCHW a channel's
+// H·W elements are contiguous, so one block reduces one (b, c) plane in one
+// pass. Each thread sums x, and d = x − K and d² about K, the mean of the
+// plane's first 256 elements: the E[x²] − mean² of the TPU kernel cancels when
+// |mean| ≫ std, as after a conv bias, and sums about a close estimate of the
+// mean do not. The block writes the plane's mean (from Σx) and M2 = Σ(x − mean)²
+// (from the shifted sums); `gn_channel_sums` turns those into the TPU kernel's
+// (Σx, Σx²).
 //
-// Statistics (`gn_stats_kernel`). In NCHW a channel's H·W elements are
-// contiguous, so one block reduces one (b, c) plane in one pass. Each thread
-// sums x, and d = x − K and d² about K, the mean of the plane's first 256
-// elements: the E[x²] − mean² of the TPU kernel cancels when |mean| ≫ std, as
-// after a conv bias, and sums about a close estimate of the mean do not. The block writes the plane's mean (from
-// Σx) and M2 = Σ(x − mean)² (from the shifted sums); `gn_channel_sums` turns
-// those into the TPU kernel's (Σx, Σx²).
-//
-// Apply (`gn_apply_kernel`). A block normalizes one chunk of one plane. It
-// first combines its group's channel (mean, M2) pairs with Chan's formula
-// (equal counts), then computes y = (x − mean)·(rstd·γ·s) + (β·s + t) in fp32,
-// with (s, t) the optional AdaIN scale and shift ([C] shared or [B, C]), then
-// the optional SiLU, and rounds once to the input type.
+// Forward (`gn_fwd_kernel`). y = (x − μ)·r·γ·s + β·s + t per channel, with μ,
+// r the fp32 mean and rstd of the (b, group), (s, t) the optional AdaIN scale
+// and shift ([C] shared or [B, C]), then the optional SiLU, rounded once.
+// What bounds it: bytes. The group's statistics must be complete before its
+// first output, so a kernel that streams x from device memory reads it twice
+// (3 bytes of traffic per byte of x); the least is x read once and y written
+// once, at [16, 128, 256, 256] bf16 537 MB, 0.16 ms at 3.35 TB/s. This design
+// reads x once and keeps it on chip in between: a (b, group) is one contiguous
+// run of cpg·n elements, and one thread-block cluster of k CTAs owns it (the
+// grid is B·G clusters), cut into k slices on channel boundaries as the
+// backward cuts it. Each CTA
+//   1. copies its slice into dynamic shared memory with 1-D bulk copies
+//      (cp.async.bulk), in up to kFwdChunks chunks with one mbarrier each, and
+//      sums each chunk as it lands: Σx, and Σd and Σd² of d = x − K about K,
+//      the mean of the slice's first 256 elements (the E[x²] − mean² of the
+//      TPU kernel cancels when |mean| ≫ std, as after a conv bias);
+//   2. after a cluster barrier, reads every CTA's partial sums through
+//      distributed shared memory and adds them in rank order (no atomics: the
+//      result is bit-identical from call to call), so every CTA holds the
+//      group's mean μ;
+//   3. moves each CTA's shifted sums to μ exactly,
+//      Σ(x − μ)² = Σd² + 2(K − μ)Σd + m(K − μ)², and adds them in rank order
+//      into the group's variance (the exact second pass over shared memory,
+//      with a second cluster barrier, was slower over the train step's calls:
+//      `two-pass` in scripts/ablate_gn_forward.py);
+//   4. writes y from its copy with 16-byte stores, per channel
+//      y = (x − μ)·a + c with a = r·γ·s and c = β·s + t, then waits at a last
+//      cluster barrier, arrived at right after its last remote read, so that
+//      no CTA exits while another still reads its partials.
+// The channel parameters are read while the copies fly. The CTA of rank 0
+// writes the group's fp32 mean and rstd, which the backward reads. A slice
+// longer than the plan's resident length keeps its first part in shared memory
+// and reads the rest from device memory in steps 1 and 4 (the second read
+// mostly from L2): the 2-4 MiB groups of 512² and fp32 at full width. A
+// group of at most 32·kWarpVecs 16-byte vectors takes the warp plan instead
+// (`gn_fwd_warp_kernel`): one warp per group holds it in registers, with the
+// exact two-pass variance, and writes y with no shared memory and no barrier;
+// the cluster kernel's fixed costs (bulk copies, block and cluster barriers)
+// made one CTA a 1 KiB group take 0.0070 ms at [8, 64, 16, 16] bf16, the warp
+// 0.0030 (scripts/ablate_gn_forward.py). A ragged n (not a whole number of 16-byte
+// vectors) takes scalar loads, and step 1 copies the resident part into
+// shared memory itself. The plan (cluster size, slice, resident length,
+// shared-memory bytes) is chosen by the wrapper (`_fwd_plan` in groupnorm.py)
+// and checked here; a plan that cannot launch, by its shape or because no
+// cluster of it fits on the card, returns an error.
 //
 // Backward (`gn_bwd_kernel`). Replaces the JAX package's `_gn_bwd`
 // (eovax/kernels/groupnorm.py:124-147, the closed-form backward of its
@@ -82,7 +117,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kVecIters = 8;  // 16-byte vectors per thread per apply block
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -117,21 +152,32 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[vec_n<T>()]) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-// Sum of `v` over the block; the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// Sums of each v[i] over the block; valid in thread 0.
+template <int N>
+__device__ __forceinline__ void block_sums(float (&v)[N], float* red) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = 0.f;
-  if (threadIdx.x < 32) {
-    v = threadIdx.x < kThreads / 32 ? red[threadIdx.x] : 0.f;
+  if (lane == 0) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    for (int i = 0; i < N; ++i) red[i * kWarps + warp] = v[i];
   }
   __syncthreads();
-  return v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = 0.f;
+  if (threadIdx.x < 32) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = threadIdx.x < kWarps ? red[i * kWarps + threadIdx.x] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+    }
+  }
+  __syncthreads();
 }
 
 // One block per (b, c) plane of n elements: mean and M2 about the plane's mean.
@@ -139,12 +185,13 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean, float* __restrict__ m2,
                     long n) {
-  __shared__ float red[kThreads / 32];
+  __shared__ float red[3 * kWarps];
   __shared__ float shift_s;
   const T* p = x + (size_t)blockIdx.x * n;
   const long m = n < kThreads ? n : kThreads;
-  const float head = block_sum(threadIdx.x < m ? to_float(p[threadIdx.x]) : 0.f, red);
-  if (threadIdx.x == 0) shift_s = head / (float)m;
+  float head[1] = {threadIdx.x < m ? to_float(p[threadIdx.x]) : 0.f};
+  block_sums(head, red);
+  if (threadIdx.x == 0) shift_s = head[0] / (float)m;
   __syncthreads();
   const float shift = shift_s;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
@@ -172,75 +219,18 @@ __global__ void __launch_bounds__(kThreads)
       s2 = fmaf(d, d, s2);
     }
   }
-  s0 = block_sum(s0, red);
-  s1 = block_sum(s1, red);
-  s2 = block_sum(s2, red);
+  float sums[3] = {s0, s1, s2};
+  block_sums(sums, red);
   if (threadIdx.x == 0) {
-    mean[blockIdx.x] = s0 / (float)n;
-    m2[blockIdx.x] = fmaxf(s2 - s1 * (s1 / (float)n), 0.f);
+    mean[blockIdx.x] = sums[0] / (float)n;
+    m2[blockIdx.x] = fmaxf(sums[2] - sums[1] * (sums[1] / (float)n), 0.f);
   }
 }
 
-__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
-
-// grid (chunks of one plane, B·C planes). y = (x − mean)·a + c, then SiLU.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ mean,
-                    const float* __restrict__ m2, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const float* __restrict__ ada_scale,
-                    const float* __restrict__ ada_shift, int ada_stride, int C, int cpg, long n,
-                    long chunk, float eps, int swish) {
-  __shared__ float coef[3];  // mean, a, c of this block's channel
-  const int plane = blockIdx.y;
-  if (threadIdx.x == 0) {
-    const int b = plane / C, c = plane % C;
-    const float* gm_c = mean + (size_t)b * C + (c - c % cpg);
-    const float* gm2_c = m2 + (size_t)b * C + (c - c % cpg);
-    float gm = 0.f;
-    for (int i = 0; i < cpg; ++i) gm += gm_c[i];
-    gm /= (float)cpg;
-    float gm2 = 0.f;
-    for (int i = 0; i < cpg; ++i) {
-      const float d = gm_c[i] - gm;
-      gm2 += gm2_c[i] + (float)n * d * d;
-    }
-    const float rstd = rsqrtf(gm2 / ((float)n * (float)cpg) + eps);
-    float a = rstd * gamma[c], off = beta[c];
-    if (ada_scale != nullptr) {
-      const float s = ada_scale[(size_t)b * ada_stride + c];
-      a *= s;
-      off = off * s + ada_shift[(size_t)b * ada_stride + c];
-    }
-    coef[0] = gm;
-    coef[1] = a;
-    coef[2] = off;
-  }
-  __syncthreads();
-  const float gm = coef[0], a = coef[1], off = coef[2];
-  const size_t base = (size_t)plane * n;
-  const long lo = (long)blockIdx.x * chunk;
-  const long hi = lo + chunk < n ? lo + chunk : n;
-  if (kVec) {
-    constexpr int V = vec_n<T>();
-#pragma unroll 4
-    for (long i = lo + threadIdx.x * V; i < hi; i += kThreads * V) {
-      float v[V];
-      load_vec(x + base + i, v);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float t = fmaf(v[j] - gm, a, off);
-        v[j] = swish ? silu(t) : t;
-      }
-      store_vec(y + base + i, v);
-    }
-  } else {
-    for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
-      const float t = fmaf(to_float(x[base + i]) - gm, a, off);
-      y[base + i] = from_float<T>(swish ? silu(t) : t);
-    }
-  }
-}
+// SiLU from the hardware's exp2 and reciprocal (__expf, __fdividef: a few ulp
+// in fp32), as the backward's σ(z): the IEEE expf and divide made the apply
+// compute-bound (scripts/ablate_gn_forward.py, `exact-math`).
+__device__ __forceinline__ float silu(float v) { return __fdividef(v, 1.f + __expf(-v)); }
 
 // dL/dz from dL/dy at the pre-SiLU value z. σ(z) from the hardware's exp2 and
 // reciprocal (__expf, __fdividef: a few ulp in fp32): with the IEEE expf and
@@ -277,34 +267,6 @@ __device__ __forceinline__ float2 channel_coef(const Chain& p, int b, int ch) {
 constexpr int kMaxSegments = 64;  // channels in one CTA's slice
 constexpr int kMaxChunks = 4;     // bulk copies of a slice's resident part, one mbarrier each
 constexpr int kMaxCluster = 16;   // above 8 only with the non-portable cluster size
-
-// Sums of a and b over the block; valid in thread 0.
-__device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
-  constexpr int kWarps = kThreads / 32;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red[warp] = a;
-    red[kWarps + warp] = b;
-  }
-  __syncthreads();
-  a = b = 0.f;
-  if (threadIdx.x < 32) {
-    a = threadIdx.x < kWarps ? red[threadIdx.x] : 0.f;
-    b = threadIdx.x < kWarps ? red[kWarps + threadIdx.x] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, off);
-      b += __shfl_xor_sync(0xffffffffu, b, off);
-    }
-  }
-  __syncthreads();
-  return make_float2(a, b);
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -448,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, 3)
                   float* __restrict__ s1, float* __restrict__ s2, long n, long slice,
                   long resident, int swish) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[2 * kThreads / 32];
+  __shared__ float red[2 * kWarps];
   __shared__ float part[2 * kMaxSegments];  // this CTA's S1 partials per channel, then S2's
   __shared__ float2 group_sums;             // Σ a·S1 and Σ a·S2 over the group
   __shared__ __align__(8) uint64_t bar[kMaxChunks];
@@ -507,10 +469,11 @@ __global__ void __launch_bounds__(kThreads, 3)
                                          gs);
     }
     if (lo < e1) reduce_range<T, kVec, true>(xg, gg, lo, e1, mu, r, ac.x, ac.y, swish, t1, t2);
-    const float2 t = block_sum2(t1, t2, red);
+    float t[2] = {t1, t2};
+    block_sums(t, red);
     if (threadIdx.x == 0) {
-      part[j] = t.x;
-      part[kMaxSegments + j] = t.y;
+      part[j] = t[0];
+      part[kMaxSegments + j] = t[1];
     }
   }
 
@@ -537,8 +500,9 @@ __global__ void __launch_bounds__(kThreads, 3)
     }
   }
   cluster_arrive();  // done with the other CTAs' shared memory
-  const float2 gsum = block_sum2(ga, gx, red);
-  if (threadIdx.x == 0) group_sums = gsum;
+  float gsum[2] = {ga, gx};
+  block_sums(gsum, red);
+  if (threadIdx.x == 0) group_sums = make_float2(gsum[0], gsum[1]);
   __syncthreads();
 
   // 3. dx, from shared memory where resident.
@@ -555,6 +519,288 @@ __global__ void __launch_bounds__(kThreads, 3)
       apply_range<T, kVec, true>(xg, gg, dxg, lo, e1, mu, r, ac.x, ac.y, k1, k0, k2, swish);
   }
   cluster_wait();
+}
+
+constexpr int kFwdChunks = 8;  // bulk copies of a forward slice's resident part
+
+// The forward's operands besides x and y: γ and β (fp32 [C]); the optional
+// AdaIN scale and shift (fp32 [C] with ada_stride 0, [B, C] with ada_stride
+// C, or null); the outputs mean and rstd (fp32 [B, G], or null).
+struct FwdArgs {
+  const float* gamma;
+  const float* beta;
+  const float* ada_scale;
+  const float* ada_shift;
+  float* mean;
+  float* rstd;
+  int ada_stride, C, cpg;
+  float eps;
+  int swish;
+};
+
+// Step 1 over [lo, hi): adds Σx, Σ(x − K) and Σ(x − K)² to acc[0], acc[1]
+// and acc[2]. xp points at the slice's first element, in shared memory or,
+// with kGlobal, in device memory. With kKeep (scalar loads only) each element
+// is also stored at xk: the copy into shared memory of a ragged slice.
+template <typename T, bool kVec, bool kGlobal, bool kKeep = false>
+__device__ __forceinline__ void sum_range(const T* xp, long lo, long hi, float K,
+                                          float (&acc)[3], T* xk = nullptr) {
+  if constexpr (kVec) {
+    constexpr int V = vec_n<T>();
+#pragma unroll 4
+    for (long i = lo / V + threadIdx.x; i < hi / V; i += kThreads) {
+      float v[V];
+      load_any<T, kGlobal>(xp + i * V, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        acc[0] += v[j];
+        const float d = v[j] - K;
+        acc[1] += d;
+        acc[2] = fmaf(d, d, acc[2]);
+      }
+    }
+  } else {
+    for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const T e = xp[i];
+      if constexpr (kKeep) xk[i] = e;
+      const float v = to_float(e);
+      acc[0] += v;
+      const float d = v - K;
+      acc[1] += d;
+      acc[2] = fmaf(d, d, acc[2]);
+    }
+  }
+}
+
+// Step 4 over [lo, hi): y = (x − μ)·a + c with (a, c) = coef[element / seg],
+// then the optional SiLU, rounded once into yp (the slice's first element of y
+// in device memory). xp as for sum_range.
+template <typename T, bool kVec, bool kGlobal>
+__device__ __forceinline__ void apply_fwd(const T* xp, T* yp, long lo, long hi, long seg,
+                                          float mu, const float2* coef, int swish) {
+  if constexpr (kVec) {
+    constexpr int V = vec_n<T>();
+#pragma unroll 4
+    for (long i = lo / V + threadIdx.x; i < hi / V; i += kThreads) {
+      float v[V];
+      load_any<T, kGlobal>(xp + i * V, v);
+      const float2 ac = coef[(uint32_t)(i * V) / (uint32_t)seg];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float t = fmaf(v[j] - mu, ac.x, ac.y);
+        v[j] = swish ? silu(t) : t;
+      }
+      store_vec(yp + i * V, v);
+    }
+  } else {
+    for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const float2 ac = coef[(uint32_t)i / (uint32_t)seg];
+      const float t = fmaf(to_float(xp[i]) - mu, ac.x, ac.y);
+      yp[i] = from_float<T>(swish ? silu(t) : t);
+    }
+  }
+}
+
+// One cluster of k CTAs per (b, group), grid B·G·k. CTA `rank` owns elements
+// [rank·slice, (rank + 1)·slice) of the group's contiguous run of cpg·n, the
+// first `resident` of them in dynamic shared memory.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 3)
+    gn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, FwdArgs p, long n, long slice,
+                  long resident) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[3 * kWarps];
+  __shared__ float part[4];  // this CTA's Σx, K, Σ(x − K) and Σ(x − K)² of step 1
+  __shared__ float gathered[kMaxCluster][4];
+  __shared__ float2 coef[kMaxSegments];
+  __shared__ float shift_s;
+  __shared__ __align__(8) uint64_t bar[kFwdChunks];
+  T* xs = reinterpret_cast<T*>(smem);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int bg = blockIdx.x / k;  // b·G + group
+  const int b = bg / (p.C / p.cpg);
+  const long seg = slice < n ? slice : n;  // elements of one channel in the slice
+  const int nseg = (int)(slice / seg);
+  const int ch0 = (bg % (p.C / p.cpg)) * p.cpg + (int)((long)rank * slice / n);
+  const size_t off = (size_t)bg * p.cpg * n + (size_t)rank * slice;
+  const T* xg = x + off;
+  T* yg = y + off;
+
+  // The resident part in up to kFwdChunks bulk copies.
+  constexpr int V = vec_n<T>();
+  const long chunk = ((resident + kFwdChunks - 1) / kFwdChunks + V - 1) / V * V;
+  if (kVec && threadIdx.x == 0 && resident > 0) {
+    for (int q = 0; q * chunk < resident; ++q) mbar_init(&bar[q], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (kVec && threadIdx.x == 0) {
+    for (int q = 0; q * chunk < resident; ++q) {
+      const long e0 = q * chunk;
+      const uint32_t bytes = (uint32_t)((resident - e0 < chunk ? resident - e0 : chunk) * sizeof(T));
+      mbar_expect_tx(&bar[q], bytes);
+      bulk_load(xs + e0, xg + e0, bytes, &bar[q]);
+    }
+  }
+  // This slice's channel parameters, read now and used after the statistics.
+  float gamma = 0.f, beta = 0.f, s = 1.f, t = 0.f;
+  if (threadIdx.x < nseg) {
+    const int ch = ch0 + threadIdx.x;
+    gamma = p.gamma[ch];
+    beta = p.beta[ch];
+    if (p.ada_scale != nullptr) {
+      s = p.ada_scale[(size_t)b * p.ada_stride + ch];
+      t = p.ada_shift[(size_t)b * p.ada_stride + ch];
+    }
+  }
+
+  // The shift of the shifted sums: the mean of the slice's first elements.
+  const long m = slice < kThreads ? slice : kThreads;
+  float head[1] = {threadIdx.x < m ? to_float(xg[threadIdx.x]) : 0.f};
+  block_sums(head, red);
+  if (threadIdx.x == 0) shift_s = head[0] / (float)m;
+  __syncthreads();
+  const float K = shift_s;
+
+  // 1. Partial sums, each resident chunk as it lands, then the streamed rest.
+  float acc[3] = {0.f, 0.f, 0.f};
+  if constexpr (kVec) {
+    for (long q0 = 0; q0 < resident; q0 += chunk) {
+      const long q1 = q0 + chunk < resident ? q0 + chunk : resident;
+      mbar_wait(&bar[q0 / chunk], 0);
+      sum_range<T, true, false>(xs, q0, q1, K, acc);
+    }
+  } else {
+    sum_range<T, false, true, true>(xg, 0, resident, K, acc, xs);
+  }
+  sum_range<T, kVec, true>(xg, resident, slice, K, acc);
+  block_sums(acc, red);
+  if (threadIdx.x == 0) {
+    part[0] = acc[0];
+    part[1] = K;
+    part[2] = acc[1];
+    part[3] = acc[2];
+  }
+
+  // 2. The group's mean from every CTA's partials, in rank order.
+  cluster.sync();
+  if (threadIdx.x < k) {
+    const float* rp = cluster.map_shared_rank(&part[0], (int)threadIdx.x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gathered[threadIdx.x][i] = rp[i];
+  }
+  __syncthreads();
+  const float count = (float)n * (float)p.cpg;
+  float sum = 0.f;
+  for (int q = 0; q < k; ++q) sum += gathered[q][0];
+  const float mu = sum / count;
+
+  // 3. The group's M2 in rank order: each CTA's sums about K moved to μ.
+  float m2 = 0.f;
+  for (int q = 0; q < k; ++q) {
+    const float dk = gathered[q][1] - mu;
+    m2 += gathered[q][3] + dk * fmaf((float)slice, dk, 2.f * gathered[q][2]);
+  }
+  cluster_arrive();  // done with the other CTAs' shared memory
+  const float rstd = rsqrtf(fmaxf(m2, 0.f) / count + p.eps);
+
+  // 4. y from shared memory where resident, per channel of the slice.
+  if (threadIdx.x < nseg) coef[threadIdx.x] = make_float2(rstd * gamma * s, beta * s + t);
+  if (rank == 0 && threadIdx.x == 0 && p.mean != nullptr) {
+    p.mean[bg] = mu;
+    p.rstd[bg] = rstd;
+  }
+  __syncthreads();
+  apply_fwd<T, kVec, false>(xs, yg, 0, resident, seg, mu, coef, p.swish);
+  apply_fwd<T, kVec, true>(xg, yg, resident, slice, seg, mu, coef, p.swish);
+  cluster_wait();
+}
+
+// The warp plan for small groups: a warp per (b, group), the group in its
+// lanes' registers (at most kWarpVecs 16-byte vectors a lane), the sums by
+// shuffles, the exact two-pass variance from registers; no shared memory and
+// no barrier. Blocks of kWarps groups.
+constexpr int kWarpVecs = 8;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gn_fwd_warp_kernel(const T* __restrict__ x, T* __restrict__ y, FwdArgs p, long n,
+                       int n_groups) {
+  constexpr int V = vec_n<T>();
+  const int bg = blockIdx.x * kWarps + (int)(threadIdx.x >> 5);  // b·G + group
+  const int lane = threadIdx.x & 31;
+  if (bg >= n_groups) return;
+  const int b = bg / (p.C / p.cpg);
+  const int ch_base = (bg % (p.C / p.cpg)) * p.cpg;
+  const long nv = (long)p.cpg * n / V;  // vectors of the group
+  const uint4* xv = reinterpret_cast<const uint4*>(x + (size_t)bg * p.cpg * n);
+  uint4* yv = reinterpret_cast<uint4*>(y + (size_t)bg * p.cpg * n);
+  uint4 raw[kWarpVecs];
+  float gamma[kWarpVecs], beta[kWarpVecs], s[kWarpVecs], t[kWarpVecs];
+#pragma unroll
+  for (int j = 0; j < kWarpVecs; ++j) {
+    const long i = lane + 32L * j;
+    if (i < nv) {
+      raw[j] = __ldg(xv + i);
+      const int ch = ch_base + (int)(i * V / n);
+      gamma[j] = p.gamma[ch];
+      beta[j] = p.beta[ch];
+      s[j] = p.ada_scale != nullptr ? p.ada_scale[(size_t)b * p.ada_stride + ch] : 1.f;
+      t[j] = p.ada_shift != nullptr ? p.ada_shift[(size_t)b * p.ada_stride + ch] : 0.f;
+    }
+  }
+  const float count = (float)n * (float)p.cpg;
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kWarpVecs; ++j) {
+    if (lane + 32L * j < nv) {
+      const T* e = reinterpret_cast<const T*>(&raw[j]);
+#pragma unroll
+      for (int q = 0; q < V; ++q) sum += to_float(e[q]);
+    }
+  }
+  const float mu = warp_sum(sum) / count;
+  float m2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kWarpVecs; ++j) {
+    if (lane + 32L * j < nv) {
+      const T* e = reinterpret_cast<const T*>(&raw[j]);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float d = to_float(e[q]) - mu;
+        m2 = fmaf(d, d, m2);
+      }
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(m2) / count + p.eps);
+  if (lane == 0 && p.mean != nullptr) {
+    p.mean[bg] = mu;
+    p.rstd[bg] = rstd;
+  }
+#pragma unroll
+  for (int j = 0; j < kWarpVecs; ++j) {
+    const long i = lane + 32L * j;
+    if (i < nv) {
+      const float a = rstd * gamma[j] * s[j], c = beta[j] * s[j] + t[j];
+      const T* e = reinterpret_cast<const T*>(&raw[j]);
+      float v[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float z = fmaf(to_float(e[q]) - mu, a, c);
+        v[q] = p.swish ? silu(z) : z;
+      }
+      store_vec(reinterpret_cast<T*>(yv + i), v);
+    }
+  }
 }
 
 // Vectors need n to be a whole number of 16-byte vectors and x, y 16-byte aligned.
@@ -574,30 +820,6 @@ int launch_stats(const void* x, float* mean, float* m2, int planes, long n, cuda
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_apply(const void* x, void* y, const float* mean, const float* m2, const float* gamma,
-                 const float* beta, const float* ada_scale, const float* ada_shift,
-                 int ada_stride, int B, int C, int groups, long n, float eps, int swish,
-                 cudaStream_t stream) {
-  if (B <= 0 || C <= 0 || groups <= 0 || C % groups != 0 || n <= 0)
-    return (int)cudaErrorInvalidValue;
-  const long chunk = (long)kThreads * vec_n<T>() * kVecIters;
-  const dim3 grid((unsigned)((n + chunk - 1) / chunk), (unsigned)(B * C));
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  const int cpg = C / groups;
-  if (vectorizable<T>(x, y, n))
-    gn_apply_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        xt, yt, mean, m2, gamma, beta, ada_scale, ada_shift, ada_stride, C, cpg, n, chunk, eps,
-        swish);
-  else
-    gn_apply_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        xt, yt, mean, m2, gamma, beta, ada_scale, ada_shift, ada_stride, C, cpg, n, chunk, eps,
-        swish);
-  return (int)cudaGetLastError();
-}
-
 Chain make_chain(const void* mean, const void* rstd, const void* gamma, const void* beta,
                  const void* ada_scale, const void* ada_shift, int ada_stride, int C, int groups) {
   return Chain{static_cast<const float*>(mean),      static_cast<const float*>(rstd),
@@ -610,21 +832,23 @@ Chain make_chain(const void* mean, const void* rstd, const void* gamma, const vo
 // The wrapper's plan, checked: `cluster` (a power of two up to kMaxCluster)
 // slices of the group's cpg·n elements, each a whole number of planes or a
 // whole fraction of one plane, at most kMaxSegments channels a slice; the first
-// `resident` elements of a slice in `smem` bytes of shared memory (x and g);
-// with 16-byte vectors, slice and resident whole vectors.
+// `resident` elements of a slice of each of `operands` tensors (the forward's
+// x; the backward's x and g) in `smem` bytes of shared memory; with 16-byte
+// vectors, slice and resident whole vectors.
 template <typename T>
-bool plan_ok(int cpg, long n, int cluster, long slice, long resident, int smem, bool vec) {
+bool plan_ok(int cpg, long n, int cluster, long slice, long resident, int smem, bool vec,
+             int operands) {
   if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0) return false;
   if (slice <= 0 || slice * cluster != (long)cpg * n) return false;
   if (slice % n != 0 && n % slice != 0) return false;
   if (slice / (slice < n ? slice : n) > kMaxSegments) return false;
-  if (resident < 0 || resident > slice || (long)smem != 2 * resident * (long)sizeof(T))
+  if (resident < 0 || resident > slice || (long)smem != operands * resident * (long)sizeof(T))
     return false;
   return !vec || (slice % vec_n<T>() == 0 && resident % vec_n<T>() == 0);
 }
 
-cudaLaunchConfig_t bwd_config(unsigned clusters, int cluster, int smem, cudaStream_t stream,
-                              cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t cluster_config(unsigned clusters, int cluster, int smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = (unsigned)cluster;
   attr->val.clusterDim.y = 1;
@@ -647,64 +871,109 @@ int refused(cudaError_t err) {
 }
 
 // How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
-// memory the card holds at once (cudaOccupancyMaxActiveClusters), into *count.
-// Sets the kernel's attributes first: 16-CTA clusters allowed, shared memory
-// preferred over L1, and the dynamic shared memory the plan asks for. The
-// attributes and the answers are kept per instance (not thread-safe).
-template <typename T, bool kVec>
-int active_clusters(int cluster, int smem, int* count) {
-  constexpr int kCache = 32;
-  static int smem_set = -1, cached = 0, keys[kCache][2], values[kCache];
-  const void* kernel = reinterpret_cast<const void*>(gn_bwd_kernel<T, kVec>);
-  for (int i = 0; i < cached; ++i) {
-    if (keys[i][0] == cluster && keys[i][1] == smem) {
-      *count = values[i];
+// memory the card holds at once (cudaOccupancyMaxActiveClusters) of a cluster
+// kernel, into *count. Sets the kernel's attributes first: 16-CTA clusters
+// allowed, shared memory preferred over L1, and the dynamic shared memory the
+// plan asks for. The attributes and the answers are kept per kernel (not
+// thread-safe).
+int active_clusters(const void* kernel, int cluster, int smem, int* count) {
+  constexpr int kCache = 64, kKernels = 8;
+  struct Answer { const void* kernel; int cluster, smem, count; };
+  struct Attrs { const void* kernel; int smem; };
+  static Answer answers[kCache];
+  static Attrs attrs[kKernels];
+  static int n_answers = 0, n_attrs = 0;
+  for (int i = 0; i < n_answers; ++i) {
+    const Answer& a = answers[i];
+    if (a.kernel == kernel && a.cluster == cluster && a.smem == smem) {
+      *count = a.count;
       return 0;
     }
   }
+  int at = 0;
+  while (at < n_attrs && attrs[at].kernel != kernel) ++at;
+  if (at == kKernels) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (smem_set < 0) {
+  if (at == n_attrs) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return refused(err);
-    smem_set = 0;
+    attrs[n_attrs++] = Attrs{kernel, 0};
   }
-  if (smem > smem_set) {
+  if (smem > attrs[at].smem) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return refused(err);
-    smem_set = smem;
+    attrs[at].smem = smem;
   }
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = bwd_config(1, cluster, smem, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, &attr);
   err = cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
   if (err != cudaSuccess) return refused(err);
-  if (cached < kCache) {
-    keys[cached][0] = cluster;
-    keys[cached][1] = smem;
-    values[cached++] = *count;
-  }
+  if (n_answers < kCache) answers[n_answers++] = Answer{kernel, cluster, smem, *count};
   return 0;
 }
 
-template <typename T, bool kVec>
-int launch_bwd_kernel(const void* x, const void* g, void* dx, const Chain& p, float* s1,
-                      float* s2, int B, long n, int cluster, long slice, long resident, int smem,
-                      int swish, cudaStream_t stream) {
+// Launch `kernel` as `clusters` clusters of `cluster` CTAs with `smem` bytes of
+// dynamic shared memory, or refuse a plan of which no cluster fits on the card.
+// A one-CTA cluster launches without the cluster attribute (the grid's implicit
+// clusters are one CTA each): with it the forward took 0.0214 ms at
+// [16, 512, 32, 32] bf16, without 0.0200 (scripts/ablate_gn_forward.py).
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), unsigned clusters, int cluster, int smem,
+                    cudaStream_t stream, Args... args) {
   int active = 0;
-  const int code = active_clusters<T, kVec>(cluster, smem, &active);
+  const int code = active_clusters(reinterpret_cast<const void*>(kernel), cluster, smem, &active);
   if (code != 0) return code;
   if (active < 1) return (int)cudaErrorLaunchOutOfResources;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      bwd_config((unsigned)(B * (p.C / p.cpg)), cluster, smem, stream, &attr);
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, gn_bwd_kernel<T, kVec>, static_cast<const T*>(x),
-                         static_cast<const T*>(g), static_cast<T*>(dx), p, s1, s2, n, slice,
-                         resident, swish);
+  cudaLaunchConfig_t cfg = cluster_config(clusters, cluster, smem, stream, &attr);
+  if (cluster == 1) cfg.numAttrs = 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
+}
+
+bool shape_ok(int B, int C, int groups, long n, int cluster) {
+  return B > 0 && C > 0 && groups > 0 && C % groups == 0 && n > 0 &&
+         (long)B * groups * cluster <= 0x7fffffffL;
+}
+
+// The forward in one launch, on the wrapper's plan.
+template <typename T>
+int launch_fwd(const void* x, void* y, const void* gamma, const void* beta, const void* ada_scale,
+               const void* ada_shift, int ada_stride, void* mean, void* rstd, int B, int C,
+               int groups, long n, float eps, int swish, int cluster, long slice, long resident,
+               int smem, cudaStream_t stream) {
+  if (!shape_ok(B, C, groups, n, cluster > 0 ? cluster : 1)) return (int)cudaErrorInvalidValue;
+  const FwdArgs p{static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta),
+                  static_cast<const float*>(ada_scale),
+                  static_cast<const float*>(ada_shift),
+                  static_cast<float*>(mean),
+                  static_cast<float*>(rstd),
+                  ada_stride,
+                  C,
+                  C / groups,
+                  eps,
+                  swish};
+  const bool vec = vectorizable<T>(x, y, n);
+  if (cluster == 0) {  // the warp plan: the group whole in one warp's vectors
+    const long span = (long)p.cpg * n;
+    if (!vec || slice != span || resident != span || smem != 0 ||
+        span > 32L * kWarpVecs * vec_n<T>())
+      return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((B * groups + kWarps - 1) / kWarps);
+    gn_fwd_warp_kernel<T><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), p, n, B * groups);
+    return (int)cudaGetLastError();
+  }
+  if (!plan_ok<T>(p.cpg, n, cluster, slice, resident, smem, vec, 1))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = vec ? gn_fwd_kernel<T, true> : gn_fwd_kernel<T, false>;
+  return launch_clusters(kernel, (unsigned)(B * groups), cluster, smem, stream,
+                         static_cast<const T*>(x), static_cast<T*>(y), p, n, slice, resident);
 }
 
 // The backward in one launch, on the wrapper's plan.
@@ -713,20 +982,34 @@ int launch_bwd(const void* x, const void* g, void* dx, const void* mean, const v
                const void* gamma, const void* beta, const void* ada_scale, const void* ada_shift,
                int ada_stride, void* s1, void* s2, int B, int C, int groups, long n, int swish,
                int cluster, long slice, long resident, int smem, cudaStream_t stream) {
-  if (B <= 0 || C <= 0 || groups <= 0 || C % groups != 0 || n <= 0)
-    return (int)cudaErrorInvalidValue;
-  if ((long)B * groups * cluster > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
+  if (!shape_ok(B, C, groups, n, cluster)) return (int)cudaErrorInvalidValue;
   const Chain p = make_chain(mean, rstd, gamma, beta, ada_scale, ada_shift, ada_stride, C, groups);
   const bool vec = vectorizable<T>(x, g, n) && vectorizable<T>(dx, dx, n);
-  if (!plan_ok<T>(p.cpg, n, cluster, slice, resident, smem, vec))
+  if (!plan_ok<T>(p.cpg, n, cluster, slice, resident, smem, vec, 2))
     return (int)cudaErrorInvalidValue;
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
   float* s1f = static_cast<float*>(s1);
   float* s2f = static_cast<float*>(s2);
+  const unsigned clusters = (unsigned)(B * groups);
   if (vec)
-    return launch_bwd_kernel<T, true>(x, g, dx, p, s1f, s2f, B, n, cluster, slice, resident, smem,
-                                      swish, stream);
-  return launch_bwd_kernel<T, false>(x, g, dx, p, s1f, s2f, B, n, cluster, slice, resident, smem,
-                                     swish, stream);
+    return launch_clusters(gn_bwd_kernel<T, true>, clusters, cluster, smem, stream, xt, gt, dxt,
+                           p, s1f, s2f, n, slice, resident, swish);
+  return launch_clusters(gn_bwd_kernel<T, false>, clusters, cluster, smem, stream, xt, gt, dxt, p,
+                         s1f, s2f, n, slice, resident, swish);
+}
+
+// cudaOccupancyMaxActiveClusters of a cluster kernel's vectorized (vec != 0)
+// or scalar instance, for a plan's cluster size and shared-memory bytes.
+template <typename T>
+int clusters_of(bool fwd, int cluster, int smem, int vec, int* count) {
+  const void* kernel =
+      fwd ? (vec ? reinterpret_cast<const void*>(gn_fwd_kernel<T, true>)
+                 : reinterpret_cast<const void*>(gn_fwd_kernel<T, false>))
+          : (vec ? reinterpret_cast<const void*>(gn_bwd_kernel<T, true>)
+                 : reinterpret_cast<const void*>(gn_bwd_kernel<T, false>));
+  return active_clusters(kernel, cluster, smem, count);
 }
 
 }  // namespace
@@ -744,29 +1027,27 @@ int eovax_gn_stats_f32(const void* x, void* mean, void* m2, int planes, long n, 
                              static_cast<cudaStream_t>(stream));
 }
 
-// x, y: contiguous [B, C, n]; mean, m2: fp32 [B·C] from eovax_gn_stats_*; gamma, beta:
-// fp32 [C]; ada_scale, ada_shift: fp32 [C] (ada_stride 0) or [B, C] (ada_stride C), or
-// both null.
-int eovax_gn_apply_bf16(const void* x, void* y, const void* mean, const void* m2,
-                        const void* gamma, const void* beta, const void* ada_scale,
-                        const void* ada_shift, int ada_stride, int B, int C, int groups, long n,
-                        float eps, int swish, void* stream) {
-  return launch_apply<__nv_bfloat16>(
-      x, y, static_cast<const float*>(mean), static_cast<const float*>(m2),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(ada_scale), static_cast<const float*>(ada_shift), ada_stride, B,
-      C, groups, n, eps, swish, static_cast<cudaStream_t>(stream));
+// Forward. x, y: contiguous [B, C, n]; gamma, beta: fp32 [C]; ada_scale, ada_shift:
+// fp32 [C] (ada_stride 0) or [B, C] (ada_stride C), or both null; mean, rstd: fp32
+// [B, groups] outputs, or both null. cluster, slice, resident, smem: the plan (see
+// plan_ok), or cluster 0 for the warp plan (slice and resident the group's cpg·n
+// elements, at most 32·kWarpVecs 16-byte vectors, smem 0; x and y 16-byte aligned).
+int eovax_gn_fwd_bf16(const void* x, void* y, const void* gamma, const void* beta,
+                      const void* ada_scale, const void* ada_shift, int ada_stride, void* mean,
+                      void* rstd, int B, int C, int groups, long n, float eps, int swish,
+                      int cluster, long slice, long resident, int smem, void* stream) {
+  return launch_fwd<__nv_bfloat16>(x, y, gamma, beta, ada_scale, ada_shift, ada_stride, mean, rstd,
+                                   B, C, groups, n, eps, swish, cluster, slice, resident, smem,
+                                   static_cast<cudaStream_t>(stream));
 }
 
-int eovax_gn_apply_f32(const void* x, void* y, const void* mean, const void* m2,
-                       const void* gamma, const void* beta, const void* ada_scale,
-                       const void* ada_shift, int ada_stride, int B, int C, int groups, long n,
-                       float eps, int swish, void* stream) {
-  return launch_apply<float>(
-      x, y, static_cast<const float*>(mean), static_cast<const float*>(m2),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(ada_scale), static_cast<const float*>(ada_shift), ada_stride, B,
-      C, groups, n, eps, swish, static_cast<cudaStream_t>(stream));
+int eovax_gn_fwd_f32(const void* x, void* y, const void* gamma, const void* beta,
+                     const void* ada_scale, const void* ada_shift, int ada_stride, void* mean,
+                     void* rstd, int B, int C, int groups, long n, float eps, int swish,
+                     int cluster, long slice, long resident, int smem, void* stream) {
+  return launch_fwd<float>(x, y, gamma, beta, ada_scale, ada_shift, ada_stride, mean, rstd, B, C,
+                           groups, n, eps, swish, cluster, slice, resident, smem,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // Backward. x, g, dx: contiguous [B, C, n] in one dtype; mean, rstd: fp32 [B, groups];
@@ -793,16 +1074,15 @@ int eovax_gn_bwd_f32(const void* x, const void* g, void* dx, const void* mean, c
                            static_cast<cudaStream_t>(stream));
 }
 
-// cudaOccupancyMaxActiveClusters of the backward's vectorized (vec != 0) or
-// scalar instance for a plan's cluster size and shared-memory bytes, into *count.
-int eovax_gn_bwd_clusters_bf16(int cluster, int smem, int vec, int* count) {
-  return vec ? active_clusters<__nv_bfloat16, true>(cluster, smem, count)
-             : active_clusters<__nv_bfloat16, false>(cluster, smem, count);
+// cudaOccupancyMaxActiveClusters of the forward's (fwd != 0) or the backward's
+// vectorized (vec != 0) or scalar instance for a plan's cluster size and
+// shared-memory bytes, into *count.
+int eovax_gn_clusters_bf16(int fwd, int cluster, int smem, int vec, int* count) {
+  return clusters_of<__nv_bfloat16>(fwd != 0, cluster, smem, vec, count);
 }
 
-int eovax_gn_bwd_clusters_f32(int cluster, int smem, int vec, int* count) {
-  return vec ? active_clusters<float, true>(cluster, smem, count)
-             : active_clusters<float, false>(cluster, smem, count);
+int eovax_gn_clusters_f32(int fwd, int cluster, int smem, int vec, int* count) {
+  return clusters_of<float>(fwd != 0, cluster, smem, vec, count);
 }
 
 const char* eovax_cuda_error_string(int code) {

@@ -1,23 +1,27 @@
-"""GroupNorm over NCHW tensors: fp32 statistics, then one fused apply; and its gradient.
+"""GroupNorm over NCHW tensors: fp32 statistics and the fused apply in one kernel; and its gradient.
 
 Port of ``eovax/kernels/groupnorm.py``. On a CUDA tensor :func:`group_norm`
-launches the two hand-written Hopper kernels of ``csrc/groupnorm.cu``: the
-statistics pass and the apply pass, which also takes the ResnetBlock's AdaIN
-scale and shift and its SiLU, so that a norm → AdaIN → swish sequence reads
-its input twice and writes its output once. :func:`gn_channel_sums` keeps
-the TPU kernel's contract (per-(B, C) fp32 Σx and Σx²) on top of the same
-statistics kernel. On a CPU tensor each function computes its plain PyTorch
+launches one hand-written Hopper kernel of ``csrc/groupnorm.cu`` on the plan
+of :func:`_fwd_plan`: one thread-block cluster per (batch, group) that reads
+its group into shared memory once, takes the group's statistics across the
+cluster, and writes the normalized output with the ResnetBlock's AdaIN scale
+and shift and its SiLU (a group of at most 4 KiB in one warp's registers
+instead), so that a norm → AdaIN → swish sequence reads its input once and
+writes its output once. :func:`gn_channel_sums`
+keeps the TPU kernel's contract (per-(B, C) fp32 Σx and Σx²) on a statistics
+kernel of its own. On a CPU tensor each function computes its plain PyTorch
 version. Neither falls back from the kernel.
 
-Both kernels take bf16 (the inference policy) and fp32 (``FULL_PRECISION``);
+The kernels take bf16 (the inference policy) and fp32 (``FULL_PRECISION``);
 statistics and arithmetic are fp32, and the output has the input's dtype.
 
 When an input requires grad, :func:`group_norm` is a ``torch.autograd.Function``
-that saves x and the per-group fp32 mean and rstd, and whose backward is
-:func:`group_norm_backward`: the JAX package's closed form ``_gn_bwd``
-carried through the affine, AdaIN and SiLU, as one more hand-written kernel
-(one thread-block cluster per (batch, group) that reads x and the output
-gradient once, on the plan of :func:`_bwd_plan`) and a few [B, C] tensor ops.
+that saves x and the per-group fp32 mean and rstd that its kernel writes, and
+whose backward is :func:`group_norm_backward`: the JAX package's closed form
+``_gn_bwd`` carried through the affine, AdaIN and SiLU, as one more
+hand-written kernel (one cluster per (batch, group) that reads x and the
+output gradient once, on the plan of :func:`_bwd_plan`) and a few [B, C]
+tensor ops.
 """
 
 from __future__ import annotations
@@ -56,16 +60,6 @@ def group_stats_plain(x: torch.Tensor, groups: int, eps: float
     return mean, torch.rsqrt(var + eps)
 
 
-def _group_stats_from_planes(stats: torch.Tensor, b: int, groups: int, n: int, eps: float
-                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(mean, rstd) per (B, group) from the statistics kernel's per-plane (mean, M2)
-    of ``n`` elements each, combined with Chan's formula as the apply kernel does."""
-    mean, m2 = stats.view(2, b, groups, -1)
-    gm = mean.mean(dim=-1)
-    gm2 = (m2 + n * (mean - gm[..., None]).square()).sum(dim=-1)
-    return gm, torch.rsqrt(gm2 / (n * mean.shape[-1]) + eps)
-
-
 def _normalize_plain(x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
     b, groups = mean.shape
     xf = x.float().reshape(b, groups, -1)
@@ -98,18 +92,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         stats = getattr(lib, f"eovax_gn_stats_{suffix}")
         stats.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
         stats.restype = ctypes.c_int
-        apply = getattr(lib, f"eovax_gn_apply_{suffix}")
-        apply.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                          + [ctypes.c_long, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        apply.restype = ctypes.c_int
+        fwd = getattr(lib, f"eovax_gn_fwd_{suffix}")
+        fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                        + [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_float, ctypes.c_int]
+                        + [ctypes.c_int, ctypes.c_long, ctypes.c_long, ctypes.c_int]
+                        + [ctypes.c_void_p])
+        fwd.restype = ctypes.c_int
         bwd = getattr(lib, f"eovax_gn_bwd_{suffix}")
         bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                         + [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_int]
                         + [ctypes.c_int, ctypes.c_long, ctypes.c_long, ctypes.c_int]
                         + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
-        clusters = getattr(lib, f"eovax_gn_bwd_clusters_{suffix}")
-        clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        clusters = getattr(lib, f"eovax_gn_clusters_{suffix}")
+        clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         clusters.restype = ctypes.c_int
     return lib
 
@@ -125,18 +121,6 @@ def _check_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: x must be contiguous")
 
 
-def _channel_stats(lib: ctypes.CDLL, x: torch.Tensor, what: str) -> torch.Tensor:
-    """Launch the statistics kernel: fp32 [2, B·C] of (mean, M2) per plane."""
-    b, c, h, w = x.shape
-    stats = torch.empty(2, b * c, device=x.device, dtype=torch.float32)
-    code = getattr(lib, f"eovax_gn_stats_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), b * c, h * w,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, code, what)
-    return stats
-
-
 def gn_channel_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(B, C) fp32 (Σx, Σx²) of an NCHW tensor.
 
@@ -149,9 +133,16 @@ def gn_channel_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     b, c, h, w = x.shape
     if x.numel() == 0:
         raise ValueError(f"gn_channel_sums: empty input {tuple(x.shape)}")
+    stats = torch.empty(2, b, c, device=x.device, dtype=torch.float32)
+    lib = _library()
     with torch.cuda.device(x.device):
-        mean, m2 = _channel_stats(_library(), x, "gn_channel_sums").view(2, b, c)
+        code = getattr(lib, f"eovax_gn_stats_{_SUFFIX[x.dtype]}")(
+            x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), b * c, h * w,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(lib, code, "gn_channel_sums")
     gn_channel_sums.launches += 1
+    mean, m2 = stats
     n = float(h * w)
     return mean * n, m2 + mean * mean * n
 
@@ -196,22 +187,21 @@ def _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_sta
         return (out, mean, rstd) if with_stats else out
     ada_stride = _check_params(x, weight, bias, groups, ada_scale, ada_shift, "group_norm")
     b, c, h, w = x.shape
+    plan = _fwd_plan(b, c, groups, h * w, x.element_size(), aligned=x.data_ptr() % 16 == 0)
     weight, bias, ada_scale, ada_shift = _fp32(weight, bias, ada_scale, ada_shift)
-    scale_ptr, shift_ptr = _ptr(ada_scale), _ptr(ada_shift)
-    lib = _library()
     out = torch.empty_like(x)
+    stats = torch.empty(2, b, groups, device=x.device, dtype=torch.float32) if with_stats else None
+    lib = _library()
     with torch.cuda.device(x.device):
-        stats = _channel_stats(lib, x, "group_norm")
-        code = getattr(lib, f"eovax_gn_apply_{_SUFFIX[x.dtype]}")(
-            x.data_ptr(), out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            weight.data_ptr(), bias.data_ptr(), scale_ptr, shift_ptr, ada_stride, b, c, groups,
-            h * w, eps, int(swish), torch.cuda.current_stream(x.device).cuda_stream,
+        code = getattr(lib, f"eovax_gn_fwd_{_SUFFIX[x.dtype]}")(
+            x.data_ptr(), out.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(ada_scale),
+            _ptr(ada_shift), ada_stride, _ptr(stats), _ptr(stats[1]) if with_stats else None,
+            b, c, groups, h * w, eps, int(swish), *plan,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(lib, code, "group_norm")
     group_norm.launches += 1
-    if not with_stats:
-        return out
-    return (out, *_group_stats_from_planes(stats, b, groups, h * w, eps))
+    return (out, stats[0], stats[1]) if with_stats else out
 
 
 def _plane_coefficients(x, mean, rstd, weight, bias, ada_scale, ada_shift):
@@ -250,11 +240,23 @@ def _backward_plain(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
     return dx.to(x.dtype), s1, s2
 
 
-class BwdPlan(NamedTuple):
-    """How the backward kernel cuts one (b, group), a contiguous run of cpg·n
+class FwdPlan(NamedTuple):
+    """How the forward kernel cuts one (b, group), a contiguous run of cpg·n
     elements in NCHW: a cluster of ``cluster`` CTAs, each owning ``slice``
-    elements on channel boundaries, the first ``resident`` of them (x and g)
-    in ``smem_bytes`` of shared memory and the rest read from device memory."""
+    elements on channel boundaries, the first ``resident`` of them (x) in
+    ``smem_bytes`` of shared memory and the rest read from device memory twice.
+    ``cluster`` 0 is the warp plan: one warp holds the whole group (``slice``
+    and ``resident`` its cpg·n elements) in registers, with no shared memory."""
+
+    cluster: int
+    slice: int
+    resident: int
+    smem_bytes: int
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel cuts one (b, group), as :class:`FwdPlan` does, the
+    first ``resident`` elements of each slice of x and of g in ``smem_bytes``."""
 
     cluster: int
     slice: int
@@ -264,17 +266,26 @@ class BwdPlan(NamedTuple):
 
 _CLUSTER_SIZES = (1, 2, 4, 8, 16)  # above 8 the card's non-portable cluster size
 _MAX_SEGMENTS = 64  # channels in one CTA's slice (kMaxSegments in csrc/groupnorm.cu)
-# x and g of one CTA's slice in shared memory: three CTAs fit on an SM (228 KB),
-# as many as the kernel's registers allow. At [16, 256, 256, 256] bf16 a 64 KiB
-# resident part (three CTAs an SM) beat 96 KiB (two) on an H100 SXM at 700 W
-# (scripts/ablate_gn_backward.py).
+# x of one CTA's slice in shared memory in the forward: three CTAs fit on an SM
+# (228 KB), as many as the kernel's registers allow.
+_FWD_SMEM_TARGET = 64 * 1024
+# The forward's cluster grows for the grid's size only while a CTA keeps this
+# much of x: at [8, 256, 16, 16] bf16 (4 KiB groups) one CTA a group took
+# 0.0071 ms, two 0.0162 (scripts/ablate_gn_forward.py).
+_FWD_MIN_SLICE_BYTES = 4 * 1024
+# 16-byte vectors a lane holds in the forward's warp plan (kWarpVecs in
+# csrc/groupnorm.cu): groups of up to 32 of these a warp take it.
+_WARP_VECS = 8
+# x and g of one CTA's slice in shared memory in the backward: three CTAs an
+# SM. At [16, 256, 256, 256] bf16 a 64 KiB resident part (three CTAs an SM)
+# beat 96 KiB (two) on an H100 SXM at 700 W (scripts/ablate_gn_backward.py).
 _BWD_SMEM_TARGET = 64 * 1024
 # Grow the cluster (where the slices allow) until the grid has this many CTAs:
 # two per SM of the H100's 132.
-_BWD_MIN_CTAS = 264
+_MIN_CTAS = 264
 
 
-def _bwd_cluster_sizes(cpg: int, n: int, itemsize: int) -> list[int]:
+def _cluster_sizes(cpg: int, n: int, itemsize: int) -> list[int]:
     """The cluster sizes that cut a group of ``cpg`` planes of ``n`` elements on
     channel boundaries: cpg/k whole planes a CTA (at most ``_MAX_SEGMENTS``),
     or 1/m of one plane (k = m·cpg), a whole number of 16-byte vectors where n
@@ -290,37 +301,61 @@ def _bwd_cluster_sizes(cpg: int, n: int, itemsize: int) -> list[int]:
     return [k for k in _CLUSTER_SIZES if splits(k)]
 
 
-def _bwd_plan(b: int, c: int, groups: int, n: int, itemsize: int) -> BwdPlan:
-    """The backward kernel's plan for x of shape [b, c, n] (n = H·W) in
-    ``groups`` groups and elements of ``itemsize`` bytes.
-
-    The smallest cluster whose slices fit in ``_BWD_SMEM_TARGET`` (grown until
-    the grid has ``_BWD_MIN_CTAS`` CTAs); where none fits, the largest, with
+def _plan(b: int, c: int, groups: int, n: int, itemsize: int, operands: int, target: int,
+          what: str, min_slice_bytes: int = 0) -> tuple[int, int, int]:
+    """(cluster, slice, resident) of a cluster kernel that holds ``operands``
+    tensors of a CTA's slice in ``target`` bytes of shared memory: the smallest
+    cluster whose slices fit (grown until the grid has ``_MIN_CTAS`` CTAs, while
+    a slice keeps ``min_slice_bytes`` of x); where none fits, the largest, with
     the resident part cut to the target and the rest streamed."""
     cpg = c // groups
     span, vec = cpg * n, 16 // itemsize
-    sizes = _bwd_cluster_sizes(cpg, n, itemsize)
+    sizes = _cluster_sizes(cpg, n, itemsize)
     if not sizes:
-        raise ValueError(f"group_norm_backward: no cluster plan for {cpg} channels a group")
-    fits = [k for k in sizes if 2 * itemsize * (span // k) <= _BWD_SMEM_TARGET]
+        raise ValueError(f"{what}: no cluster plan for {cpg} channels a group")
+    fits = [k for k in sizes if operands * itemsize * (span // k) <= target]
     k = fits[0] if fits else sizes[-1]
     for m in sizes:
-        if m > k and b * groups * k < _BWD_MIN_CTAS:
+        if m > k and b * groups * k < _MIN_CTAS and itemsize * (span // m) >= min_slice_bytes:
             k = m
     slice_ = span // k
-    resident = min(slice_, _BWD_SMEM_TARGET // (2 * itemsize) // vec * vec)
+    return k, slice_, min(slice_, target // (operands * itemsize) // vec * vec)
+
+
+def _fwd_plan(b: int, c: int, groups: int, n: int, itemsize: int,
+              aligned: bool = True) -> FwdPlan:
+    """The forward kernel's plan for x of shape [b, c, n] (n = H·W) in ``groups``
+    groups and elements of ``itemsize`` bytes: the warp plan for a group of at
+    most 32·``_WARP_VECS`` 16-byte vectors (n a whole number of them, x
+    ``aligned`` to 16 bytes), else a cluster plan on ``_FWD_SMEM_TARGET``."""
+    span, vec = c // groups * n, 16 // itemsize
+    if aligned and n % vec == 0 and span <= 32 * _WARP_VECS * vec:
+        return FwdPlan(0, span, span, 0)
+    k, slice_, resident = _plan(b, c, groups, n, itemsize, 1, _FWD_SMEM_TARGET, "group_norm",
+                                _FWD_MIN_SLICE_BYTES)
+    return FwdPlan(k, slice_, resident, itemsize * resident)
+
+
+def _bwd_plan(b: int, c: int, groups: int, n: int, itemsize: int) -> BwdPlan:
+    """The backward kernel's plan, as :func:`_fwd_plan`, on ``_BWD_SMEM_TARGET``
+    for x and g."""
+    k, slice_, resident = _plan(b, c, groups, n, itemsize, 2, _BWD_SMEM_TARGET,
+                                "group_norm_backward")
     return BwdPlan(k, slice_, resident, 2 * itemsize * resident)
 
 
-def bwd_active_clusters(plan: BwdPlan, dtype: torch.dtype, vec: bool = True) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of the backward kernel (its vectorized
-    or scalar instance) for ``plan``: how many of its clusters the card holds at
-    once."""
+def active_clusters(plan: FwdPlan | BwdPlan, dtype: torch.dtype, vec: bool = True) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the forward or backward kernel (by the
+    plan's type; its vectorized or scalar instance) for ``plan``: how many of its
+    clusters the card holds at once (the warp plan launches none: 0)."""
+    if plan.cluster == 0:
+        return 0
     lib = _library()
     count = ctypes.c_int()
-    code = getattr(lib, f"eovax_gn_bwd_clusters_{_SUFFIX[dtype]}")(
-        plan.cluster, plan.smem_bytes, int(vec), ctypes.byref(count))
-    build.check(lib, code, "bwd_active_clusters")
+    code = getattr(lib, f"eovax_gn_clusters_{_SUFFIX[dtype]}")(
+        int(isinstance(plan, FwdPlan)), plan.cluster, plan.smem_bytes, int(vec),
+        ctypes.byref(count))
+    build.check(lib, code, "active_clusters")
     return count.value
 
 
@@ -418,10 +453,10 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups
     the optional AdaIN ``y·ada_scale + ada_shift`` ([C] shared or [B, C]) and
     the optional SiLU; the output has ``x.dtype``.
 
-    CPU tensors take :func:`group_norm_plain`; CUDA tensors launch the
-    statistics and apply kernels (and add one to ``group_norm.launches``) or
-    raise. Where grad is enabled and an input requires it, the output carries
-    the backward of :func:`group_norm_backward`.
+    CPU tensors take :func:`group_norm_plain`; CUDA tensors launch the forward
+    kernel once (and add one to ``group_norm.launches``) or raise. Where grad
+    is enabled and an input requires it, the output carries the backward of
+    :func:`group_norm_backward`.
     """
     inputs = (x, weight, bias, ada_scale, ada_shift)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):

@@ -41,7 +41,7 @@ def _stem_kwargs(stem: StemConfig) -> dict:
     if stem.mode == "basis":
         raise NotImplementedError(
             "stem.mode='basis' (shared-basis stems, eovax/nn/dynamic_basis.py) is not "
-            "ported yet: ROADMAP Queue 1 item 11 (model variants)"
+            "ported yet: ROADMAP Queue 1 item 7 (model variants)"
         )
     return dict(
         wv_planes=stem.wv_planes,

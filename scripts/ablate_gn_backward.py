@@ -12,6 +12,9 @@ most 64 KiB; at the two largest shapes also other resident lengths),
   swish (no σ(z): the time the sigmoid's arithmetic costs);
 - ``min-blocks-4``: ``__launch_bounds__(kThreads, 4)`` instead of 3, so that
   four CTAs fit on an SM by registers;
+- ``cluster-launch``: a one-CTA cluster launched with the cluster attribute
+  (which the shared launcher leaves out at one CTA), at the shapes whose
+  plan is one CTA;
 - at the two largest shapes only: ``exact-math``, σ(z) from the IEEE ``expf``
   and divide (the arithmetic's share), and ``reduce-only``, step 3 (dx)
   dropped, so that the time is that of the loads, the partial sums and the
@@ -23,7 +26,8 @@ variant but ``reduce-only`` is held against the plain backward first. Each
 line has the card's name and power limit, the bytes bound (x and g read once,
 dx written once) and the rate of that traffic; the last lines sum each
 variant's times over one train step's 52 calls, on ``_bwd_plan``'s plans and
-on the fastest plan of each shape. ``ptxas`` registers and spills of the
+on the fastest plan of each shape, and the step's calls whose plan is one CTA
+with and without the cluster attribute. ``ptxas`` registers and spills of the
 backward kernel are printed per variant. The variants are built with the
 package's nvcc flags into ``build/ablate_gn_backward/``.
 
@@ -57,10 +61,12 @@ _STEP3_START = "  // 3. dx, from shared memory where resident.\n"
 _STEP3_END = "  cluster_wait();\n}\n"
 VARIANTS = {
     "kernel": [],
-    "min-blocks-4": [("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 4)")],
+    "min-blocks-4": [("__launch_bounds__(kThreads, 3)\n    gn_bwd_kernel(",
+                      "__launch_bounds__(kThreads, 4)\n    gn_bwd_kernel(")],
     "exact-math": [("  const float sg = __fdividef(1.f, 1.f + __expf(-z));\n",
                     "  const float sg = 1.f / (1.f + expf(-z));\n")],
     "reduce-only": [],  # step 3 cut out in variant_source
+    "cluster-launch": [("  if (cluster == 1) cfg.numAttrs = 0;\n", "")],
 }
 
 
@@ -110,7 +116,7 @@ def plans_of(shape) -> list:
     default = groupnorm._bwd_plan(b, c, 32, n, 2)
     plan = (lambda k, r: groupnorm.BwdPlan(k, cpg * n // k, r, 4 * r))
     others = [plan(k, min(cpg * n // k, RESIDENT_MAX))
-              for k in groupnorm._bwd_cluster_sizes(cpg, n, 2)]
+              for k in groupnorm._cluster_sizes(cpg, n, 2)]
     if shape in DETAIL:
         others += [plan(default.cluster, kib * 1024 // 4) for kib in (32, 48, 96, 128)
                    if kib * 1024 // 4 <= default.slice]
@@ -144,6 +150,7 @@ def main() -> int:
         return start.elapsed_time(end) / 20
 
     step = {}  # variant → [ms on the plan, ms on the fastest plan], summed over the step
+    one_cta = {}  # variant → ms summed over the step's calls whose plan is one CTA
     for shape, calls in SHAPES.items():
         b, c, h, w = shape
         g = torch.Generator(device=dev).manual_seed(0)
@@ -165,7 +172,10 @@ def main() -> int:
             if name in ("exact-math", "reduce-only") and shape not in DETAIL:
                 continue
             times = []
-            for plan in plans if name in ("kernel", "min-blocks-4") else plans[:1]:
+            timed = plans if name in ("kernel", "min-blocks-4") else plans[:1]
+            if name == "cluster-launch":
+                timed = plans[:1] if plans[0].cluster == 1 else []
+            for plan in timed:
                 both = name == "kernel" and shape in DETAIL and plan == plans[0]
                 for swish in (True, False) if both else (True,):
                     args = (grad, x, *stats, weight, bias, None, None, swish)
@@ -179,9 +189,12 @@ def main() -> int:
                             if rel > 1e-2:
                                 raise AssertionError(f"{name} {plan}: dx rel err {rel:.3e}")
                         ms = ms_of(lambda: groupnorm._backward_kernel(*args))
-                        clusters = groupnorm.bwd_active_clusters(plan, torch.bfloat16)
+                        clusters = groupnorm.active_clusters(plan, torch.bfloat16)
                     if swish:
                         times.append(ms)
+                    if swish and plan.cluster == 1 and plan == plans[0] and name in (
+                            "kernel", "cluster-launch"):
+                        one_cta[name] = one_cta.get(name, 0.0) + calls * ms
                     print(f"  {name} {'swish' if swish else 'no-swish'} cluster {plan.cluster} "
                           f"slice {plan.slice} resident {plan.resident} ({plan.smem_bytes // 1024} "
                           f"KiB{', the plan' if plan == plans[0] else ''}; {clusters} clusters "
@@ -199,6 +212,8 @@ def main() -> int:
         print(f"train step's 52 backward calls, {name}: {planned:.3f} ms on _bwd_plan's plans, "
               f"{best:.3f} ms on each shape's fastest plan; sum of bounds {bounds:.3f} ms "
               f"[{card}]")
+    for name, ms in one_cta.items():
+        print(f"train step's calls on one-CTA plans, {name}: {ms:.3f} ms [{card}]")
     return 0
 
 

@@ -6,9 +6,11 @@ Pallas statistics kernel in interpret mode, and its plain path) on the same
 numpy inputs, transposed NHWC ↔ NCHW at the boundary, and the fused
 AdaIN + swish variants against the JAX ResnetBlock's own sequence; the
 backward against ``jax.vjp`` of the JAX package's ``group_norm`` (its
-``custom_vjp``, ``_gn_bwd``) composed with AdaIN and swish in jnp. The tests
-marked ``gpu`` hold the CUDA kernels, forward and backward, against the plain
-versions on the card and skip without one. They import no JAX, so the card's
+``custom_vjp``, ``_gn_bwd``) composed with AdaIN and swish in jnp. The
+kernels' cluster plans are checked on the CPU, and their arithmetic (partial
+sums per CTA, the rank-order combine) replayed in plain PyTorch against the
+JAX package. The tests marked ``gpu`` hold the CUDA kernels, forward and
+backward, against the plain versions on the card and skip without one. They import no JAX, so the card's
 machine runs them without it:
 
     python -m pytest tests/test_torch_groupnorm.py -m gpu --noconftest
@@ -181,17 +183,6 @@ def test_backward_saves_the_forward_statistics_and_launches_nothing_on_cpu():
         assert groupnorm.group_norm(x, w, b).grad_fn is None
 
 
-def test_kernel_statistics_combine_to_the_plain_ones():
-    """The per-plane (mean, M2) of the statistics kernel, combined with Chan's
-    formula, give the two-pass group mean and rstd (here from plain planes)."""
-    x = torch.from_numpy(_x((2, 64, 9, 7), seed=14, loc=3.0))
-    xf = x.reshape(2 * 64, -1)
-    planes = torch.stack([xf.mean(dim=1), (xf - xf.mean(dim=1, keepdim=True)).square().sum(1)])
-    got = groupnorm._group_stats_from_planes(planes, 2, 32, 63, 1e-6)
-    for a, ref in zip(got, groupnorm.group_stats_plain(x, 32, 1e-6)):
-        torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-6)
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_tensor_takes_plain_path_without_launch(dtype):
     x = torch.from_numpy(_x((2, 64, 6, 6), seed=5)).to(dtype)
@@ -231,14 +222,16 @@ STREAMED_SHAPES = [((2, 128, 512, 512), 2), ((2, 256, 256, 256), 4)]
 MAX_SMEM = 232448  # the H100's shared memory for one block (227 KB)
 
 
-def _check_plan(plan, b, c, groups, n, itemsize):
+def _check_plan(plan, b, c, groups, n, itemsize, operands=2):
+    """``operands`` tensors of a slice in shared memory: the forward's x, the
+    backward's x and g."""
     cpg, vec = c // groups, 16 // itemsize
     assert plan.cluster in (1, 2, 4, 8, 16)
     assert plan.slice * plan.cluster == cpg * n
     # On channel boundaries: whole planes (at most 64 a slice) or a whole fraction of one.
     assert plan.slice % n == 0 and plan.slice // n <= 64 or n % plan.slice == 0
     assert 0 < plan.resident <= plan.slice
-    assert plan.smem_bytes == 2 * itemsize * plan.resident <= MAX_SMEM
+    assert plan.smem_bytes == operands * itemsize * plan.resident <= MAX_SMEM
     if n % vec == 0:
         assert plan.slice % vec == 0 and plan.resident % vec == 0
     # Resident and streamed parts cover each CTA's slice, and the slices the span, once.
@@ -324,7 +317,7 @@ PLAN_FORMS = {
 def _plan_form(monkeypatch, form, itemsize=4):
     shape, target = PLAN_FORMS[form]
     monkeypatch.setattr(groupnorm, "_BWD_SMEM_TARGET", target * itemsize // 4)
-    monkeypatch.setattr(groupnorm, "_BWD_MIN_CTAS", 0)
+    monkeypatch.setattr(groupnorm, "_MIN_CTAS", 0)
     b, c, h, w = shape
     plan = groupnorm._bwd_plan(b, c, 32, h * w, itemsize)
     _check_plan(plan, b, c, 32, h * w, itemsize)
@@ -378,6 +371,166 @@ def test_plan_replay_matches_jax_vjp(monkeypatch, form, swish, ada):
     assert len(got) == len(refs)
     for a, ref in zip(got, refs):
         np.testing.assert_allclose(a.numpy(), ref, **TOL_BWD)
+
+
+# The forward's shapes: the train step's 8, the three 2-4 MiB groups of a 512²
+# reconstruct, and the SR UNet's two (2 and 16 channels a group); and, by
+# element size, those whose slices do not fit in shared memory whole.
+FWD_SHAPES = TRAIN_STEP_SHAPES + [(4, 128, 512, 512), (4, 512, 256, 256), (4, 256, 512, 512),
+                                  (8, 512, 64, 64), (8, 64, 16, 16)]
+FWD_STREAMED = {2: {(4, 128, 512, 512), (4, 512, 256, 256), (4, 256, 512, 512)}}
+FWD_STREAMED[4] = FWD_STREAMED[2] | {(16, 256, 256, 256)}
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fwd_plan_partitions_each_group_on_channel_boundaries(shape, itemsize):
+    """Every element of a (b, group) owned once, on channel boundaries; the
+    slices of the 2-4 MiB groups (and fp32 1 MiB) streamed past the target; the
+    SR UNet's 1 KiB groups in one warp's registers."""
+    b, c, h, w = shape
+    plan = groupnorm._fwd_plan(b, c, 32, h * w, itemsize)
+    span = c // 32 * h * w
+    if shape == (8, 64, 16, 16):
+        assert plan == groupnorm.FwdPlan(0, span, span, 0)
+        assert span * itemsize <= 32 * groupnorm._WARP_VECS * 16
+        return
+    _check_plan(plan, b, c, 32, h * w, itemsize, operands=1)
+    streamed = shape in FWD_STREAMED[itemsize]
+    assert (plan.resident < plan.slice) == streamed
+    assert plan.smem_bytes <= groupnorm._FWD_SMEM_TARGET
+    if streamed:
+        assert plan.cluster == 16 and plan.smem_bytes == groupnorm._FWD_SMEM_TARGET
+
+
+def _replay_fwd_plan(plan, x, weight, bias, ada_scale, ada_shift, swish, groups=32, eps=1e-6):
+    """The forward kernel's partition in plain PyTorch (the warp plan: two exact
+    passes over the group): per CTA of each (b, group)
+    cluster, Σx, Σ(x − K) and Σ(x − K)² over its slice about K, the mean of the
+    slice's first 256 elements; the group's mean from the partials in rank
+    order; per CTA its shifted sums moved to μ, Σ(x − μ)² = Σd² + 2(K − μ)Σd +
+    m(K − μ)²; those in rank order; then y = (x − μ)·a + c per channel,
+    a = r·γ·s, c = β·s + t. Returns (y, mean, rstd)."""
+    b, c, h, w = x.shape
+    cpg, n = c // groups, h * w
+    if plan.cluster == 0:  # the warp plan: the exact two passes over the group
+        xf = x.float().reshape(b, groups, -1)
+        mu = xf.sum(-1) / (cpg * n)
+        m2 = (xf - mu[..., None]).square().sum(-1)
+    else:
+        sl, k = plan.slice, plan.cluster
+        xf = x.float().reshape(b, groups, k, sl)
+        shift = xf[..., :min(256, sl)].mean(-1)
+        d = xf - shift[..., None]
+        total = torch.zeros(b, groups)
+        for q in range(k):
+            total = total + xf[..., q, :].sum(-1)
+        mu = total / (cpg * n)
+        dk = shift - mu[..., None]
+        parts = d.square().sum(-1) + dk * (2.0 * d.sum(-1) + sl * dk)
+        m2 = torch.zeros(b, groups)
+        for q in range(k):
+            m2 = m2 + parts[..., q]
+    rstd = torch.rsqrt(m2.clamp_min(0.0) / (cpg * n) + eps)
+    s = (ada_scale if ada_scale is not None else torch.ones(c)).float().expand(b, c)
+    t = (ada_shift if ada_shift is not None else torch.zeros(c)).float().expand(b, c)
+    a = rstd.repeat_interleave(cpg, dim=1) * weight.float() * s
+    cc = bias.float() * s + t
+    y = ((x.float() - mu.repeat_interleave(cpg, dim=1)[:, :, None, None]) * a[:, :, None, None]
+         + cc[:, :, None, None])
+    if swish:
+        y = torch.nn.functional.silu(y)
+    return y.to(x.dtype), mu, rstd
+
+
+# form: (shape, _FWD_SMEM_TARGET for fp32, scaled with the element size), each
+# plan form at a small shape, the target cut (and the cluster not grown for the
+# grid's size, and the warp plan off but in its own form) so that the plan
+# takes it. Together they cover cluster sizes 1-16; every slice is longer than
+# the 256 elements its shift K is taken from.
+FWD_PLAN_FORMS = {
+    "warp": ((2, 64, 16, 16), 1024),           # cpg 2, 512 elements in one warp
+    "one-cta": ((2, 32, 16, 24), 1536),       # cpg 1, one CTA of one plane
+    "whole-planes": ((2, 128, 16, 16), 2048),  # cpg 4, 2 CTAs of 2 planes
+    "plane-parts": ((2, 64, 32, 48), 1536),    # cpg 2, 8 CTAs of a quarter plane
+    "streamed": ((2, 64, 64, 64), 1024),       # 16 CTAs of 1/8 plane, half of it resident
+    "ragged": ((1, 128, 15, 21), 1280),        # n = 315, 4 CTAs of one plane, scalar loads
+}
+
+
+def _fwd_plan_form(monkeypatch, form, itemsize=4, batch=None):
+    """The form's shape (its batch replaced by ``batch``) and plan."""
+    shape, target = FWD_PLAN_FORMS[form]
+    shape = shape if batch is None else (batch, *shape[1:])
+    monkeypatch.setattr(groupnorm, "_FWD_SMEM_TARGET", target * itemsize // 4)
+    monkeypatch.setattr(groupnorm, "_MIN_CTAS", 0)
+    if form != "warp":
+        monkeypatch.setattr(groupnorm, "_WARP_VECS", 0)
+    b, c, h, w = shape
+    plan = groupnorm._fwd_plan(b, c, 32, h * w, itemsize)
+    if form == "warp":
+        assert plan == groupnorm.FwdPlan(0, c // 32 * h * w, c // 32 * h * w, 0), plan
+        return shape, plan
+    _check_plan(plan, b, c, 32, h * w, itemsize, operands=1)
+    assert {"one-cta": plan.cluster == 1 and c == 32,
+            "whole-planes": plan.cluster == 2 and plan.slice == 2 * h * w,
+            "plane-parts": plan.cluster == 8 and plan.slice * 4 == h * w,
+            "streamed": plan.cluster == 16 and plan.resident < plan.slice,
+            "ragged": h * w % 4 != 0 and plan.cluster == 4}[form], plan
+    return shape, plan
+
+
+# (loc, AdaIN [B, C] + swish). Limits relative to max |reference|, as on the
+# card (PERF.md §2): 1e-5, fp32 sums in other orders (at loc = 30 a sum near
+# 30·N rounds at a few 1e-6 of the mean). At loc = 30 the JAX kernel path's
+# E[x²] − mean² loses about 4 digits of the variance to cancellation (its own
+# test allows 1e-3 there); the JAX two-pass path holds 1e-5 in every case.
+FWD_REPLAY_CASES = {"adain-swish": (0.5, True), "loc30": (30.0, False)}
+
+
+def _assert_rel_max(got, ref, tol):
+    ref = np.asarray(ref, np.float32)
+    err = np.abs(np.asarray(got, np.float32) - ref).max()
+    assert err <= tol * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("case", list(FWD_REPLAY_CASES))
+@pytest.mark.parametrize("form", list(FWD_PLAN_FORMS))
+def test_fwd_plan_replay_matches_jax(monkeypatch, form, case):
+    """The forward kernel's partition and rank-order combines, replayed in fp32,
+    against the JAX package's ``_stats`` (its Pallas statistics kernel in
+    interpret mode, and its two-pass path) + ``_apply``, then AdaIN and SiLU as
+    the ResnetBlock writes them; the saved mean and rstd against its mean and
+    rsqrt(var + eps)."""
+    import jax
+    import jax.numpy as jnp
+
+    from eovax.kernels.groupnorm import _apply, _stats
+    from eovax.nn.blocks import swish as jax_swish
+
+    loc, film = FWD_REPLAY_CASES[case]
+    shape, plan = _fwd_plan_form(monkeypatch, form)
+    b, c = shape[:2]
+    x = _x(shape, seed=30, loc=loc)
+    w, bias = _params(c, seed=31)
+    rng = np.random.default_rng(32)
+    ada = [None, None]
+    if film:
+        ada = [(1.0 + 0.2 * rng.standard_normal((b, c))).astype(np.float32),
+               (0.2 * rng.standard_normal((b, c))).astype(np.float32)]
+    xj, wj, bj = jnp.asarray(_nhwc(x)), jnp.asarray(w), jnp.asarray(bias)
+    t = (lambda v: None if v is None else torch.from_numpy(v))
+    got, mean, rstd = _replay_fwd_plan(plan, t(x), t(w), t(bias), t(ada[0]), t(ada[1]), film)
+    for pallas in (False, True):
+        tol = 1e-3 if pallas and loc == 30.0 else 1e-5
+        ref_mean, ref_var = _stats(xj, 32, use_pallas=pallas, interpret=True)
+        y = _apply(xj, ref_mean, ref_var, wj, bj, 32, 1e-6)
+        if film:
+            y = y * jnp.asarray(ada[0])[:, None, None, :] + jnp.asarray(ada[1])[:, None, None, :]
+            y = jax_swish(y)
+        _assert_rel_max(got.numpy(), _nchw(y), tol)
+        _assert_rel_max(mean.numpy(), ref_mean, tol)
+        _assert_rel_max(rstd.numpy(), jax.lax.rsqrt(ref_var + 1e-6), tol)
 
 
 @pytest.fixture
@@ -573,3 +726,87 @@ def test_backward_wrapper_raises_on_a_plan_the_kernel_refuses(cuda_device, monke
     # The refusal leaves no error behind for the library's next launch.
     groupnorm.group_norm(x, w, bias)
     torch.cuda.synchronize()
+
+
+# Forward on the card, relative to max |reference|: bf16 one output rounding;
+# fp32 (and the saved statistics) sums in another order.
+TOL_FWD_CARD = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,loc", [(torch.float32, 0.0), (torch.float32, 30.0),
+                                       (torch.bfloat16, 0.0)], ids=["fp32", "fp32-loc30", "bf16"])
+@pytest.mark.parametrize("form", list(FWD_PLAN_FORMS))
+def test_forward_kernel_plan_forms_match_plain_on_card(cuda_device, monkeypatch, form, dtype,
+                                                       loc):
+    """Each plan form (the warp plan, cluster sizes 1-16, streamed slices, cpg 1,
+    2 and 4, a ragged n) against the plain forward, the saved mean and rstd against
+    ``group_stats_plain``, and two calls bit-identical. At B = 48 the grid's
+    1536 clusters outnumber those the card holds at once: they run in waves."""
+    shape, plan = _fwd_plan_form(monkeypatch, form, itemsize=torch.tensor([], dtype=dtype)
+                                 .element_size(), batch=48)
+    x, w, bias, kw = _card_inputs(cuda_device, shape, dtype, "batched", loc=loc)
+    args = (x, w, bias, 32, 1e-6, kw["ada_scale"], kw["ada_shift"], True)
+    before = groupnorm.group_norm.launches
+    first = groupnorm._forward(*args, with_stats=True)
+    second = groupnorm._forward(*args, with_stats=True)
+    torch.cuda.synchronize()
+    assert groupnorm.group_norm.launches == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    ref = groupnorm.group_norm_plain(x, w, bias, swish=True, **kw).float()
+    tol = TOL_FWD_CARD[dtype]
+    assert (first[0].float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    for got, want in zip(first[1:], groupnorm.group_stats_plain(x, 32, 1e-6)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,dtype,loc",
+    [((2, 128, 512, 512), torch.bfloat16, 0.0), ((2, 256, 256, 256), torch.float32, 30.0),
+     ((8, 64, 16, 16), torch.bfloat16, 0.0), ((2, 32, 64, 64), torch.float32, 0.0)],
+    ids=["streamed-bf16", "streamed-fp32-loc30", "cpg2-16x16", "cpg1"],
+)
+def test_forward_kernel_saves_the_group_statistics_on_card(cuda_device, shape, dtype, loc):
+    """At full-size plans (streamed 2 MiB groups, the SR UNet's 2 channels a
+    group, 1 channel a group): the output and the saved [B, G] mean and rstd."""
+    x, w, bias, kw = _card_inputs(cuda_device, shape, dtype, "shared", loc=loc)
+    out, mean, rstd = groupnorm._forward(x, w, bias, 32, 1e-6, kw["ada_scale"], kw["ada_shift"],
+                                         True, with_stats=True)
+    torch.cuda.synchronize()
+    assert mean.shape == rstd.shape == (shape[0], 32) and mean.dtype == torch.float32
+    ref = groupnorm.group_norm_plain(x, w, bias, swish=True, **kw).float()
+    tol = TOL_FWD_CARD[dtype]
+    assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    for got, want in zip((mean, rstd), groupnorm.group_stats_plain(x, 32, 1e-6)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# (shape, plan) that the forward kernel refuses, as REFUSED_PLANS for the
+# backward; the shared memory is x's alone.
+FWD_REFUSED_PLANS = {
+    "cluster-3": ((2, 96, 8, 8), groupnorm.FwdPlan(3, 64, 64, 256)),
+    "slice-straddles": ((2, 96, 8, 8), groupnorm.FwdPlan(2, 96, 96, 384)),
+    "smem-mismatch": ((2, 64, 8, 8), groupnorm.FwdPlan(1, 128, 128, 1024)),
+    "smem-too-large": ((2, 64, 256, 256), groupnorm.FwdPlan(1, 131072, 131072, 524288)),
+    "warp-too-large": ((2, 64, 32, 32), groupnorm.FwdPlan(0, 2048, 2048, 0)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", list(FWD_REFUSED_PLANS))
+def test_forward_wrapper_raises_on_a_plan_the_kernel_refuses(cuda_device, monkeypatch, bad):
+    shape, plan = FWD_REFUSED_PLANS[bad]
+    x, w, bias, _ = _card_inputs(cuda_device, shape, torch.float32, None)
+    with monkeypatch.context() as m:
+        m.setattr(groupnorm, "_fwd_plan", lambda *args, **kw: plan)
+        before = groupnorm.group_norm.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            groupnorm.group_norm(x, w, bias)
+        assert groupnorm.group_norm.launches == before
+    # The refusal leaves no error behind for the library's next launch.
+    out = groupnorm.group_norm(x, w, bias)
+    torch.cuda.synchronize()
+    ref = groupnorm.group_norm_plain(x, w, bias)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
