@@ -45,12 +45,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    on the CPU in fp32 and bf16.
 4. Time ``reconstruct``, ``encode_split`` and each kernel with CUDA events
    after warm-up (kernel, plain version, the one PyTorch call computing the
-   same function, and the card's bound), break one 512² ``reconstruct``
+   same function, and the card's bound; ``gn_channel_sums`` alone at
+   [4,128,512,512], which no path calls), break one 512² ``reconstruct``
    down by kernel with ``torch.profiler`` (52 ``gn_fwd_kernel`` rows a call
    and none of the two kernels it replaced); the GroupNorm forward's device
-   time at the train step's 8 shapes, the 512² call's 2-4 MiB groups and
-   the SR UNet's two, beside ``F.group_norm`` + ``F.silu``, its bound, the
-   share of it, its plan and active clusters.
+   time (CUDA-graph replays) at the train step's 8 shapes, the 512² call's
+   2-4 MiB groups and the SR UNet's two, beside ``F.group_norm`` +
+   ``F.silu``, its bound, the share of it, its plan and active clusters.
 5. Train: the stage-2 generator step (``eovax_torch.train.stage2``) at full
    width, 12-band 256² B=16 bf16, Charbonnier + MS-SSIM (start step 0), Adam
    at the shipped base lr 1e-4 with the clip at 1.0 (the 2000-step warmup
@@ -136,6 +137,40 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    ``eovax_torch.cli.eval_metric_super_res.main`` on 8 AOIs of latents that
    the port's ``encode_split`` writes under ``build/`` (removed at the end),
    with exact launches and finite RMSE / PSNR / SSIM / SAM.
+9. SR training (``DiffusionSuperRes``) on the same UNet, bf16, every weight
+   N(0, 0.02): ``conv3x3_dx`` ([16,512,64,64] ← 256, [16,128,32,32],
+   [16,64,16,16]) and ``group_norm_backward`` (with a [B, C] FiLM at
+   [16,256,64,64] and [16,64,16,16]; swish at [16,512,64,64]) against their
+   plain versions in bf16 and fp32, and on the hooked activations and output
+   gradients of ``up[0].block[0]`` (``conv1``, ``norm2`` with its FiLM) and
+   ``mid_attn.norm`` of one step; exact launches a train step, 46 / 48 / 1
+   forward and 46 ``conv3x3_dx``, 48 ``group_norm_backward``, 1 attention
+   backward; 12 steps on one [16,32,64,64] batch with fixed t and noise (Adam
+   1e-4 after a clip at 1.0, the warmup cut) whose loss must fall; ms/step,
+   latents/s and peak memory at B = 16 and 8 beside the operations bound, the
+   step's kernel time (profiled) and the device's busy share, the host's issue
+   time; one profiled step's hand-kernel records against the 92 / 48 / 48
+   expected; all parameter gradients of the loss (t and noise injected) on
+   the card in fp32 and bf16 against fp32 on the CPU at [2,32,32,32];
+   ``fit`` on a latent tree under ``build/chip_smoke_srtrain_*`` (16 train and
+   16 val AOIs, [32,64,64]) at B = 16 with the shipped schedule: 6 steps, a
+   validation (DDIM-50 twice: the image grid and the MSE) and a save after
+   steps 3 and 6, exact launches, the CSV rows and PNGs, each save's blocking
+   copy and write; a fresh trainer restores step 6 ``torch.equal`` (UNet,
+   Adam, generator) and takes 2 steps; ``train_super_res.main`` on a copy of
+   the shipped config (``--max-steps 4``, a save and a validation every 2),
+   whose ``sr-final.pt`` ``eval_metric_super_res.main`` loads strictly.
+10. Stage-1 distillation at the full width of ``configs/weight_distill.yaml``
+   (transformer generators, 4 layers, 256 planes; Flux-sized stems) in fp32
+   with TF32 off against a random teacher: 50 steps of ``run_distillation``
+   on the card against the CPU (losses and generated stems within 1e-4
+   relative, the loss falls), ms/step, and ``weight_distill.main`` writing a
+   file that ``load_distilled_checkpoint`` reads back into a core.
+
+Each profiled count is read from a trace that kept the records it counts: a
+trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
+taken again, up to three in all, and a third short one fails the script; the
+``kernels`` line's ``profile_retries`` counts the traces taken again. Every drive also reads ``gn_channel_sums``'s launches, 0 on every path.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with an error before any result.
@@ -263,11 +298,13 @@ def profile_kernels(label: str, fn, card: str, calls: int = 2) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        time.sleep(PROFILE_PAD_S)
     # Device rows only; a user annotation's device range (the optimizer step's)
     # spans kernels that have rows of their own.
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
@@ -286,6 +323,47 @@ def profile_kernels(label: str, fn, card: str, calls: int = 2) -> dict:
         print(f"  {group} kernels: {ms:.3f} ms/call x{count}, {100 * ms / busy_ms:.2f}% of "
               "kernel time")
     return {e.key: e.count // calls for e in kernels}
+
+
+# Label → profiler traces taken again because the one before kept too few
+# kernel records; the ``kernels`` line carries it as ``profile_retries``.
+PROFILE_RETRIES: dict[str, int] = {}
+# Seconds of sleep after a trace starts and again before it stops. The profiler
+# keeps a kernel's record only where it falls inside the trace's window on the
+# host's clock, and the kernels' times there can read a fraction of a
+# millisecond or more before their launches: records at a window's edge were
+# dropped, all of a short trace's at once. scripts/profiler_drop_probe.py
+# counts the records kept with and without the pads (PERF.md §7).
+PROFILE_PAD_S = 0.05
+
+
+def retrace(label: str, take, short):
+    """``take()`` a profiler trace, and take it again while ``short(trace)`` names
+    what it lacks, up to three traces in all; raises after three short ones. The
+    profiler can drop the records of short calls, for a cause not yet found
+    (PERF.md §7, ROADMAP Queue 3). Each trace taken again counts in
+    ``PROFILE_RETRIES``."""
+    for attempt in range(3):
+        trace = take()
+        lack = short(trace)
+        if not lack:
+            return trace
+        PROFILE_RETRIES[label] = PROFILE_RETRIES.get(label, 0) + 1
+        print(f"profile {label}: a short trace ({lack})"
+              f"{', taken again' if attempt < 2 else ''}")
+    raise AssertionError(f"{label}: three profiler traces in a row were short ({lack})")
+
+
+def profile_full(label: str, fn, card: str, expected: dict, calls: int = 2) -> dict:
+    """``profile_kernels`` by ``retrace``: a trace is short while it kept fewer rows
+    a call than ``expected`` gives for a tag of the kernel names. Returns the
+    rows; the caller checks them."""
+    def short(rows: dict) -> str:
+        kept = {tag: sum(v for k, v in rows.items() if tag in k) for tag in expected}
+        return ("" if all(kept[tag] >= n for tag, n in expected.items())
+                else f"kept {kept} of {expected} a call")
+
+    return retrace(label, lambda: profile_kernels(label, fn, card, calls), short)
 
 
 def check_gn_forward_rows(label: str, rows: dict, expected: int) -> None:
@@ -574,7 +652,8 @@ def drive(label: str, fn, expected: dict):
                 "flash_attention": (attention.flash_attention, "launches"),
                 "conv3x3_dx": (conv3x3.conv3x3_dx, "launches"),
                 "group_norm_backward": (groupnorm.group_norm_backward, "launches"),
-                "flash_attention_backward": (attention.flash_attention_backward, "calls")}
+                "flash_attention_backward": (attention.flash_attention_backward, "calls"),
+                "gn_channel_sums": (groupnorm.gn_channel_sums, "launches")}
     for f, attr in counters.values():
         setattr(f, attr, 0)
     out = fn()
@@ -588,8 +667,10 @@ def drive(label: str, fn, expected: dict):
 
 def launches(conv: int, gn: int, attn: int, conv_dx: int = 0, gn_bwd: int = 0,
              attn_bwd: int = 0) -> dict:
+    """The launch counts ``drive`` expects; ``gn_channel_sums`` is on no path: 0."""
     return {"conv3x3": conv, "group_norm": gn, "flash_attention": attn, "conv3x3_dx": conv_dx,
-            "group_norm_backward": gn_bwd, "flash_attention_backward": attn_bwd}
+            "group_norm_backward": gn_bwd, "flash_attention_backward": attn_bwd,
+            "gn_channel_sums": 0}
 
 
 def sen2naip_batches(n_batches: int, batch: int, seed: int) -> list[dict]:
@@ -681,7 +762,8 @@ def model_grads(sd: dict, policy, device, x, wvs) -> dict:
     return {n: p.grad.float().cpu() for n, p in core.named_parameters()}
 
 
-def check_model_grads(label: str, got: dict, ref: dict, tol: float) -> float:
+def check_model_grads(label: str, got: dict, ref: dict, tol: float,
+                      inputs: str = "[1,12,64,64]") -> float:
     """Relative global norm of the difference; prints the worst tensor among those
     holding at least a thousandth of the global norm."""
     import torch
@@ -693,7 +775,7 @@ def check_model_grads(label: str, got: dict, ref: dict, tol: float) -> float:
     worst = max((d / ref[n].double().norm().item(), n) for n, d in diff.items()
                 if ref[n].double().norm().item() >= 1e-3 * ref_norm)
     ok = finite and rel <= tol
-    print(f"full model gradients {label} on the card vs fp32 on the CPU [1,12,64,64]: "
+    print(f"full model gradients {label} on the card vs fp32 on the CPU {inputs}: "
           f"|diff|/|ref| = {rel:.3e} (tol {tol:g}) over {len(ref)} tensors; worst tensor "
           f"{worst[1]} {worst[0]:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -813,8 +895,9 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
           f"host {min(host):.3f}-{max(host):.3f} ms, until the card is done "
           f"{min(total):.3f}-{max(total):.3f} ms (5 calls) [{card}]")
     stamp("phase 5: timed train steps")
-    rows = profile_kernels("train step [16,12,256,256] bf16", lambda: step(state, x, s2), card,
-                           calls=1)
+    rows = profile_full("train step [16,12,256,256] bf16", lambda: step(state, x, s2), card,
+                        {"gn_fwd_": sum(TRAIN_GN_SHAPES.values()),
+                         "gn_bwd_": sum(TRAIN_GN_SHAPES.values())}, calls=1)
     check_gn_forward_rows("train step [16,12,256,256] bf16", rows, sum(TRAIN_GN_SHAPES.values()))
     gn_bwd_rows = {k: v for k, v in rows.items() if "gn_bwd_" in k}
     if (sum(gn_bwd_rows.values()) != sum(TRAIN_GN_SHAPES.values())
@@ -907,6 +990,36 @@ def step_gaps_ms(events: list) -> list[float]:
     return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
 
+def timed(trainer_cls, saves: list, val_s: list):
+    """A subclass of the trainer class that times each save and validation of a
+    fit around the public methods, into ``saves`` and ``val_s``. A save's write
+    is waited for at once, so that it is timed alone; the steps beside a write
+    in flight are timed apart."""
+    import torch
+
+    class Timed(trainer_cls):
+        def save_checkpoint(self, state):
+            torch.cuda.synchronize()  # the blocking copy alone, not the queued step
+            t0 = time.perf_counter()
+            started = super().save_checkpoint(state)
+            t1 = time.perf_counter()
+            self.checkpointer.wait()
+            if started:
+                saves.append({"step": state.step, "copy_ms": (t1 - t0) * 1e3,
+                              "write_ms": (time.perf_counter() - t1) * 1e3})
+            return started
+
+        def validate(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = super().validate(*args, **kw)
+            torch.cuda.synchronize()
+            val_s.append(time.perf_counter() - t0)
+            return result
+
+    return Timed
+
+
 def trainer_phase(sd: dict, card: str, bare_ms: float) -> float:
     """Phase 6: ``Stage2Trainer`` and the train CLI at full width, bf16. Returns
     the steady ms/step of the synthetic batches before a save."""
@@ -939,30 +1052,7 @@ def trainer_phase(sd: dict, card: str, bare_ms: float) -> float:
     ckpt_dir = tmp / "checkpoints"
 
     saves, val_s = [], []
-
-    class TimedTrainer(stage2.Stage2Trainer):
-        """Times each save and validation of the fit around the public methods. A
-        save's write is waited for at once, so that it is timed alone; the steps
-        beside a write in flight are timed after the fit."""
-
-        def save_checkpoint(self, state):
-            torch.cuda.synchronize()  # the blocking copy alone, not the queued step
-            t0 = time.perf_counter()
-            started = super().save_checkpoint(state)
-            t1 = time.perf_counter()
-            self.checkpointer.wait()
-            if started:
-                saves.append({"step": state.step, "copy_ms": (t1 - t0) * 1e3,
-                              "write_ms": (time.perf_counter() - t1) * 1e3})
-            return started
-
-        def validate(self, *args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            means = super().validate(*args, **kw)
-            torch.cuda.synchronize()
-            val_s.append(time.perf_counter() - t0)
-            return means
+    TimedTrainer = timed(stage2.Stage2Trainer, saves, val_s)
 
     def trainer(cls=stage2.Stage2Trainer, **kw):
         model = EOFluxVAE(cfg, sd, policy=DEFAULT_POLICY, device=dev)
@@ -1576,9 +1666,11 @@ def device_profile(fn, calls: int = 20) -> tuple[float, float]:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
@@ -1588,8 +1680,8 @@ def device_profile(fn, calls: int = 20) -> tuple[float, float]:
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     """The device's time for one ``fn()``: ``calls`` calls captured in one CUDA graph,
     its replays timed by CUDA events, so that the host's issue rate does not enter.
-    Phase 8 takes it in place of the profiler, whose traces there kept from none to
-    half of the kernel records of 20 calls."""
+    Phases 4 and 8 take it in place of the profiler, whose traces of 20 such calls
+    kept from none to half of their kernel records."""
     import torch
 
     side = torch.cuda.Stream()
@@ -1810,8 +1902,9 @@ def sr_phase(vae, vae_sd: dict, card: str, g) -> dict:
             print(f"time SR {label} [8,32,64,64] bf16: {ms:.3f} ms a sample batch, "
                   f"{8e3 / ms:.2f} latents/s (host wall {(time.perf_counter() - t0) * 1e3 / 4:.3f} "
                   f"ms a call) [{card}]")
-        rows = profile_kernels("SR DDIM step [8,32,64,64] bf16",
-                               lambda: DDIMSampler(denoiser, steps=1)(unet, x1, cond8), card)
+        rows = profile_full("SR DDIM step [8,32,64,64] bf16",
+                            lambda: DDIMSampler(denoiser, steps=1)(unet, x1, cond8), card,
+                            {"gn_fwd_": UNET_EVAL[1]})
         check_gn_forward_rows("SR DDIM step [8,32,64,64] bf16", rows, UNET_EVAL[1])
 
         # The pipeline of eovax/cli/benchmark.py (its --all settings): encode a 4-band
@@ -1891,7 +1984,377 @@ def sr_phase(vae, vae_sd: dict, card: str, g) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     stamp("phase 8: eval CLI")
-    return {"launches": {k: sr_launches[k] for k in rows}, "shapes": rows, "unet_ms": unet_ms}
+    return {"launches": sr_launches, "shapes": rows, "unet_ms": unet_ms}
+
+
+# The SR train step's launches (conv3x3 / group_norm / flash_attention): one UNet
+# eval forward, and backward 46 conv3x3_dx, 48 group_norm_backward and one
+# attention-backward call.
+SR_TRAIN_STEP = launches(*UNET_EVAL, *UNET_EVAL)
+
+
+def write_latent_tree(root: Path, n: int, seed: int) -> None:
+    """``encode_latents``' schema: {train,val}/{aoi}.npz with [32,64,64] latents (a
+    512² Sen2NAIP pair's; the images, which SR training does not read, at 32²) and
+    latent_stats.json."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        (root / split).mkdir(parents=True)
+        for i in range(n):
+            np.savez(root / split / f"aoi{i}.npz",
+                     hr_latent=g.normal(0.3, 1.5, (32, 64, 64)).astype(np.float32),
+                     lr_latent=g.normal(0.2, 1.2, (32, 64, 64)).astype(np.float32),
+                     hr_image=g.normal(size=(4, 32, 32)).astype(np.float32),
+                     lr_image=g.normal(size=(4, 32, 32)).astype(np.float32))
+    stats = {k: {"mean": g.normal(size=32).tolist(), "std": g.uniform(0.5, 2.0, 32).tolist()}
+             for k in ("hr_latent", "lr_latent")}
+    (root / "latent_stats.json").write_text(json.dumps(stats))
+
+
+def sr_train_phase(vae_sd: dict, card: str, g) -> dict:
+    """Phase 9: stage-3 SR training at the full width of the shipped config.
+    Returns the launches of one train step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from eovax_torch.cli import eval_metric_super_res, train_super_res
+    from eovax_torch.cli.train_super_res import build_denoiser_from_config
+    from eovax_torch.core.config import load_yaml
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.sen2naip import Sen2NaipCrossSensorLatent
+    from eovax_torch.train.sr import DiffusionSuperRes
+    from eovax_torch.utils.image_logger import SuperResImageLogger
+    from eovax_torch.utils.logging import CSVLogger
+
+    dev = g.device
+    lm = load_yaml(str(SR_CONFIG))["lightning_module"]
+    denoiser, unet = build_denoiser_from_config(lm, policy=DEFAULT_POLICY, device=dev)
+    sd = sr_state_dict(unet, seed=12)
+    unet.load_state_dict(sd)
+
+    # ---- the backward kernels vs plain at the UNet's shapes, bf16 and fp32 --------
+    for dtype, tol in ((torch.bfloat16, TOL_CONV_BF16), (torch.float32, TOL_CONV_F32)):
+        # dx of an up block's conv1 at 64² (512 → 256), of level 1's convs at 32²
+        # and of level 2's at 16² (narrower than the kernel's 64-column tile).
+        for b, ci, co, h, w in ((16, 512, 256, 64, 64), (16, 128, 128, 32, 32),
+                                (16, 64, 64, 16, 16)):
+            grad = torch.randn(b, co, h, w, generator=g, device=dev).to(dtype)
+            k = 0.05 * torch.randn(co, ci, 3, 3, generator=g, device=dev)
+            check_conv_dx(grad, k, tol, "SR")
+        # norm2 with its [B, C] FiLM at level 0 (8 channels a group) and level 2 (2,
+        # the forward's warp plan); an up block's norm1 on the concatenation (16).
+        for shape, film in (((16, 256, 64, 64), True), ((16, 64, 16, 16), True),
+                            ((16, 512, 64, 64), False)):
+            print(f"group_norm_backward plan {list(shape)} {dtype}: "
+                  f"{gn_plan_line(shape, dtype, forward=False)}")
+            b, c = shape[:2]
+            x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+            grad = torch.randn(shape, generator=g, device=dev).to(dtype)
+            w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+            bias = 0.1 * torch.randn(c, generator=g, device=dev)
+            kw = gn_variants(b, c, g)["adain[B,C]+swish"] if film else dict(swish=True)
+            check_gn_backward(grad, x, w, bias, "SR FiLM[B,C]+swish" if film else "SR swish",
+                              **kw)
+            del x, grad
+    torch.cuda.empty_cache()
+    stamp("phase 9: backward kernels vs plain at the UNet's shapes")
+
+    # ---- the train step: hooked real gradients, exact launches, a falling loss --
+    # The shipped optimizer settings with the warmup cut (at lr 0 the first
+    # updates would not move the parameters): Adam at 1e-4 after a clip at 1.0.
+    sr = DiffusionSuperRes(denoiser=denoiser, init_params=unet, base_lr=1e-4, grad_clip=1.0)
+    state = sr.init_state()
+    batch = {b: [torch.randn(b, 32, 64, 64, generator=g, device=dev) for _ in range(3)]
+             + [torch.rand(b, generator=g, device=dev)] for b in (16, 8)}
+    hr, cond, eps, t = batch[16]
+
+    def step(b=16):
+        hr, cond, eps, t = batch[b]
+        return sr.train_step(state, hr, cond, t=t, eps=eps)["train_loss"]
+
+    captured = {}
+
+    def capture(key):
+        def hook(mod, args, kwargs, out):  # returns None: the output stays as it is
+            captured[key] = (args[0].detach().clone(), dict(kwargs))
+            out.register_hook(lambda grad: captured.__setitem__(key + "/grad", grad.clone()))
+        return hook
+
+    block, attn = state.model.up[0].block[0], state.model.mid_attn
+    hooks = [block.conv1.register_forward_hook(capture("conv1"), with_kwargs=True),
+             block.norm2.register_forward_hook(capture("norm2"), with_kwargs=True),
+             attn.norm.register_forward_hook(capture("attn_norm"), with_kwargs=True)]
+    losses = [step()]  # the first warm-up step, and the hooks' captures
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        check_conv_dx(captured["conv1/grad"].contiguous(), block.conv1.weight, TOL_CONV_BF16,
+                      "SR up0-block0-conv1-captured")
+        for key, norm in (("norm2", block.norm2), ("attn_norm", attn.norm)):
+            xn, kw = captured[key]
+            check_gn_backward(captured[key + "/grad"].contiguous(), xn, norm.weight, norm.bias,
+                              f"SR {'up0-block0-norm2' if key == 'norm2' else 'mid_attn-norm'}"
+                              "-captured", **kw)
+    del captured, xn, kw
+
+    loss, counts = drive("SR train step [16,32,64,64] bf16", step, SR_TRAIN_STEP)
+    losses.append(loss)
+    torch.cuda.reset_peak_memory_stats()
+    ms = {16: cuda_ms(lambda: losses.append(step()), 10, warmup=0)}
+    peak = {16: torch.cuda.max_memory_allocated()}
+    losses = [float(v) for v in losses]
+    print(f"SR train losses over {len(losses)} steps on one batch (fixed t and noise): "
+          f"{', '.join(f'{v:.5f}' for v in losses)}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError("the SR train loss is not finite or did not fall")
+    torch.cuda.reset_peak_memory_stats()
+    ms[8] = cuda_ms(lambda: step(8), 10)
+    peak[8] = torch.cuda.max_memory_allocated()
+    per_sample = sum(unet_flops(state.model, hr[:1], t[:1], cond[:1]).values())
+    expected = {"conv3x3_": 2 * UNET_EVAL[0], "gn_fwd_": UNET_EVAL[1], "gn_bwd_": UNET_EVAL[1]}
+    rows = profile_full("SR train step [16,32,64,64] bf16", step, card, expected, calls=1)
+    kept = {tag: sum(v for k, v in rows.items() if tag in k) for tag in expected}
+    print(f"profile SR train step: hand-kernel records kept {kept} of {expected}, "
+          f"{sum(rows.values())} kernel records in all")
+    if kept != expected:
+        raise AssertionError(f"SR train step: hand-kernel rows {kept}, expected {expected}")
+    # A trace is short where it kept fewer records a step than the step's hand-kernel
+    # launches.
+    hand = sum(SR_TRAIN_STEP[k] for k in ("conv3x3", "group_norm", "flash_attention",
+                                           "conv3x3_dx", "group_norm_backward"))
+    for b in (16, 8):
+        # The step's operations: the forward's, and twice them for the gradients
+        # of the activations and of the weights.
+        bound_ms = 3.0 * b * per_sample / H100_BF16_FLOPS * 1e3
+        # The device's time in the step's kernels (profiled, 3 steps), and the
+        # host's time to issue one step (no synchronisation inside a step).
+        kernel_ms, records = retrace(
+            f"SR train step [{b},32,64,64]", lambda: device_profile(lambda: step(b), calls=3),
+            lambda r: "" if r[1] >= hand else f"{r[1]:g} kernel records a step of {hand}+")
+        issue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(b)
+            issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        busy = kernel_ms / ms[b]
+        paced = "the host paces the step" if busy < 0.9 else "the card paces it"
+        print(f"time SR train step [{b},32,64,64] bf16: {ms[b]:.3f} ms/step, "
+              f"{b * 1e3 / ms[b]:.2f} latents/s, peak memory {peak[b] / 2**30:.2f} GiB, "
+              f"operations bound {bound_ms:.3f} ms (3 x {per_sample / 1e9:.3f} GFLOP a sample, "
+              f"{100 * bound_ms / ms[b]:.1f}% of it); kernels {kernel_ms:.3f} ms a step "
+              f"({records:g} kernel records a step kept, {sum(rows.values())} in the B=16 "
+              f"profile), device busy {busy:.3f}; host issue "
+              f"{min(issue):.3f}-{max(issue):.3f} ms/step: {paced} [{card}]")
+    stamp("phase 9: SR train step")
+
+    # ---- the gradients on the card (fp32, bf16) against fp32 on the CPU ------------
+    gc = torch.Generator().manual_seed(13)
+    x2, cond2, eps2 = (torch.randn(2, 32, 32, 32, generator=gc) for _ in range(3))
+    t2 = torch.tensor([0.9, 0.35])
+
+    def grads(policy, device) -> dict:
+        _, model = build_denoiser_from_config(lm, policy=policy, device=device)
+        model.load_state_dict(sd)
+        denoiser.loss(model, *(a.to(device) for a in (x2, t2, cond2)),
+                      eps=eps2.to(device)).backward()
+        return {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+    ref = grads(FULL_PRECISION, "cpu")
+    for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
+                               ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
+        check_model_grads(f"SR UNet {label}", grads(policy, dev), ref, tol, "[2,32,32,32]")
+    del ref
+    stamp("phase 9: SR gradients card vs CPU")
+
+    # ---- DiffusionSuperRes.fit, resume, the train CLI and the eval CLI ---------------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_srtrain_", dir=ROOT / "build"))
+    saves, val_s = [], []
+    TimedSR = timed(DiffusionSuperRes, saves, val_s)
+
+    try:
+        write_latent_tree(tmp / "latents", 16, seed=14)
+        train_ds, val_ds = (Sen2NaipCrossSensorLatent(str(tmp / "latents"), s)
+                            for s in ("train", "val"))
+        kw = dict(denoiser=denoiser, init_params=unet, base_lr=lm["base_lr"],
+                  final_lr=lm["final_lr"], warmup_epochs=lm["warmup_epochs"],
+                  decay_end_epoch=lm["decay_end_epoch"], ckpt_dir=str(tmp / "checkpoints"))
+        first = TimedSR(**kw, log_every=1, logger=CSVLogger(str(tmp)),
+                        image_logger=SuperResImageLogger(str(tmp)), ckpt_every=3,
+                        val_max_batches=1)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # 6 steps; 2 validations of one batch, each DDIM-50 twice (the image grid's
+        # sample and the val MSE's).
+        final, _ = drive("SR fit 6 steps [16,32,64,64] bf16, 2 validations (DDIM-50)",
+                         lambda: first.fit(train_ds.batches(16, shuffle=True, repeat=True),
+                                           lambda: val_ds.batches(16), max_steps=6,
+                                           val_every=3),
+                         launches(*(206 * a for a in UNET_EVAL), *(6 * a for a in UNET_EVAL)))
+        fit_s = time.perf_counter() - t0
+        fit_peak = torch.cuda.max_memory_allocated()
+        with open(tmp / "metrics.csv") as f:
+            lines = f.read().splitlines()
+        head, pngs = lines[0].split(","), sorted((tmp / "image_log" / "val").glob("*.png"))
+        steps = [ln.split(",")[0] for ln in lines[1:]]
+        values = [float(v) for ln in lines[1:] for k, v in zip(head, ln.split(","))
+                  if k in ("train_loss", "val_mse") and v]
+        if (final.step != 6 or [s["step"] for s in saves] != [3, 6]
+                or steps != ["1", "2", "3", "3", "4", "5", "6", "6"] or len(pngs) != 2
+                or not np.isfinite(values).all()):
+            raise AssertionError(f"SR fit: step {final.step}, saves {saves}, rows {steps}, "
+                                 f"{len(pngs)} PNGs, values {values}")
+        print(f"SR fit: {fit_s:.3f} s for 6 steps and 2 validations "
+              f"({', '.join(f'{v:.3f}' for v in val_s)} s each, DDIM-50 twice on 16 latents, "
+              f"the image grid and the best save); metrics.csv {head} {len(steps)} rows, "
+              f"{[p.name for p in pngs]}; peak memory {fit_peak / 2**30:.2f} GiB [{card}]")
+        for s in saves:
+            print(f"SR save step {s['step']}: blocking host copy {s['copy_ms']:.1f} ms, "
+                  f"write {s['write_ms']:.1f} ms (waited for at once) [{card}]")
+
+        second = DiffusionSuperRes(**kw)
+        resumed = second.restore_checkpoint()
+        same = [torch.equal(x, resumed.model.state_dict()[k])
+                for k, x in final.model.state_dict().items()]
+        a, b = final.optimizer.state_dict(), resumed.optimizer.state_dict()
+        same += [torch.equal(x, y) for key in ("mu", "nu") for x, y in zip(a[key], b[key],
+                                                                           strict=True)]
+        same.append(torch.equal(first.generator.get_state(), second.generator.get_state()))
+        if not all(same) or resumed.step != 6 or a["count"] != b["count"]:
+            raise AssertionError(f"SR resume: step {resumed.step}, state equal {all(same)}")
+        more, _ = drive("SR resume at step 6, 2 more steps",
+                        lambda: second.fit(train_ds.batches(16, shuffle=True, seed=1,
+                                                            repeat=True),
+                                           max_steps=8, state=resumed),
+                        launches(*(2 * a for a in UNET_EVAL), *(2 * a for a in UNET_EVAL)))
+        print(f"SR resume: the UNet, Adam's moments and count and the generator "
+              f"torch.equal to the first trainer's at step 6; ended at step {more.step}")
+        del first, second, final, resumed, more
+        torch.cuda.empty_cache()
+        stamp("phase 9: SR fit and resume")
+
+        raw = yaml.safe_load(SR_CONFIG.read_text())
+        raw["experiment"]["exp_dir"] = str(tmp / "exps")
+        raw["datamodule"]["root"] = str(tmp / "latents")
+        raw["trainer"].update(log_every_n_steps=1, ckpt_every=2, val_every=2,
+                              limit_val_batches=1)
+        (tmp / "sr.yaml").write_text(yaml.safe_dump(raw))
+        t0 = time.perf_counter()
+        drive("train_super_res.main --max-steps 4, a save and a validation every 2",
+              lambda: train_super_res.main(["--config", str(tmp / "sr.yaml"),
+                                            "--max-steps", "4"]),
+              launches(*(204 * a for a in UNET_EVAL), *(4 * a for a in UNET_EVAL)))
+        cli_s = time.perf_counter() - t0
+        (exp,) = (tmp / "exps").iterdir()
+        files = sorted(p.name for p in exp.iterdir())
+        if not {"sr-final.pt", "sr-best.pt", "metrics.csv", "checkpoints"} <= set(files):
+            raise AssertionError(f"train_super_res wrote {files}")
+        torch.save({"state_dict": vae_sd}, tmp / "eo-vae.ckpt")
+        args = ["--vae-config", str(ROOT / "configs" / "eo-vae.yaml"),
+                "--vae-ckpt", str(tmp / "eo-vae.ckpt"), "--sr-ckpt", str(exp / "sr-final.pt"),
+                "--data-root", str(tmp / "latents"), "--split", "val", "--batch-size", "8",
+                "--num-batches", "1", "--sr-steps", "2", "--output", str(tmp / "out")]
+        drive("eval_metric_super_res.main on sr-final.pt, 1 batch of 8, DDIM-2",
+              lambda: eval_metric_super_res.main(args),
+              launches(*(2 * a + 2 * d for a, d in zip(UNET_EVAL, (28, 30, 1)))))
+        metrics = json.loads((tmp / "out" / "all_metrics.json").read_text())
+        if sorted(metrics) != ["psnr", "rmse", "sam", "ssim"] or not all(
+                np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"eval_metric_super_res on sr-final.pt gave {metrics}")
+        print(f"SR train CLI: {cli_s:.3f} s, {files}; the eval CLI loads its sr-final.pt "
+              f"strictly: metrics {metrics} finite [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stamp("phase 9: SR train CLI and eval CLI")
+    return counts
+
+
+def distill_phase(card: str) -> None:
+    """Phase 10: stage-1 weight distillation at the full width of
+    ``configs/weight_distill.yaml`` in fp32 (TF32 off), against a random teacher."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.cli import weight_distill
+    from eovax_torch.core.config import load_model_config
+    from eovax_torch.core.precision import FULL_PRECISION
+    from eovax_torch.train import distill
+
+    config = ROOT / "configs" / "weight_distill.yaml"
+    cfg = load_model_config(str(config))
+    gt = torch.Generator().manual_seed(20)
+    # Flux-sized stems: conv_in [128,3,3,3], conv_out [3,128,3,3].
+    teacher = {"encoder_weight": 0.1 * torch.randn(128, 3, 3, 3, generator=gt),
+               "encoder_bias": 0.05 * torch.randn(128, generator=gt),
+               "decoder_weight": 0.1 * torch.randn(3, 128, 3, 3, generator=gt),
+               "decoder_bias": 0.05 * torch.randn(3, generator=gt)}
+    dcfg = distill.DistillConfig(max_steps=50, log_every_n_steps=1, val_every_n_steps=10)
+    wvs = torch.tensor(dcfg.rgb_wavelengths)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = EOFluxVAE(cfg, policy=FULL_PRECISION, device=device, seed=0)
+        losses = []
+        distill.run_distillation(model.core, teacher, dcfg,
+                                 log_fn=lambda step, scalars: losses.append(scalars["total_loss"]))
+        with torch.no_grad():
+            stems = [t.cpu() for stem in (model.core.encoder.conv_in, model.core.decoder.conv_out)
+                     for t in stem.get_distillation_weight(wvs.to(device))]
+        runs[device] = (np.asarray(losses), stems)
+    (cpu_losses, cpu_stems), (losses, stems) = runs["cpu"], runs["cuda"]
+    loss_rel = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
+    stem_rel = max(float((a - r).norm() / r.norm()) for a, r in zip(stems, cpu_stems))
+    ok = (len(losses) == 50 and np.isfinite(losses).all() and losses[-1] < losses[0]
+          and loss_rel <= 1e-4 and stem_rel <= 1e-4)
+    print(f"distillation 50 steps ({cfg.encoder.stem.num_layers} layers, "
+          f"{cfg.encoder.stem.wv_planes} planes, stems [128,3,3,3] and [3,128,3,3]) fp32 on "
+          f"the card vs the CPU: losses {losses[0]:.6g} -> {losses[-1]:.6g}, max rel "
+          f"{loss_rel:.3e}; stems |diff|/|ref| {stem_rel:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("distillation on the card disagrees with the CPU or did not fall")
+
+    timed = distill.DistillConfig(max_steps=50, log_every_n_steps=10**9,
+                                  val_every_n_steps=10**9)
+    model = EOFluxVAE(cfg, policy=FULL_PRECISION, device="cuda", seed=0)
+    distill.run_distillation(model.core, teacher, distill.DistillConfig(max_steps=2))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    distill.run_distillation(model.core, teacher, timed)
+    torch.cuda.synchronize()
+    print(f"time distillation step (fp32, TF32 off): "
+          f"{(time.perf_counter() - t0) * 1e3 / timed.max_steps:.3f} ms/step over 50 steps "
+          f"[{card}]")
+    del model
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_distill_", dir=ROOT / "build"))
+    try:
+        names = {"encoder_weight": "encoder.conv_in.weight",
+                 "encoder_bias": "encoder.conv_in.bias",
+                 "decoder_weight": "decoder.conv_out.weight",
+                 "decoder_bias": "decoder.conv_out.bias"}
+        torch.save({names[k]: v for k, v in teacher.items()}, tmp / "ae.pt")
+        weight_distill.main(["--config", str(config), "--teacher", str(tmp / "ae.pt"),
+                             "--output", str(tmp / "distilled.pt"), "--max-steps", "10",
+                             "--device", "cuda"])
+        core = EOFluxVAE(cfg, device="cuda", seed=1).core
+        before = core.encoder.conv_in.weight_generator.fc_weight.weight.clone()
+        meta = distill.load_distilled_checkpoint(str(tmp / "distilled.pt"), core)
+        after = core.encoder.conv_in.weight_generator.fc_weight.weight
+        if torch.equal(before, after) or not np.isfinite(meta["final_loss"]):
+            raise AssertionError(f"the distilled file did not load: {meta}")
+        print(f"weight_distill.main --device cuda: distilled.pt loads into a core "
+              f"(final loss {meta['final_loss']:.6g}, {meta['distill_config']['max_steps']} steps)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stamp("phase 10: distillation")
 
 
 def main() -> int:
@@ -1911,7 +2374,12 @@ def main() -> int:
     from eovax_torch.data.wavelengths import wavelengths_for
     from eovax_torch.kernels.attention import flash_attention, flash_attention_plain
     from eovax_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
-    from eovax_torch.kernels.groupnorm import group_norm, group_norm_plain
+    from eovax_torch.kernels.groupnorm import (
+        gn_channel_sums,
+        gn_channel_sums_plain,
+        group_norm,
+        group_norm_plain,
+    )
     from eovax_torch.utils.tiling import tiled_reconstruct
 
     card = card_line()
@@ -2080,8 +2548,8 @@ def main() -> int:
     shutil.rmtree(enc_dir, ignore_errors=True)
     stamp("phase 4: reconstruct and encode_split times")
 
-    rows = profile_kernels(f"reconstruct {tuple(x512.shape)}", lambda: model.reconstruct(x512, s2),
-                           card)
+    rows = profile_full(f"reconstruct {tuple(x512.shape)}", lambda: model.reconstruct(x512, s2),
+                        card, {"gn_fwd_": 52})
     check_gn_forward_rows(f"reconstruct {tuple(x512.shape)}", rows, 52)
     stamp("phase 4: reconstruct profile")
 
@@ -2127,8 +2595,23 @@ def main() -> int:
           f"{plain_ms:.4f} ms, F.group_norm+F.silu {library_ms:.4f} ms, bound "
           f"{timings['group_norm', shape]['bound_ms']:.4f} ms "
           f"({4.0 * x.numel() / kernel_ms / 1e6:.0f} GB/s of the least traffic) [{card}]")
+    # gn_channel_sums alone at the same input: x read once, the [B, C] sums written.
+    sums_ms = cuda_ms(lambda: gn_channel_sums(x), 20)
+    sums_plain_ms = cuda_ms(lambda: gn_channel_sums_plain(x), 20)
+    timings["gn_channel_sums"] = dict(
+        shape=list(shape), ms=sums_ms, plain_ms=sums_plain_ms, library_ms=None,
+        launches=main_launches["gn_channel_sums"], **bound(2.0 * x.numel(), H100_F32_FLOPS,
+                            x.numel() * 2 + 2 * 4.0 * shape[0] * shape[1]))
+    print(f"time gn_channel_sums {list(shape)} bf16: kernel {sums_ms:.4f} ms, plain "
+          f"{sums_plain_ms:.4f} ms, library null (no one call), bound "
+          f"{timings['gn_channel_sums']['bound_ms']:.4f} ms "
+          f"({timings['gn_channel_sums']['bound_by']}; {main_launches['gn_channel_sums']} "
+          f"launches on the main path) [{card}]")
     del x
-    gn_rows = []  # the forward at each of GN_TIMED_SHAPES, profiled device times
+    # The forward at each of GN_TIMED_SHAPES: device times from CUDA-graph replays of
+    # 20 calls, as phase 8's, since torch.profiler's traces of 20 short calls can keep
+    # none of their kernel records (PERF.md §7).
+    gn_rows = []
     for shape, film in GN_TIMED_SHAPES.items():
         b, c = shape[:2]
         x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -2137,21 +2620,21 @@ def main() -> int:
         wb, bb = w.bfloat16(), bias.bfloat16()
         kw = gn_variants(b, c, g)["adain[B,C]+swish"] if film else dict(swish=True)
         with torch.inference_mode():
-            kernel_ms, recorded = device_profile(lambda: group_norm(x, w, bias, **kw))
+            kernel_ms = graph_ms(lambda: group_norm(x, w, bias, **kw))
             # No one library call computes the FiLM form: library_ms is null there.
-            library_ms = None if film else device_profile(
-                lambda: F.silu(F.group_norm(x, 32, wb, bb, 1e-6)))[0]
+            library_ms = None if film else graph_ms(
+                lambda: F.silu(F.group_norm(x, 32, wb, bb, 1e-6)))
         nbytes = 2.0 * x.numel() * 2 + (4.0 * 2 * b * c if film else 0.0)
         plan, _, clusters = gn_plan(shape, torch.bfloat16, forward=True)
         row = dict(shape=list(shape), form="FiLM[B,C]+swish" if film else "swish", ms=kernel_ms,
                    library_ms=library_ms,
                    **bound(GN_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, nbytes),
-                   plan=plan._asdict(), active_clusters=clusters, kernels_recorded=recorded)
+                   plan=plan._asdict(), active_clusters=clusters)
         row["bound_share"] = row["bound_ms"] / kernel_ms
         gn_rows.append(row)
         lib = "null (no one call)" if film else f"{library_ms:.4f} ms"
         print(f"time group_norm+{row['form']} {list(shape)} bf16: device kernel {kernel_ms:.4f} ms "
-              f"({recorded:g} kernels recorded a call), "
+              f"(CUDA-graph replays), "
               f"F.group_norm+F.silu {lib}, bound {row['bound_ms']:.4f} ms "
               f"({100 * row['bound_share']:.1f}% of it; plan "
               f"{gn_plan_line(shape, torch.bfloat16, forward=True)}) [{card}]")
@@ -2184,6 +2667,8 @@ def main() -> int:
     synthetic_ms = trainer_phase(sd, card, bwd_timings["train_step_ms"])
     data_phase(card, synthetic_ms)
     sr = sr_phase(model, sd, card, g)
+    srtrain = sr_train_phase(sd, card, g)
+    distill_phase(card)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -2192,6 +2677,7 @@ def main() -> int:
          "launches": main_launches["flash_attention"], "max_abs_err": attn_err,
          **timings["flash_attention", (4, 4096, 512)], "shapes": attn_rates,
          "sr_launches": sr["launches"]["flash_attention"],
+         "srtrain_launches": srtrain["flash_attention"],
          "sr_shapes": sr["shapes"]["flash_attention"]},
         {"name": "group_norm", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/groupnorm.cu",
@@ -2199,29 +2685,38 @@ def main() -> int:
          "launches": main_launches["group_norm"],
          "max_abs_err": gn_errs[(4, 128, 512, 512)]["swish"],
          **timings["group_norm", (4, 128, 512, 512)], "shapes": gn_rows,
-         "sr_launches": sr["launches"]["group_norm"], "sr_shapes": sr["shapes"]["group_norm"]},
+         "sr_launches": sr["launches"]["group_norm"], "srtrain_launches": srtrain["group_norm"],
+         "sr_shapes": sr["shapes"]["group_norm"], "gn_channel_sums": {
+             **timings["gn_channel_sums"], "train_launches": train_counts["gn_channel_sums"],
+             "sr_launches": sr["launches"]["gn_channel_sums"],
+             "srtrain_launches": srtrain["gn_channel_sums"]}},
         {"name": "conv3x3", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/conv3x3.cu",
          "replaces": "eovax/kernels/conv3x3.py:53",
          "launches": main_launches["conv3x3"],
          "max_abs_err": conv_errs[(4, 512, 256, 256, 256)],
          **timings["conv3x3", (4, 512, 256, 256, 256)], "shapes": conv_rates,
-         "sr_launches": sr["launches"]["conv3x3"], "sr_shapes": sr["shapes"]["conv3x3"]},
+         "sr_launches": sr["launches"]["conv3x3"], "srtrain_launches": srtrain["conv3x3"],
+         "sr_shapes": sr["shapes"]["conv3x3"]},
         {"name": "conv3x3_dx", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/conv3x3.cu",
          "replaces": "eovax/kernels/conv3x3.py:186",
          "launches": train_counts["conv3x3_dx"],
+         "srtrain_launches": srtrain["conv3x3_dx"],
          "max_abs_err": bwd_errs["conv3x3_dx", (16, 128, 128, 256, 256)],
          **bwd_timings["conv3x3_dx"]},
         {"name": "group_norm_backward", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/groupnorm.cu",
          "replaces": "eovax/kernels/groupnorm.py:124",
          "launches": train_counts["group_norm_backward"],
+         "srtrain_launches": srtrain["group_norm_backward"],
          "max_abs_err": bwd_errs["group_norm_backward", (16, 128, 256, 256)]["swish"],
          **bwd_timings["group_norm_backward", (16, 128, 256, 256)],
          "shapes": [dict(shape=list(shape), **bwd_timings["group_norm_backward", shape])
                     for shape in ((16, 128, 256, 256), (16, 256, 256, 256))]},
     ]
+    for entry in kernels:  # the run's short profiler traces, each taken again
+        entry["profile_retries"] = dict(PROFILE_RETRIES)
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

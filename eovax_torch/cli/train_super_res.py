@@ -1,11 +1,20 @@
 """Stage-3 latent-SR training CLI (reference: train_super_res.py).
 
-Port of ``eovax/cli/train_super_res.py``'s ``build_denoiser_from_config``,
-which the SR sampling and evaluation paths use. Its ``main`` (the training
-loop) comes with SR training, ``ROADMAP.md`` Queue 1 item 6b.
+Port of ``eovax/cli/train_super_res.py``. Usage:
+
+    python -m eovax_torch.cli.train_super_res --config configs_superres/eo_vae_latent.yaml \
+        [--debug] [--max-steps N] [--seed S] [--resume-dir DIR] [--device cuda]
+
+Writes ``<exp_dir>/<name>_<stamp>/{config.yaml, metrics.csv, checkpoints/,
+image_log/val/*.png, sr-final.pt, sr-best.pt}``: ``sr-final.pt`` and
+``sr-best.pt`` are the UNet's torch state dict, which
+``eval_metric_super_res --sr-ckpt`` loads (the JAX CLI writes ``.msgpack``).
 """
 
 from __future__ import annotations
+
+import argparse
+import os
 
 import torch
 
@@ -57,10 +66,101 @@ def build_denoiser_from_config(cfg: dict, *, policy=None, seed: int = 0,
     return cls(schedule=schedule), unet
 
 
+def _datasets(dm_cfg: dict):
+    """(train, val) datasets by the datamodule's ``_target_``: the latent pairs
+    that ``encode_latents`` writes, or the pixel baseline's tif pairs
+    (reference pixel.yaml:50-51), z-scored and bicubic-upsampled by its collate."""
+    from eovax_torch.data import sen2naip
+
+    target = dm_cfg.get("_target_", "Sen2NaipLatentCrossSensorDataModule").split(".")[-1]
+    if "Latent" in target:
+        kw = dict(latent_scale_factor=dm_cfg.get("latent_scale_factor", 1.0),
+                  normalize=dm_cfg.get("normalize", True))
+        return tuple(sen2naip.Sen2NaipCrossSensorLatent(dm_cfg["root"], split, **kw)
+                     for split in ("train", "val"))
+    collate = (sen2naip.sen2naip_domain_adapted_collate if dm_cfg.get("domain_adapted")
+               else sen2naip.sen2naip_collate)
+    kw = dict(collate=collate, lr_size=dm_cfg.get("lr_size", 128),
+              hr_size=dm_cfg.get("hr_size", 512))
+    return tuple(sen2naip.Sen2NaipCrossSensor(dm_cfg["root"], split, **kw)
+                 for split in ("train", "val"))
+
+
 def main(argv=None) -> None:
-    raise NotImplementedError(
-        "stage-3 SR training (this CLI and its trainer) is not ported yet: "
-        "ROADMAP Queue 1 item 6b")
+    parser = argparse.ArgumentParser(description="EO-VAE stage-3 latent SR training")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--resume-dir", default=None,
+                        help="existing experiment dir: reuse it and resume from its latest "
+                             "checkpoint (preemption recovery)")
+    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+
+    from eovax_torch.cli.common import create_experiment_dir, snapshot_config
+    from eovax_torch.core.config import load_yaml
+    from eovax_torch.train.schedule import SR_STEPS_PER_EPOCH
+    from eovax_torch.train.sr import DiffusionSuperRes
+    from eovax_torch.utils.image_logger import SuperResImageLogger
+    from eovax_torch.utils.logging import CSVLogger
+
+    raw = load_yaml(args.config)
+    lm = raw["lightning_module"]
+    denoiser, unet = build_denoiser_from_config(lm, seed=args.seed, device=args.device)
+    trainer_cfg = raw.get("trainer", {})
+    max_steps = args.max_steps or trainer_cfg.get("max_epochs", 750) * SR_STEPS_PER_EPOCH
+
+    exp_dir = logger = image_logger = None
+    if not args.debug:
+        exp = raw.get("experiment", {})
+        if args.resume_dir:
+            exp_dir = args.resume_dir
+            os.makedirs(exp_dir, exist_ok=True)
+        else:
+            exp_dir = create_experiment_dir(exp.get("exp_dir", "results/exps/sr"),
+                                            exp.get("experiment_name", "eo-vae-sr"))
+        snapshot_config(args.config, exp_dir)
+        logger = CSVLogger(exp_dir)
+        image_logger = SuperResImageLogger(exp_dir)
+
+    dm_cfg = raw["datamodule"]
+    train_ds, val_ds = _datasets(dm_cfg)
+    bs = dm_cfg.get("batch_size", 16)
+    sampler_cfg = lm.get("sampler", {})
+    trainer = DiffusionSuperRes(
+        denoiser=denoiser, init_params=unet,
+        sampler_steps=sampler_cfg.get("steps", 50),
+        # The config's `_target_` names the sampler (DDIMSampler by default).
+        sampler_type=sampler_cfg.get("_target_", "ddim").split(".")[-1],
+        base_lr=lm.get("base_lr", 1e-4), final_lr=lm.get("final_lr"),
+        warmup_epochs=lm.get("warmup_epochs"), decay_end_epoch=lm.get("decay_end_epoch"),
+        grad_clip=trainer_cfg.get("gradient_clip_val", 1.0),
+        log_every=trainer_cfg.get("log_every_n_steps", 20),
+        logger=logger, image_logger=image_logger,
+        ckpt_dir=os.path.join(exp_dir, "checkpoints") if exp_dir else None,
+        ckpt_every=trainer_cfg.get("ckpt_every", SR_STEPS_PER_EPOCH),
+        val_max_batches=trainer_cfg.get("limit_val_batches", 10),
+        seed=args.seed,
+    )
+    state = trainer.fit(train_ds.batches(bs, shuffle=True, seed=args.seed, repeat=True),
+                        lambda: val_ds.batches(bs), max_steps=max_steps,
+                        val_every=trainer_cfg.get("val_every", SR_STEPS_PER_EPOCH))
+    if exp_dir:
+        from eovax_torch.utils.checkpoint import host_copy
+
+        final = os.path.join(exp_dir, "sr-final.pt")
+        torch.save(host_copy(state.model.state_dict()), final)
+        print(f"Saved SR model to {final}")
+        # Also the best parameters by val_mse (ModelCheckpoint monitor='val_mse',
+        # save_top_k=1, train_super_res.py:65-78).
+        best = trainer.restore_best()
+        if best is not None:
+            info = trainer.checkpointer.best_info()
+            path = os.path.join(exp_dir, "sr-best.pt")
+            torch.save(host_copy(best.model.state_dict()), path)
+            print(f"Saved best SR model (val_mse={info['metric']:.6g} @ step {info['step']}) "
+                  f"to {path}")
 
 
 if __name__ == "__main__":

@@ -12,8 +12,9 @@ Each ``lax.scan`` of the JAX samplers is a Python loop over the steps, each
 ``lax.cond`` an ``if`` on the step index. The time grid (:func:`time_grid`),
 λ and the clamps (tiny 1e-20, σ ≥ 1e-8) are fp32 tensors on the samples'
 device, computed as the JAX package computes them. ``init``
-draws x1 from an explicit ``torch.Generator``. The denoisers' ``loss`` comes
-with SR training (``ROADMAP.md`` Queue 1 item 6b).
+draws x1 from an explicit ``torch.Generator``, and the denoisers' ``loss``
+draws its noise from one too, unless the caller passes ``eps`` (the value the
+JAX loss draws from its key).
 """
 
 from __future__ import annotations
@@ -78,6 +79,17 @@ def _bshape(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape[0], *([1] * (x.dim() - 1)))
 
 
+def _noised(schedule, x, t, eps, generator):
+    """x_t = alpha(t)·x + sigma(t)·eps in fp32, eps ~ N(0, 1) from ``generator``
+    unless given."""
+    if eps is None:
+        device = x.device if generator is None else generator.device
+        eps = torch.randn(x.shape, generator=generator, device=device, dtype=torch.float32)
+    a = _bshape(schedule.alpha(t), x)
+    s = _bshape(schedule.sigma(t), x)
+    return a * x + s * eps
+
+
 @dataclasses.dataclass(frozen=True)
 class SimpleDenoiser:
     """x0-prediction denoiser: model(x_t, t, cond) → E[x | x_t]."""
@@ -91,6 +103,12 @@ class SimpleDenoiser:
         """Raw backbone output → x0_hat (identity for x0-prediction); used by
         samplers that run the backbone's paths themselves."""
         return raw.float()
+
+    def loss(self, model, x, t, cond=None, *, eps=None, generator=None) -> torch.Tensor:
+        """fp32 MSE of the x0 prediction from x_t = alpha(t)·x + sigma(t)·eps."""
+        x_t = _noised(self.schedule, x, t, eps, generator)
+        x0_hat = self.denoise(model, x_t, t, cond)
+        return torch.mean((x0_hat.float() - x.float()) ** 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +135,14 @@ class KarrasDenoiser:
         c_skip, c_out, c_in = (_bshape(c, x_t) for c in self._coeffs(t))
         f = model((c_in * x_hat).to(x_t.dtype), t, cond)
         return c_skip * x_hat + c_out * f.float()
+
+    def loss(self, model, x, t, cond=None, *, eps=None, generator=None) -> torch.Tensor:
+        """fp32 MSE of the x0 prediction weighted by 1/max(c_out², 1e-8)."""
+        x_t = _noised(self.schedule, x, t, eps, generator)
+        x0_hat = self.denoise(model, x_t, t, cond)
+        c_out = _bshape(self._coeffs(t)[1], x)
+        w = 1.0 / torch.clamp_min(c_out ** 2, 1e-8)
+        return torch.mean(w * (x0_hat - x.float()) ** 2)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 
 Port of ``eovax/train/schedule.py``: the reference's
 ``get_cosine_schedule_with_warmup``, with no clamp past ``total_steps`` (the
-cosine goes on, as in the reference's LambdaLR).
+cosine goes on, as in the reference's LambdaLR); and optax's
+``cosine_decay_schedule``, which stage-1 distillation uses. Both compute in
+Python floats (float64), as the reference's ``LambdaLR`` does.
 """
 
 from __future__ import annotations
@@ -26,6 +28,20 @@ def cosine_warmup_schedule(base_lr: float, final_lr: float, warmup_steps: int, t
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float) -> Callable[[int], float]:
+    """optax's ``cosine_decay_schedule``: a half cosine from ``init_value`` to
+    ``alpha·init_value`` over ``decay_steps``, then flat; step t from 0."""
+
+    def schedule(step: int) -> float:
+        progress = min(float(step), decay_steps) / decay_steps
+        cosine_decay = 0.5 * (1.0 + math.cos(math.pi * progress))
+        return init_value * ((1.0 - alpha) * cosine_decay + alpha)
+
+    return schedule
+
+
 #: The reference hard-codes the steps per epoch when it turns epoch-based
-#: settings into steps.
+#: settings into steps (stage 2 and stage-3 SR).
 STAGE2_STEPS_PER_EPOCH = 2000
+SR_STEPS_PER_EPOCH = 152

@@ -393,7 +393,7 @@ def test_eval_main_on_cpu(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# DiffusionSuperRes, build_denoiser_from_config, the unported training side
+# DiffusionSuperRes, build_denoiser_from_config, the training side
 # ---------------------------------------------------------------------------
 
 
@@ -439,19 +439,21 @@ def test_sr_sample_is_seeded_and_checks_the_batch(unets):
 
 
 def test_sr_training_raises_until_ported(unets):
+    """SR training is ported (tests/test_torch_sr_train.py): the trainer has the
+    JAX trainer's fields but its mesh, with the same defaults, and the training
+    methods; the CLI's main no longer raises (its missing --config is argparse's)."""
+    from eovax.train.sr import DiffusionSuperRes as JaxSR
     from eovax_torch.cli import train_super_res
     from eovax_torch.train.sr import DiffusionSuperRes
 
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        train_super_res.main(["--config", "x.yaml"])
-    # The training hyperparameters come with the fit that reads them: none is accepted
-    # and ignored before then.
-    fields = {f.name for f in dataclasses.fields(DiffusionSuperRes)}
-    assert fields == {"denoiser", "init_params", "sampler_steps", "sampler_type"}
-    with pytest.raises(TypeError, match="base_lr"):
-        DiffusionSuperRes(denoiser=tsr.SimpleDenoiser(), init_params=unets[2], base_lr=1e-4)
+    with pytest.raises(SystemExit):
+        train_super_res.main([])
+    ours = {f.name: f.default for f in dataclasses.fields(DiffusionSuperRes)}
+    ref = {f.name: f.default for f in dataclasses.fields(JaxSR) if f.name != "mesh"}
+    assert ours == ref
     sr = DiffusionSuperRes(denoiser=tsr.SimpleDenoiser(), init_params=unets[2])
-    assert not any(hasattr(sr, m) for m in ("fit", "validate", "save_checkpoint"))
+    assert all(callable(getattr(sr, m)) for m in ("fit", "validate", "save_checkpoint",
+                                                  "restore_checkpoint", "restore_best"))
 
 
 def test_new_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
