@@ -166,6 +166,33 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    on the card against the CPU (losses and generated stems within 1e-4
    relative, the loss falls), ms/step, and ``weight_distill.main`` writing a
    file that ``load_distilled_checkpoint`` reads back into a core.
+11. Adversarial stage 2 at the full width of ``configs/finetune_gan.yaml``
+   (the shipped body; EOPatchLoss over a spectral-norm DynamicPatchGAN, ndf
+   128, 3 layers, its stem the encoder stem's 4-layer 256-plane generator,
+   seeded from it; ``disc_start`` cut to 0, the warmup cut, the posterior's
+   mode), bf16, weights N(0, 0.02): all generator and discriminator gradients
+   of one generator + discriminator step, the adaptive weight and the stored
+   spectral-norm u and σ on the card (fp32 and bf16) against fp32 on the CPU
+   at [1,12,96,96] (MS-SSIM's five scales need more than 64 pixels); at
+   12-band 256² B=16, exact launches per adversarial step 48 / 52 / 2 forward
+   and 48 / 52 / 2 backward (the adaptive weight and the discriminator launch
+   no hand kernel); 2 warm-up and 10 timed steps on one batch (CUDA events),
+   whose losses must be finite, the generator's reconstruction part (L1 +
+   MS-SSIM) and the discriminator's loss falling from the first step (the
+   whole generator loss is printed: its GAN term rises as the discriminator
+   learns): ms/step, imgs/s, peak memory,
+   the discriminator step's and the adaptive weight's device time (events
+   around them), beside phase 5's bare step; one profiled step's kernel time
+   and busy share; ``Stage2Trainer.fit`` for 4 steps with saves at steps 2 and
+   4 (the CSV with the discriminator's keys), a fresh trainer resuming
+   ``torch.equal`` (model, discriminator with u and σ, both Adam states); the
+   train CLI on copies of ``finetune_gan.yaml`` (``disc_start`` 0, 4 steps)
+   and ``finetune_dyn_conv_rgb.yaml`` (EOGenerativeLoss over an
+   NLayerDiscriminator, ``freeze_body``, 224², DOFA absent so the perceptual
+   term is off; the start steps cut to 0, 2 steps), each with exact launches
+   and a last checkpoint holding its discriminator's updates, under
+   ``build/chip_smoke_gan_*`` (removed at the end). The ``kernels`` line's
+   hand-kernel entries carry these as ``gan_launches``.
 
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
@@ -2357,6 +2384,304 @@ def distill_phase(card: str) -> None:
     stamp("phase 10: distillation")
 
 
+# Phase 11's configuration: configs/finetune_gan.yaml (the shipped body, 95.5M
+# parameters, EOPatchLoss over a DynamicPatchGAN whose stem takes the encoder
+# stem's hyperparameters), with disc_start cut to 0.
+GAN_CONFIG = "finetune_gan.yaml"
+GAN_RGB_CONFIG = "finetune_dyn_conv_rgb.yaml"
+
+
+def gan_setup(sd: dict, disc_sd: dict | None, policy, device):
+    """The model on ``sd``, ``finetune_gan.yaml``'s loss with disc_start 0, and its
+    DynamicPatchGAN on ``disc_sd`` (its stem seeded from the encoder's when None)."""
+    import dataclasses
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.core.config import VAEConfig, load_yaml
+    from eovax_torch.losses.factory import build_loss_from_config
+
+    raw = load_yaml(str(ROOT / "configs" / GAN_CONFIG))
+    # The warmup cut (a constant lr) and the posterior's mode, as phase 5.
+    cfg = dataclasses.replace(VAEConfig.from_dict(raw), final_lr=None, sample_posterior=False)
+    loss, disc, seed_stem = build_loss_from_config({**raw["model"]["loss_fn"], "disc_start": 0},
+                                                   cfg, policy=policy, seed=0)
+    model = EOFluxVAE(cfg, sd, policy=policy, device=device)
+    if disc_sd is None:
+        disc_sd = gan_disc_state_dict(disc, seed=1)
+        disc_sd.update({f"dynamic_input.{k}": v.cpu()
+                        for k, v in model.core.encoder.conv_in.state_dict().items()})
+    disc.load_state_dict(disc_sd)
+    return cfg, model, loss, disc.to(device), seed_stem, disc_sd
+
+
+def gan_disc_state_dict(disc, seed: int) -> dict:
+    """N(0, 0.02) parameters from ``seed``; the spectral-norm buffers as built."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {k: v.clone() for k, v in disc.state_dict().items()}
+    for name, p in disc.named_parameters():
+        sd[name] = torch.empty(p.shape).normal_(0.0, 0.02, generator=g)
+    return sd
+
+
+def gan_grads(sd: dict, disc_sd: dict, policy, device, x, wvs) -> tuple[dict, dict, float, dict]:
+    """One adversarial step at global step 0, the optimizers' updates left out:
+    the generator's gradients, the discriminator's, the adaptive weight, and the
+    discriminator's stored u and σ after its step."""
+    import types
+
+    import torch
+
+    from eovax_torch.train import stage2
+
+    cfg, model, loss, disc, _, _ = gan_setup(sd, disc_sd, policy, device)
+    keep = types.SimpleNamespace(zero_grad=lambda: None, step=lambda: torch.zeros(()))
+    gen_step, disc_step = stage2.make_adversarial_steps(model.core, loss, keep, disc, keep, cfg)
+    state = stage2.TrainState()
+    logs, recon, target = gen_step(state, x.to(device), wvs.to(device))
+    disc_step(state, target, wvs.to(device), recon)
+    grads = {n: p.grad.float().cpu() for n, p in model.core.named_parameters()}
+    dgrads = {n: p.grad.float().cpu() for n, p in disc.named_parameters()}
+    stats = {k: v.cpu() for k, v in disc.state_dict().items() if k.endswith((".u", ".sigma"))}
+    return grads, dgrads, float(logs["train/disc_weight"]), stats
+
+
+def gan_cli_yaml(name: str, out: Path, **loss_over) -> Path:
+    """A copy of a shipped config with the loss's start steps cut."""
+    import yaml
+
+    from eovax_torch.core.config import load_yaml
+
+    raw = load_yaml(str(ROOT / "configs" / name))
+    raw["model"]["loss_fn"].update(loss_over)
+    out.write_text(yaml.safe_dump(raw))
+    return out
+
+
+def gan_phase(sd: dict, card: str, bare_ms: float) -> dict:
+    """Phase 11: adversarial stage 2 at the full width of ``configs/finetune_gan.yaml``,
+    bf16. Returns the launches of one adversarial step."""
+    import numpy as np
+    import torch
+
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.losses import gan
+    from eovax_torch.train import stage2
+
+    dev = torch.device("cuda")
+    s2 = torch.tensor(wavelengths_for("S2L2A"))
+
+    # -- card vs CPU at [1,12,96,96] (MS-SSIM's five scales need more than 64
+    # pixels): gradients, the adaptive weight, u and σ.
+    x_small = torch.randn(1, 12, 96, 96, generator=torch.Generator().manual_seed(5))
+    *_, disc_sd = gan_setup(sd, None, FULL_PRECISION, "cpu")
+    ref = gan_grads(sd, disc_sd, FULL_PRECISION, "cpu", x_small, s2)
+    for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
+                               ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
+        got = gan_grads(sd, disc_sd, policy, dev, x_small, s2)
+        check_model_grads(f"adversarial step, generator, {label}", got[0], ref[0], tol,
+                          "[1,12,96,96]")
+        check_model_grads(f"adversarial step, discriminator, {label}", got[1], ref[1], tol,
+                          "[1,12,96,96]")
+        w_rel = abs(got[2] - ref[2]) / abs(ref[2])
+        s_rel = max((got[3][k] - v).norm().item() / v.norm().item() for k, v in ref[3].items())
+        ok = w_rel <= tol and s_rel <= tol
+        print(f"adversarial step {label} on the card vs fp32 on the CPU [1,12,96,96]: adaptive "
+              f"weight {got[2]:.6f} vs {ref[2]:.6f} (rel {w_rel:.3e}), spectral u/sigma worst "
+              f"rel {s_rel:.3e} over {len(ref[3])} buffers (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"adversarial weight or spectral stats ({label}) disagree")
+    del ref, got
+    stamp("phase 11: adversarial gradients card vs CPU")
+
+    # -- the step at full width, 12-band 256² B=16 bf16: launches, times, profile.
+    cfg, model, loss, disc, _, _ = gan_setup(sd, disc_sd, DEFAULT_POLICY, dev)
+    core = model.core
+    print(f"discriminator: DynamicPatchGAN ndf {disc.ndf}, {disc.n_layers} layers, "
+          f"{sum(p.numel() for p in disc.parameters())} params, stem seeded from the encoder's")
+    opt, schedule = stage2.make_optimizer(cfg, core.parameters())
+    dopt = stage2.ClippedAdam(disc.parameters(), cfg.base_lr, clip_grad=None)
+    gen_step, disc_step = stage2.make_adversarial_steps(core, loss, opt, disc, dopt, cfg,
+                                                        schedule=schedule)
+    state = stage2.TrainState()
+    x = torch.randn(16, 12, 256, 256, generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev)
+    s2d = s2.to(dev)
+    # Device time of each step's discriminator step and adaptive weight, by CUDA
+    # events recorded around them in stream order.
+    marks = {"disc": [], "weight": []}
+    weight_fn = gan.adaptive_weight
+
+    def timed_weight(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        w = weight_fn(*args, **kw)
+        end.record()
+        marks["weight"].append((start, end))
+        return w
+
+    def step():
+        logs, recon, target = gen_step(state, x, s2d)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logs.update(disc_step(state, target, s2d, recon))
+        end.record()
+        marks["disc"].append((start, end))
+        return logs
+
+    gan.adaptive_weight = timed_weight
+    try:
+        losses, rec_losses, disc_losses = [], [], []
+
+        def record(logs):
+            rec = logs["train/loss_rec"] + loss.ssim_weight * logs["train/loss_msssim"]
+            losses.append(rec + loss.disc_weight * logs["train/loss_g"])
+            rec_losses.append(rec)
+            disc_losses.append(logs["train/loss_disc"])
+            return logs
+
+        record(step())  # the first warm-up step
+        logs, counts = drive("adversarial step [16,12,256,256] bf16 (generator + discriminator)",
+                             lambda: record(step()),
+                             launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+        for key in ("train/loss_disc", "train/disc_weight", "train/logits_fake_g"):
+            if key not in logs or not torch.isfinite(logs[key]):
+                raise AssertionError(f"the adversarial step's logs lack a finite {key}: {logs}")
+        for v in marks.values():
+            v.clear()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: record(step()), 10, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        disc_ms = sum(a.elapsed_time(b) for a, b in marks["disc"]) / len(marks["disc"])
+        weight_ms = sum(a.elapsed_time(b) for a, b in marks["weight"]) / len(marks["weight"])
+    finally:
+        gan.adaptive_weight = weight_fn
+    losses, rec_losses, disc_losses = ([float(v) for v in seq]
+                                       for seq in (losses, rec_losses, disc_losses))
+    print(f"adversarial generator losses (rec + 0.5 g + 0.2 msssim) over {len(losses)} steps on "
+          f"one batch: {', '.join(f'{v:.5f}' for v in losses)}; adaptive weight "
+          f"{float(logs['train/disc_weight']):.5f}")
+    print(f"  reconstruction part (rec + 0.2 msssim): {rec_losses[0]:.6f} -> {rec_losses[-1]:.6f}; "
+          f"discriminator loss {disc_losses[0]:.5f} -> {disc_losses[-1]:.5f}; the whole "
+          f"generator loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+          f"({'fell' if losses[-1] < losses[0] else 'did not fall'})")
+    # Each player's own objective must fall from the first step on: the
+    # generator's reconstruction part, which the discriminator does not move,
+    # and the discriminator's loss. The whole generator loss is printed, not
+    # held: its GAN term rises as the discriminator learns to reject the fakes.
+    if (not all(np.isfinite(losses + disc_losses)) or rec_losses[-1] >= rec_losses[0]
+            or disc_losses[-1] >= disc_losses[0]):
+        raise AssertionError("an adversarial loss is not finite, or the generator's "
+                             "reconstruction loss or the discriminator's loss did not fall")
+    print(f"time adversarial step [16,12,256,256] bf16: {ms:.3f} ms/step, {16e3 / ms:.2f} imgs/s, "
+          f"peak memory {peak / 2**30:.2f} GiB; its discriminator step {disc_ms:.3f} ms "
+          f"({100 * disc_ms / ms:.1f} %), its adaptive weight {weight_ms:.3f} ms "
+          f"({100 * weight_ms / ms:.1f} %); phase 5's bare step {bare_ms:.3f} ms/step "
+          f"({ms / bare_ms:.3f}x) [{card}]")
+    stamp("phase 11: timed adversarial steps")
+    rows = profile_full("adversarial step [16,12,256,256] bf16", step, card,
+                        {"gn_fwd_": sum(TRAIN_GN_SHAPES.values()),
+                         "gn_bwd_": sum(TRAIN_GN_SHAPES.values())}, calls=1)
+    check_gn_forward_rows("adversarial step [16,12,256,256] bf16", rows,
+                          sum(TRAIN_GN_SHAPES.values()))
+    del model, core, opt, dopt, disc, gen_step, disc_step, x
+    torch.cuda.empty_cache()
+    stamp("phase 11: adversarial step profile")
+    gan_fit_and_cli(sd, disc_sd, card, dev)
+    return counts
+
+
+def gan_fit_and_cli(sd: dict, disc_sd: dict, card: str, dev) -> None:
+    """Phase 11's loops: ``Stage2Trainer.fit`` (4 steps, a save after step 2) and a
+    fresh trainer's resume, then the train CLI on both adversarial configs."""
+    import tempfile
+
+    import torch
+
+    from eovax_torch.cli import train as train_cli
+    from eovax_torch.core.precision import DEFAULT_POLICY
+    from eovax_torch.data.synthetic import synthetic_terramesh_batches
+    from eovax_torch.train import stage2
+    from eovax_torch.utils.checkpoint import TrainCheckpointer
+    from eovax_torch.utils.logging import CSVLogger
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gan_", dir=ROOT / "build"))
+    try:
+        batches = list(synthetic_terramesh_batches(
+            batch_size=16, target_size=(256, 256), modalities=("S2L2A", "S2L1C", "S1RTC"),
+            seed=3, num_batches=4))
+
+        def trainer(**kw):
+            cfg, model, loss, disc, seed_stem, _ = gan_setup(sd, disc_sd, DEFAULT_POLICY, dev)
+            return stage2.Stage2Trainer(model=model, loss_obj=loss, cfg=cfg, discriminator=disc,
+                                        seed_disc_stem=seed_stem, ckpt_dir=str(tmp / "ckpt"),
+                                        **kw)
+
+        first = trainer(max_steps=4, ckpt_every=2, log_every=1, logger=CSVLogger(str(tmp)))
+        t0 = time.perf_counter()
+        state, _ = drive("adversarial trainer fit 4 steps [16,C,256,256] bf16",
+                         lambda: first.fit(iter(batches)),
+                         launches(4 * 48, 4 * 52, 4 * 2, 4 * 48, 4 * 52, 4 * 2))
+        fit_s = time.perf_counter() - t0
+        with open(tmp / "metrics.csv") as f:
+            head, *lines = f.read().splitlines()
+        head = head.split(",")
+        if (state.step != 4 or len(lines) != 4 or "train/loss_disc" not in head
+                or "train/disc_weight" not in head or first.checkpointer.all_steps() != [2, 4]):
+            raise AssertionError(f"adversarial fit: step {state.step}, {len(lines)} rows, "
+                                 f"header {head}, checkpoints {first.checkpointer.all_steps()}")
+        second = trainer(max_steps=4)
+        if second.restore_checkpoint().step != 4:
+            raise AssertionError("the fresh trainer did not restore step 4")
+        same = []
+        for a, b in ((first.core, second.core), (first.discriminator, second.discriminator)):
+            sb = b.state_dict()
+            same += [torch.equal(v, sb[k]) for k, v in a.state_dict().items()]
+        for a, b in ((first.optimizer, second.optimizer),
+                     (first.disc_optimizer, second.disc_optimizer)):
+            sa, sb = a.state_dict(), b.state_dict()
+            same += [sa["count"] == sb["count"]] + [
+                torch.equal(p, q) for key in ("mu", "nu") for p, q in zip(sa[key], sb[key],
+                                                                         strict=True)]
+        if not all(same):
+            raise AssertionError(f"adversarial resume: {same.count(False)} tensors differ")
+        print(f"adversarial trainer: fit {fit_s:.3f} s for 4 steps with saves at 2 and 4; "
+              f"metrics.csv {len(lines)} rows with the discriminator's keys; a fresh trainer "
+              f"resumes at step 4 with the model, the discriminator (parameters, u and sigma), "
+              f"both Adam states torch.equal ({len(same)} tensors and counts) [{card}]")
+        del first, second
+        torch.cuda.empty_cache()
+        stamp("phase 11: adversarial trainer fit and resume")
+
+        # -- the train CLI on both adversarial configs.
+        for name, steps, over in ((GAN_CONFIG, 4, dict(disc_start=0)),
+                                  (GAN_RGB_CONFIG, 2, dict(gan_start_step=0,
+                                                           disc_update_start_step=0))):
+            exp = tmp / f"cli_{Path(name).stem}"
+            config = gan_cli_yaml(name, tmp / name, **over)
+            t0 = time.perf_counter()
+            drive(f"train CLI {name} {over} --synthetic-data --max-steps {steps}",
+                  lambda: train_cli.main(["--config", str(config), "--synthetic-data",
+                                          "--max-steps", str(steps), "--resume-dir", str(exp)]),
+                  launches(steps * 48, steps * 52, steps * 2, steps * 48, steps * 52, steps * 2))
+            cli_s = time.perf_counter() - t0
+            saved = TrainCheckpointer(str(exp / "checkpoints")).restore_latest()
+            if (not (exp / "eo-vae-final.pt").is_file() or saved["step"] != steps
+                    or saved["disc_optimizer"]["count"] != steps):
+                raise AssertionError(f"train CLI {name}: {sorted(p.name for p in exp.iterdir())}, "
+                                     f"saved step {saved['step']}, discriminator updates "
+                                     f"{saved['disc_optimizer']['count']}")
+            print(f"train CLI {name}: {cli_s:.3f} s, {sorted(p.name for p in exp.iterdir())}; "
+                  f"its last checkpoint holds step {steps} and {steps} discriminator updates")
+            del saved
+            torch.cuda.empty_cache()
+        stamp("phase 11: train CLI on both adversarial configs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2669,6 +2994,7 @@ def main() -> int:
     sr = sr_phase(model, sd, card, g)
     srtrain = sr_train_phase(sd, card, g)
     distill_phase(card)
+    gan = gan_phase(sd, card, bwd_timings["train_step_ms"])
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -2677,6 +3003,8 @@ def main() -> int:
          "launches": main_launches["flash_attention"], "max_abs_err": attn_err,
          **timings["flash_attention", (4, 4096, 512)], "shapes": attn_rates,
          "sr_launches": sr["launches"]["flash_attention"],
+         "gan_launches": gan["flash_attention"],
+         "gan_backward_calls": gan["flash_attention_backward"],
          "srtrain_launches": srtrain["flash_attention"],
          "sr_shapes": sr["shapes"]["flash_attention"]},
         {"name": "group_norm", "route": "cuda",
@@ -2686,10 +3014,12 @@ def main() -> int:
          "max_abs_err": gn_errs[(4, 128, 512, 512)]["swish"],
          **timings["group_norm", (4, 128, 512, 512)], "shapes": gn_rows,
          "sr_launches": sr["launches"]["group_norm"], "srtrain_launches": srtrain["group_norm"],
+         "gan_launches": gan["group_norm"],
          "sr_shapes": sr["shapes"]["group_norm"], "gn_channel_sums": {
              **timings["gn_channel_sums"], "train_launches": train_counts["gn_channel_sums"],
              "sr_launches": sr["launches"]["gn_channel_sums"],
-             "srtrain_launches": srtrain["gn_channel_sums"]}},
+             "srtrain_launches": srtrain["gn_channel_sums"],
+             "gan_launches": gan["gn_channel_sums"]}},
         {"name": "conv3x3", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/conv3x3.cu",
          "replaces": "eovax/kernels/conv3x3.py:53",
@@ -2697,12 +3027,13 @@ def main() -> int:
          "max_abs_err": conv_errs[(4, 512, 256, 256, 256)],
          **timings["conv3x3", (4, 512, 256, 256, 256)], "shapes": conv_rates,
          "sr_launches": sr["launches"]["conv3x3"], "srtrain_launches": srtrain["conv3x3"],
+         "gan_launches": gan["conv3x3"],
          "sr_shapes": sr["shapes"]["conv3x3"]},
         {"name": "conv3x3_dx", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/conv3x3.cu",
          "replaces": "eovax/kernels/conv3x3.py:186",
          "launches": train_counts["conv3x3_dx"],
-         "srtrain_launches": srtrain["conv3x3_dx"],
+         "srtrain_launches": srtrain["conv3x3_dx"], "gan_launches": gan["conv3x3_dx"],
          "max_abs_err": bwd_errs["conv3x3_dx", (16, 128, 128, 256, 256)],
          **bwd_timings["conv3x3_dx"]},
         {"name": "group_norm_backward", "route": "cuda",
@@ -2710,6 +3041,7 @@ def main() -> int:
          "replaces": "eovax/kernels/groupnorm.py:124",
          "launches": train_counts["group_norm_backward"],
          "srtrain_launches": srtrain["group_norm_backward"],
+         "gan_launches": gan["group_norm_backward"],
          "max_abs_err": bwd_errs["group_norm_backward", (16, 128, 256, 256)]["swish"],
          **bwd_timings["group_norm_backward", (16, 128, 256, 256)],
          "shapes": [dict(shape=list(shape), **bwd_timings["group_norm_backward", shape])

@@ -9,7 +9,8 @@ Usage:
         [--max-steps N] [--debug] [--resume-dir DIR] [--device cuda]
 
 Builds the model from the config, loads the stage-1 distilled stems and/or
-the Flux body, builds the consistency loss, and runs ``Stage2Trainer`` with
+the Flux body, builds the loss (and, for an adversarial loss, its
+discriminator), and runs ``Stage2Trainer`` with
 CSV (and optional W&B) logging, validation image grids and checkpoints in a
 timestamped experiment directory. It ends with ``eo-vae-final.pt`` and, once
 validation has run, ``eo-vae-best.pt`` (each ``{"state_dict": ...}``).
@@ -97,7 +98,8 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
         model.load_checkpoint(args.ckpt)
     if args.vae_ckpt:
         model.load_checkpoint(args.vae_ckpt, strict=False)
-    loss_obj = build_loss_from_config(raw_cfg.get("model", {}).get("loss_fn", {}))
+    loss_obj, discriminator, seed_disc_stem = build_loss_from_config(
+        raw_cfg.get("model", {}).get("loss_fn", {}), cfg, policy=policy, seed=args.seed)
 
     trainer_cfg = raw_cfg.get("trainer", {})
     max_epochs = trainer_cfg.get("max_epochs", 100)
@@ -145,6 +147,8 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
         val_max_batches=trainer_cfg.get("limit_val_batches", 100),
         log_every=trainer_cfg.get("log_every_n_steps", 100),
         logger=logger,
+        discriminator=discriminator,
+        seed_disc_stem=seed_disc_stem,
         image_logger=image_logger,
         norm_scheme=dm_cfg.get("norm_scheme", "legacy"),
         seed=args.seed,

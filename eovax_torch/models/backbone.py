@@ -12,7 +12,10 @@ tokens of width ch·ch_mult[-1] = 512.
 
 :meth:`EOVAECore.forward` takes the JAX module's training arguments: latent
 BatchNorm batch statistics (``train``), latent noise, and ``remat`` of the
-encoder's and decoder's level ResnetBlocks. ``forward_gan`` is not ported yet.
+encoder's and decoder's level ResnetBlocks; :meth:`EOVAECore.forward_gan`
+also returns the decoder's penultimate activation and the generated
+output-stem kernel, which the adversarial loss's adaptive weight
+differentiates against.
 """
 
 from __future__ import annotations
@@ -241,6 +244,38 @@ class EOVAECore(nn.Module):
         probability ``latent_noise_p``, Gaussian noise of a per-sample σ drawn
         uniform in [0, ``noise_tau``). Every draw comes from ``generator``.
         """
+        z, bn_stats, posterior = self._latent(x, wvs, generator, sample_posterior, scale, angle,
+                                              train, latent_noise_p, noise_tau)
+        return self.decode(z, wvs, bn_stats), posterior
+
+    def forward_gan(self, x: torch.Tensor, wvs: torch.Tensor, *,
+                    generator: torch.Generator | None = None, sample_posterior: bool = True,
+                    scale: float | tuple[float, float] | None = None,
+                    angle: int | None = None, train: bool = False, latent_noise_p: float = 0.0,
+                    noise_tau: float = 0.8):
+        """:meth:`forward` that also returns the decoder's penultimate activation
+        and the output stem it convolves: ``(recon, posterior, h_pre, kernel,
+        bias)`` with recon = conv(h_pre, kernel) + bias. ``kernel`` [N, E, K, K]
+        is the generated (non-leaf) output-stem kernel; a static decoder returns
+        None for ``kernel`` and ``bias``, and the caller reads ``conv_out``'s
+        parameters."""
+        z, bn_stats, posterior = self._latent(x, wvs, generator, sample_posterior, scale, angle,
+                                              train, latent_noise_p, noise_tau)
+        h_pre = self.decoder.penultimate(
+            patch_unshuffle(self.bn.inverse(z, bn_stats), self.ps), wvs)
+        conv_out = self.decoder.conv_out
+        if not self.decoder.cfg.use_dynamic_ops:
+            return conv_out(h_pre), posterior, h_pre, None, None
+        kernel, bias = conv_out.generate(wvs)
+        return conv_out._conv(h_pre, kernel, bias), posterior, h_pre, kernel, bias
+
+    def _latent(self, x, wvs, generator, sample_posterior, scale, angle, train, latent_noise_p,
+                noise_tau):
+        """The normalized packed latent of a training or eval pass, the statistics
+        that de-normalize it (None: the running ones) and the posterior.
+
+        ``train`` normalizes the latent with its batch statistics, updates the
+        running ones and returns the updated ones, with their gradient."""
         posterior = self.encode(x, wvs)
         z = posterior.sample(generator) if sample_posterior else posterior.mode()
         if scale is not None:
@@ -248,13 +283,13 @@ class EOVAECore(nn.Module):
         if angle is not None:
             z = torch.rot90(z, k=angle, dims=(3, 2))  # the JAX package's NHWC axes (2, 1)
         z, bn_stats = patch_shuffle(z, self.ps), None
-        if train:  # the updated running statistics, with their gradient, de-normalize
+        if train:
             z, bn_stats = self.bn.normalize_batch(z)
         else:
             z = self.bn(z, use_running_average=True)
         if train and latent_noise_p > 0.0:
             z = self._latent_noise(z, latent_noise_p, noise_tau, generator)
-        return self.decode(z, wvs, bn_stats), posterior
+        return z, bn_stats, posterior
 
     def encode_to_latent(self, x: torch.Tensor, wvs: torch.Tensor, *,
                          train: bool = False) -> torch.Tensor:

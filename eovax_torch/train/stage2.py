@@ -2,11 +2,13 @@
 
 Port of ``eovax/train/stage2.py``: the optimizer (Adam after a global-norm
 clip, on the reference's cosine-warmup schedule, with optional gradient
-accumulation), the ``freeze_body`` mask, the train step, the EQ-VAE target,
-the eval step, the host-side EQ-VAE mode roll, and ``Stage2Trainer``, the
-host-side loop with validation, checkpoints, resume and preemption. The
-model's parameters and latent BatchNorm statistics live in the
-``EOVAECore``; a step updates them in place.
+accumulation), the ``freeze_body`` mask, the train step, the adversarial
+generator and discriminator steps, the EQ-VAE target, the eval step, the
+host-side EQ-VAE mode roll, and ``Stage2Trainer``, the host-side loop with
+validation, checkpoints, resume and preemption. The model's parameters and
+latent BatchNorm statistics live in the ``EOVAECore``, the discriminator's
+parameters and spectral-norm statistics in its module; a step updates them in
+place.
 
 Optax's semantics are kept where they differ from torch's habits: the clip
 scales by max/norm only when the norm exceeds max (no +1e-6), the learning
@@ -18,8 +20,7 @@ A batch collated in ``device_prep`` mode (the TerraMesh pipeline's, with
 per-sample normalization and D4 descriptors) is copied to the device in its
 stored dtype and prepared there by ``data.device_prep.device_prepare``.
 
-Not ported yet: the adversarial branch (ROADMAP Queue 1 item 4) and data
-parallelism (item 3d).
+Not ported yet: data parallelism (ROADMAP Queue 1 item 3d).
 """
 
 from __future__ import annotations
@@ -231,8 +232,67 @@ def make_train_step(core: EOVAECore, loss_obj, optimizer: ClippedAdam, cfg: VAEC
     return train_step
 
 
-def make_eval_step(core: EOVAECore, loss_obj):
-    """The validation step: a sampled forward and the loss, with no update.
+def make_adversarial_steps(core: EOVAECore, loss_obj, optimizer: ClippedAdam,
+                           discriminator: torch.nn.Module, disc_optimizer: ClippedAdam,
+                           cfg: VAEConfig, *, schedule=None):
+    """The generator/discriminator alternation of an adversarial loss:
+
+        gen_step(state, image, wvs, generator=None, *, scale=None, angle=None)
+            → (logs, recon, target)
+        disc_step(state, target, wvs, recon) → logs
+
+    ``gen_step`` runs ``forward_gan`` so that the loss's adaptive weight can
+    differentiate its terms with respect to the generated output-stem kernel
+    (``conv_out``'s weight for a static decoder), and updates the model only:
+    its backward leaves no gradient in the discriminator. It returns the
+    detached reconstruction and the EQ-VAE target for ``disc_step``, which
+    stores one spectral-norm power-iteration step, then takes the
+    discriminator's loss on them and one Adam step of its own optimizer.
+    """
+    mask = _freeze_mask(core, cfg.freeze_body)
+    params = list(core.parameters())
+
+    def gen_step(state: TrainState, image: torch.Tensor, wvs: torch.Tensor,
+                 generator: torch.Generator | None = None, *, scale=None,
+                 angle=None) -> tuple[dict[str, Any], torch.Tensor, torch.Tensor]:
+        core.train()
+        optimizer.zero_grad()
+        recon, _, _, kernel, _ = core.forward_gan(
+            image, wvs, generator=generator, sample_posterior=cfg.sample_posterior, scale=scale,
+            angle=angle, train=True, latent_noise_p=cfg.latent_noise_p,
+            noise_tau=cfg.noise_tau)
+        if kernel is None:  # a static decoder: its conv_out weight
+            kernel = core.decoder.conv_out.weight
+        target = _eqvae_target(image, recon, scale, angle)
+        loss, logs = loss_obj.generator_loss(discriminator, target, wvs, recon,
+                                             global_step=state.step, kernel=kernel,
+                                             split="train")
+        loss.backward(inputs=params)
+        _mask_grads(core, mask)
+        logs["train/grad_norm"] = optimizer.step()
+        if callable(schedule):
+            logs["train/lr"] = schedule(state.step)
+        state.step += 1
+        return logs, recon.detach(), target
+
+    def disc_step(state: TrainState, target: torch.Tensor, wvs: torch.Tensor,
+                  recon: torch.Tensor) -> dict[str, Any]:
+        disc_optimizer.zero_grad()
+        if hasattr(discriminator, "update_spectral_stats"):
+            discriminator.update_spectral_stats()
+        d_loss, logs = loss_obj.discriminator_loss(discriminator, target, wvs, recon,
+                                                   split="train")
+        d_loss.backward()
+        disc_optimizer.step()
+        return logs
+
+    return gen_step, disc_step
+
+
+def make_eval_step(core: EOVAECore, loss_obj, discriminator: torch.nn.Module | None = None):
+    """The validation step: a sampled forward and the loss, with no update. An
+    adversarial loss scores the reconstruction with the discriminator at a
+    weight of 1.
 
         eval_step(state, image, wvs, generator=None) → logs
     """
@@ -242,7 +302,11 @@ def make_eval_step(core: EOVAECore, loss_obj):
                   generator: torch.Generator | None = None) -> dict[str, Any]:
         core.eval()
         recon, _ = core(image, wvs, generator=generator, sample_posterior=True)
-        _, logs = loss_obj(image, wvs, recon, global_step=state.step, split="val")
+        if hasattr(loss_obj, "generator_loss"):
+            _, logs = loss_obj.generator_loss(discriminator, image, wvs, recon,
+                                              global_step=state.step, split="val")
+        else:
+            _, logs = loss_obj(image, wvs, recon, global_step=state.step, split="val")
         return logs
 
     return eval_step
@@ -270,9 +334,19 @@ class Stage2Trainer:
     and the state that the loop passes around is the step counter. A
     checkpoint holds what the JAX package's ``TrainState`` holds: the step,
     the parameters and latent BatchNorm statistics (the core's state dict)
-    and the optimizer's state with the accumulator. On resume the mode roll's
-    ``random.Random(seed)`` and the torch generator start again from the
-    seed, as the JAX trainer's do.
+    and the optimizer's state with the accumulator; with an adversarial loss
+    also the discriminator's parameters and spectral-norm statistics and its
+    Adam state. On resume the mode roll's ``random.Random(seed)`` and the
+    torch generator start again from the seed, as the JAX trainer's do.
+
+    An adversarial loss (one with ``generator_loss``) needs ``discriminator``,
+    which is moved to the model's device and kept in eval mode (no stem
+    dropout, as in the JAX package). It trains with its own Adam at
+    ``base_lr`` (no clip, no schedule) on every micro-step at and after the
+    loss's discriminator start while ``disc_weight`` > 0; the generator's
+    optimizer accumulates as without it. ``seed_disc_stem`` copies the
+    encoder's ``conv_in`` parameters into the discriminator's
+    ``dynamic_input`` (the reference's stem injection).
     """
 
     model: Any
@@ -287,24 +361,37 @@ class Stage2Trainer:
     monitor: str = "val/loss_rec"
     log_every: int = 100
     logger: Any = None
+    discriminator: Any = None  # an nn.Module; required for adversarial losses
+    seed_disc_stem: bool = False  # copy encoder conv_in → discriminator dynamic_input
     image_logger: Any = None  # utils.image_logger.ImageLogger (val batch 0)
     norm_scheme: str = "legacy"  # display denormalization of the image grid
     accumulate_steps: int = 1
     seed: int = 0
 
     def __post_init__(self):
-        if hasattr(self.loss_obj, "generator_loss"):
-            raise NotImplementedError(
-                "adversarial losses (a discriminator alternating with the generator) are not "
-                "ported yet: ROADMAP Queue 1 item 4")
         self.device = resolve_device(self.model.device)
         self.core = self.model.core
         self.optimizer, self.schedule = make_optimizer(
             self.cfg, self.core.parameters(), total_steps=self.max_steps,
             accumulate_steps=self.accumulate_steps)
-        self._train_step = make_train_step(self.core, self.loss_obj, self.optimizer, self.cfg,
-                                           schedule=self.schedule)
-        self._eval_step = make_eval_step(self.core, self.loss_obj)
+        self.adversarial = hasattr(self.loss_obj, "generator_loss")
+        self.disc_optimizer = None
+        if self.adversarial:
+            if self.discriminator is None:
+                raise ValueError("adversarial loss requires a discriminator module")
+            self.discriminator.to(self.device).eval()
+            if self.seed_disc_stem:
+                self.discriminator.dynamic_input.load_state_dict(
+                    self.core.encoder.conv_in.state_dict())
+            self.disc_optimizer = ClippedAdam(self.discriminator.parameters(), self.cfg.base_lr,
+                                              clip_grad=None)
+            self._gen_step, self._disc_step = make_adversarial_steps(
+                self.core, self.loss_obj, self.optimizer, self.discriminator,
+                self.disc_optimizer, self.cfg, schedule=self.schedule)
+        else:
+            self._train_step = make_train_step(self.core, self.loss_obj, self.optimizer,
+                                               self.cfg, schedule=self.schedule)
+        self._eval_step = make_eval_step(self.core, self.loss_obj, self.discriminator)
         self._rng = random.Random(self.seed)
         self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._ckptr = None
@@ -349,10 +436,27 @@ class Stage2Trainer:
 
     def train_on_batch(self, state: TrainState, batch: dict) -> dict[str, Any]:
         """One micro-step on a host batch: roll the EQ-VAE mode, copy the batch
-        to the device, take the train step. Returns its logs (tensors)."""
+        to the device, take the train step (with an adversarial loss the
+        generator step, then the discriminator step once it has started).
+        Returns its logs (tensors) in the JAX trainer's order: the generator
+        step's sorted, then the discriminator step's sorted."""
         scale, angle = roll_mode(self._rng, self.cfg)
         image, wvs = self._place(batch)
-        return self._train_step(state, image, wvs, self._generator, scale=scale, angle=angle)
+        if not self.adversarial:
+            logs = self._train_step(state, image, wvs, self._generator, scale=scale,
+                                    angle=angle)
+            return dict(sorted(logs.items()))
+        step = state.step
+        logs, recon, target = self._gen_step(state, image, wvs, self._generator, scale=scale,
+                                             angle=angle)
+        logs = dict(sorted(logs.items()))
+        # The discriminator starts at disc_start (EOPatchLoss) or
+        # disc_update_start_step (EOGenerativeLoss).
+        start = getattr(self.loss_obj, "disc_start",
+                        getattr(self.loss_obj, "disc_update_start_step", 0))
+        if step >= start and self.loss_obj.disc_weight > 0.0:
+            logs.update(sorted(self._disc_step(state, target, wvs, recon).items()))
+        return logs
 
     def _place(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """The NHWC numpy batch as a contiguous NCHW fp32 tensor on the model's
@@ -426,14 +530,21 @@ class Stage2Trainer:
         return self._ckptr
 
     def _checkpoint(self, state: TrainState) -> dict[str, Any]:
-        return {"step": state.step, "model": self.core.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        checkpoint = {"step": state.step, "model": self.core.state_dict(),
+                      "optimizer": self.optimizer.state_dict()}
+        if self.adversarial:
+            checkpoint["discriminator"] = self.discriminator.state_dict()
+            checkpoint["disc_optimizer"] = self.disc_optimizer.state_dict()
+        return checkpoint
 
     def _load(self, checkpoint: dict[str, Any] | None) -> TrainState | None:
         if checkpoint is None:
             return None
         self.core.load_state_dict(checkpoint["model"])
         self.optimizer.load_state_dict(checkpoint["optimizer"])
+        if self.adversarial:
+            self.discriminator.load_state_dict(checkpoint["discriminator"])
+            self.disc_optimizer.load_state_dict(checkpoint["disc_optimizer"])
         return TrainState(step=int(checkpoint["step"]))
 
     def save_checkpoint(self, state: TrainState) -> bool:
@@ -452,7 +563,7 @@ class Stage2Trainer:
         return self._load(self.checkpointer.restore_best())
 
     def _log(self, step: int, logs: dict, t0: float, steps_this_run: int) -> None:
-        scalars = {k: float(v) for k, v in sorted(logs.items())}
+        scalars = {k: float(v) for k, v in logs.items()}
         # The rate over this run only: after a resume, `step` counts earlier runs too.
         scalars["train/steps_per_sec"] = steps_this_run / max(time.time() - t0, 1e-9)
         if self.logger is not None:

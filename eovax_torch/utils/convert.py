@@ -10,7 +10,9 @@ becomes ``in_proj_weight``/``in_proj_bias``, norm ``scale`` becomes
 ``running_mean``/``running_var``. Feeding the result to
 ``load_state_dict(strict=True)`` makes the port compute what the JAX
 package computes with the same variables. The same rules map the SR UNet's
-params (``eovax_torch.models.unet.UNet`` names its modules to match).
+params (``eovax_torch.models.unet.UNet`` names its modules to match), and
+:func:`discriminator_state_dict` a discriminator's, with its spectral-norm
+statistics.
 """
 
 from __future__ import annotations
@@ -75,4 +77,20 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> dict[str, torch.T
 
     walk(variables.get("params", {}), ())
     walk(variables.get("batch_stats", {}), ())
+    return out
+
+
+def discriminator_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A JAX discriminator's ``{"params", "spectral_stats"}`` tree of numpy arrays
+    → the port discriminator's state dict (``DynamicPatchGAN`` or
+    ``NLayerDiscriminator``): the params by :func:`state_dict_from_variables`'s
+    rules under the layer names (``dynamic_input``, ``block_<i>``, ``final``;
+    ``conv_in``, ``layer_<i>``, ``final``), and each
+    ``SpectralNorm_<i>/<layer>/kernel/{u,sigma}`` as the buffers
+    ``<layer>.u`` [1, O] and ``<layer>.sigma`` []."""
+    out = state_dict_from_variables({"params": variables.get("params", {})})
+    for stats in variables.get("spectral_stats", {}).values():
+        for key, arr in stats.items():
+            layer, _, name = key.split("/")
+            out[f"{layer}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
     return out

@@ -539,11 +539,13 @@ def test_validate_logs_means_writes_the_grid_and_best_and_changes_no_state(tmp_p
                                                    before["bn.running_mean"])
 
 
-def test_adversarial_losses_are_not_ported_yet():
+def test_adversarial_loss_without_a_discriminator_is_refused():
+    """As the JAX trainer: a loss with ``generator_loss`` needs a discriminator."""
+    from eovax_torch.losses.gan import EOPatchLoss
+
     cfg = _cfg(tcfg)
-    loss = types.SimpleNamespace(generator_loss=None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        stage2.Stage2Trainer(model=EOFluxVAE(cfg, device="cpu"), loss_obj=loss, cfg=cfg)
+    with pytest.raises(ValueError, match="requires a discriminator"):
+        stage2.Stage2Trainer(model=EOFluxVAE(cfg, device="cpu"), loss_obj=EOPatchLoss(), cfg=cfg)
 
 
 def test_no_silent_cpu_fallback(tmp_path):
@@ -649,32 +651,37 @@ def test_loss_factory_matches_the_jax_factory_on_the_shipped_configs(name):
 
     raw = load_yaml(os.path.join(os.path.dirname(__file__), "..", "configs", name))
     loss_cfg = raw.get("model", {}).get("loss_fn")
-    target = (loss_cfg or {}).get("_target_", "") or ""
-    if target.endswith(("EOPatchLoss", "EOGenerativeLoss")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            build_loss_from_config(loss_cfg)
-        return
-    ours = build_loss_from_config(loss_cfg)
-    ref, disc, _ = jax_build(loss_cfg, JaxVAEConfig.from_dict(raw))
-    assert disc is None
-    fields = [f.name for f in dataclasses.fields(ours) if f.name != "dofa_features"]
+    ours, disc, seed_stem = build_loss_from_config(loss_cfg, tcfg.VAEConfig.from_dict(raw))
+    ref, jdisc, jseed = jax_build(loss_cfg, JaxVAEConfig.from_dict(raw))
+    assert type(ours).__name__ == type(ref).__name__ and seed_stem == jseed
+    skip = ("dofa_features", "disc_apply", "lpips_apply")
+    fields = [f.name for f in dataclasses.fields(ours) if f.name not in skip]
     assert [getattr(ours, f) for f in fields] == [getattr(ref, f) for f in fields]
+    if jdisc is None:
+        assert disc is None
+        return
+    # The discriminator: its class and hyperparameters (the flax module's fields).
+    assert type(disc).__name__ == type(jdisc).__name__ and not disc.training
+    hyper = [f.name for f in dataclasses.fields(jdisc) if f.name not in ("policy", "parent",
+                                                                          "name")]
+    assert [getattr(disc, f) for f in hyper] == [getattr(jdisc, f) for f in hyper]
 
 
 def test_loss_factory_dofa_term(tmp_path, capsys):
     from eovax_torch.losses.factory import build_loss_from_config
 
+    vae = _cfg(tcfg)
     cfg = {"_target_": "x.EOConsistencyLoss", "feature_weight": 0.5,
            "dofa_net": {"ckpt_data": str(tmp_path / "absent.pt")}}
-    loss = build_loss_from_config(cfg)
-    assert loss.feature_weight == 0.0 and loss.dofa_features is None
+    loss, disc, _ = build_loss_from_config(cfg, vae)
+    assert loss.feature_weight == 0.0 and loss.dofa_features is None and disc is None
     assert "not found — perceptual/feature term disabled" in capsys.readouterr().out
     (tmp_path / "dofa.pt").write_bytes(b"")
     cfg["dofa_net"] = {"weights_path": str(tmp_path / "dofa.pt")}
-    with pytest.raises(NotImplementedError, match="DOFA"):
-        build_loss_from_config(cfg)
+    with pytest.raises(NotImplementedError, match="DOFA.*item 4b"):
+        build_loss_from_config(cfg, vae)
     with pytest.raises(ValueError, match="Unknown loss"):
-        build_loss_from_config({"_target_": "x.Other"})
+        build_loss_from_config({"_target_": "x.Other"}, vae)
 
 
 # -- on the card --------------------------------------------------------------------------------
