@@ -193,6 +193,33 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    and a last checkpoint holding its discriminator's updates, under
    ``build/chip_smoke_gan_*`` (removed at the end). The ``kernels`` line's
    hand-kernel entries carry these as ``gan_launches``.
+12. DOFA, the perceptual term of ``configs/finetune_dyn_conv_rgb.yaml``: a
+   full-width DOFA v2 base file (ViT-B/14, embed 768, depth 12, 12 heads, 128
+   wavelength planes, 224²; 105,430,784 params N(0, 0.02) from a seed, under
+   ``model.`` with timm's ``norm`` and ``head``) written under
+   ``build/chip_smoke_dofa_*`` (removed at the end) and loaded through the
+   port's loss factory from a copy of the config. DOFALPIPS's value and its
+   input gradient at [2,3,224,224] fp32, and the features of DOFA v1 base and
+   v3 large (the builders' seeded init) at [1,3,224,224], on the card against
+   the CPU; the body's generator gradients with the term on (the config's start
+   steps: the GAN term gated off, the adaptive weight computed) at
+   [1,3,112,112], fp32 and bf16 against fp32 on the CPU, the LPIPS and the
+   adaptive weight's reconstruction half ‖∂rec/∂kernel‖ and, in fp32, the
+   weight and its GAN half too (in bf16 they are printed beside the CPU's own
+   bf16 step); at [16,3,224,224] bf16 with the start steps cut to 0, the
+   first step's hooked tensors (the decoder's 224² ``conv1`` and ``norm2``,
+   its 28² ``conv1`` and ``norm1``, the mid attention's [16,784,512] q, k, v)
+   through conv3x3, conv3x3_dx, group_norm, group_norm_backward and
+   flash_attention against their plain versions at the bf16 limits; exact
+   launches per adversarial step 48 / 52 / 2 forward and
+   48 / 52 / 2 backward with the term on and with it off (DOFA launches no hand
+   kernel); 2 warm-up and 10 timed steps each way (CUDA events): ms/step,
+   imgs/s, peak memory, the LPIPS forward's device time (events from hooks on
+   the module), a profiled step's busy share, and DOFALPIPS alone (forward of
+   both images and the input gradient) beside its operations from the shapes;
+   the train CLI on the config's copy for 2 steps with a positive
+   ``train/loss_lpips`` and no DOFA tensor in its checkpoint. The ``kernels``
+   line's hand-kernel entries carry the step's launches as ``dofa_launches``.
 
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
@@ -2682,6 +2709,409 @@ def gan_fit_and_cli(sd: dict, disc_sd: dict, card: str, dev) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 12's DOFA: the perceptual term of configs/finetune_dyn_conv_rgb.yaml,
+# DOFA v2 base (ViT-B/14, embed 768, depth 12, 12 heads, 128 wavelength planes,
+# 224²), every weight N(0, 0.02) from a seed, written in the reference's layout.
+#  fp32 on the card (TF32 off) vs fp32 on the CPU: 12 blocks of fp32 sums in
+#  other orders; the input gradient back through them.
+TOL_DOFA_VALUE = 1e-4
+TOL_DOFA_GRAD = 1e-3
+TOL_DOFA_FEATURES = 1e-3
+
+
+def dofa_flops(vit, size: int, bands: int) -> float:
+    """Operations of one image's DOFA forward from its shapes: per block the
+    qkv, proj and MLP matmuls (24·S·D²) and the attention's two products
+    (4·S²·D), the patch-embed conv (2·N·D·k²·C)."""
+    k = vit.patch_embed.kernel_size
+    grid = (size + 2 - k) // k + 1
+    s, d = grid * grid + 1, vit.embed_dim
+    return len(vit.blocks) * (24.0 * s * d * d + 4.0 * s * s * d) + 2.0 * grid * grid * d * k * k * bands
+
+
+def write_dofa_file(path: Path, seed: int) -> int:
+    """A full-width DOFA v2 base file in the reference's layout (under ``model.``,
+    with timm's final ``norm`` and ``head``), N(0, 0.02) from ``seed``; returns
+    its bytes."""
+    import torch
+
+    from eovax_torch.models.dofa import DOFAViTv2
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {f"model.{k}": torch.empty(v.shape).normal_(0.0, 0.02, generator=g)
+          for k, v in DOFAViTv2().state_dict().items()}
+    sd.update({"model.norm.weight": torch.ones(768), "model.norm.bias": torch.zeros(768),
+               "model.head.weight": torch.zeros(1000, 768), "model.head.bias": torch.zeros(1000)})
+    torch.save(sd, path)
+    return path.stat().st_size
+
+
+def dofa_yaml(pth: Path, **loss_over) -> dict:
+    """``finetune_dyn_conv_rgb.yaml`` with its DOFA checkpoint at ``pth``, the
+    loss's keys in ``loss_over`` and a log row every step."""
+    from eovax_torch.core.config import load_yaml
+
+    raw = load_yaml(str(ROOT / "configs" / GAN_RGB_CONFIG))
+    loss = raw["model"]["loss_fn"]
+    loss["lpips"]["dofa_net"]["ckpt_data"] = str(pth)
+    loss.update(loss_over)
+    raw["trainer"]["log_every_n_steps"] = 1
+    return raw
+
+
+def dofa_setup(raw: dict, sd: dict | None, disc_sd: dict | None, policy, device):
+    """The model of ``raw`` on ``sd`` (N(0, 0.02) from seed 3 when None), its
+    EOGenerativeLoss from the factory with the loss's DOFA network on
+    ``device``, and its NLayerDiscriminator on ``disc_sd`` (N(0, 0.02) from
+    seed 2 when None)."""
+    import dataclasses
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.core.config import VAEConfig
+    from eovax_torch.losses.factory import build_loss_from_config
+    from eovax_torch.train import stage2
+
+    cfg = dataclasses.replace(VAEConfig.from_dict(raw), final_lr=None, sample_posterior=False)
+    loss, disc, _ = build_loss_from_config(raw["model"]["loss_fn"], cfg, policy=policy, seed=0)
+    for net in stage2.loss_networks(loss):
+        net.to(device)
+    if sd is None:
+        sd = bench_state_dict(EOFluxVAE(cfg, policy=policy, device="cpu"), seed=3)
+    model = EOFluxVAE(cfg, sd, policy=policy, device=device)
+    if disc_sd is None:
+        disc_sd = gan_disc_state_dict(disc, seed=2)
+    disc.load_state_dict(disc_sd)
+    return cfg, model, loss, disc.to(device), sd, disc_sd
+
+
+def dofa_grads(raw: dict, sd: dict, disc_sd: dict, policy, device, x, wvs):
+    """One generator step at global step 0 (the shipped start steps: the GAN term
+    gated off, the adaptive weight computed all the same), the optimizer left
+    out: the generator's gradients, the adaptive weight and the norms of its two
+    halves, ‖∂rec/∂kernel‖ and ‖∂gan/∂kernel‖ (read where the loss computes it,
+    before the gate), and the LPIPS."""
+    import types
+
+    import torch
+
+    from eovax_torch.losses import gan
+    from eovax_torch.train import stage2
+
+    cfg, model, loss, disc, _, _ = dofa_setup(raw, sd, disc_sd, policy, device)
+    keep = types.SimpleNamespace(zero_grad=lambda: None, step=lambda: torch.zeros(()))
+    gen_step, _ = stage2.make_adversarial_steps(model.core, loss, keep, disc, keep, cfg)
+    read = []
+    weight_fn = gan.adaptive_weight
+
+    def spy(rec_loss, g_loss, kernel, **kw):
+        halves = [torch.autograd.grad(t, kernel, retain_graph=True)[0] for t in (rec_loss, g_loss)]
+        weight = weight_fn(rec_loss, g_loss, kernel, **kw)
+        read.append((weight.item(), *(torch.linalg.vector_norm(h).item() for h in halves)))
+        return weight
+
+    gan.adaptive_weight = spy
+    try:
+        logs, _, _ = gen_step(stage2.TrainState(), x.to(device), wvs.to(device))
+    finally:
+        gan.adaptive_weight = weight_fn
+    grads = {n: p.grad.float().cpu() for n, p in model.core.named_parameters()}
+    weight, rec_norm, gan_norm = read[0]
+    return grads, dict(weight=weight, rec_norm=rec_norm, gan_norm=gan_norm,
+                       lpips=float(logs["train/loss_lpips"]))
+
+
+def capture_body(core) -> tuple[dict, list, dict]:
+    """Forward hooks on the decoder's first block at full-size planes (``conv1``,
+    and ``norm2`` of the next block), on its mid block at the smallest planes
+    (``norm1``, ``conv1``) and on its mid attention: each keeps its input, its
+    call's kwargs and the gradient of its output. Returns the modules, the
+    hooks and what they keep."""
+    captured = {}
+
+    def capture(key):
+        def hook(mod, args, kwargs, out):  # returns None: the output stays as it is
+            captured[key] = (args[0].detach().clone(), dict(kwargs))
+            out.register_hook(lambda grad: captured.__setitem__(key + "/grad", grad.clone()))
+        return hook
+
+    dec = core.decoder
+    mods = {"decoder-up0-block0-conv1": dec.up[0].block[0].conv1,
+            "decoder-up0-block1-norm2": dec.up[0].block[1].norm2,
+            "decoder-mid-block1-conv1": dec.mid.block_1.conv1,
+            "decoder-mid-block1-norm1": dec.mid.block_1.norm1,
+            "decoder-mid-attn1": dec.mid.attn_1}
+    hooks = [m.register_forward_hook(capture(k), with_kwargs=True) for k, m in mods.items()]
+    return mods, hooks, captured
+
+
+def check_captured_body(mods: dict, captured: dict) -> None:
+    """Every kernel at the hooked tensors of one step against its plain version
+    at the bf16 limits: conv3x3 and conv3x3_dx, group_norm (as called) and
+    group_norm_backward, flash_attention on the mid attention's q, k, v."""
+    import torch
+
+    with torch.no_grad():
+        for key, mod in mods.items():
+            x, kw = captured[key]
+            grad = captured[key + "/grad"].contiguous()
+            label = f"{key}-captured"
+            if key.endswith("attn1"):
+                check_attention(*mod.qkv(x), TOL_BF16, label)
+            elif "conv" in key:
+                check_conv(x, mod.weight, mod.bias, TOL_CONV_BF16, label)
+                check_conv_dx(grad, mod.weight, TOL_CONV_BF16, label)
+            else:
+                check_group_norm(x, mod.weight, mod.bias, TOL_GN_BF16, label, {"as called": kw})
+                check_gn_backward(grad, x, mod.weight, mod.bias, label, **kw)
+
+
+def dofa_phase(card: str) -> dict:
+    """Phase 12: the DOFA perceptual term of ``finetune_dyn_conv_rgb.yaml`` on the
+    card. Returns the launches of one adversarial step with the term on."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.models import dofa
+    from eovax_torch.train import stage2
+
+    dev = torch.device("cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dofa_", dir=ROOT / "build"))
+    try:
+        pth = tmp / "dofav2_vit_base_e150.pth"
+        nbytes = write_dofa_file(pth, seed=4)
+        raw = dofa_yaml(pth)
+        t0 = time.perf_counter()
+        cfg, model, loss, disc, sd, disc_sd = dofa_setup(raw, None, None, FULL_PRECISION, "cpu")
+        lpips = loss.lpips_apply
+        vit = lpips.dofa
+        print(f"DOFA: {type(vit).__name__} embed {vit.embed_dim}, {len(vit.blocks)} blocks, "
+              f"patch {vit.patch_embed.kernel_size}, {sum(p.numel() for p in vit.parameters())} "
+              f"params from a {nbytes / 2**30:.3f} GiB file, built by the factory in "
+              f"{time.perf_counter() - t0:.2f} s; perceptual_weight {loss.perceptual_weight}; the "
+              f"body {model.param_count()} params, the NLayerDiscriminator "
+              f"{sum(p.numel() for p in disc.parameters())}")
+        rgb = torch.tensor(dofa.get_wavelengths(raw["model"]["loss_fn"]["lpips"]["dofa_net"]
+                                                ["model_bands"]))
+        stamp("phase 12: DOFA file and factory")
+
+        # -- card vs CPU: the LPIPS and its input gradient; v1 base and v3 large features.
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn(2, 3, 224, 224, generator=g)
+        r = (x + 0.5 * torch.randn(2, 3, 224, 224, generator=g)).requires_grad_()
+        ref = lpips(x, r, rgb)
+        ref.backward()
+        card_lpips = copy.deepcopy(lpips).to(dev)
+        rd = r.detach().to(dev).requires_grad_()
+        got = card_lpips(x.to(dev), rd, rgb.to(dev))
+        got.backward()
+        v_rel = abs(got.item() - ref.item()) / abs(ref.item())
+        g_rel = ((rd.grad.cpu() - r.grad).norm() / r.grad.norm()).item()
+        ok = v_rel <= TOL_DOFA_VALUE and g_rel <= TOL_DOFA_GRAD
+        print(f"DOFALPIPS v2 base [2,3,224,224] fp32 on the card vs the CPU: value {got.item():.6g} "
+              f"vs {ref.item():.6g} (rel {v_rel:.3e}, tol {TOL_DOFA_VALUE:g}), input gradient "
+              f"rel {g_rel:.3e} (tol {TOL_DOFA_GRAD:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("DOFALPIPS on the card disagrees with the CPU")
+        del card_lpips, rd, r
+        x1 = x[:1]
+        for name, build in (("v1 base", dofa.dofav1_base_patch16_224),
+                            ("v3 large", dofa.dofav3_large_patch16_224)):
+            net, _ = build()
+            net.eval()
+            with torch.no_grad():
+                outs = [dofa.dofa_taps(net, x1, rgb)]
+                card_net = copy.deepcopy(net).to(dev)
+                outs.append([t.cpu() for t in dofa.dofa_taps(card_net, x1.to(dev), rgb.to(dev))])
+                if hasattr(net, "forward_lpips"):  # v3's forward_features: one tensor
+                    outs[0].append(net(x1, rgb))
+                    outs[1].append(card_net(x1.to(dev), rgb.to(dev)).cpu())
+            worst = max(rel_err(a, b)[1] for a, b in zip(outs[1], outs[0]))
+            ok = worst <= TOL_DOFA_FEATURES and all(torch.isfinite(t).all() for t in outs[1])
+            print(f"DOFA {name} [1,3,224,224] fp32 features on the card vs the CPU: "
+                  f"{len(outs[0])} outputs {[tuple(t.shape) for t in outs[0]][:2]}..., worst rel "
+                  f"{worst:.3e} (tol {TOL_DOFA_FEATURES:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"DOFA {name} on the card disagrees with the CPU")
+            del net, card_net, outs
+        del model, loss, disc, lpips, vit
+        torch.cuda.empty_cache()
+        stamp("phase 12: DOFA card vs CPU")
+
+        # -- the body's generator gradients with the term on, card (fp32, bf16) vs CPU
+        # fp32; the adaptive weight's two halves, and the CPU's own bf16 weight.
+        x_small = torch.randn(1, 3, 112, 112, generator=torch.Generator().manual_seed(6))
+        ref = dofa_grads(raw, sd, disc_sd, FULL_PRECISION, "cpu", x_small, rgb)
+        cpu_bf16 = dofa_grads(raw, sd, disc_sd, DEFAULT_POLICY, "cpu", x_small, rgb)[1]
+        for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
+                                   ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
+            grads, got = dofa_grads(raw, sd, disc_sd, policy, dev, x_small, rgb)
+            check_model_grads(f"generator step with the DOFA LPIPS, {label}", grads, ref[0], tol,
+                              "[1,3,112,112]")
+            rel = {k: abs(got[k] - ref[1][k]) / abs(ref[1][k]) for k in got}
+            # Held: the LPIPS and ‖∂rec/∂kernel‖ in both; the weight and
+            # ‖∂gan/∂kernel‖ in fp32 only. In bf16 the GAN half is the bf16
+            # NLayerDiscriminator's input gradient (phase 11's cancellation),
+            # printed beside the CPU's own bf16 reading.
+            held = ("lpips", "rec_norm") + (("weight", "gan_norm") if label == "fp32" else ())
+            ok = all(rel[k] <= tol for k in held) and ref[1]["lpips"] > 0
+            print(f"generator step {label} with the DOFA LPIPS on the card vs fp32 on the CPU "
+                  f"[1,3,112,112]: "
+                  + ", ".join(f"{k} {got[k]:.6g} vs {ref[1][k]:.6g} (rel {rel[k]:.3e}"
+                              f"{'' if k in held else ', printed'})" for k in got)
+                  + f" (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+            if label == "bf16":
+                print("generator step bf16 with the DOFA LPIPS on the CPU [1,3,112,112], the "
+                      "second witness: "
+                      + ", ".join(f"{k} {cpu_bf16[k]:.6g} (card bf16 vs CPU bf16 rel "
+                                  f"{abs(got[k] - cpu_bf16[k]) / abs(cpu_bf16[k]):.3e}, "
+                                  f"CPU bf16 vs CPU fp32 rel "
+                                  f"{abs(cpu_bf16[k] - ref[1][k]) / abs(ref[1][k]):.3e})"
+                                  for k in got))
+            if not ok:
+                raise AssertionError(f"the LPIPS or the adaptive weight's halves ({label}) "
+                                     "disagree")
+        del ref, grads
+        stamp("phase 12: generator gradients with the DOFA LPIPS, card vs CPU")
+
+        # -- the step at [16,3,224,224] bf16, the term on and off: launches, times, memory.
+        xb = torch.randn(16, 3, 224, 224, generator=torch.Generator(device=dev).manual_seed(7),
+                         device=dev)
+        rgbd = rgb.to(dev)
+        runs = {}
+        for term in ("on", "off"):
+            over = dict(gan_start_step=0, disc_update_start_step=0)
+            if term == "off":
+                over["perceptual_weight"] = 0.0
+            raw_t = dofa_yaml(pth, **over)
+            cfg, model, loss, disc, _, _ = dofa_setup(raw_t, sd, disc_sd, DEFAULT_POLICY, dev)
+            if (loss.lpips_apply is not None) != (term == "on"):
+                raise AssertionError(f"the perceptual term is not {term}")
+            opt, schedule = stage2.make_optimizer(cfg, model.core.parameters())
+            dopt = stage2.ClippedAdam(disc.parameters(), cfg.base_lr, clip_grad=None)
+            gen_step, disc_step = stage2.make_adversarial_steps(model.core, loss, opt, disc, dopt,
+                                                                cfg, schedule=schedule)
+            state = stage2.TrainState()
+            marks = []
+            if loss.lpips_apply is not None:  # the LPIPS forward's device time, by events
+                def pre(mod, args):
+                    marks.append([torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True)])
+                    marks[-1][0].record()
+
+                def post(mod, args, out):
+                    marks[-1][1].record()
+
+                loss.lpips_apply.register_forward_pre_hook(pre)
+                loss.lpips_apply.register_forward_hook(post)
+            logs_seen = []
+
+            def step():
+                logs, recon, target = gen_step(state, xb, rgbd)
+                logs.update(disc_step(state, target, rgbd, recon))
+                logs_seen.append(logs)
+                return logs
+
+            if term == "on":  # the kernels at the step's own 224² … 28² tensors
+                mods, hooks, captured = capture_body(model.core)
+            step()  # the first warm-up step
+            if term == "on":
+                for h in hooks:
+                    h.remove()
+                check_captured_body(mods, captured)
+                del mods, hooks, captured
+                torch.cuda.empty_cache()
+            _, counts = drive(f"adversarial step [16,3,224,224] bf16, DOFA LPIPS {term}", step,
+                              launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+            marks.clear()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, 10, warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+            lpips_ms = (sum(a.elapsed_time(b) for a, b in marks) / len(marks)) if marks else 0.0
+            tail = [{k: float(v) for k, v in logs.items()} for logs in logs_seen[-10:]]
+            if not all(np.isfinite(list(t.values())).all() for t in tail):
+                raise AssertionError(f"a non-finite loss with the term {term}: {tail[-1]}")
+            if term == "on" and not all(t["train/loss_lpips"] > 0 for t in tail):
+                raise AssertionError("the LPIPS term is not positive in the timed steps")
+            runs[term] = dict(ms=ms, peak=peak, lpips_ms=lpips_ms, counts=counts,
+                              lpips=tail[-1]["train/loss_lpips"], rec=tail[-1]["train/loss_rec"])
+            print(f"time adversarial step [16,3,224,224] bf16, DOFA LPIPS {term}: {ms:.3f} ms/step, "
+                  f"{16e3 / ms:.2f} imgs/s, peak memory {peak / 2**30:.2f} GiB"
+                  + (f"; the LPIPS forward {lpips_ms:.3f} ms ({100 * lpips_ms / ms:.1f} %)"
+                     if marks else "")
+                  + f"; loss_rec {runs[term]['rec']:.5f}, loss_lpips {runs[term]['lpips']:.6g} "
+                  f"[{card}]")
+            if term == "on":
+                rows = profile_full("adversarial step [16,3,224,224] bf16, DOFA LPIPS on", step,
+                                    card, {"gn_fwd_": 52, "gn_bwd_": 52}, calls=1)
+                check_gn_forward_rows("adversarial step [16,3,224,224] bf16, DOFA LPIPS on", rows,
+                                      52)
+                lp = loss.lpips_apply
+                xr = xb.detach().clone().requires_grad_()
+
+                def lpips_fwd_bwd():
+                    lp(xb, xr, rgbd).backward()
+
+                alone_ms = cuda_ms(lpips_fwd_bwd, 5)
+                flops = 3 * 16 * dofa_flops(lp.dofa, 224, 3)  # 2 forwards + 1 input gradient
+                runs[term].update(alone_ms=alone_ms, alone_tflops=flops / alone_ms / 1e9)
+                print(f"time DOFALPIPS v2 base [16,3,224,224] fp32 alone, forward of both "
+                      f"images and the input gradient: {alone_ms:.3f} ms, {flops / 1e12:.3f} "
+                      f"TFLOP from its shapes, {flops / alone_ms / 1e9:.1f} TFLOP/s (fp32 peak "
+                      f"{H100_F32_FLOPS / 1e12:.0f}) [{card}]")
+                del xr
+            del model, loss, disc, opt, dopt, gen_step, disc_step
+            torch.cuda.empty_cache()
+        if runs["on"]["counts"] != runs["off"]["counts"]:
+            raise AssertionError(f"hand-kernel launches differ with the term on and off: {runs}")
+        print(f"DOFA LPIPS on vs off [16,3,224,224] bf16: {runs['on']['ms']:.3f} vs "
+              f"{runs['off']['ms']:.3f} ms/step (+{runs['on']['ms'] - runs['off']['ms']:.3f} ms, "
+              f"{runs['on']['ms'] / runs['off']['ms']:.3f}x), peak {runs['on']['peak'] / 2**30:.2f} "
+              f"vs {runs['off']['peak'] / 2**30:.2f} GiB; hand-kernel launches per step identical "
+              f"{runs['on']['counts']} [{card}]")
+        del xb
+        stamp("phase 12: adversarial step with the DOFA LPIPS on and off")
+
+        # -- the train CLI for 2 steps with the term on.
+        import yaml
+
+        from eovax_torch.cli import train as train_cli
+        from eovax_torch.utils.checkpoint import TrainCheckpointer
+
+        config = tmp / GAN_RGB_CONFIG
+        config.write_text(yaml.safe_dump(dofa_yaml(pth, gan_start_step=0,
+                                                   disc_update_start_step=0)))
+        exp = tmp / "cli"
+        t0 = time.perf_counter()
+        drive("train CLI finetune_dyn_conv_rgb.yaml with the DOFA LPIPS --max-steps 2",
+              lambda: train_cli.main(["--config", str(config), "--synthetic-data", "--max-steps",
+                                      "2", "--resume-dir", str(exp)]),
+              launches(96, 104, 4, 96, 104, 4))
+        cli_s = time.perf_counter() - t0
+        with open(exp / "metrics.csv") as f:
+            head, *lines = f.read().splitlines()
+        col = head.split(",").index("train/loss_lpips")
+        lp_values = [float(line.split(",")[col]) for line in lines]
+        saved = TrainCheckpointer(str(exp / "checkpoints")).restore_latest()
+        dofa_keys = [k for part in ("model", "discriminator") for k in saved[part]
+                     if "patch_embed" in k or k.startswith(("dofa", "blocks.", "lin_"))]
+        if len(lp_values) != 2 or not all(v > 0 for v in lp_values) or dofa_keys \
+                or saved["step"] != 2:
+            raise AssertionError(f"train CLI with the DOFA LPIPS: loss_lpips {lp_values}, "
+                                 f"DOFA keys in the checkpoint {dofa_keys[:4]}, step {saved['step']}")
+        print(f"train CLI {GAN_RGB_CONFIG} with the DOFA LPIPS: {cli_s:.3f} s, loss_lpips "
+              f"{lp_values}, its checkpoint holds step 2 and no DOFA tensor")
+        del saved
+        torch.cuda.empty_cache()
+        stamp("phase 12: train CLI with the DOFA LPIPS")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs["on"]["counts"]
+
+
 def main() -> int:
     import torch
 
@@ -2995,6 +3425,7 @@ def main() -> int:
     srtrain = sr_train_phase(sd, card, g)
     distill_phase(card)
     gan = gan_phase(sd, card, bwd_timings["train_step_ms"])
+    dofa_counts = dofa_phase(card)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -3003,7 +3434,7 @@ def main() -> int:
          "launches": main_launches["flash_attention"], "max_abs_err": attn_err,
          **timings["flash_attention", (4, 4096, 512)], "shapes": attn_rates,
          "sr_launches": sr["launches"]["flash_attention"],
-         "gan_launches": gan["flash_attention"],
+         "gan_launches": gan["flash_attention"], "dofa_launches": dofa_counts["flash_attention"],
          "gan_backward_calls": gan["flash_attention_backward"],
          "srtrain_launches": srtrain["flash_attention"],
          "sr_shapes": sr["shapes"]["flash_attention"]},
@@ -3014,7 +3445,7 @@ def main() -> int:
          "max_abs_err": gn_errs[(4, 128, 512, 512)]["swish"],
          **timings["group_norm", (4, 128, 512, 512)], "shapes": gn_rows,
          "sr_launches": sr["launches"]["group_norm"], "srtrain_launches": srtrain["group_norm"],
-         "gan_launches": gan["group_norm"],
+         "gan_launches": gan["group_norm"], "dofa_launches": dofa_counts["group_norm"],
          "sr_shapes": sr["shapes"]["group_norm"], "gn_channel_sums": {
              **timings["gn_channel_sums"], "train_launches": train_counts["gn_channel_sums"],
              "sr_launches": sr["launches"]["gn_channel_sums"],
@@ -3027,13 +3458,14 @@ def main() -> int:
          "max_abs_err": conv_errs[(4, 512, 256, 256, 256)],
          **timings["conv3x3", (4, 512, 256, 256, 256)], "shapes": conv_rates,
          "sr_launches": sr["launches"]["conv3x3"], "srtrain_launches": srtrain["conv3x3"],
-         "gan_launches": gan["conv3x3"],
+         "gan_launches": gan["conv3x3"], "dofa_launches": dofa_counts["conv3x3"],
          "sr_shapes": sr["shapes"]["conv3x3"]},
         {"name": "conv3x3_dx", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/conv3x3.cu",
          "replaces": "eovax/kernels/conv3x3.py:186",
          "launches": train_counts["conv3x3_dx"],
          "srtrain_launches": srtrain["conv3x3_dx"], "gan_launches": gan["conv3x3_dx"],
+         "dofa_launches": dofa_counts["conv3x3_dx"],
          "max_abs_err": bwd_errs["conv3x3_dx", (16, 128, 128, 256, 256)],
          **bwd_timings["conv3x3_dx"]},
         {"name": "group_norm_backward", "route": "cuda",
@@ -3042,6 +3474,7 @@ def main() -> int:
          "launches": train_counts["group_norm_backward"],
          "srtrain_launches": srtrain["group_norm_backward"],
          "gan_launches": gan["group_norm_backward"],
+         "dofa_launches": dofa_counts["group_norm_backward"],
          "max_abs_err": bwd_errs["group_norm_backward", (16, 128, 256, 256)]["swish"],
          **bwd_timings["group_norm_backward", (16, 128, 256, 256)],
          "shapes": [dict(shape=list(shape), **bwd_timings["group_norm_backward", shape])

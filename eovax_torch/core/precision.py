@@ -32,7 +32,9 @@ class Policy:
 
     def activate(self) -> None:
         """Run fp32 convs and matmuls in full fp32 (no TF32), the
-        counterpart of ``jax.lax.Precision.HIGHEST``. Process-wide flags."""
+        counterpart of ``jax.lax.Precision.HIGHEST``. Process-wide flags, set
+        whatever the policy: every ``EOFluxVAE`` calls this, so the fp32
+        networks beside the model (the loss's DOFA) run at HIGHEST too."""
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 

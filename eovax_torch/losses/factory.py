@@ -7,10 +7,15 @@ the encoder's dynamic ``conv_in`` to the DynamicPatchGAN as its input stem;
 the port builds an owned stem with the same hyperparameters and asks the
 trainer to seed it from the encoder's (``seed_disc_stem``).
 
-DOFA, which feeds the consistency loss's feature term and the generative
-loss's perceptual (LPIPS) term, is not ported yet (ROADMAP Queue 1 item 4b):
-a term whose DOFA checkpoint is not on disk is disabled, as in the JAX
-package; one whose checkpoint is there raises.
+DOFA feeds the consistency loss's feature term and the generative loss's
+perceptual (LPIPS) term: its ``dofa_net`` block names a builder of
+``eovax_torch.models.dofa`` and a local checkpoint (``ckpt_data`` or
+``weights_path``). As in the JAX package, a term whose checkpoint is not on
+disk, whose builder is unknown or whose builder raises ``NotImplementedError``
+is disabled with a message. The DOFA network is built on the CPU, frozen (no
+gradient on its parameters, eval mode) and fp32 whatever the VAE's policy;
+the loss holds it as a module (``DOFALPIPS`` or ``DOFAFeatures``), which
+``Stage2Trainer`` moves to its device once.
 """
 
 from __future__ import annotations
@@ -63,8 +68,10 @@ def build_loss_from_config(loss_cfg: dict | None, vae_cfg: VAEConfig, *,
     loss_cfg.pop("discriminator", None)
     dofa_cfg = loss_cfg.pop("dofa_net", None)
     if loss_cfg.get("feature_weight", 0) > 0 and dofa_cfg is not None:
-        _dofa_absent(dofa_cfg, "feature")
-        loss_cfg["feature_weight"] = 0.0
+        feats = _build_dofa_features(dofa_cfg)
+        if feats is None:
+            loss_cfg["feature_weight"] = 0.0
+        loss_cfg["dofa_features"] = feats
     return EOConsistencyLoss.from_dict(loss_cfg), None, False
 
 
@@ -115,23 +122,63 @@ def _build_generative_loss(loss_cfg: dict, policy: Policy, seed: int):
         raise ValueError(f"Unknown NLayerDiscriminator kwargs: {sorted(disc_cfg)}")
     kwargs = {k: loss_cfg.pop(k) for k in _GEN_KEYS if k in loss_cfg}
     lpips_cfg = loss_cfg.pop("lpips", None)
+    lpips_apply = None
     if kwargs.get("perceptual_weight", 1.0) > 0 and lpips_cfg is not None:
-        _dofa_absent((lpips_cfg or {}).get("dofa_net") or {}, "perceptual")
-        kwargs["perceptual_weight"] = 0.0
+        lpips_apply = _build_lpips(lpips_cfg)
+        if lpips_apply is None:
+            kwargs["perceptual_weight"] = 0.0
     if loss_cfg:
         raise ValueError(f"Unknown EOGenerativeLoss kwargs: {sorted(loss_cfg)}")
-    return EOGenerativeLoss(**kwargs), _init(disc, seed), False
+    return EOGenerativeLoss(lpips_apply=lpips_apply, **kwargs), _init(disc, seed), False
 
 
-def _dofa_absent(dofa_cfg: dict, term: str) -> None:
-    """Print that a DOFA term is disabled when its checkpoint is not on disk, as
-    the JAX package does; raise when it is, since DOFA is not ported."""
-    ckpt = dofa_cfg.get("ckpt_data") or dofa_cfg.get("weights_path")
-    if ckpt and os.path.exists(ckpt):
-        raise NotImplementedError(
-            f"DOFA (the {term} term's network, checkpoint {ckpt!r}) is not ported yet: "
-            "ROADMAP Queue 1 item 4b")
-    print(
-        f"[losses.factory] DOFA checkpoint {ckpt!r} not found — "
-        "perceptual/feature term disabled (supply a converted ckpt to enable)"
-    )
+def _build_dofa(dofa_cfg: dict):
+    """The ViT of a ``dofa_net`` block, frozen and loaded from its checkpoint, or
+    None (with the JAX factory's message) when the term cannot be built: a
+    frozen net at random init is of no use."""
+    from eovax_torch.models import dofa as dofa_mod
+
+    dofa_cfg = dict(dofa_cfg)
+    target = dofa_cfg.pop("_target_", "eo_vae.models.dofa.dofav1_base_patch16_224")
+    builder_name = target.rsplit(".", 1)[-1]
+    builder = getattr(dofa_mod, builder_name, None)
+    if builder is None:
+        print(f"[losses.factory] unknown DOFA builder {builder_name!r} — term disabled")
+        return None
+    ckpt = dofa_cfg.pop("ckpt_data", None) or dofa_cfg.pop("weights_path", None)
+    dofa_cfg.pop("model_bands", None)  # unused, as in the JAX factory
+    if not (ckpt and os.path.exists(ckpt)):
+        print(
+            f"[losses.factory] DOFA checkpoint {ckpt!r} not found — "
+            "perceptual/feature term disabled (supply a converted ckpt to enable)"
+        )
+        return None
+    try:
+        vit, _ = builder(weights_path=ckpt, **dofa_cfg)
+    except NotImplementedError as e:
+        print(f"[losses.factory] {e} — term disabled")
+        return None
+    return vit
+
+
+def _build_lpips(lpips_cfg: dict):
+    """``DOFALPIPS`` over the frozen ViT, its tap weights at their constant init."""
+    from eovax_torch.models.dofa import DOFALPIPS
+
+    lpips_cfg = dict(lpips_cfg)
+    lpips_cfg.pop("_target_", None)
+    vit = _build_dofa(lpips_cfg.pop("dofa_net", {}))
+    if vit is None:
+        return None
+    return DOFALPIPS(vit).eval().requires_grad_(False)
+
+
+def _build_dofa_features(dofa_cfg: dict):
+    """The consistency loss's feature net: the frozen ViT's taps (v3's
+    ``forward_lpips``)."""
+    from eovax_torch.models.dofa import DOFAFeatures
+
+    vit = _build_dofa(dofa_cfg)
+    if vit is None:
+        return None
+    return DOFAFeatures(vit).eval().requires_grad_(False)

@@ -288,11 +288,12 @@ class EOPatchLoss:
 class EOGenerativeLoss:
     """L1 + optional FFL + optional perceptual term + vanilla GAN.
 
-    ``lpips_apply(inputs, recon, wvs) → scalar`` is the perceptual term (DOFA
-    LPIPS in the reference, not ported yet: the factory leaves it None). The
-    generator branch scores ``robust_normalize(recon)``, while the discriminator
-    branch feeds the raw detached reconstruction and inputs: the reference's
-    asymmetry, kept.
+    ``lpips_apply(inputs, recon, wvs) → scalar`` is the perceptual term: the
+    factory's is a frozen ``DOFALPIPS`` (fp32), through which the gradient
+    reaches the reconstruction, in the adaptive weight and in the step's
+    backward alike. The generator branch scores ``robust_normalize(recon)``,
+    while the discriminator branch feeds the raw detached reconstruction and
+    inputs: the reference's asymmetry, kept.
     """
 
     lpips_apply: Callable[..., torch.Tensor] | None = None

@@ -27,7 +27,8 @@ from eovax_torch.nn.init import init_parameters
 _STEM_PREFIXES = {"encoder": "encoder.conv_in", "decoder": "decoder.conv_out"}
 
 
-def _read_checkpoint(path: str) -> dict[str, Any]:
+def read_checkpoint(path: str) -> dict[str, Any]:
+    """A ``.safetensors`` file's tensors, or a torch file's pickled object."""
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
 
@@ -86,7 +87,7 @@ class EOFluxVAE:
         """
         if not os.path.exists(path):
             raise FileNotFoundError(f"Checkpoint not found: {path}")
-        raw = _read_checkpoint(path)
+        raw = read_checkpoint(path)
         dynamic = {"encoder": self.config.encoder.use_dynamic_ops,
                    "decoder": self.config.decoder.use_dynamic_ops}
         stems = {"encoder": "encoder_conv_in_state_dict", "decoder": "decoder_conv_out_state_dict"}

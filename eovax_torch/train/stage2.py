@@ -312,6 +312,14 @@ def make_eval_step(core: EOVAECore, loss_obj, discriminator: torch.nn.Module | N
     return eval_step
 
 
+def loss_networks(loss_obj) -> list[torch.nn.Module]:
+    """The modules a loss holds in its fields: its frozen feature networks."""
+    if not dataclasses.is_dataclass(loss_obj):
+        return []
+    return [v for f in dataclasses.fields(loss_obj)
+            if isinstance(v := getattr(loss_obj, f.name), torch.nn.Module)]
+
+
 def roll_mode(rng: random.Random, cfg: VAEConfig):
     """Host-side EQ-VAE (scale, angle) of one step, as ``Stage2Trainer._roll_mode``."""
     scale = angle = None
@@ -347,6 +355,10 @@ class Stage2Trainer:
     optimizer accumulates as without it. ``seed_disc_stem`` copies the
     encoder's ``conv_in`` parameters into the discriminator's
     ``dynamic_input`` (the reference's stem injection).
+
+    A frozen network that the loss holds as a module (the factory's DOFA
+    ``DOFALPIPS`` or ``DOFAFeatures``) is moved to the model's device once,
+    here; it takes no optimizer and no place in the checkpoints.
     """
 
     model: Any
@@ -374,6 +386,8 @@ class Stage2Trainer:
         self.optimizer, self.schedule = make_optimizer(
             self.cfg, self.core.parameters(), total_steps=self.max_steps,
             accumulate_steps=self.accumulate_steps)
+        for net in loss_networks(self.loss_obj):
+            net.to(self.device)
         self.adversarial = hasattr(self.loss_obj, "generator_loss")
         self.disc_optimizer = None
         if self.adversarial:

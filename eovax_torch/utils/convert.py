@@ -9,10 +9,12 @@ becomes ``in_proj_weight``/``in_proj_bias``, norm ``scale`` becomes
 ``weight``, and the latent BatchNorm's ``mean``/``var`` become
 ``running_mean``/``running_var``. Feeding the result to
 ``load_state_dict(strict=True)`` makes the port compute what the JAX
-package computes with the same variables. The same rules map the SR UNet's
-params (``eovax_torch.models.unet.UNet`` names its modules to match), and
-:func:`discriminator_state_dict` a discriminator's, with its spectral-norm
-statistics.
+package computes with the same variables. DOFA's ``blocks_N``,
+``attn_qkv``/``attn_proj``, ``mlp_fc1``/``mlp_fc2`` and ``head_k_i`` become
+the reference's ``blocks.N``, ``attn.qkv``, ``mlp.fc1``, ``heads.k.i``. The
+same rules map the SR UNet's params (``eovax_torch.models.unet.UNet`` names
+its modules to match), :func:`discriminator_state_dict` a discriminator's,
+with its spectral-norm statistics, and :func:`dofa_state_dict` a DOFA tree's.
 """
 
 from __future__ import annotations
@@ -33,6 +35,14 @@ _REWRITES = [
     (re.compile(r"transformer_encoder\.layers_(\d+)\."), r"transformer_encoder.layers.\1."),
     (re.compile(r"fc_weight_(\d+)\."), r"fc_weight.\1."),
     (re.compile(r"(^|\.)conditioner\.mlp_(\d+)\."), r"\1conditioner.mlp.\2."),
+    # DOFA (``eovax_torch.models.dofa`` keeps the reference torch names): the
+    # ViT blocks, their attention and MLP, the discriminator's heads.
+    (re.compile(r"(^|\.)blocks_(\d+)\."), r"\1blocks.\2."),
+    (re.compile(r"(^|\.)attn_qkv\."), r"\1attn.qkv."),
+    (re.compile(r"(^|\.)attn_proj\."), r"\1attn.proj."),
+    (re.compile(r"(^|\.)mlp_fc1\."), r"\1mlp.fc1."),
+    (re.compile(r"(^|\.)mlp_fc2\."), r"\1mlp.fc2."),
+    (re.compile(r"(^|\.)head_(\d+)_(\d+)\."), r"\1heads.\2.\3."),
 ]
 
 
@@ -94,3 +104,12 @@ def discriminator_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Te
             layer, _, name = key.split("/")
             out[f"{layer}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
     return out
+
+
+def dofa_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A JAX DOFA ``{"params", ...}`` tree of numpy arrays (``OFAViT``,
+    ``DOFAViTv2``, ``DOFAViTv3``, or a ``DOFALPIPS`` / ``DOFADiscriminator`` with
+    its ViT under ``dofa``) → the state dict of its counterpart in
+    ``eovax_torch.models.dofa``: :func:`state_dict_from_variables`'s rules. v1's
+    constant ``pos_embed`` is not a parameter on either side."""
+    return state_dict_from_variables(variables)

@@ -712,11 +712,22 @@ def test_factory_disables_the_absent_perceptual_term(capsys):
 
 
 def test_factory_raises_for_a_present_dofa_checkpoint_and_unknown_keys(tmp_path):
+    """A present DOFA checkpoint builds the perceptual term (a frozen DOFALPIPS
+    over the file's weights; the term against the JAX package's:
+    tests/test_torch_dofa.py); unknown keys raise."""
+    from eovax_torch.models import dofa
+
     cfg = _cfg(tcfg)
-    (tmp_path / "dofa.pth").write_bytes(b"")
-    lpips = {"dofa_net": {"ckpt_data": str(tmp_path / "dofa.pth")}}
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        build_loss_from_config({**GEN_CFG, "lpips": lpips}, cfg)
+    net = dict(img_size=28, embed_dim=32, depth=2, num_heads=4, wv_planes=32, out_indices=[0, 1])
+    vit, _ = dofa.dofav2_base_patch14_224(**net)
+    torch.save({f"model.{k}": v for k, v in vit.state_dict().items()}, tmp_path / "dofa.pth")
+    lpips = {"dofa_net": {"_target_": "eo_vae.models.dofa.dofav2_base_patch14_224",
+                          "ckpt_data": str(tmp_path / "dofa.pth"), **net}}
+    loss = build_loss_from_config({**GEN_CFG, "lpips": lpips}, cfg)[0]
+    assert loss.perceptual_weight == 1.0 and isinstance(loss.lpips_apply, dofa.DOFALPIPS)
+    assert not loss.lpips_apply.training
+    for key, value in vit.state_dict().items():
+        assert torch.equal(loss.lpips_apply.dofa.state_dict()[key], value), key
     with pytest.raises(ValueError, match="Unknown DynamicPatchGAN"):
         build_loss_from_config({**PATCH_CFG, "discriminator": {"width": 3}}, cfg)
     with pytest.raises(ValueError, match="Unknown EOPatchLoss"):

@@ -676,10 +676,18 @@ def test_loss_factory_dofa_term(tmp_path, capsys):
     loss, disc, _ = build_loss_from_config(cfg, vae)
     assert loss.feature_weight == 0.0 and loss.dofa_features is None and disc is None
     assert "not found — perceptual/feature term disabled" in capsys.readouterr().out
-    (tmp_path / "dofa.pt").write_bytes(b"")
-    cfg["dofa_net"] = {"weights_path": str(tmp_path / "dofa.pt")}
-    with pytest.raises(NotImplementedError, match="DOFA.*item 4b"):
-        build_loss_from_config(cfg, vae)
+    # A present checkpoint builds the term: a frozen feature net over its weights.
+    from eovax_torch.models import dofa
+
+    net = dict(img_size=32, embed_dim=32, depth=3, num_heads=4, wv_planes=32, out_indices=[0, 1])
+    vit, _ = dofa.dofav3_large_patch16_224(**net)
+    torch.save({f"model.{k}": v for k, v in vit.state_dict().items()}, tmp_path / "dofa.pt")
+    cfg["dofa_net"] = {"_target_": "eo_vae.models.dofa.dofav3_large_patch16_224",
+                       "weights_path": str(tmp_path / "dofa.pt"), **net}
+    loss, _, _ = build_loss_from_config(cfg, vae)
+    assert loss.feature_weight == 0.5 and isinstance(loss.dofa_features, dofa.DOFAFeatures)
+    feats = loss.dofa_features(torch.zeros(1, 3, 32, 32), torch.tensor([0.665, 0.56, 0.49]))
+    assert [tuple(f.shape) for f in feats] == [(1, 4, 32)] * 2
     with pytest.raises(ValueError, match="Unknown loss"):
         build_loss_from_config({"_target_": "x.Other"}, vae)
 
