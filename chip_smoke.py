@@ -220,6 +220,29 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    the train CLI on the config's copy for 2 steps with a positive
    ``train/loss_lpips`` and no DOFA tensor in its checkpoint. The ``kernels``
    line's hand-kernel entries carry the step's launches as ``dofa_launches``.
+13. Data parallel (``eovax_torch.parallel``). (a) NCCL at world size 1 (a
+   ``FileStore`` group) through ``Stage2Trainer`` at full width, 12-band 256²
+   B=16 bf16 (phase 6's settings, the posterior sampled): 2 steps, exact
+   launches, against the same 2 steps without a group (``torch.equal``, or
+   within the gap between two runs without one where that gap is not 0,
+   printed); a save and a fresh trainer's resume ``torch.equal`` under the
+   group; the preemption guard's MAX all-reduce of a set flag on the card; the
+   gradient all-reduce's device time (CUDA events around
+   ``average_gradients`` of the step's 95.5M fp32 gradients, and around the
+   bare ``all_reduce`` of their 382 MB buffer) beside phase 5's bare step; the
+   trainer's ms/step under the group and without one (6 steps after 2).
+   (b) Two processes of this script (``--dp-rank``) on the one card in a gloo
+   group on CUDA tensors (a first ``all_reduce`` of a CUDA tensor confirms
+   that gloo takes them): each takes 8 rows of one [16,12,256,256] batch
+   through one full-width bf16 step on the posterior's mode with exact
+   launches per rank (48 / 52 / 2 forward, 48 / 52 / 2 backward), and the same
+   at [2,12,64,64] in fp32 with TF32 off (Charbonnier alone: MS-SSIM needs more
+   than 64 pixels); the ranks' parameters bit-identical
+   (a hash of each tensor), and rank 0's averaged, clipped gradients and
+   parameters against one process on the whole batch (‖diff‖/‖ref‖ ≤ 1e-1 in
+   bf16, 1e-4 in fp32). (b) is not timed: the two processes share one card and
+   gloo copies through the host. The ``kernels`` line's hand-kernel entries
+   carry (b)'s per-rank launches as ``dp_launches``.
 
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
@@ -3112,6 +3135,312 @@ def dofa_phase(card: str) -> dict:
     return runs["on"]["counts"]
 
 
+# Phase 13's inputs: the one-process batch that the two ranks of (b) split, and
+# its fp32 check's, each from a CPU generator so that every process draws it
+# (``scripts/dp_nccl.py`` splits the bf16 one over the cards of a host).
+DP_SEED = 13
+DP_SHAPES = {"bf16": (16, 12, 256, 256), "fp32": (2, 12, 64, 64)}
+# (b): rank 0's averaged, clipped gradients and parameters against one process
+# on the whole batch, as ‖diff‖/‖ref‖: bf16 activations between every layer
+# (phase 5's limit), and fp32 (TF32 off) summed in halves.
+DP_TOL = {"bf16": TOL_MODEL_BF16, "fp32": 1e-4}
+# Seconds a rank of (b) may take; it is killed after it.
+DP_RANK_TIMEOUT_S = 400
+
+
+def dp_batch(label: str):
+    import torch
+
+    return torch.randn(DP_SHAPES[label], generator=torch.Generator().manual_seed(DP_SEED))
+
+
+def dp_step(label: str, x, device, cfg=None) -> dict:
+    """One stage-2 step of the full-width model (``cfg``: ``train_config(12)``
+    when None; phase 3's weights) on the rows ``x`` under the label's policy,
+    the posterior's mode (bf16: phase 5's loss; fp32: Charbonnier alone): the
+    parameters after it and their gradients as the optimizer left them
+    (averaged over the ranks, clipped), on the host, and the step's launches,
+    held exact on the card (None on the CPU, which launches no kernel)."""
+    import torch
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.train import stage2
+
+    from eovax_torch.losses import EOConsistencyLoss
+
+    policy = DEFAULT_POLICY if label == "bf16" else FULL_PRECISION
+    # fp32 at 64²: Charbonnier alone, as phase 5's gradients (MS-SSIM needs > 64 px).
+    loss = train_loss() if label == "bf16" else EOConsistencyLoss(rec_loss_type="char")
+    cfg = cfg or train_config(12)
+    model = EOFluxVAE(cfg, policy=policy, device=device, seed=0)
+    model.core.load_state_dict(bench_state_dict(model, seed=0))
+    core = model.core
+    opt, _ = stage2.make_optimizer(cfg, core.parameters())
+    step = stage2.make_train_step(core, loss, opt, cfg)
+    x = x.to(device).contiguous()
+    s2 = torch.tensor(wavelengths_for("S2L2A"), device=device)
+    if device.type == "cuda":
+        logs, counts = drive(f"data-parallel step {label} {list(x.shape)}",
+                             lambda: step(stage2.TrainState(), x, s2),
+                             launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+    else:
+        logs, counts = step(stage2.TrainState(), x, s2), None
+    out = {"params": {n: p.detach().float().cpu() for n, p in core.named_parameters()},
+           "grads": {n: p.grad.float().cpu() for n, p in core.named_parameters()},
+           "loss": float(logs["train/loss_total"]), "grad_norm": float(logs["train/grad_norm"]),
+           "launches": counts}
+    del model, core, opt, step, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def trainer_step_ms(trainer, state, batches: list, steps: int = 6) -> float:
+    """The trainer's ms/step over ``steps`` steps after 2, by CUDA events."""
+    import torch
+
+    for batch in batches[:2]:
+        trainer.train_on_batch(state, batch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        trainer.train_on_batch(state, batches[i % len(batches)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def tree_rel(got: dict, ref: dict) -> float:
+    import torch
+
+    num = sum((got[k].double() - v.double()).square().sum() for k, v in ref.items())
+    den = sum(v.double().square().sum() for v in ref.values())
+    return float(torch.sqrt(num / den))
+
+
+def ranks_equal(params: dict) -> bool:
+    """Whether every rank of the group holds the same bits in ``params`` (a hash
+    of each tensor, gathered)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    digest = hashlib.sha256()
+    for name in sorted(params):
+        digest.update(params[name].numpy().tobytes())
+    hashes = [None] * dist.get_world_size()
+    dist.all_gather_object(hashes, digest.hexdigest())
+    return len(set(hashes)) == 1
+
+
+def dp_rank_main(argv: list[str]) -> int:
+    """A rank of phase 13 (b): ``chip_smoke.py --dp-rank R DIR``. Joins the gloo
+    group of 2 through ``DIR/store`` on the card, checks that gloo reduces a
+    CUDA tensor, takes the bf16 and fp32 steps on its rows, and writes what
+    rank 0 holds (and both ranks' hashes) to ``DIR``."""
+    import torch
+    import torch.distributed as dist
+
+    from eovax_torch.core.precision import FULL_PRECISION
+    from eovax_torch.parallel.mesh import destroy_distributed, init_distributed
+
+    rank, out = int(argv[1]), Path(argv[2])
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    FULL_PRECISION.activate()  # TF32 off for the fp32 step
+    dev = torch.device("cuda", 0)  # both ranks on the one card
+    created = init_distributed(dev, backend="gloo", init_method=f"file://{out / 'store'}",
+                               world_size=2, rank=rank)
+    try:
+        probe = torch.full((4,), float(rank + 1), device=dev)
+        try:
+            dist.all_reduce(probe)
+        except RuntimeError as e:
+            raise RuntimeError(f"gloo does not all-reduce a CUDA tensor on torch "
+                               f"{torch.__version__}: {e}") from e
+        if probe.device != dev or not torch.equal(probe.cpu(), torch.full((4,), 3.0)):
+            raise AssertionError(f"gloo's all_reduce of a CUDA tensor gave {probe}")
+        print(f"rank {rank}: gloo all_reduce of a CUDA tensor: {probe.tolist()}")
+        result = {}
+        for label, (b, *_) in DP_SHAPES.items():
+            half = b // 2
+            got = dp_step(label, dp_batch(label)[rank * half:(rank + 1) * half], dev)
+            got["ranks_equal"] = ranks_equal(got["params"])
+            result[label] = got
+        if rank == 0:
+            torch.save(result, out / "rank0.pt")
+    finally:
+        destroy_distributed(created)
+    return 0
+
+
+def dp_phase(sd: dict, card: str, bare_ms: float) -> dict:
+    """Phase 13: data parallel on the card; returns (b)'s launches per rank a step."""
+    import dataclasses
+    import os
+    import signal
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.core.precision import DEFAULT_POLICY
+    from eovax_torch.data.synthetic import synthetic_terramesh_batches
+    from eovax_torch.parallel.mesh import (
+        average_gradients,
+        destroy_distributed,
+        grouped,
+        init_distributed,
+    )
+    from eovax_torch.train import stage2
+    from eovax_torch.utils import preemption
+
+    dev = torch.device("cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=ROOT / "build"))
+    try:
+        # ---- (a) NCCL at world size 1 through the trainer ------------------------
+        cfg = dataclasses.replace(shipped_config(12), base_lr=1e-4, final_lr=None, clip_grad=1.0)
+        batches = list(synthetic_terramesh_batches(batch_size=16, target_size=(256, 256),
+                                                   modalities=("S2L2A",), seed=0, num_batches=2))
+
+        def two_steps(label: str, **kw):
+            model = EOFluxVAE(cfg, sd, policy=DEFAULT_POLICY, device=dev)
+            trainer = stage2.Stage2Trainer(model=model, loss_obj=train_loss(), cfg=cfg,
+                                           log_every=0, **kw)
+            state = stage2.TrainState()
+            drive(f"trainer 2 steps [16,12,256,256] bf16 {label}",
+                  lambda: [trainer.train_on_batch(state, b) for b in batches],
+                  launches(2 * 48, 2 * 52, 2 * 2, 2 * 48, 2 * 52, 2 * 2))
+            return trainer, state, {k: v.clone() for k, v in trainer.core.state_dict().items()}
+
+        def max_diff(a: dict, b: dict) -> float:
+            return max((a[k].double() - b[k].double()).abs().max().item() for k in a)
+
+        first = two_steps("without a group")[2]
+        second = two_steps("without a group, again")[2]
+        gap = max_diff(first, second)
+        created = init_distributed(dev, backend="nccl", store=dist.FileStore(str(tmp / "store"), 1),
+                                   world_size=1, rank=0)
+        if not created or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError("phase 13 (a): no NCCL group of one process")
+        try:
+            trainer, state, grouped_sd = two_steps("NCCL world size 1",
+                                                   ckpt_dir=str(tmp / "ckpt"))
+            diff = max_diff(grouped_sd, first)
+            ok = diff == 0.0 if gap == 0.0 else diff <= gap
+            print(f"NCCL world size 1, 2 trainer steps against the same without a group: "
+                  f"max |diff| {diff:.3e} over {len(first)} tensors; two runs without a group "
+                  f"differ by {gap:.3e} ({'torch.equal' if diff == 0.0 else 'within the gap'}"
+                  f" required) {'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                raise AssertionError("phase 13 (a): the grouped steps disagree")
+            del first, second
+            # A save and a fresh trainer's resume under the group.
+            trainer.save_checkpoint(state)
+            trainer.checkpointer.wait()
+            fresh = stage2.Stage2Trainer(model=EOFluxVAE(cfg, sd, policy=DEFAULT_POLICY,
+                                                         device=dev),
+                                         loss_obj=train_loss(), cfg=cfg, log_every=0,
+                                         ckpt_dir=str(tmp / "ckpt"))
+            restored = fresh.restore_checkpoint()
+            a, b = trainer.optimizer.state_dict(), fresh.optimizer.state_dict()
+            same = (restored.step == 2 and a["count"] == b["count"]
+                    and all(torch.equal(v, fresh.core.state_dict()[k])
+                            for k, v in trainer.core.state_dict().items())
+                    and all(torch.equal(x, y) for key in ("mu", "nu")
+                            for x, y in zip(a[key], b[key], strict=True)))
+            print(f"NCCL world size 1: save and resume at step {restored.step}, model and Adam "
+                  f"torch.equal: {same}")
+            if not same:
+                raise AssertionError("phase 13 (a): the resume under the group differs")
+            del fresh
+            # The guard's MAX all-reduce of a set flag, on the card.
+            preemption.reset_for_tests()
+            try:
+                with preemption.PreemptionGuard(sync_every=1) as guard:
+                    before = guard.should_stop(1)
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    after = guard.should_stop(2)
+            finally:
+                preemption.reset_for_tests()
+            flag_dev = torch.device("cuda", torch.cuda.current_device())
+            print(f"NCCL world size 1: preemption guard {before} before the signal, {after} "
+                  f"after it (MAX all-reduce on {flag_dev})")
+            if before or not after or not grouped():
+                raise AssertionError("phase 13 (a): the guard's agreement")
+            # The gradient all-reduce of a step: average_gradients on the step's
+            # gradients, and the bare all_reduce of their flat buffer.
+            grads = [p.grad for p in trainer.optimizer.params]
+            nbytes = sum(g.numel() * g.element_size() for g in grads)
+            avg_ms = cuda_ms(lambda: average_gradients(grads), 10)
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            bare_allreduce_ms = cuda_ms(lambda: dist.all_reduce(flat), 10)
+            # What the flat buffer saves: one all_reduce per gradient tensor.
+            per_tensor_ms = cuda_ms(lambda: [dist.all_reduce(g) for g in grads], 10)
+            print(f"time gradient all-reduce, NCCL world size 1: average_gradients "
+                  f"{avg_ms:.3f} ms/step (flatten, all_reduce, copy back), bare all_reduce "
+                  f"{bare_allreduce_ms:.3f} ms, one all_reduce per tensor ({len(grads)} "
+                  f"calls) {per_tensor_ms:.3f} ms, over {sum(g.numel() for g in grads)} fp32 "
+                  f"gradients ({nbytes / 1e6:.1f} MB); phase 5's bare step {bare_ms:.3f} "
+                  f"ms/step [{card}]")
+            del grads, flat
+            grouped_ms = trainer_step_ms(trainer, state, batches)
+            del trainer
+        finally:
+            destroy_distributed(created)
+        torch.cuda.empty_cache()
+        plain = stage2.Stage2Trainer(model=EOFluxVAE(cfg, sd, policy=DEFAULT_POLICY, device=dev),
+                                     loss_obj=train_loss(), cfg=cfg, log_every=0)
+        plain_ms = trainer_step_ms(plain, stage2.TrainState(), batches)
+        print(f"time trainer step [16,12,256,256] bf16: {grouped_ms:.3f} ms/step under the NCCL "
+              f"group of one (the gradients averaged, the logs' mean all-reduced), "
+              f"{plain_ms:.3f} ms/step without a group (6 steps after 2) [{card}]")
+        del plain
+        torch.cuda.empty_cache()
+        stamp("phase 13: NCCL at world size 1")
+
+        # ---- (b) two processes on the one card, gloo on CUDA tensors ---------------
+        refs = {label: dp_step(label, dp_batch(label), dev) for label in DP_SHAPES}
+        torch.cuda.empty_cache()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank",
+                                   str(rank), str(tmp)], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+        outputs = []
+        try:
+            for proc in procs:
+                outputs.append(proc.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for rank, (proc, text) in enumerate(zip(procs, outputs)):
+            print(f"---- rank {rank} of phase 13 (b), exit {proc.returncode}:\n{text[-3000:]}")
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 13 (b): rank {rank} failed")
+        got = torch.load(tmp / "rank0.pt", weights_only=False)
+        for label, ref in refs.items():
+            g, tol = got[label], DP_TOL[label]
+            grad_rel, param_rel = tree_rel(g["grads"], ref["grads"]), tree_rel(g["params"],
+                                                                               ref["params"])
+            ok = g["ranks_equal"] and grad_rel <= tol and param_rel <= tol
+            print(f"2 gloo ranks on the card, {label} {list(DP_SHAPES[label])} split 2 ways, "
+                  f"one step against one process: gradients (averaged, clipped) |diff|/|ref| "
+                  f"{grad_rel:.3e}, parameters {param_rel:.3e} (tol {tol:g}); loss "
+                  f"{g['loss']:.6f} vs {ref['loss']:.6f}, grad norm {g['grad_norm']:.6f} vs "
+                  f"{ref['grad_norm']:.6f}; ranks bit-identical {g['ranks_equal']} "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                raise AssertionError(f"phase 13 (b) {label}: the ranks disagree with one process")
+        stamp("phase 13: two gloo ranks on the card")
+        return got["bf16"]["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3426,6 +3755,7 @@ def main() -> int:
     distill_phase(card)
     gan = gan_phase(sd, card, bwd_timings["train_step_ms"])
     dofa_counts = dofa_phase(card)
+    dp_counts = dp_phase(sd, card, bwd_timings["train_step_ms"])
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -3482,6 +3812,7 @@ def main() -> int:
     ]
     for entry in kernels:  # the run's short profiler traces, each taken again
         entry["profile_retries"] = dict(PROFILE_RETRIES)
+        entry["dp_launches"] = dp_counts[entry["name"]]
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3492,4 +3823,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank_main(sys.argv[1:]) if sys.argv[1:2] == ["--dp-rank"] else main())

@@ -8,6 +8,12 @@ Usage:
         [--distilled-ckpt distilled_final.pt] [--flux-ckpt ae.safetensors] \
         [--max-steps N] [--debug] [--resume-dir DIR] [--device cuda]
 
+On N cards, one process each (data parallel, NCCL):
+    python -m torch.distributed.run --nproc_per_node N -m eovax_torch.cli.train ...
+The datamodule's ``batch_size`` is per process (the global batch is N times
+it); each process reads its share of the TerraMesh shards, and rank 0 writes
+the experiment directory.
+
 Builds the model from the config, loads the stage-1 distilled stems and/or
 the Flux body, builds the loss (and, for an adversarial loss, its
 discriminator), and runs ``Stage2Trainer`` with
@@ -26,6 +32,8 @@ from __future__ import annotations
 import argparse
 import os
 from typing import Any
+
+from eovax_torch.cli.common import add_distributed_args
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -48,14 +56,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--precision", default="bf16-mixed")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    add_distributed_args(parser)
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> None:
+    from eovax_torch.cli.common import start_distributed
     from eovax_torch.core.config import load_yaml
+    from eovax_torch.parallel.mesh import destroy_distributed
 
     args = parse_args(argv)
-    run(args, load_yaml(args.config))
+    created = start_distributed(args)  # first, as the JAX CLI's init_distributed
+    try:
+        run(args, load_yaml(args.config))
+    finally:
+        destroy_distributed(created)
 
 
 def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
@@ -63,6 +78,7 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
     (None under ``--debug``)."""
     from eovax_torch.cli.common import create_experiment_dir, snapshot_config
     from eovax_torch.core.config import VAEConfig
+    from eovax_torch.core.device import process_index
     from eovax_torch.core.precision import policy_from_name
     from eovax_torch.losses.factory import build_loss_from_config
     from eovax_torch.models.eo_flux_vae import EOFluxVAE
@@ -116,6 +132,8 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
             exp_dir = create_experiment_dir(
                 exp.get("exp_dir", "results/exps"), exp.get("experiment_name", "eo-vae")
             )
+    primary = process_index() == 0  # rank 0 alone writes files and logs
+    if exp_dir and primary:
         snapshot_config(args.config, exp_dir)
         logger = CSVLogger(exp_dir)
         image_logger = ImageLogger(exp_dir)
@@ -159,10 +177,12 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
         train_iter.close()  # stops the reader's threads
 
     if exp_dir:
-        save_variables(os.path.join(exp_dir, "eo-vae-final.pt"), trainer.export_variables())
-        print(f"Saved final model to {exp_dir}/eo-vae-final.pt")
-        # The best-by-val/loss_rec model, the reference's artifact of record.
-        if trainer.restore_best() is not None:
+        if primary:
+            save_variables(os.path.join(exp_dir, "eo-vae-final.pt"), trainer.export_variables())
+            print(f"Saved final model to {exp_dir}/eo-vae-final.pt")
+        # The best-by-val/loss_rec model, the reference's artifact of record
+        # (restored on every rank: the read waits for every rank).
+        if trainer.restore_best() is not None and primary:
             info = trainer.checkpointer.best_info()
             save_variables(os.path.join(exp_dir, "eo-vae-best.pt"), trainer.export_variables())
             print(
@@ -174,7 +194,9 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
 
 def _batches(dm_cfg: dict[str, Any], args: argparse.Namespace):
     """The train batch generator and the validation iterator factory: the
-    TerraMesh pipeline of the ``datamodule`` block, or synthetic batches."""
+    TerraMesh pipeline of the ``datamodule`` block (this process's shards), or
+    synthetic batches (``batch_size`` a process, from the same seed on every
+    process, as the JAX CLI's)."""
     size = dm_cfg.get("target_size", (256, 256))
     size = (size, size) if isinstance(size, int) else tuple(size)
     if args.synthetic_data:
@@ -195,6 +217,7 @@ def _batches(dm_cfg: dict[str, Any], args: argparse.Namespace):
 
         return train_iter, val_factory
 
+    from eovax_torch.core.device import process_count, process_index
     from eovax_torch.data.terramesh import TerraMeshPipeline
 
     pipeline = TerraMeshPipeline(
@@ -209,9 +232,8 @@ def _batches(dm_cfg: dict[str, Any], args: argparse.Namespace):
         target_size=size,
         seed=args.seed,
         num_workers=dm_cfg.get("num_workers", 4),
-        # One process until data parallel (ROADMAP Queue 1 item 3d).
-        process_index=0,
-        process_count=1,
+        process_index=process_index(),
+        process_count=process_count(),
         device_prep=dm_cfg.get("device_prep", False),
     )
     return pipeline.train_batches(), pipeline.val_batches

@@ -5,6 +5,11 @@ Port of ``eovax/cli/train_super_res.py``. Usage:
     python -m eovax_torch.cli.train_super_res --config configs_superres/eo_vae_latent.yaml \
         [--debug] [--max-steps N] [--seed S] [--resume-dir DIR] [--device cuda]
 
+On N cards, one process each (data parallel, NCCL):
+    python -m torch.distributed.run --nproc_per_node N -m eovax_torch.cli.train_super_res ...
+The datamodule's ``batch_size`` is per process: process r trains on its rows
+of each global batch of N·batch_size pairs, and rank 0 writes the files.
+
 Writes ``<exp_dir>/<name>_<stamp>/{config.yaml, metrics.csv, checkpoints/,
 image_log/val/*.png, sr-final.pt, sr-best.pt}``: ``sr-final.pt`` and
 ``sr-best.pt`` are the UNet's torch state dict, which
@@ -17,6 +22,8 @@ import argparse
 import os
 
 import torch
+
+from eovax_torch.cli.common import add_distributed_args, start_distributed
 
 
 def build_denoiser_from_config(cfg: dict, *, policy=None, seed: int = 0,
@@ -96,10 +103,22 @@ def main(argv=None) -> None:
                         help="existing experiment dir: reuse it and resume from its latest "
                              "checkpoint (preemption recovery)")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    add_distributed_args(parser)
     args = parser.parse_args(argv)
 
+    from eovax_torch.parallel.mesh import destroy_distributed
+
+    created = start_distributed(args)
+    try:
+        _run(args)
+    finally:
+        destroy_distributed(created)
+
+
+def _run(args: argparse.Namespace) -> None:
     from eovax_torch.cli.common import create_experiment_dir, snapshot_config
     from eovax_torch.core.config import load_yaml
+    from eovax_torch.core.device import process_count, process_index
     from eovax_torch.train.schedule import SR_STEPS_PER_EPOCH
     from eovax_torch.train.sr import DiffusionSuperRes
     from eovax_torch.utils.image_logger import SuperResImageLogger
@@ -120,6 +139,8 @@ def main(argv=None) -> None:
         else:
             exp_dir = create_experiment_dir(exp.get("exp_dir", "results/exps/sr"),
                                             exp.get("experiment_name", "eo-vae-sr"))
+    primary = process_index() == 0  # rank 0 alone writes files and logs
+    if exp_dir and primary:
         snapshot_config(args.config, exp_dir)
         logger = CSVLogger(exp_dir)
         image_logger = SuperResImageLogger(exp_dir)
@@ -143,19 +164,21 @@ def main(argv=None) -> None:
         val_max_batches=trainer_cfg.get("limit_val_batches", 10),
         seed=args.seed,
     )
-    state = trainer.fit(train_ds.batches(bs, shuffle=True, seed=args.seed, repeat=True),
-                        lambda: val_ds.batches(bs), max_steps=max_steps,
+    shard = dict(process_index=process_index(), process_count=process_count())
+    state = trainer.fit(train_ds.batches(bs, shuffle=True, seed=args.seed, repeat=True, **shard),
+                        lambda: val_ds.batches(bs, **shard), max_steps=max_steps,
                         val_every=trainer_cfg.get("val_every", SR_STEPS_PER_EPOCH))
     if exp_dir:
         from eovax_torch.utils.checkpoint import host_copy
 
         final = os.path.join(exp_dir, "sr-final.pt")
-        torch.save(host_copy(state.model.state_dict()), final)
-        print(f"Saved SR model to {final}")
+        if primary:
+            torch.save(host_copy(state.model.state_dict()), final)
+            print(f"Saved SR model to {final}")
         # Also the best parameters by val_mse (ModelCheckpoint monitor='val_mse',
-        # save_top_k=1, train_super_res.py:65-78).
+        # save_top_k=1, train_super_res.py:65-78); restored on every rank.
         best = trainer.restore_best()
-        if best is not None:
+        if best is not None and primary:
             info = trainer.checkpointer.best_info()
             path = os.path.join(exp_dir, "sr-best.pt")
             torch.save(host_copy(best.model.state_dict()), path)

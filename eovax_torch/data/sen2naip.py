@@ -96,20 +96,29 @@ def assign_spatial_split(
 
 
 def _epoch_batches(ds, batch_size, *, shuffle, seed, drop_remainder,
-                   repeat, make_batch):
+                   repeat, make_batch, process_index=0, process_count=1):
     """Shared epoch loop for both Sen2NAIP datasets: shuffle order,
     drop the remainder, optionally repeat. Guards the silent-forever
-    case (fewer samples than one full batch + repeat=True)."""
+    case (fewer samples than one full batch + repeat=True).
+
+    With ``process_count`` R > 1, ``batch_size`` is per process: each global
+    batch is R·batch_size samples of the order, and process r yields its rows
+    [r·batch_size, (r + 1)·batch_size), so that R processes see the batches of
+    one process at R·batch_size. Every process then holds as many rows; a short
+    last global batch is split evenly or, where it cannot be, dropped."""
     rng = random.Random(seed)
+    size = batch_size * process_count
     while True:
         order = list(range(len(ds)))
         if shuffle:
             rng.shuffle(order)
         yielded = False
-        for i in range(0, len(order), batch_size):
-            idxs = order[i : i + batch_size]
-            if len(idxs) < batch_size and drop_remainder:
+        for i in range(0, len(order), size):
+            idxs = order[i : i + size]
+            if len(idxs) < size and (drop_remainder or len(idxs) % process_count):
                 continue
+            per = len(idxs) // process_count
+            idxs = idxs[process_index * per : (process_index + 1) * per]
             yielded = True
             yield make_batch([ds[j] for j in idxs])
         if not repeat:
@@ -171,11 +180,13 @@ class Sen2NaipCrossSensor:
     def batches(
         self, batch_size: int, *, shuffle: bool = False, seed: int = 0,
         drop_remainder: bool = True, repeat: bool = False,
+        process_index: int = 0, process_count: int = 1,
     ) -> Iterator[dict]:
         """Collated normalized batches (same interface as the latent
         dataset's ``batches`` so the SR CLI trains either space): the
         collate z-scores and bicubic-upsamples LR to HR size, yielding
-        {image_lr, image_hr, wvs} pixel batches."""
+        {image_lr, image_hr, wvs} pixel batches. ``process_index`` of
+        ``process_count``: this process's rows of each global batch."""
 
         def make_batch(samples):
             out = self.collate(samples)
@@ -185,7 +196,8 @@ class Sen2NaipCrossSensor:
         return _epoch_batches(
             self, batch_size, shuffle=shuffle, seed=seed,
             drop_remainder=drop_remainder, repeat=repeat,
-            make_batch=make_batch,
+            make_batch=make_batch, process_index=process_index,
+            process_count=process_count,
         )
 
 
@@ -277,6 +289,7 @@ class Sen2NaipCrossSensorLatent:
     def batches(
         self, batch_size: int, *, shuffle: bool = False, seed: int = 0,
         drop_remainder: bool = True, repeat: bool = False,
+        process_index: int = 0, process_count: int = 1,
     ) -> Iterator[dict]:
         def make_batch(samples):
             return {
@@ -288,5 +301,6 @@ class Sen2NaipCrossSensorLatent:
         return _epoch_batches(
             self, batch_size, shuffle=shuffle, seed=seed,
             drop_remainder=drop_remainder, repeat=repeat,
-            make_batch=make_batch,
+            make_batch=make_batch, process_index=process_index,
+            process_count=process_count,
         )

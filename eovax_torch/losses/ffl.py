@@ -2,12 +2,15 @@
 
 Port of ``eovax/losses/ffl.py``: patch unfold → orthonormal 2-D FFT in fp32
 → a log-scaled, batch-max-normalized spectrum-distance weight matrix (no
-gradient) × the squared frequency distance, with the NaN/inf guards.
+gradient) × the squared frequency distance, with the NaN/inf guards. Under a
+process group the batch's maximum and mean spectrum are the global batch's.
 """
 
 from __future__ import annotations
 
 import torch
+
+from eovax_torch.parallel.mesh import rank_max, rank_mean
 
 
 def _to_patch_freq(x: torch.Tensor, patch_factor: int) -> torch.Tensor:
@@ -28,9 +31,9 @@ def focal_frequency_loss(pred: torch.Tensor, target: torch.Tensor, *, loss_weigh
     """Focal frequency loss over NCHW batches → scalar."""
     pred_freq = _to_patch_freq(pred, patch_factor)
     target_freq = _to_patch_freq(target, patch_factor)
-    if ave_spectrum:
-        pred_freq = pred_freq.mean(dim=0, keepdim=True)
-        target_freq = target_freq.mean(dim=0, keepdim=True)
+    if ave_spectrum:  # over the global batch under a process group
+        pred_freq = rank_mean(pred_freq.mean(dim=0, keepdim=True))
+        target_freq = rank_mean(target_freq.mean(dim=0, keepdim=True))
 
     diff_sq = (pred_freq - target_freq) ** 2
     freq_distance = diff_sq[..., 0] + diff_sq[..., 1]
@@ -43,7 +46,7 @@ def focal_frequency_loss(pred: torch.Tensor, target: torch.Tensor, *, loss_weigh
             if log_matrix:
                 m = torch.log1p(m)
             if batch_matrix:
-                max_val = m.max()
+                max_val = rank_max(m.max())  # the global batch's
             else:
                 max_val = m.reshape(*m.shape[:3], -1).max(dim=-1).values[..., None, None]
             max_val = torch.where(torch.isfinite(max_val) & (max_val > 0), max_val,

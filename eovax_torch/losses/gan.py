@@ -35,6 +35,7 @@ from eovax_torch.core.precision import FULL_PRECISION, Policy
 from eovax_torch.losses.ffl import focal_frequency_loss
 from eovax_torch.losses.msssim import msssim_loss
 from eovax_torch.nn.dynamic_conv import DynamicConv
+from eovax_torch.parallel.mesh import average_gradients
 
 # ---------------------------------------------------------------------------
 # Basic GAN objectives
@@ -216,9 +217,12 @@ def adaptive_weight(rec_loss: torch.Tensor, g_loss: torch.Tensor, kernel: torch.
                     eps: float = 1e-4, max_weight: float = 2.0) -> torch.Tensor:
     """‖∂rec/∂kernel‖ / (‖∂gan/∂kernel‖ + eps), clamped to [0, max_weight] and
     detached: the reference's ``calculate_adaptive_weight`` over the generated
-    output kernel. The graph is kept for the loss's backward."""
+    output kernel. The graph is kept for the loss's backward. Under a process
+    group both gradients are averaged over the ranks before their norms: the
+    JAX package differentiates the global batch's mean loss."""
     rec_g, = torch.autograd.grad(rec_loss, kernel, retain_graph=True)
     gan_g, = torch.autograd.grad(g_loss, kernel, retain_graph=True)
+    average_gradients([rec_g, gan_g])
     w = torch.linalg.vector_norm(rec_g) / (torch.linalg.vector_norm(gan_g) + eps)
     return w.clamp(0.0, max_weight).detach()
 

@@ -38,6 +38,7 @@ from eovax_torch.nn.blocks import (
 from eovax_torch.nn.distributions import DiagonalGaussian
 from eovax_torch.nn.dynamic_conv import DynamicConv, DynamicConvDecoder
 from eovax_torch.nn.latent import LatentBatchNorm, patch_shuffle, patch_unshuffle
+from eovax_torch.parallel.mesh import global_rows
 
 
 def _stem_kwargs(stem: StemConfig) -> dict:
@@ -316,8 +317,9 @@ class EOVAECore(nn.Module):
                       generator: torch.Generator | None) -> torch.Tensor:
         draw = dict(generator=generator, device=z.device)
         gate = torch.rand((), **draw) < p
-        sigma = tau * torch.rand((z.shape[0], 1, 1, 1), **draw)
-        noise = sigma * torch.randn(z.shape, **draw)
+        # Over the global batch, each rank keeping its rows (one gate for all).
+        sigma = tau * global_rows(lambda shape: torch.rand(shape, **draw), (z.shape[0], 1, 1, 1))
+        noise = sigma * global_rows(lambda shape: torch.randn(shape, **draw), z.shape)
         return torch.where(gate, z + noise.to(z.dtype), z)
 
     def _apply_scale(self, z: torch.Tensor, scale) -> torch.Tensor:

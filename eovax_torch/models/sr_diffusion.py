@@ -25,6 +25,8 @@ from typing import Any
 
 import torch
 
+from eovax_torch.parallel.mesh import global_rows
+
 # ---------------------------------------------------------------------------
 # Noise schedules
 # ---------------------------------------------------------------------------
@@ -81,10 +83,11 @@ def _bshape(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _noised(schedule, x, t, eps, generator):
     """x_t = alpha(t)·x + sigma(t)·eps in fp32, eps ~ N(0, 1) from ``generator``
-    unless given."""
-    if eps is None:
+    unless given (drawn at the global batch's shape under a process group)."""
+    if eps is None:  # over the global batch, each rank keeping its rows
         device = x.device if generator is None else generator.device
-        eps = torch.randn(x.shape, generator=generator, device=device, dtype=torch.float32)
+        eps = global_rows(lambda shape: torch.randn(shape, generator=generator, device=device,
+                                                    dtype=torch.float32), x.shape)
     a = _bshape(schedule.alpha(t), x)
     s = _bshape(schedule.sigma(t), x)
     return a * x + s * eps

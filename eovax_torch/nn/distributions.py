@@ -2,7 +2,8 @@
 
 Port of ``eovax/nn/distributions.py``. Moments are split on the channel axis
 and logvar is clamped to [-30, 20]. Sampling takes an explicit
-``torch.Generator``.
+``torch.Generator``; under a process group the noise is drawn at the global
+batch's shape and each rank keeps its rows (``parallel.mesh.global_rows``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import dataclasses
 import math
 
 import torch
+
+from eovax_torch.parallel.mesh import global_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,8 +37,9 @@ class DiagonalGaussian:
         return torch.exp(self.logvar)
 
     def sample(self, generator: torch.Generator | None = None) -> torch.Tensor:
-        noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
-                            dtype=self.mean.dtype)
+        noise = global_rows(lambda shape: torch.randn(
+            shape, generator=generator, device=self.mean.device, dtype=self.mean.dtype),
+            self.mean.shape)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:

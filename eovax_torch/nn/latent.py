@@ -14,12 +14,22 @@ whose running statistics belong to the public checkpoint.
   statistics from the mutable collection, so its gradient flows through them
   into the batch mean and variance; the port's train step passes them to
   :meth:`LatentBatchNorm.inverse` to compute the same gradient.
+- Under a process group the batch statistics are global, as XLA makes them
+  under the JAX package's data mesh: the mean is the mean of the ranks' means
+  (Σx over the global count, since every rank holds as many rows), the biased
+  variance the same of the mean of (x − mean)², and the unbiased update's n
+  is the global count. Both means are differentiable
+  (``parallel.mesh.rank_mean``): the backward sums their gradients over the
+  ranks. At world size 1 this is the statistics of one process, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from eovax_torch.core.device import process_count
+from eovax_torch.parallel.mesh import rank_mean
 
 
 def patch_shuffle(z: torch.Tensor, ps: tuple[int, int] = (2, 2)) -> torch.Tensor:
@@ -58,9 +68,9 @@ class LatentBatchNorm(nn.Module):
         ones; returns the output and the updated (running_mean, running_var)."""
         xf = x.float()
         dims = (0, 2, 3)
-        mean = xf.mean(dim=dims)
-        var = (xf - mean[None, :, None, None]).square().mean(dim=dims)  # biased
-        n = xf.numel() // xf.shape[1]
+        mean = rank_mean(xf.mean(dim=dims))
+        var = rank_mean((xf - mean[None, :, None, None]).square().mean(dim=dims))  # biased
+        n = xf.numel() // xf.shape[1] * process_count()  # the global count
         m = self.momentum
         new_mean = (1 - m) * self.running_mean + m * mean
         new_var = (1 - m) * self.running_var + m * var * (n / max(n - 1, 1))

@@ -3,8 +3,12 @@
 Port of ``eovax/train/sr.py``: ``DiffusionSuperRes`` trains a conditional
 denoiser on (LR latent → HR latent) pairs with t ~ U(0, 1) per sample,
 validates by full sampling and the MSE against the HR latent, and samples.
-There is no mesh: the port runs in one process on one device, and a
-multi-process run raises (data parallelism is ``ROADMAP.md`` Queue 1 item 3d).
+Under a process group (``parallel.mesh``, one process per card) each rank
+trains on its rows of the global batch: t, the noise and the validation's x1
+are drawn at the global batch's shape and each rank keeps its rows, the
+optimizer averages the gradients over the ranks, the logged loss and the
+validation MSE are means over the ranks, and rank 0 alone writes the
+checkpoints (and, given its loggers alone, the image grid and the CSV rows).
 
 The optimizer is stage 2's ``ClippedAdam`` (optax's clip, then Adam) on the
 reference's cosine warmup with ``SR_STEPS_PER_EPOCH``. t, the noise and the
@@ -28,8 +32,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from eovax_torch.core.device import process_count
 from eovax_torch.models.sr_diffusion import make_sampler
+from eovax_torch.parallel.mesh import (
+    DataMesh,
+    global_rows,
+    make_mesh,
+    mean_over_ranks,
+    place_batch,
+)
 from eovax_torch.train.schedule import SR_STEPS_PER_EPOCH, cosine_warmup_schedule
 from eovax_torch.train.stage2 import ClippedAdam
 from eovax_torch.utils.checkpoint import TrainCheckpointer
@@ -64,6 +74,7 @@ class DiffusionSuperRes:
     decay_end_epoch: int | None = None
     grad_clip: float | None = 1.0  # trainer.gradient_clip_val (eo_vae_latent.yaml:20)
     log_every: int = 20
+    # Under a process group, give the loggers on rank 0 alone (None elsewhere).
     logger: Any = None
     image_logger: Any = None  # utils.image_logger.SuperResImageLogger
     # Step checkpoints every ckpt_every steps under ckpt_dir, resume from the
@@ -73,6 +84,7 @@ class DiffusionSuperRes:
     val_max_batches: int = 10  # Lightning's limit_val_batches
     monitor: str = "val_mse"
     seed: int = 0
+    mesh: DataMesh | None = None  # parallel.mesh.make_mesh on the UNet's device by default
 
     def __post_init__(self):
         if all(v is not None for v in (self.final_lr, self.warmup_epochs,
@@ -84,6 +96,7 @@ class DiffusionSuperRes:
             self.schedule = self.base_lr
         self.sampler = make_sampler(self.sampler_type, self.denoiser, steps=self.sampler_steps)
         self.device = next(self.init_params.parameters()).device
+        self.mesh = self.mesh or make_mesh(self.device)
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self._ckptr = None
 
@@ -104,14 +117,15 @@ class DiffusionSuperRes:
         and the noise come from the trainer's generator unless given. Updates
         the model, the optimizer and ``state.step`` in place; returns
         ``train_loss`` (and ``lr`` on a schedule) as tensors/floats."""
-        if t is None:
-            t = torch.rand(hr.shape[0], generator=self.generator, device=self.device)
+        if t is None:  # over the global batch, each rank keeping its rows
+            t = global_rows(lambda shape: torch.rand(shape, generator=self.generator,
+                                                     device=self.device), hr.shape[:1])
         state.optimizer.zero_grad()
         loss = self.denoiser.loss(state.model, hr, t, cond=lr_cond, eps=eps,
                                   generator=self.generator)
         loss.backward()
         state.optimizer.step()
-        logs = {"train_loss": loss.detach()}
+        logs = mean_over_ranks({"train_loss": loss.detach()})
         if callable(self.schedule):
             logs["lr"] = self.schedule(state.step)  # LearningRateMonitor (train_super_res.py:77)
         state.step += 1
@@ -121,21 +135,18 @@ class DiffusionSuperRes:
     def _val_step(self, state: SRTrainState, hr: torch.Tensor, lr_cond: torch.Tensor
                  ) -> torch.Tensor:
         """fp32 MSE of a full sampler run from an x1 drawn from the trainer's
-        generator against ``hr``."""
-        x1 = self.sampler.init(self.generator, tuple(hr.shape))
+        generator (over the global batch, this rank's rows) against ``hr``."""
+        x1 = global_rows(lambda shape: self.sampler.init(self.generator, shape), hr.shape)
         x0 = self.sampler(state.model, x1, cond=lr_cond)
         return torch.mean((x0 - hr.float()) ** 2)
 
     def _place(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """The NHWC numpy (hr, lr) latents as contiguous NCHW fp32 tensors on the
-        model's device (the kernels take contiguous NCHW only)."""
-        if process_count() > 1:
-            raise NotImplementedError(
-                "SR training in a multi-process run is not ported yet: "
-                "ROADMAP Queue 1 item 3d (torch.distributed)")
-        return tuple(
-            torch.from_numpy(np.asarray(batch[k], np.float32)).to(self.device)
-            .permute(0, 3, 1, 2).contiguous() for k in ("image_hr", "image_lr"))
+        """This rank's NHWC numpy (hr, lr) latents as contiguous NCHW fp32
+        tensors on its device (the kernels take contiguous NCHW only)."""
+        placed = place_batch({k: np.asarray(batch[k], np.float32)
+                              for k in ("image_hr", "image_lr")}, self.mesh)
+        return tuple(placed[k].permute(0, 3, 1, 2).contiguous()
+                     for k in ("image_hr", "image_lr"))
 
     # -- loops -------------------------------------------------------------------
 
@@ -150,7 +161,9 @@ class DiffusionSuperRes:
                 print(f"[sr] resumed from checkpoint at step {state.step}")
         state = state if state is not None else self.init_state()
         t0 = time.time()
-        with PreemptionGuard() as guard:
+        # sync_every=10: under a group the ranks' agreement waits for the queued
+        # device work; every 10 steps bounds the stop's delay without a stall a step.
+        with PreemptionGuard(sync_every=10) as guard:
             for i, batch in enumerate(train_iter):
                 # max_steps is the global budget: a run resumed at step N takes
                 # the remaining max_steps − N steps.
@@ -184,9 +197,10 @@ class DiffusionSuperRes:
 
     def validate(self, state: SRTrainState, val_iter: Iterator[dict],
                  max_batches: int = 10) -> dict[str, float]:
-        """Mean ``val_mse`` over at most ``max_batches`` batches; logs it, writes
-        the LR | prediction | HR grid of batch 0 (sampled with ``seed``) and
-        saves the best checkpoint by ``monitor``."""
+        """Mean ``val_mse`` over at most ``max_batches`` batches (and over the
+        ranks); logs it, writes the LR | prediction | HR grid of batch 0
+        (sampled with ``seed``) and saves the best checkpoint by
+        ``monitor``."""
         mses = []
         for i, batch in enumerate(val_iter):
             if i >= max_batches:
@@ -197,7 +211,7 @@ class DiffusionSuperRes:
                 self.image_logger.log(*(_host_nhwc(x) for x in (lr_cond, pred, hr)),
                                       step=state.step)
             mses.append(float(self._val_step(state, hr, lr_cond)))
-        result = {"val_mse": float(np.mean(mses))} if mses else {}
+        result = mean_over_ranks({"val_mse": float(np.mean(mses))} if mses else {})
         if self.logger is not None and result:
             self.logger.log(state.step, result)
         if self.ckpt_dir and self.monitor and self.monitor in result:
@@ -211,14 +225,15 @@ class DiffusionSuperRes:
     def sample(self, state: SRTrainState, shape, cond, seed: int = 0) -> torch.Tensor:
         """Sample [B, C, H, W] latents for ``cond`` [B, Cc, H, W] (NCHW) from x1
         drawn with ``torch.Generator(device).manual_seed(seed)`` on the model's
-        device (super_res.py:146-158)."""
+        device (super_res.py:146-158); under a process group x1 is this rank's
+        rows of a draw over the global batch."""
         device = next(state.model.parameters()).device
         cond = torch.as_tensor(cond, dtype=torch.float32, device=device).contiguous()
         if cond.shape[0] != shape[0]:
             raise ValueError(
                 f"sample batch mismatch: shape[0]={shape[0]} vs cond batch {cond.shape[0]}")
         generator = torch.Generator(device).manual_seed(seed)
-        x1 = self.sampler.init(generator, (cond.shape[0], *shape[1:]))
+        x1 = global_rows(lambda s: self.sampler.init(generator, s), (cond.shape[0], *shape[1:]))
         return self.sampler(state.model, x1, cond=cond)
 
     # -- io ----------------------------------------------------------------------

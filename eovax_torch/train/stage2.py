@@ -20,7 +20,12 @@ A batch collated in ``device_prep`` mode (the TerraMesh pipeline's, with
 per-sample normalization and D4 descriptors) is copied to the device in its
 stored dtype and prepared there by ``data.device_prep.device_prepare``.
 
-Not ported yet: data parallelism (ROADMAP Queue 1 item 3d).
+Data parallel (``parallel.mesh``), one process per card: each rank trains on
+its rows of the global batch; :class:`ClippedAdam` averages each micro-step's
+gradients over the ranks before its norm, so the norm, the clip, Adam and the
+accumulation see the global gradient, as under XLA's psum; the steps' logged
+scalars and the validation means are means over the ranks; rank 0 writes the
+checkpoints (and, given its loggers alone, the image grid and the CSV rows).
 """
 
 from __future__ import annotations
@@ -37,6 +42,13 @@ from eovax_torch.core.config import VAEConfig
 from eovax_torch.core.device import process_count, resolve_device
 from eovax_torch.data.device_prep import device_prepare
 from eovax_torch.models.backbone import EOVAECore
+from eovax_torch.parallel.mesh import (
+    DataMesh,
+    average_gradients,
+    make_mesh,
+    mean_over_ranks,
+    place_batch,
+)
 from eovax_torch.train.schedule import STAGE2_STEPS_PER_EPOCH, cosine_warmup_schedule
 from eovax_torch.utils.checkpoint import TrainCheckpointer, host_copy
 from eovax_torch.utils.preemption import PreemptionGuard
@@ -90,7 +102,10 @@ class ClippedAdam:
     and the schedule's count. This is not torch's habit of summing ``.grad``
     over k backwards: the mean, the clip of the mean and the count differ.
 
-    As in optax, a parameter without a gradient has a zero one.
+    As in optax, a parameter without a gradient has a zero one. Under a
+    process group the micro-step's gradients are then averaged over the ranks
+    (``parallel.mesh.average_gradients``, every rank the same tensors in the
+    same order), before the norm.
     """
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -123,6 +138,7 @@ class ClippedAdam:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        average_gradients(grads)
         norm = torch.nn.utils.get_total_norm(grads)
         if self.accumulate_steps == 1:
             self._apply(grads, norm)
@@ -224,6 +240,7 @@ def make_train_step(core: EOVAECore, loss_obj, optimizer: ClippedAdam, cfg: VAEC
         loss.backward()
         _mask_grads(core, mask)
         logs["train/grad_norm"] = optimizer.step()
+        logs = mean_over_ranks(logs)
         if callable(schedule):
             logs["train/lr"] = schedule(state.step)
         state.step += 1
@@ -270,6 +287,7 @@ def make_adversarial_steps(core: EOVAECore, loss_obj, optimizer: ClippedAdam,
         loss.backward(inputs=params)
         _mask_grads(core, mask)
         logs["train/grad_norm"] = optimizer.step()
+        logs = mean_over_ranks(logs)
         if callable(schedule):
             logs["train/lr"] = schedule(state.step)
         state.step += 1
@@ -284,7 +302,7 @@ def make_adversarial_steps(core: EOVAECore, loss_obj, optimizer: ClippedAdam,
                                                    split="train")
         d_loss.backward()
         disc_optimizer.step()
-        return logs
+        return mean_over_ranks(logs)
 
     return gen_step, disc_step
 
@@ -359,6 +377,13 @@ class Stage2Trainer:
     A frozen network that the loss holds as a module (the factory's DOFA
     ``DOFALPIPS`` or ``DOFAFeatures``) is moved to the model's device once,
     here; it takes no optimizer and no place in the checkpoints.
+
+    ``mesh`` (``parallel.mesh.make_mesh`` on the model's device by default)
+    is the data mesh: under a process group every rank runs the same fit on
+    its rows of each global batch (every rank the same number), the preemption
+    guard agrees on a stop step every 10 steps, validation averages its means
+    over the ranks (the best checkpoint follows the global monitor), rank 0
+    alone writes the checkpoints and every rank resumes from the same file.
     """
 
     model: Any
@@ -372,6 +397,7 @@ class Stage2Trainer:
     # The best checkpoint is the one with the least validation mean of this.
     monitor: str = "val/loss_rec"
     log_every: int = 100
+    # Under a process group, give the loggers on rank 0 alone (None elsewhere).
     logger: Any = None
     discriminator: Any = None  # an nn.Module; required for adversarial losses
     seed_disc_stem: bool = False  # copy encoder conv_in → discriminator dynamic_input
@@ -379,9 +405,11 @@ class Stage2Trainer:
     norm_scheme: str = "legacy"  # display denormalization of the image grid
     accumulate_steps: int = 1
     seed: int = 0
+    mesh: DataMesh | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.model.device)
+        self.mesh = self.mesh or make_mesh(self.device)
         self.core = self.model.core
         self.optimizer, self.schedule = make_optimizer(
             self.cfg, self.core.parameters(), total_steps=self.max_steps,
@@ -423,7 +451,9 @@ class Stage2Trainer:
                 print(f"[stage2] resumed from checkpoint at step {state.step}")
         state = state if state is not None else TrainState()
         t0 = time.time()
-        with PreemptionGuard() as guard:
+        # sync_every=10: under a group the ranks' agreement waits for the queued
+        # device work; every 10 steps bounds the stop's delay without a stall a step.
+        with PreemptionGuard(sync_every=10) as guard:
             for i, batch in enumerate(train_iter):
                 if state.step >= self.max_steps:
                     # max_steps is the global budget: a resumed run finishes the
@@ -473,7 +503,7 @@ class Stage2Trainer:
         return logs
 
     def _place(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """The NHWC numpy batch as a contiguous NCHW fp32 tensor on the model's
+        """This rank's NHWC numpy batch as a contiguous NCHW fp32 tensor on its
         device (the kernels take contiguous NCHW only), and its wavelengths.
 
         A ``device_prep`` batch (one with ``norm_mean``) is copied in its
@@ -481,31 +511,33 @@ class Stage2Trainer:
         its per-sample descriptors, and normalized and augmented on the device
         by ``device_prepare``, which reads the ``d4`` draw on the host; its
         ``wvs`` are placed once per modality. Eval batches carry no ``d4`` and
-        are not augmented."""
+        are not augmented. With several processes the raw image is made fp32
+        first, as the JAX trainer does across hosts: the collate keeps the
+        stored dtype where it resized nothing and gives fp32 where it resized,
+        and the ranks' batches must agree."""
         if "norm_mean" not in batch:
-            image = torch.from_numpy(np.asarray(batch["image"], np.float32)).to(self.device)
-            wvs = torch.from_numpy(np.asarray(batch["wvs"], np.float32)).to(self.device)
-            return image.permute(0, 3, 1, 2).contiguous(), wvs
-        if process_count() > 1:
-            # Several processes must agree on the raw batch's dtype (the JAX
-            # trainer unifies it to fp32 across hosts): part of data parallel.
-            raise NotImplementedError(
-                "device_prep batches in a multi-process run are not ported yet: "
-                "ROADMAP Queue 1 item 3d (torch.distributed)")
+            placed = place_batch({"image": np.asarray(batch["image"], np.float32),
+                                  "wvs": np.asarray(batch["wvs"], np.float32)}, self.mesh)
+            return placed["image"].permute(0, 3, 1, 2).contiguous(), placed["wvs"]
         modality = batch.get("modality", "?")
         wvs = self._wvs_cache.get(modality)
         if wvs is None:
-            wvs = torch.from_numpy(np.asarray(batch["wvs"], np.float32)).to(self.device)
+            wvs = place_batch({"wvs": np.asarray(batch["wvs"], np.float32)}, self.mesh)["wvs"]
             self._wvs_cache[modality] = wvs
-        leaves = [torch.from_numpy(np.asarray(batch[k])).to(self.device)
-                  for k in ("image", "norm_mean", "norm_std", "norm_clip")]
-        image = device_prepare(*leaves, batch.get("d4"))  # the D4 draw stays on the host
+        image = batch["image"]
+        if process_count() > 1 and image.dtype != np.float32:
+            image = np.asarray(image, np.float32)
+        placed = place_batch({"image": image, **{k: batch[k] for k in (
+            "norm_mean", "norm_std", "norm_clip")}}, self.mesh)
+        image = device_prepare(placed["image"], placed["norm_mean"], placed["norm_std"],
+                               placed["norm_clip"], batch.get("d4"))  # the D4 draw stays on the host
         return image.permute(0, 3, 1, 2).contiguous(), wvs
 
     def validate(self, state: TrainState, val_iter: Iterator[dict],
                  max_batches: int = 100) -> dict[str, float]:
-        """Mean validation logs over at most ``max_batches`` batches; logs them,
-        writes the image grid of batch 0 and saves the best checkpoint."""
+        """Mean validation logs over at most ``max_batches`` batches (and over
+        the ranks); logs them, writes the image grid of batch 0 and saves the
+        best checkpoint."""
         agg: dict[str, list[float]] = {}
         for i, batch in enumerate(val_iter):
             if i >= max_batches:
@@ -523,7 +555,7 @@ class Stage2Trainer:
             for name, v in logs.items():
                 agg.setdefault(name, []).append(float(v))
         # Sorted, as the JAX package's logs come out of its jitted steps.
-        means = {k: float(np.mean(v)) for k, v in sorted(agg.items())}
+        means = mean_over_ranks({k: float(np.mean(v)) for k, v in sorted(agg.items())})
         if self.logger is not None and means:
             self.logger.log(state.step, means)
         if self.ckpt_dir and self.monitor and self.monitor in means:
@@ -582,7 +614,7 @@ class Stage2Trainer:
         scalars["train/steps_per_sec"] = steps_this_run / max(time.time() - t0, 1e-9)
         if self.logger is not None:
             self.logger.log(step, scalars)
-        else:
+        elif self.mesh.rank == 0:  # one console line a step, not one a rank
             msg = ", ".join(f"{k}={v:.4g}" for k, v in sorted(scalars.items()))
             print(f"[stage2 step {step}] {msg}")
 

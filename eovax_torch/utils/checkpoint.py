@@ -9,6 +9,12 @@ place of orbax and flax's msgpack:
   the last two kept, restore-latest for resume, and a best checkpoint by a
   monitored metric.
 
+Under a process group only rank 0 writes (its state is every rank's: the
+parameters are replicated), and a restore waits for every rank at a barrier
+(rank 0 first finishing its write in flight) before it reads, so every rank
+reads the same complete file; call the restores on every rank. The ranks
+share the checkpoint directory's filesystem.
+
 A checkpoint is a tree of dicts, lists and tuples whose leaves are tensors
 and Python scalars. On disk, step n is ``<dir>/step_<n>/state.pt``; a step
 directory appears only once it is complete (it is written under a temporary
@@ -25,6 +31,9 @@ import threading
 from typing import Any
 
 import torch
+
+from eovax_torch.core.device import process_index
+from eovax_torch.parallel.mesh import barrier
 
 _STATE_FILE = "state.pt"
 _STEP_DIR = re.compile(r"step_(\d+)")
@@ -103,11 +112,15 @@ class TrainCheckpointer:
 
     def save(self, step: int, state: Any) -> bool:
         """Snapshot ``state`` to host memory and write it in the background;
-        returns whether a save was started."""
+        returns whether a save was started (on a rank other than 0, whether rank
+        0 started one: that rank copies and writes nothing)."""
         self.wait()
         step = int(step)
         if self._last_saved is not None and step <= self._last_saved:
             return False
+        if process_index() != 0:
+            self._last_saved = step
+            return True
         snapshot = host_copy(state)
         self._thread = threading.Thread(target=self._write_step, args=(step, snapshot),
                                         name=f"checkpoint-step-{step}")
@@ -130,10 +143,16 @@ class TrainCheckpointer:
 
     def restore_latest(self) -> Any | None:
         """The latest complete checkpoint, on the host (None if there is none)."""
+        self._sync()
         step = self.latest_step()
         if step is None:
             return None
         return _load(os.path.join(self._dir, f"step_{step}", _STATE_FILE))
+
+    def _sync(self) -> None:
+        """Finish this rank's write in flight, then wait for every rank."""
+        self.wait()
+        barrier()
 
     def wait(self) -> None:
         """Join the writer; raise its error, if it had one."""
@@ -165,7 +184,10 @@ class TrainCheckpointer:
 
     def save_best(self, step: int, state: Any, metric: float, monitor: str = "metric") -> bool:
         """Write ``state`` as the best checkpoint iff ``metric`` is strictly below
-        the stored best (``MODE``). Synchronous. Returns whether it saved."""
+        the stored best (``MODE``). Synchronous. Returns whether it saved (False
+        on a rank other than 0, which writes nothing)."""
+        if process_index() != 0:
+            return False
         prev = self.best_info()
         if prev is not None and not metric < prev["metric"]:
             return False
@@ -180,6 +202,7 @@ class TrainCheckpointer:
 
     def restore_best(self) -> Any | None:
         """The best checkpoint, on the host (None if none was saved)."""
+        self._sync()
         if self.best_info() is None or not os.path.isfile(self._best_path):
             return None
         return _load(self._best_path)

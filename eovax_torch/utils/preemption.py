@@ -12,9 +12,14 @@ flush" path, so the resume point is the interrupted step, not the last
             if guard.should_stop(step):
                 break        # fit's tail saves the checkpoint
 
-Several processes must agree on one stop step before the next collective;
-that agreement (an allgather of the flags every few steps) comes with data
-parallelism, and until then ``should_stop`` raises in a multi-process run.
+Under a process group every rank must leave the loop at the same step, or
+the next collective hangs; a signal reaches the ranks at different times (or
+one rank alone). ``should_stop`` therefore takes the MAX of the ranks' flags
+(one all-reduce, on the card under NCCL) at the steps that ``sync_every``
+divides, and the trainers pass ``sync_every=10``: the all-reduce waits for the
+queued device work, so a per-step agreement would stall the host every step,
+and the stop comes at most 10 steps after the signal. Without a group the
+local flag is read at every call.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from __future__ import annotations
 import signal
 import threading
 
-from eovax_torch.core.device import process_count
+from eovax_torch.parallel.mesh import any_rank, grouped
 
 # Module-level so nested or successive guards share one flag: a signal that
 # arrives between two fit() calls must still stop the next one.
@@ -36,8 +41,9 @@ class PreemptionGuard:
     the flag is set. On exit the previous handlers are restored.
     """
 
-    def __init__(self, signals=(signal.SIGTERM,)):
+    def __init__(self, signals=(signal.SIGTERM,), sync_every: int = 1):
         self._signals = tuple(signals)
+        self.sync_every = max(int(sync_every), 1)
         self._prev: dict[int, object] = {}
         self._stopped = False
 
@@ -75,15 +81,19 @@ class PreemptionGuard:
         return _flag.is_set()
 
     def should_stop(self, step: int | None = None) -> bool:
-        """True once training should stop; once True, stays True."""
+        """True once training should stop, the same on every rank; once True,
+        stays True. Under a group the ranks' flags are OR-ed when ``step`` is a
+        multiple of ``sync_every`` (or ``step`` is None), and every other call
+        returns False."""
         if self._stopped:
             return True
-        if process_count() == 1:
+        if not grouped():
             self._stopped = _flag.is_set()
             return self._stopped
-        raise NotImplementedError(
-            "agreeing on a stop step across processes is not ported yet: "
-            "ROADMAP Queue 1 item 3d (torch.distributed)")
+        if step is not None and step % self.sync_every != 0:
+            return False
+        self._stopped = any_rank(_flag.is_set())
+        return self._stopped
 
 
 def reset_for_tests() -> None:

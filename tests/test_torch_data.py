@@ -639,16 +639,25 @@ def test_fit_on_device_prep_batches_equals_fit_on_host_batches(tree):
 
 
 def test_device_prep_placement_refuses_several_processes(monkeypatch):
+    """With several processes the raw int16 image is placed as fp32 (the ranks'
+    batches must agree on its dtype, as the JAX trainer unifies it across
+    hosts) and prepares to the same tensor; one process keeps int16. (The name
+    is that of the test of the refusal this replaced.)"""
     from eovax_torch.data.collate import deterministic_modality_collate
     from eovax_torch.train import stage2
 
     trainer = _trainer(None)
+    raw = np.random.default_rng(3).integers(0, 4000, (2, 8, 8, 12)).astype(np.int16)
     batch = deterministic_modality_collate("S2L2A", mode="eval", target_size=None,
-                                           device_prep=True)(
-        {"S2L2A": np.zeros((1, 8, 8, 12), np.int16)})
+                                           device_prep=True)({"S2L2A": raw})
+    seen, prepare = [], stage2.device_prepare
+    monkeypatch.setattr(stage2, "device_prepare",
+                        lambda image, *a: seen.append(image.dtype) or prepare(image, *a))
+    one, _ = trainer._place(batch)
     monkeypatch.setattr(stage2, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        trainer._place(batch)
+    several, _ = trainer._place(batch)
+    assert seen == [torch.int16, torch.float32]
+    assert several.dtype == torch.float32 and torch.equal(several, one)
 
 
 def _tiny_yaml(tmp_path, data_path, device_prep):

@@ -440,8 +440,9 @@ def test_sr_sample_is_seeded_and_checks_the_batch(unets):
 
 def test_sr_training_raises_until_ported(unets):
     """SR training is ported (tests/test_torch_sr_train.py): the trainer has the
-    JAX trainer's fields but its mesh, with the same defaults, and the training
-    methods; the CLI's main no longer raises (its missing --config is argparse's)."""
+    JAX trainer's fields, its data mesh among them, with the same defaults, and the
+    training methods; the CLI's main no longer raises (its missing --config is
+    argparse's)."""
     from eovax.train.sr import DiffusionSuperRes as JaxSR
     from eovax_torch.cli import train_super_res
     from eovax_torch.train.sr import DiffusionSuperRes
@@ -449,7 +450,7 @@ def test_sr_training_raises_until_ported(unets):
     with pytest.raises(SystemExit):
         train_super_res.main([])
     ours = {f.name: f.default for f in dataclasses.fields(DiffusionSuperRes)}
-    ref = {f.name: f.default for f in dataclasses.fields(JaxSR) if f.name != "mesh"}
+    ref = {f.name: f.default for f in dataclasses.fields(JaxSR)}
     assert ours == ref
     sr = DiffusionSuperRes(denoiser=tsr.SimpleDenoiser(), init_params=unets[2])
     assert all(callable(getattr(sr, m)) for m in ("fit", "validate", "save_checkpoint",

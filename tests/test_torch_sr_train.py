@@ -439,13 +439,35 @@ def test_sigterm_in_the_batch_iterator_stops_saves_and_resumes(tmp_path, straigh
                                 straight)
 
 
-def test_multi_process_run_raises(monkeypatch, unets):
+def test_multi_process_run_raises(tmp_path, unets):
+    """Under a process group (one gloo process: every collective runs and is
+    the identity) the placement keeps the batch and a 2-step fit with its
+    validation is ``torch.equal`` to the fit without a group. (The name is that
+    of the test of the refusal this replaced.)"""
+    from eovax_torch.parallel.mesh import destroy_distributed, init_distributed
+
     _, params = unets
-    trainer = _torch_trainer(params)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-        trainer.fit(iter([dict(zip(("image_hr", "image_lr"), _pair(50)))]), max_steps=1)
+    batches = [dict(zip(("image_hr", "image_lr"), _pair(50 + i))) for i in range(2)]
+
+    def fit():
+        trainer = _torch_trainer(params)
+        state = trainer.fit(iter(batches), lambda: iter(batches[:1]), max_steps=2, val_every=2)
+        placed = trainer._place(batches[0])
+        return state.model.state_dict(), trainer.validate(state, iter(batches[:1]), 1), placed
+
+    ref = fit()
+    created = init_distributed("cpu", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                               rank=0)
+    try:
+        assert created and torch.distributed.get_backend() == "gloo"
+        got = fit()
+    finally:
+        destroy_distributed(created)
+    for name, value in ref[0].items():
+        assert torch.equal(got[0][name], value), name
+    assert got[1] == ref[1]
+    for a, b, key in zip(got[2], ref[2], ("image_hr", "image_lr")):
+        assert torch.equal(a, b) and torch.equal(a, _nchw(batches[0][key]))
 
 
 def test_constant_lr_without_a_schedule_and_no_clip(unets):
@@ -596,7 +618,8 @@ def test_train_cli_pixel_branch_on_a_stubbed_dataset(tmp_path, monkeypatch, doma
             built.append((split, collate, lr_size, hr_size))
             self.collate, self.lr_size, self.hr_size = collate, lr_size, hr_size
 
-        def batches(self, batch_size, *, shuffle=False, seed=0, repeat=False):
+        def batches(self, batch_size, *, shuffle=False, seed=0, repeat=False,
+                    process_index=0, process_count=1):
             g = np.random.default_rng(seed)
             while True:
                 samples = [{"image_lr": g.uniform(0, 4000, (self.lr_size, self.lr_size, 4)),

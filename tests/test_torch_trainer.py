@@ -485,7 +485,12 @@ def test_sigterm_in_the_batch_iterator_stops_saves_and_resumes(tmp_path, straigh
     _assert_same_training_state(second, straight)
 
 
-def test_preemption_guard_chains_restores_and_rejects_several_processes(monkeypatch):
+def test_preemption_guard_chains_restores_and_rejects_several_processes(tmp_path):
+    """The handler chains and is restored; a guard off the main thread sees the
+    flag; under a group the ranks agree every ``sync_every`` steps. (The name is
+    that of the test whose last part checked the refusal this replaced.)"""
+    from eovax_torch.parallel.mesh import destroy_distributed, init_distributed
+
     seen = []
     previous = signal.signal(signal.SIGTERM, lambda signum, frame: seen.append(signum))
     try:
@@ -504,10 +509,18 @@ def test_preemption_guard_chains_restores_and_rejects_several_processes(monkeypa
         worker.join(10)
         assert result == [True]
         preemption.reset_for_tests()
-        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-        monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-            preemption.PreemptionGuard().should_stop(10)
+        # Under a process group (one gloo process) the ranks' flags are OR-ed at
+        # the steps that sync_every divides, and every other step reads False.
+        created = init_distributed("cpu", init_method=f"file://{tmp_path / 'store'}",
+                                   world_size=1, rank=0)
+        try:
+            with preemption.PreemptionGuard(sync_every=10) as guard:
+                assert not guard.should_stop(10)
+                os.kill(os.getpid(), signal.SIGTERM)
+                assert not guard.should_stop(11) and not guard.should_stop(19)
+                assert guard.should_stop(20) and guard.should_stop(21)
+        finally:
+            destroy_distributed(created)
     finally:
         signal.signal(signal.SIGTERM, previous)
         preemption.reset_for_tests()
