@@ -244,6 +244,36 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    gloo copies through the host. The ``kernels`` line's hand-kernel entries
    carry (b)'s per-rank launches as ``dp_launches``.
 
+14. The model variants. (a) ``configs/finetune_consistency_bases.yaml``: the
+   shipped body with the shared-basis stems (128 bases, rank 64 encoder / 32
+   decoder), N(0, 0.02), under its EOPatchLoss over a DynamicPatchGAN (ndf 128,
+   its own stem), cut: ``disc_start`` 0, the warmup (a constant lr), the
+   posterior's mode. The generated stems at 12-band S2L2A on the card (TF32
+   off) against the CPU; one step's generator and discriminator gradients at
+   [1,12,96,96] (MS-SSIM's five scales need more than 64 pixels) against fp32
+   on the CPU, fp32 with the GAN term on, bf16 with it gated off, the adaptive
+   weight held in fp32 and printed in bf16; at [16,12,256,256] bf16 every hand
+   kernel against its plain version on the first step's hooked tensors, exact
+   launches 48/52/2 + 48/52/2 a step, ms/step, imgs/s and peak memory beside
+   phase 11's step; 20 distillation steps on the basis stems against the CPU;
+   the train CLI on the config's copy, 2 steps, its ``eo-vae-final.pt``
+   loading the stems and reconstructing [4,12,256,256]. (b) Flow-refine:
+   ``FluxAutoencoderKL`` on ``configs/eo-vae.yaml`` (frozen, N(0, 0.02)), its
+   refiner UNet at the defaults (128,128,128) x (2,2,2), 3 channels, N(0,
+   0.02), bf16: flash attention at [16,4096,128] and conv3x3 and its dx at the
+   UNet's 256² shapes against their plain versions and timed beside the
+   library; the step at [16,3,256,256] (the adapter's reconstruct on the card,
+   then the UNet's train step, fixed t and noise) with the hooked kernels held,
+   exact launches 82/88/3 + 34/36/1, a falling loss, ms/step, peak memory and
+   the profiled busy share; the UNet's gradients at [2,3,64,64] against fp32 on
+   the CPU; ``eovax_torch.cli.train.main`` with ``training_mode: flow-refine``
+   (S2RGB), 4 steps, its ``refiner-final.pt`` loading ``strict``. (c)
+   ``AutoencoderKL``'s default static config: a ``reconstruct`` at
+   [4,3,256,256] bf16 with exact launches and its time, and fp32 on the card
+   against the CPU at [1,3,64,64]. The ``kernels`` line's hand-kernel entries
+   carry the three drives' launches as ``bases_launches``, ``refine_launches``
+   and ``legacy_launches``, and the refiner's timed shapes as ``refine_shapes``.
+
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
 taken again, up to three in all, and a third short one fails the script; the
@@ -2509,9 +2539,9 @@ def gan_cli_yaml(name: str, out: Path, **loss_over) -> Path:
     return out
 
 
-def gan_phase(sd: dict, card: str, bare_ms: float) -> dict:
+def gan_phase(sd: dict, card: str, bare_ms: float) -> tuple[dict, float]:
     """Phase 11: adversarial stage 2 at the full width of ``configs/finetune_gan.yaml``,
-    bf16. Returns the launches of one adversarial step."""
+    bf16. Returns the launches of one adversarial step and its ms."""
     import numpy as np
     import torch
 
@@ -2640,7 +2670,7 @@ def gan_phase(sd: dict, card: str, bare_ms: float) -> dict:
     torch.cuda.empty_cache()
     stamp("phase 11: adversarial step profile")
     gan_fit_and_cli(sd, disc_sd, card, dev)
-    return counts
+    return counts, ms
 
 
 def gan_fit_and_cli(sd: dict, disc_sd: dict, card: str, dev) -> None:
@@ -3441,6 +3471,529 @@ def dp_phase(sd: dict, card: str, bare_ms: float) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 14: the model variants. (a) The shared-basis stems of
+# configs/finetune_consistency_bases.yaml (128 bases, rank 64 encoder / 32
+# decoder, the shipped body) under its EOPatchLoss over a DynamicPatchGAN, with
+# disc_start cut to 0, the warmup cut (a constant lr) and the posterior's mode.
+# (b) Flow-refine: FluxAutoencoderKL's refiner UNet at its defaults (128, 128, 128)
+# x (2, 2, 2), 3 channels in, out and condition, over configs/eo-vae.yaml's frozen
+# VAE. (c) The legacy AutoencoderKL's default static config.
+BASES_CONFIG = "finetune_consistency_bases.yaml"
+REFINE_CONFIG = "eo-vae.yaml"
+# One refiner step: the frozen VAE's reconstruct (48/52/2, inference), then the UNet
+# forward (17 TimeResBlocks x 2 convs; their 34 norms, norm_out and the attention's
+# norm; one attention at the innermost 64² level) and its backward.
+REFINE_UNET = (34, 36, 1)
+REFINE_STEP = launches(48 + 34, 52 + 36, 2 + 1, conv_dx=34, gn_bwd=36, attn_bwd=1)
+#  The generated basis stems, card (TF32 off) vs CPU fp32: a small fp32 MLP and an
+#  einsum over the bank, in other summation orders.
+TOL_STEM = 1e-5
+#  20 AdamW distillation steps, card vs CPU fp32.
+TOL_DISTILL = 1e-4
+
+
+def bases_setup(raw: dict, cfg, sd: dict, disc_sd: dict | None, policy, device,
+                disc_start: int = 0):
+    """The bases model on ``sd``, its config's loss with ``disc_start``, and its
+    DynamicPatchGAN on ``disc_sd`` (N(0, 0.02) from a seed when None; its stem is
+    its own: the factory seeds it from the encoder only for transformer stems)."""
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.losses.factory import build_loss_from_config
+
+    loss, disc, seed_stem = build_loss_from_config(
+        {**raw["model"]["loss_fn"], "disc_start": disc_start}, cfg, policy=policy, seed=0)
+    if seed_stem:
+        raise AssertionError("the factory seeded the discriminator's stem from a basis encoder")
+    model = EOFluxVAE(cfg, sd, policy=policy, device=device)
+    disc.load_state_dict(disc_sd if disc_sd is not None else gan_disc_state_dict(disc, seed=22))
+    return model, loss, disc.to(device)
+
+
+def bases_grads(raw: dict, cfg, sd: dict, disc_sd: dict, policy, device, x, wvs, step: int):
+    """One adversarial step with disc_start 1 at global ``step`` (1: the GAN term on;
+    0: gated off, its backward and the adaptive weight still computed), the
+    optimizers' updates left out: the generator's and the discriminator's
+    gradients and the adaptive weight."""
+    import types
+
+    import torch
+
+    from eovax_torch.losses import gan
+    from eovax_torch.train import stage2
+
+    model, loss, disc = bases_setup(raw, cfg, sd, disc_sd, policy, device, disc_start=1)
+    keep = types.SimpleNamespace(zero_grad=lambda: None, step=lambda: torch.zeros(()))
+    gen_step, disc_step = stage2.make_adversarial_steps(model.core, loss, keep, disc, keep, cfg)
+    weights, weight_fn = [], gan.adaptive_weight
+
+    def recorded(*args, **kw):
+        weights.append(weight_fn(*args, **kw))
+        return weights[-1]
+
+    gan.adaptive_weight = recorded
+    try:
+        state = stage2.TrainState(step=step)
+        _, recon, target = gen_step(state, x.to(device), wvs.to(device))
+        disc_step(state, target, wvs.to(device), recon)
+    finally:
+        gan.adaptive_weight = weight_fn
+    return ({n: p.grad.float().cpu() for n, p in model.core.named_parameters()},
+            {n: p.grad.float().cpu() for n, p in disc.named_parameters()}, float(weights[0]))
+
+
+def bases_phase(card: str, gan_ms: float) -> dict:
+    """Phase 14 (a): the shared-basis stems at the full width of
+    ``configs/finetune_consistency_bases.yaml``, bf16. Returns the launches of one
+    adversarial step."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.cli import train as train_cli
+    from eovax_torch.core.config import VAEConfig, load_yaml
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.train import distill, stage2
+    from eovax_torch.utils.checkpoint import TrainCheckpointer
+
+    dev = torch.device("cuda")
+    raw = load_yaml(str(ROOT / "configs" / BASES_CONFIG))
+    cfg = dataclasses.replace(VAEConfig.from_dict(raw), final_lr=None, sample_posterior=False)
+    base = EOFluxVAE(cfg, device="cpu", seed=0)
+    sd = bench_state_dict(base, seed=21)
+    enc, dec = cfg.encoder.stem, cfg.decoder.stem
+    print(f"bases model ({BASES_CONFIG}): {base.param_count()} params, basis stems "
+          f"{enc.num_bases} bases of {enc.kernel_size}x{enc.kernel_size}, rank {enc.rank_dim} "
+          f"(encoder) / {dec.rank_dim} (decoder), weights N(0, 0.02)")
+    s2 = torch.tensor(wavelengths_for("S2L2A"))
+
+    # -- the generated stems, card (TF32 off) vs fp32 on the CPU.
+    with torch.no_grad():
+        models = [EOFluxVAE(cfg, sd, policy=FULL_PRECISION, device=d) for d in ("cpu", dev)]
+        for name in ("encoder.conv_in", "decoder.conv_out"):
+            ref = models[0].core.get_submodule(name).generate(s2)
+            got = models[1].core.get_submodule(name).generate(s2.to(dev))
+            for part, a, r in zip(("kernel", "bias"), got, ref):
+                err, rel = rel_err(a.cpu(), r)
+                ok = rel <= TOL_STEM and bool(torch.isfinite(a).all())
+                print(f"basis {name} generated {part} {list(a.shape)} (12-band S2L2A) on the "
+                      f"card vs fp32 on the CPU: max_abs_err={err:.3e} rel={rel:.3e} "
+                      f"tol={TOL_STEM:g} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"the generated basis {name} {part} disagrees")
+    del models
+
+    # -- one step's gradients, card vs fp32 on the CPU at [1,12,96,96] (MS-SSIM's five
+    # scales need more than 64 pixels): fp32 with the GAN term on, bf16 with it gated
+    # off; the adaptive weight held in fp32, printed in bf16. The discriminator runs
+    # no hand kernel, and its bf16 gradient, through a random discriminator whose sums
+    # over pixels cancel, is 11.4 % off fp32 on the CPU's own bf16 step (PERF.md §6,
+    # PR 16): in bf16 it is held to within 1.5x of the CPU's own bf16 distance, or the
+    # limit, whichever is larger.
+    disc_sd = gan_disc_state_dict(bases_setup(raw, cfg, sd, None, FULL_PRECISION, "cpu")[2],
+                                  seed=22)
+    x_small = torch.randn(1, 12, 96, 96, generator=torch.Generator().manual_seed(24))
+    for label, policy, tol, step in (("fp32", FULL_PRECISION, TOL_GRAD_F32, 1),
+                                     ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16, 0)):
+        ref = bases_grads(raw, cfg, sd, disc_sd, FULL_PRECISION, "cpu", x_small, s2, step)
+        got = bases_grads(raw, cfg, sd, disc_sd, policy, dev, x_small, s2, step)
+        gate = "GAN term on" if step else "GAN term gated off"
+        check_model_grads(f"basis adversarial step ({gate}), generator, {label}", got[0], ref[0],
+                          tol, "[1,12,96,96]")
+        if label == "fp32":
+            check_model_grads(f"basis adversarial step ({gate}), discriminator, {label}", got[1],
+                              ref[1], tol, "[1,12,96,96]")
+        else:
+            cpu16 = bases_grads(raw, cfg, sd, disc_sd, policy, "cpu", x_small, s2, step)[1]
+            on_card, on_cpu, pair = (tree_rel(got[1], ref[1]), tree_rel(cpu16, ref[1]),
+                                     tree_rel(got[1], cpu16))
+            limit = max(tol, 1.5 * on_cpu)
+            ok = on_card <= limit and all(bool(torch.isfinite(v).all()) for v in got[1].values())
+            print(f"basis adversarial step ({gate}), discriminator gradients bf16 [1,12,96,96]: "
+                  f"the card's |diff|/|ref| to fp32 on the CPU {on_card:.3e}, the CPU's own bf16 "
+                  f"step's {on_cpu:.3e}, card to CPU bf16 {pair:.3e} (limit {limit:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the bf16 discriminator gradients on the card are further "
+                                     "from fp32 than the CPU's own bf16 step")
+        w_rel = abs(got[2] - ref[2]) / abs(ref[2])
+        ok = label == "bf16" or w_rel <= tol
+        print(f"basis adaptive weight {label} on the card {got[2]:.6f} vs fp32 on the CPU "
+              f"{ref[2]:.6f}: rel {w_rel:.3e} ({'held' if label == 'fp32' else 'printed'}, tol "
+              f"{tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the basis adaptive weight (fp32) disagrees with the CPU")
+    del ref, got
+    stamp("phase 14: basis stems and gradients card vs CPU")
+
+    # -- the step at full width, 12-band 256² B=16 bf16: hooked kernels, launches, times.
+    model, loss, disc = bases_setup(raw, cfg, sd, disc_sd, DEFAULT_POLICY, dev)
+    core = model.core
+    opt, schedule = stage2.make_optimizer(cfg, core.parameters())
+    dopt = stage2.ClippedAdam(disc.parameters(), cfg.base_lr, clip_grad=None)
+    gen_step, disc_step = stage2.make_adversarial_steps(core, loss, opt, disc, dopt, cfg,
+                                                        schedule=schedule)
+    state = stage2.TrainState()
+    x = torch.randn(16, 12, 256, 256, generator=torch.Generator(device=dev).manual_seed(25),
+                    device=dev)
+    s2d = s2.to(dev)
+    records = []
+
+    def step():
+        logs, recon, target = gen_step(state, x, s2d)
+        logs.update(disc_step(state, target, s2d, recon))
+        records.append(logs)
+        return logs
+
+    mods, hooks, captured = capture_body(core)
+    step()  # the first warm-up step, and the hooks' captures
+    for h in hooks:
+        h.remove()
+    check_captured_body(mods, captured)
+    del captured
+    torch.cuda.empty_cache()
+    logs, counts = drive("basis adversarial step [16,12,256,256] bf16 (generator + discriminator)",
+                         step, launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, 10, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    rec = [float(r["train/loss_rec"] + loss.ssim_weight * r["train/loss_msssim"]) for r in records]
+    disc_losses = [float(r["train/loss_disc"]) for r in records]
+    if not (np.isfinite(rec).all() and np.isfinite(disc_losses).all()
+            and np.isfinite(float(logs["train/disc_weight"]))):
+        raise AssertionError("a basis adversarial loss is not finite")
+    print(f"basis adversarial losses over {len(rec)} steps on one batch: reconstruction part "
+          f"(L1 + {loss.ssim_weight} MS-SSIM) {rec[0]:.6f} -> {rec[-1]:.6f}, discriminator "
+          f"{disc_losses[0]:.5f} -> {disc_losses[-1]:.5f}; adaptive weight "
+          f"{float(logs['train/disc_weight']):.5f}")
+    print(f"time basis adversarial step [16,12,256,256] bf16: {ms:.3f} ms/step, "
+          f"{16e3 / ms:.2f} imgs/s, peak memory {peak / 2**30:.2f} GiB; phase 11's adversarial "
+          f"step {gan_ms:.3f} ms/step ({ms / gan_ms:.3f}x) [{card}]")
+    del model, core, opt, dopt, disc, gen_step, disc_step, x, records
+    torch.cuda.empty_cache()
+    stamp("phase 14: basis adversarial step")
+
+    # -- 20 distillation steps on the basis stems (the seeded init), card vs CPU fp32.
+    gt, ch = torch.Generator().manual_seed(26), cfg.encoder.ch  # Flux-sized stems at ch 128
+    teacher = {"encoder_weight": 0.1 * torch.randn(ch, 3, 3, 3, generator=gt),
+               "encoder_bias": 0.05 * torch.randn(ch, generator=gt),
+               "decoder_weight": 0.1 * torch.randn(3, ch, 3, 3, generator=gt),
+               "decoder_bias": 0.05 * torch.randn(3, generator=gt)}
+    dcfg = distill.DistillConfig(max_steps=20, lr=1e-3, log_every_n_steps=1,
+                                 val_every_n_steps=5, patience=100)
+    wvs = torch.tensor(dcfg.rgb_wavelengths)
+    runs = {}
+    for device in ("cpu", dev):
+        stems_model = EOFluxVAE(cfg, policy=FULL_PRECISION, device=device, seed=0)
+        losses = []
+        distill.run_distillation(stems_model.core, teacher, dcfg,
+                                 log_fn=lambda _, scalars: losses.append(scalars["total_loss"]))
+        with torch.no_grad():
+            stems = [t.cpu() for stem in (stems_model.core.encoder.conv_in,
+                                          stems_model.core.decoder.conv_out)
+                     for t in stem.get_distillation_weight(wvs.to(device))]
+        runs[str(device)] = (np.asarray(losses), stems)
+    (cpu_losses, cpu_stems), (losses, stems) = runs["cpu"], runs[str(dev)]
+    loss_rel = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
+    stem_rel = max(float((a - r).norm() / r.norm()) for a, r in zip(stems, cpu_stems))
+    ok = (len(losses) == 20 and np.isfinite(losses).all() and losses[-1] < losses[0]
+          and loss_rel <= TOL_DISTILL and stem_rel <= TOL_DISTILL)
+    print(f"basis distillation 20 steps fp32 on the card vs the CPU: losses {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}, max rel {loss_rel:.3e}; stems |diff|/|ref| {stem_rel:.3e} "
+          f"(tol {TOL_DISTILL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("basis distillation on the card disagrees with the CPU or did "
+                             "not fall")
+    del stems_model
+    stamp("phase 14: basis distillation")
+
+    # -- the train CLI on a copy of the config (disc_start 0), 2 steps.
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_bases_", dir=ROOT / "build"))
+    try:
+        exp = tmp / "exp"
+        config = gan_cli_yaml(BASES_CONFIG, tmp / BASES_CONFIG, disc_start=0)
+        t0 = time.perf_counter()
+        drive(f"train CLI {BASES_CONFIG} (disc_start 0) --synthetic-data --max-steps 2",
+              lambda: train_cli.main(["--config", str(config), "--synthetic-data",
+                                      "--max-steps", "2", "--resume-dir", str(exp)]),
+              launches(2 * 48, 2 * 52, 2 * 2, 2 * 48, 2 * 52, 2 * 2))
+        cli_s = time.perf_counter() - t0
+        saved = TrainCheckpointer(str(exp / "checkpoints")).restore_latest()
+        final = EOFluxVAE(cfg, policy=DEFAULT_POLICY, device=dev, seed=1)
+        final.load_checkpoint(str(exp / "eo-vae-final.pt"))
+        same = all(torch.equal(final.core.state_dict()[k].cpu(), v.cpu())
+                   for k, v in saved["model"].items())
+        xb = torch.randn(4, 12, 256, 256, generator=torch.Generator().manual_seed(27))
+        recon = final.reconstruct(xb, s2)
+        if (saved["step"] != 2 or saved["disc_optimizer"]["count"] != 2 or not same
+                or tuple(recon.shape) != (4, 12, 256, 256) or not torch.isfinite(recon).all()):
+            raise AssertionError(f"train CLI {BASES_CONFIG}: step {saved['step']}, stems loaded "
+                                 f"{same}, recon {tuple(recon.shape)}")
+        print(f"train CLI {BASES_CONFIG}: {cli_s:.3f} s, {sorted(p.name for p in exp.iterdir())}; "
+              f"its eo-vae-final.pt loads the basis stems (torch.equal to the last checkpoint) "
+              f"and reconstructs [4,12,256,256] finite [{card}]")
+        del final, saved
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stamp("phase 14: basis train CLI")
+    return counts
+
+
+def refine_phase(vae_sd: dict, card: str, g) -> dict:
+    """Phase 14 (b): flow-refine at full width. Returns the launches of one refiner
+    step and the timed kernel shapes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import yaml
+
+    from eovax_torch.cli import train as train_cli
+    from eovax_torch.core.config import VAEConfig, load_yaml
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.synthetic import synthetic_terramesh_batches
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.kernels.attention import flash_attention, flash_attention_plain
+    from eovax_torch.kernels.conv3x3 import conv3x3, conv3x3_dx, conv3x3_dx_plain, conv3x3_plain
+    from eovax_torch.models.flux_autoencoder import FluxAutoencoderKL
+    from eovax_torch.models.unet import UNet
+
+    dev = g.device
+    raw = load_yaml(str(ROOT / "configs" / REFINE_CONFIG))
+    cfg = VAEConfig.from_dict(raw)
+    rgb = wavelengths_for("S2RGB")
+
+    def refiner(policy, device):
+        model = FluxAutoencoderKL(cfg, vae_sd, training_mode="flow-refine", policy=policy,
+                                  device=device)
+        return model, model.make_flow_refine_trainer(base_lr=cfg.base_lr, log_every=0)
+
+    model, trainer = refiner(DEFAULT_POLICY, dev)
+    unet_sd = sr_state_dict(trainer.init_params, seed=28)
+    trainer.init_params.load_state_dict(unet_sd)
+    unet = trainer.init_params
+    print(f"flow-refine ({REFINE_CONFIG} frozen, {model.param_count()} params): refiner UNet "
+          f"{unet.hid_channels} x {unet.hid_blocks}, 3 channels in, out and condition, "
+          f"{sum(p.numel() for p in unet.parameters())} params N(0, 0.02), bf16")
+
+    # -- the kernels at the refiner's shapes, bf16, against their plain versions.
+    q, k, v = (torch.randn(16, 4096, 128, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    attn_err = check_attention(q, k, v, TOL_BF16, "refiner mid attention [16,4096,128]")
+    conv_errs, dx_errs = {}, {}
+    for ci in (128, 256):  # a level-0 block's conv (128→128), an up block's conv1 (256→128)
+        x, w, bias = conv_inputs(16, ci, 128, 256, 256, torch.bfloat16, g)
+        conv_errs[ci] = check_conv(x, w, bias, TOL_CONV_BF16, f"refiner 256² {ci}->128")
+        grad = torch.randn(16, 128, 256, 256, generator=g, device=dev).to(torch.bfloat16)
+        dx_errs[ci] = check_conv_dx(grad, w, TOL_CONV_BF16, f"refiner 256² {ci}->128")
+        del x, grad
+    torch.cuda.empty_cache()
+    # Their times: CUDA events over 20 calls after 2 (kernel, plain, library, bound).
+    # SDPA takes [B, 1, S, D] views, one head, where its flash backend serves D = 128.
+    shapes = {}
+    with torch.inference_mode():
+        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 5)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None]), 20)
+    flops = 4.0 * 16 * 4096 * 4096 * 128
+    shapes["flash_attention"] = dict(
+        shape=[16, 4096, 128], ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        max_abs_err=attn_err, **bound(flops, H100_BF16_FLOPS, 4.0 * q.numel() * 2))
+    del q, k, v
+    x, w, bias = conv_inputs(16, 128, 128, 256, 256, torch.bfloat16, g)
+    wb, bb = w.bfloat16(), bias.bfloat16()
+    grad = torch.randn(16, 128, 256, 256, generator=g, device=dev).to(torch.bfloat16)
+    flops = 2.0 * 16 * 256 * 256 * 9 * 128 * 128
+    nbytes = 2.0 * (2 * x.numel() + w.numel() + 128)
+    with torch.inference_mode():
+        shapes["conv3x3"] = dict(
+            shape=[16, 128, 128, 256, 256], ms=cuda_ms(lambda: conv3x3(x, w, bias), 10),
+            plain_ms=cuda_ms(lambda: conv3x3_plain(x, w, bias), 5),
+            library_ms=cuda_ms(lambda: F.conv2d(x, wb, bb, padding=1), 10),
+            max_abs_err=conv_errs[128], **bound(flops, H100_BF16_FLOPS, nbytes))
+        shapes["conv3x3_dx"] = dict(
+            shape=[16, 128, 128, 256, 256], ms=cuda_ms(lambda: conv3x3_dx(grad, w), 10),
+            plain_ms=cuda_ms(lambda: conv3x3_dx_plain(grad, w), 5), max_abs_err=dx_errs[128],
+            library_ms=cuda_ms(lambda: torch.nn.grad.conv2d_input(x.shape, wb, grad,
+                                                                  padding=1), 10),
+            **bound(flops, H100_BF16_FLOPS, nbytes - 2.0 * 128))
+    del x, w, bias, wb, bb, grad
+    torch.cuda.empty_cache()
+    for name, row in shapes.items():
+        print(f"time {name} {row['shape']} bf16 (refiner): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, "
+              f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) [{card}]")
+    stamp("phase 14: refiner kernels vs plain")
+
+    # -- the refiner step at B=16 256² on one fixed batch, fixed t and noise.
+    batch = next(synthetic_terramesh_batches(batch_size=16, target_size=(256, 256),
+                                             modalities=("S2RGB",), mode="S2RGB", seed=29))
+    state = trainer.init_state()
+    gt = torch.Generator(device=dev).manual_seed(30)
+    t = torch.rand(16, generator=gt, device=dev)
+    eps = torch.randn(16, 3, 256, 256, generator=gt, device=dev)
+
+    def step():
+        (pair,) = list(trainer.refine_batches([batch], rgb))
+        return trainer.train_step(state, *trainer._place(pair), t=t, eps=eps)["train_loss"]
+
+    captured = {}
+
+    def capture(key):
+        def hook(mod, args, kwargs, out):  # returns None: the output stays as it is
+            captured[key] = (args[0].detach().clone(), dict(kwargs))
+            out.register_hook(lambda grad: captured.__setitem__(key + "/grad", grad.clone()))
+        return hook
+
+    block, attn = state.model.up[0].block[0], state.model.mid_attn
+    hooks = [block.conv1.register_forward_hook(capture("conv1"), with_kwargs=True),
+             block.norm2.register_forward_hook(capture("norm2"), with_kwargs=True),
+             attn.norm.register_forward_hook(capture("attn_norm"), with_kwargs=True)]
+    losses = [step()]  # the first warm-up step, and the hooks' captures
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        x1, _ = captured["conv1"]
+        check_conv(x1, block.conv1.weight, block.conv1.bias, TOL_CONV_BF16,
+                   "refiner up0-block0-conv1-captured")
+        check_conv_dx(captured["conv1/grad"].contiguous(), block.conv1.weight, TOL_CONV_BF16,
+                      "refiner up0-block0-conv1-captured")
+        for key, norm in (("norm2", block.norm2), ("attn_norm", attn.norm)):
+            xn, kw = captured[key]
+            label = f"refiner {'up0-block0-norm2' if key == 'norm2' else 'mid_attn-norm'}-captured"
+            check_group_norm(xn, norm.weight, norm.bias, TOL_GN_BF16, label, {"as called": kw})
+            check_gn_backward(captured[key + "/grad"].contiguous(), xn, norm.weight, norm.bias,
+                              label, **kw)
+        check_attention(*attn.qkv_tokens(captured["attn_norm"][0]), TOL_BF16,
+                        "refiner mid_attn-captured")
+    del captured, x1, xn, kw
+    torch.cuda.empty_cache()
+    loss, counts = drive("flow-refine step [16,3,256,256] bf16 (VAE reconstruct + refiner)",
+                         step, REFINE_STEP)
+    losses.append(loss)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: losses.append(step()), 10, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    print(f"flow-refine losses over {len(losses)} steps on one batch (fixed t and noise): "
+          f"{', '.join(f'{v:.5f}' for v in losses)}")
+    if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        raise AssertionError("the flow-refine loss is not finite or did not fall")
+    hand = sum(REFINE_STEP[k] for k in ("conv3x3", "group_norm", "flash_attention",
+                                         "conv3x3_dx", "group_norm_backward"))
+    kernel_ms, kept = retrace(
+        "flow-refine step", lambda: device_profile(step, calls=2),
+        lambda r: "" if r[1] >= hand else f"{r[1]:g} kernel records a step of {hand}+")
+    print(f"time flow-refine step [16,3,256,256] bf16: {ms:.3f} ms/step, {16e3 / ms:.2f} imgs/s, "
+          f"peak memory {peak / 2**30:.2f} GiB; kernels {kernel_ms:.3f} ms a step ({kept:g} "
+          f"kernel records a step), device busy {kernel_ms / ms:.3f} [{card}]")
+    del state, trainer, model
+    torch.cuda.empty_cache()
+    stamp("phase 14: flow-refine step")
+
+    # -- the refiner's gradients, card vs fp32 on the CPU at [2,3,64,64].
+    small = next(synthetic_terramesh_batches(batch_size=2, target_size=(64, 64),
+                                             modalities=("S2RGB",), mode="S2RGB", seed=31))
+    gc = torch.Generator().manual_seed(32)
+    t2, eps2 = torch.rand(2, generator=gc), torch.randn(2, 3, 64, 64, generator=gc)
+
+    def grads(policy, device) -> dict:
+        _, tr = refiner(policy, device)
+        tr.init_params.load_state_dict(unet_sd)
+        st = tr.init_state()
+        (pair,) = list(tr.refine_batches([small], rgb))
+        hr, cond = tr._place(pair)
+        tr.denoiser.loss(st.model, hr, t2.to(device), cond=cond, eps=eps2.to(device)).backward()
+        return {n: p.grad.float().cpu() for n, p in st.model.named_parameters()}
+
+    ref = grads(FULL_PRECISION, "cpu")
+    for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
+                               ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
+        check_model_grads(f"refiner UNet {label}", grads(policy, dev), ref, tol, "[2,3,64,64]")
+    del ref
+    stamp("phase 14: refiner gradients card vs CPU")
+
+    # -- the train CLI in flow-refine mode, 4 steps.
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_refine_", dir=ROOT / "build"))
+    try:
+        raw_cli = yaml.safe_load((ROOT / "configs" / REFINE_CONFIG).read_text())
+        raw_cli["model"]["training_mode"] = "flow-refine"
+        raw_cli["datamodule"].update(modalities=["S2RGB"], train_collate_mode="S2RGB",
+                                     val_collate_mode="S2RGB")
+        raw_cli["trainer"]["log_every_n_steps"] = 1
+        (tmp / "refine.yaml").write_text(yaml.safe_dump(raw_cli))
+        exp = tmp / "exp"
+        t0 = time.perf_counter()
+        # 4 steps, and the VAE's reconstruct of a fifth batch: the fit draws a batch
+        # before it checks its budget, as the JAX fit does.
+        drive("train CLI flow-refine --synthetic-data --max-steps 4",
+              lambda: train_cli.main(["--config", str(tmp / "refine.yaml"), "--synthetic-data",
+                                      "--max-steps", "4", "--resume-dir", str(exp)]),
+              launches(*(4 * u + 5 * r for u, r in zip(REFINE_UNET, (48, 52, 2))),
+                       *(4 * u for u in REFINE_UNET)))
+        cli_s = time.perf_counter() - t0
+        files = sorted(p.name for p in exp.iterdir())
+        with open(exp / "metrics.csv") as f:
+            rows = f.read().splitlines()[1:]
+        loaded = UNet(3, 3, 3, (128, 128, 128), (2, 2, 2))
+        loaded.load_state_dict(torch.load(exp / "refiner-final.pt", weights_only=True),
+                               strict=True)
+        if "refiner-final.pt" not in files or "eo-vae-final.pt" in files or len(rows) != 4:
+            raise AssertionError(f"train CLI flow-refine wrote {files}, {len(rows)} rows")
+        print(f"train CLI flow-refine: {cli_s:.3f} s, {files}, metrics.csv {len(rows)} rows; "
+              f"refiner-final.pt loads strict into UNet(3, 3, 3, (128,128,128), (2,2,2)) [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stamp("phase 14: flow-refine train CLI")
+    return dict(launches=counts, shapes=shapes)
+
+
+def legacy_phase(card: str) -> dict:
+    """Phase 14 (c): the legacy AutoencoderKL's default static config. Returns the
+    launches of one reconstruct."""
+    import torch
+
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.models.flux_autoencoder import AutoencoderKL
+
+    dev = torch.device("cuda")
+    rgb = wavelengths_for("S2RGB")
+    model = AutoencoderKL(policy=DEFAULT_POLICY, device=dev, seed=0)
+    sd = bench_state_dict(model, seed=33)
+    model.core.load_state_dict(sd)
+    print(f"AutoencoderKL (default: static stems, z {model.config.encoder.z_channels}): "
+          f"{model.param_count()} params, bf16")
+    x = torch.randn(4, 3, 256, 256, generator=torch.Generator().manual_seed(34))
+    recon, counts = drive("AutoencoderKL reconstruct [4,3,256,256] bf16",
+                          lambda: model.reconstruct(x, rgb), launches(48, 52, 2))
+    if tuple(recon.shape) != (4, 3, 256, 256) or not torch.isfinite(recon).all():
+        raise AssertionError("AutoencoderKL reconstruct gave a wrong shape or non-finite values")
+    ms = cuda_ms(lambda: model.reconstruct(x, rgb), 10)
+    print(f"time AutoencoderKL reconstruct [4,3,256,256] bf16: {ms:.3f} ms/call, "
+          f"{4e3 / ms:.2f} imgs/s [{card}]")
+    x_small = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(35))
+    ref = AutoencoderKL(None, sd, policy=FULL_PRECISION, device="cpu").reconstruct(x_small, rgb)
+    out = AutoencoderKL(None, sd, policy=FULL_PRECISION, device=dev).reconstruct(x_small, rgb)
+    err, rel = rel_err(out.cpu(), ref)
+    ok = rel <= TOL_MODEL_F32 and bool(torch.isfinite(out).all())
+    print(f"AutoencoderKL fp32 on the card vs fp32 on the CPU [1,3,64,64]: max_abs_err={err:.3e} "
+          f"rel={rel:.3e} tol={TOL_MODEL_F32:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("AutoencoderKL on the card disagrees with the CPU")
+    del model
+    torch.cuda.empty_cache()
+    stamp("phase 14: AutoencoderKL")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3753,9 +4306,12 @@ def main() -> int:
     sr = sr_phase(model, sd, card, g)
     srtrain = sr_train_phase(sd, card, g)
     distill_phase(card)
-    gan = gan_phase(sd, card, bwd_timings["train_step_ms"])
+    gan, gan_ms = gan_phase(sd, card, bwd_timings["train_step_ms"])
     dofa_counts = dofa_phase(card)
     dp_counts = dp_phase(sd, card, bwd_timings["train_step_ms"])
+    bases_counts = bases_phase(card, gan_ms)
+    refine = refine_phase(sd, card, g)
+    legacy_counts = legacy_phase(card)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -3813,6 +4369,12 @@ def main() -> int:
     for entry in kernels:  # the run's short profiler traces, each taken again
         entry["profile_retries"] = dict(PROFILE_RETRIES)
         entry["dp_launches"] = dp_counts[entry["name"]]
+        # Phase 14: a basis adversarial step, a flow-refine step, a legacy reconstruct.
+        entry["bases_launches"] = bases_counts[entry["name"]]
+        entry["refine_launches"] = refine["launches"][entry["name"]]
+        entry["legacy_launches"] = legacy_counts[entry["name"]]
+        if entry["name"] in refine["shapes"]:
+            entry["refine_shapes"] = refine["shapes"][entry["name"]]
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,11 +20,16 @@ discriminator), and runs ``Stage2Trainer`` with
 CSV (and optional W&B) logging, validation image grids and checkpoints in a
 timestamped experiment directory. It ends with ``eo-vae-final.pt`` and, once
 validation has run, ``eo-vae-best.pt`` (each ``{"state_dict": ...}``).
-``--debug`` turns logging and checkpoints off. The batches come from the
-TerraMesh tar shards under the config's ``datamodule.data_path``
-(``TerraMeshPipeline``, with the ``datamodule`` block's keys and the JAX
-CLI's defaults; ``device_prep: true`` normalizes and augments on the
-device); ``--synthetic-data`` trains on random batches instead.
+``--debug`` turns logging and checkpoints off. A config with
+``model.training_mode: flow-refine`` (unless ``--distilled-ckpt`` comes
+without ``--vae-ckpt``, which forces finetune) trains the refiner of
+``FluxAutoencoderKL`` on the frozen VAE instead and ends with its UNet's
+state dict, ``refiner-final.pt`` (the JAX CLI writes ``.msgpack``). The
+batches come from the TerraMesh tar shards under the config's
+``datamodule.data_path`` (``TerraMeshPipeline``, with the ``datamodule``
+block's keys and the JAX CLI's defaults; ``device_prep: true`` normalizes
+and augments on the device); ``--synthetic-data`` trains on random batches
+instead.
 """
 
 from __future__ import annotations
@@ -100,11 +105,14 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
     training_mode = raw_cfg.get("model", {}).get("training_mode")
     if args.distilled_ckpt and not args.vae_ckpt:
         training_mode = "finetune"
-    if training_mode == "flow-refine":
-        raise NotImplementedError(
-            "training_mode 'flow-refine' (FluxAutoencoderKL's refiner) is not ported yet: "
-            "ROADMAP Queue 1 item 7")
-    model = EOFluxVAE(cfg, policy=policy, device=args.device, seed=args.seed)
+    refine = training_mode == "flow-refine"
+    if refine:
+        from eovax_torch.models.flux_autoencoder import FluxAutoencoderKL
+
+        model = FluxAutoencoderKL(cfg, training_mode="flow-refine", policy=policy,
+                                  device=args.device, seed=args.seed)
+    else:
+        model = EOFluxVAE(cfg, policy=policy, device=args.device, seed=args.seed)
     # Component-wise loading: the Flux body, then the distilled stems.
     if args.flux_ckpt:
         model.load_checkpoint(args.flux_ckpt, strict=False)
@@ -114,8 +122,11 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
         model.load_checkpoint(args.ckpt)
     if args.vae_ckpt:
         model.load_checkpoint(args.vae_ckpt, strict=False)
-    loss_obj, discriminator, seed_disc_stem = build_loss_from_config(
-        raw_cfg.get("model", {}).get("loss_fn", {}), cfg, policy=policy, seed=args.seed)
+    # Flow-refine trains the refiner alone: no loss or discriminator is built.
+    loss_obj = discriminator = seed_disc_stem = None
+    if not refine:
+        loss_obj, discriminator, seed_disc_stem = build_loss_from_config(
+            raw_cfg.get("model", {}).get("loss_fn", {}), cfg, policy=policy, seed=args.seed)
 
     trainer_cfg = raw_cfg.get("trainer", {})
     max_epochs = trainer_cfg.get("max_epochs", 100)
@@ -153,6 +164,13 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
 
     dm_cfg = raw_cfg.get("datamodule", {})
     train_iter, val_factory = _batches(dm_cfg, args)
+    if refine:
+        try:
+            _flow_refine(model, raw_cfg, max_steps, logger, exp_dir if primary else None,
+                         train_iter, seed=args.seed)
+        finally:
+            train_iter.close()
+        return exp_dir
 
     trainer = Stage2Trainer(
         model=model,
@@ -190,6 +208,33 @@ def run(args: argparse.Namespace, raw_cfg: dict[str, Any]) -> str | None:
                 f"@ step {info['step']}) to {exp_dir}/eo-vae-best.pt"
             )
     return exp_dir
+
+
+def _flow_refine(model, raw_cfg: dict[str, Any], max_steps: int, logger, out_dir: str | None,
+                 train_iter, seed: int) -> None:
+    """Flow-refine mode: train a fresh rectified-flow UNet (the ``model.refiner``
+    block's ``hid_channels``, ``hid_blocks``, ``sampler_steps``) on the frozen
+    VAE's reconstructions of the train batches (wavelengths of the
+    ``val_collate_mode`` where a batch has none) and write its state dict to
+    ``<out_dir>/refiner-final.pt``."""
+    import torch
+
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.utils.checkpoint import host_copy
+
+    refine_cfg = raw_cfg.get("model", {}).get("refiner", {})
+    trainer = model.make_flow_refine_trainer(
+        hid_channels=tuple(refine_cfg.get("hid_channels", (128, 128, 128))),
+        hid_blocks=tuple(refine_cfg.get("hid_blocks", (2, 2, 2))),
+        sampler_steps=refine_cfg.get("sampler_steps", 50), seed=seed,
+        base_lr=model.config.base_lr,
+        log_every=raw_cfg.get("trainer", {}).get("log_every_n_steps", 100), logger=logger)
+    wvs = wavelengths_for(raw_cfg.get("datamodule", {}).get("val_collate_mode", "S2L2A"))
+    state = trainer.fit(trainer.refine_batches(train_iter, wvs), max_steps=max_steps)
+    if out_dir:
+        path = os.path.join(out_dir, "refiner-final.pt")
+        torch.save(host_copy(state.model.state_dict()), path)
+        print(f"Saved refiner to {path}")
 
 
 def _batches(dm_cfg: dict[str, Any], args: argparse.Namespace):

@@ -109,8 +109,8 @@ def load_yaml(path: str) -> dict:
 class StemConfig:
     """Hypernetwork stem settings (``dynamic_conv_kwargs`` in the YAML).
 
-    ``mode='basis'`` selects the shared-basis stems, which the port does not
-    have yet (the backbone raises ``NotImplementedError`` for it).
+    ``mode='basis'`` selects the shared-basis stems
+    (``eovax_torch.nn.dynamic_basis``) with ``num_bases`` and ``rank_dim``.
     """
 
     num_layers: int

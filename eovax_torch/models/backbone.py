@@ -15,7 +15,9 @@ BatchNorm batch statistics (``train``), latent noise, and ``remat`` of the
 encoder's and decoder's level ResnetBlocks; :meth:`EOVAECore.forward_gan`
 also returns the decoder's penultimate activation and the generated
 output-stem kernel, which the adversarial loss's adaptive weight
-differentiates against.
+differentiates against. The dynamic stems are the transformer hypernetworks
+(``stem.mode: conv``) or the shared-basis layers (``stem.mode: basis``,
+``eovax_torch.nn.dynamic_basis``); both answer ``generate`` and ``_conv``.
 """
 
 from __future__ import annotations
@@ -36,17 +38,13 @@ from eovax_torch.nn.blocks import (
     WavelengthConditioner,
 )
 from eovax_torch.nn.distributions import DiagonalGaussian
+from eovax_torch.nn.dynamic_basis import DynamicInputLayer, DynamicOutputLayer
 from eovax_torch.nn.dynamic_conv import DynamicConv, DynamicConvDecoder
 from eovax_torch.nn.latent import LatentBatchNorm, patch_shuffle, patch_unshuffle
 from eovax_torch.parallel.mesh import global_rows
 
 
 def _stem_kwargs(stem: StemConfig) -> dict:
-    if stem.mode == "basis":
-        raise NotImplementedError(
-            "stem.mode='basis' (shared-basis stems, eovax/nn/dynamic_basis.py) is not "
-            "ported yet: ROADMAP Queue 1 item 7 (model variants)"
-        )
     return dict(
         wv_planes=stem.wv_planes,
         inter_dim=stem.inter_dim,
@@ -56,6 +54,12 @@ def _stem_kwargs(stem: StemConfig) -> dict:
         generator_type=stem.generator_type,
         rank_ratio=stem.rank_ratio,
     )
+
+
+def _basis_kwargs(stem: StemConfig) -> dict:
+    """The shared-basis stems' settings (``stem.mode == "basis"``)."""
+    return dict(num_bases=stem.num_bases, rank_dim=stem.rank_dim,
+                kernel_size=stem.kernel_size)
 
 
 def _mid(block_in: int, cond_dim: int | None, policy: Policy) -> nn.Module:
@@ -78,7 +82,10 @@ class Encoder(nn.Module):
         self.cfg = cfg
         self.policy = policy
         self.use_adain = bool(cfg.use_dynamic_ops and cfg.stem and cfg.stem.use_adain)
-        if cfg.use_dynamic_ops:
+        if cfg.use_dynamic_ops and cfg.stem.mode == "basis":
+            self.conv_in = DynamicInputLayer(out_channels=cfg.ch, policy=policy,
+                                             **_basis_kwargs(cfg.stem))
+        elif cfg.use_dynamic_ops:
             self.conv_in = DynamicConv(embed_dim=cfg.ch, stride=1, padding=1, policy=policy,
                                        **_stem_kwargs(cfg.stem))
         else:
@@ -157,7 +164,10 @@ class Decoder(nn.Module):
         self.up = nn.ModuleList(stages)
 
         self.norm_out = GroupNorm(block_in, policy)
-        if cfg.use_dynamic_ops:
+        if cfg.use_dynamic_ops and cfg.stem.mode == "basis":
+            self.conv_out = DynamicOutputLayer(in_channels=block_in, policy=policy,
+                                               **_basis_kwargs(cfg.stem))
+        elif cfg.use_dynamic_ops:
             self.conv_out = DynamicConvDecoder(embed_dim=block_in, stride=1, padding=1,
                                                policy=policy, **_stem_kwargs(cfg.stem))
         else:

@@ -81,7 +81,8 @@ class EOFluxVAE:
         or a Flux teacher ``.safetensors`` (body only).
 
         With dynamic stems, a full checkpoint's static ``conv_in``/``conv_out``
-        entries are skipped and missing stem weights are expected. Under
+        (its ``weight`` and ``bias``, where it holds the static ``weight``) are
+        skipped, and missing stem weights are expected. Under
         ``strict``, unknown ``encoder.``/``decoder.``/``bn.`` keys and other
         missing parameters raise.
         """
@@ -107,8 +108,8 @@ class EOFluxVAE:
             if not torch.is_tensor(value) or any(key.startswith(k) for k in ignore_keys):
                 continue
             part = key.split(".")[0]
-            if (part in dynamic and dynamic[part] and key.startswith(_STEM_PREFIXES[part])
-                    and "weight_generator" not in key and "fclayer" not in key):
+            stem = _STEM_PREFIXES[part] if dynamic.get(part) else None
+            if stem and key in (f"{stem}.weight", f"{stem}.bias") and f"{stem}.weight" in sd:
                 continue  # static stem of a teacher checkpoint
             if key in own:
                 load[key] = value

@@ -141,9 +141,11 @@ class DiffusionSuperRes:
         return torch.mean((x0 - hr.float()) ** 2)
 
     def _place(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """This rank's NHWC numpy (hr, lr) latents as contiguous NCHW fp32
-        tensors on its device (the kernels take contiguous NCHW only)."""
-        placed = place_batch({k: np.asarray(batch[k], np.float32)
+        """This rank's NHWC (hr, lr) pair as contiguous NCHW fp32 tensors on its
+        device (the kernels take contiguous NCHW only): numpy arrays are copied
+        there, tensors already there (the flow-refine adapter's) stay."""
+        placed = place_batch({k: batch[k].float() if torch.is_tensor(batch[k])
+                              else np.asarray(batch[k], np.float32)
                               for k in ("image_hr", "image_lr")}, self.mesh)
         return tuple(placed[k].permute(0, 3, 1, 2).contiguous()
                      for k in ("image_hr", "image_lr"))

@@ -15,6 +15,13 @@ the reference's ``blocks.N``, ``attn.qkv``, ``mlp.fc1``, ``heads.k.i``. The
 same rules map the SR UNet's params (``eovax_torch.models.unet.UNet`` names
 its modules to match), :func:`discriminator_state_dict` a discriminator's,
 with its spectral-norm statistics, and :func:`dofa_state_dict` a DOFA tree's.
+
+The shared-basis stems (``eovax_torch.nn.dynamic_basis``) keep the JAX
+package's names (``basis_bank`` [num_bases, K, K], ``hypernet.backbone_0`` …
+``expansion``, ``wv_proj``, ``bias_generator_0``/``_2``), and the multi-stage
+heads' ``transformer.layers_N`` becomes ``transformer.layers.N``. The
+reference implementation's own torch names for the basis layers are not
+available to check, so no rule maps a reference checkpoint of a basis model.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ _REWRITES = [
     (re.compile(r"(^|\.)up_(\d+)_upsample\."), r"\1up.\2.upsample."),
     (re.compile(r"(^|\.)mid_block_(\d)\."), r"\1mid.block_\2."),
     (re.compile(r"(^|\.)mid_attn_(\d)\."), r"\1mid.attn_\2."),
-    (re.compile(r"transformer_encoder\.layers_(\d+)\."), r"transformer_encoder.layers.\1."),
+    (re.compile(r"(transformer_encoder|transformer)\.layers_(\d+)\."), r"\1.layers.\2."),
     (re.compile(r"fc_weight_(\d+)\."), r"fc_weight.\1."),
     (re.compile(r"(^|\.)conditioner\.mlp_(\d+)\."), r"\1conditioner.mlp.\2."),
     # DOFA (``eovax_torch.models.dofa`` keeps the reference torch names): the

@@ -139,8 +139,25 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_basis_stem_not_ported_yet():
-    cfg = _tiny(tcfg)
-    stem = dataclasses.replace(cfg.encoder.stem, mode="basis")
-    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, stem=stem))
-    with pytest.raises(NotImplementedError, match="basis"):
-        EOFluxVAE(cfg, device="cpu")
+    """Named when the port refused ``stem.mode: basis``; it now holds the basis
+    stems' model against the JAX package's: the tiny config with shared-basis
+    stems (8 bases, rank 16) on both sides, the JAX init perturbed as the
+    ``models`` fixture's, ``reconstruct`` at both band sets within TOL."""
+    def basis(m):
+        cfg = _tiny(m)
+        stem = dataclasses.replace(cfg.encoder.stem, mode="basis", num_bases=8, rank_dim=16)
+        return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, stem=stem),
+                                   decoder=dataclasses.replace(cfg.decoder, stem=stem))
+
+    jm = JaxVAE(basis(jcfg), seed=1)
+    g = np.random.default_rng(1)
+    variables = jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + g.normal(0.0, 0.02, a.shape)).astype(np.float32),
+        jm.variables)
+    jm.variables = jax.tree_util.tree_map(jnp.asarray, variables)
+    tm = EOFluxVAE(basis(tcfg), state_dict_from_variables(variables), device="cpu")
+    assert type(tm.core.encoder.conv_in).__name__ == "DynamicInputLayer"
+    assert type(tm.core.decoder.conv_out).__name__ == "DynamicOutputLayer"
+    for bands in BANDS:
+        x, wvs = _inputs(bands)
+        _close(tm.reconstruct(x, wvs), jm.reconstruct(x, wvs))

@@ -638,16 +638,31 @@ def test_train_cli_writes_the_experiment_and_resumes(tmp_path):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
+    """The int8 policy is refused (inference only, as in the JAX CLI);
+    ``training_mode: flow-refine``, refused until the port had it, trains the
+    refiner of ``FluxAutoencoderKL`` (on S2RGB batches: the refiner has
+    ``decoder.out_ch`` = 3 channels) and writes ``refiner-final.pt``."""
+    from pathlib import Path
+
+    import yaml
+
     from eovax_torch.cli import train
 
-    cpu = ["--device", "cpu", "--precision", "32-true", "--debug"]
     config = _write_tiny_yaml(tmp_path)
     with pytest.raises(SystemExit, match="int8"):
         train.main(["--config", config, "--synthetic-data", "--device", "cpu",
                     "--precision", "int8"])
-    refine = _write_tiny_yaml(tmp_path, "refine.yaml", training_mode="flow-refine")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train.main(["--config", refine, "--synthetic-data"] + cpu)
+    refine = _write_tiny_yaml(tmp_path, "refine.yaml", training_mode="flow-refine",
+                              refiner={"hid_channels": [16, 16], "hid_blocks": [1, 1]})
+    raw = yaml.safe_load(Path(refine).read_text())
+    raw["model"]["decoder"]["out_ch"] = 3
+    raw["datamodule"]["modalities"] = ["S2RGB"]
+    raw["experiment"]["exp_dir"] = str(tmp_path / "refine_exps")
+    Path(refine).write_text(yaml.safe_dump(raw))
+    train.main(["--config", refine, "--synthetic-data", "--device", "cpu", "--precision",
+                "32-true", "--max-steps", "1"])
+    (exp,) = (tmp_path / "refine_exps").iterdir()
+    assert (exp / "refiner-final.pt").is_file() and not (exp / "eo-vae-final.pt").exists()
 
 
 # -- the loss factory --------------------------------------------------------------------------
