@@ -274,6 +274,37 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    carry the three drives' launches as ``bases_launches``, ``refine_launches``
    and ``legacy_launches``, and the refiner's timed shapes as ``refine_shapes``.
 
+15. Serving. ``eovax_torch.cli.export`` on ``configs/eo-vae.yaml`` with phase
+   3's weights (a test-written ``.ckpt``), bf16, S2L2A 256², all three
+   functions, then again with ``--compact-weights``: seconds and each file's
+   size. ``ServedModel.load`` on the card; the artifact's ``reconstruct`` at
+   B = 1, 3 and 16 against the live model (``torch.equal``, held at 1e-2),
+   encode and decode too, with exact launches 48/52/2, 20/22/1, 28/30/1 a
+   call; the compact artifact against the full one; ``reconstruct`` at B=16,
+   artifact against live (CUDA events, order A L L A). The custom ops'
+   dispatch cost: phase 8's UNet eval [8,32,64,64] and ``reconstruct`` B=16
+   with the live path direct and through the ``eovax::`` ops
+   (``eovax_torch.kernels.ops.live``). The export CLI with ``--sr-config``
+   (phase 8's full-width UNet, its weights a test-written ``--sr-ckpt``),
+   DDIM-50, LR 128² (4-band Sen2NAIP), in a process started at the phase's
+   start (its trace takes minutes of the host): export and load seconds, the
+   ``.pt2``'s size; calls at B = 1 and 4 with exact launches
+   2348/2452/52 (the encode's, the decode's and 50 UNet evals), their ms; row
+   i of B = 4 against the B = 1 call with seed 5+i (noise ``torch.equal``,
+   outputs within 1e-1) and the B = 1 call against the live encode →
+   ``DDIMSampler`` → decode from the same x1. The daemon: ``make_server`` on
+   a thread, 16 client threads posting 64 B=1 ``reconstruct`` ``.npy``
+   payloads, unbatched and with ``max_batch=16``: requests/s, p50/p99 from
+   ``/metrics``, launches equal to the device calls' 48/52/2 each, batched
+   replies against unbatched ones; 4 concurrent SR requests coalesced, each
+   against its own B=1 call. ``python -m eovax_torch.cli.serve`` as a process:
+   ``/healthz``, one request, SIGTERM, exit 0. ``EOFluxVAE.save`` to
+   ``.msgpack`` and ``load_checkpoint`` into a fresh model: ``reconstruct``
+   ``torch.equal``. Files under ``build/chip_smoke_serving_*``, removed at the
+   end. The ``kernels`` line's hand-kernel entries carry the artifact's B=16
+   ``reconstruct`` launches as ``serving_launches`` and an SR-artifact call's
+   as ``serving_sr_launches``.
+
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
 taken again, up to three in all, and a third short one fails the script; the
@@ -286,6 +317,7 @@ Without a CUDA device the script exits with an error before any result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import shutil
 import subprocess
@@ -744,10 +776,10 @@ def bench_state_dict(model, seed: int) -> dict:
     return sd
 
 
-def drive(label: str, fn, expected: dict):
+def drive(label: str, fn, expected: dict | None):
     """Run ``fn()`` with every kernel's launch count set to 0 just before it;
-    the counts read just after must equal ``expected``. Returns the output
-    and the counts."""
+    the counts read just after must equal ``expected`` (the caller checks them
+    where it passes None). Returns the output and the counts."""
     import torch
 
     from eovax_torch.kernels import attention, conv3x3, groupnorm
@@ -767,7 +799,7 @@ def drive(label: str, fn, expected: dict):
     torch.cuda.synchronize()
     got = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
     print(f"{label}: launches {got}")
-    if got != expected:
+    if expected is not None and got != expected:
         raise AssertionError(f"{label}: expected launches {expected}, got {got}")
     return out, got
 
@@ -3994,6 +4026,435 @@ def legacy_phase(card: str) -> dict:
     return counts
 
 
+# Phase 15: serving. Launches of one SR-artifact call (conv3x3 / group_norm /
+# flash_attention): the encode's and the decode's, and 50 UNet evals (DDIM-50).
+SERVE_ENCODE, SERVE_DECODE = (20, 22, 1), (28, 30, 1)
+SR_STEPS = 50
+SR_CALL = tuple(e + d + SR_STEPS * u for e, d, u in zip(SERVE_ENCODE, SERVE_DECODE, UNET_EVAL))
+# Requests the daemon answers in each mode, from this many client threads.
+SERVE_REQUESTS, SERVE_CLIENTS = 64, 16
+
+
+def file_sizes(out: Path) -> str:
+    return ", ".join(f"{p.name} {p.stat().st_size / 2**20:.2f} MiB" for p in sorted(out.iterdir()))
+
+
+def npy_bytes(x) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, x)
+    return buf.getvalue()
+
+
+def post_npy(base: str, path: str, body: bytes):
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    with urllib.request.urlopen(urllib.request.Request(base + path, data=body),
+                                timeout=300) as r:
+        return np.load(io.BytesIO(r.read()), allow_pickle=False)
+
+
+def get_json(base: str, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return json.load(r)
+
+
+def serve_clients_main(argv: list[str]) -> int:
+    """``chip_smoke.py --serve-clients BASE REQUESTS REPLIES``: ``SERVE_CLIENTS``
+    threads post the B=1 ``reconstruct`` payloads of the ``.npy`` REQUESTS to the
+    daemon at BASE and write the replies, in request order, to REPLIES. Prints
+    the seconds from the first post to the last reply as JSON. A process of its
+    own, so that the clients' ``.npy`` and HTTP work do not take the daemon's
+    interpreter lock."""
+    import threading
+
+    import numpy as np
+
+    base, requests, out = argv
+    xs = np.load(requests)
+    bodies = [npy_bytes(x) for x in xs]
+    replies, errors = [None] * len(xs), []
+
+    def client(k):
+        try:
+            for i in range(k, len(xs), SERVE_CLIENTS):
+                replies[i] = post_npy(base, "/v1/reconstruct?modality=S2L2A", bodies[i])
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(repr(e))
+
+    clients = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    if not errors and all(r is not None for r in replies):
+        np.save(out, np.stack(replies))
+    print(json.dumps({"seconds": seconds, "errors": errors[:3]}))
+    return 0 if not errors else 1
+
+
+def serve_clients(served, requests: Path, max_batch: int, card: str):
+    """``make_server`` on a thread, and ``SERVE_CLIENTS`` client threads in another
+    process posting the B=1 ``reconstruct`` payloads of ``requests``. Returns the
+    replies in request order and the run's numbers (requests/s, the daemon's
+    p50/p99, its device calls; the kernels' launches checked against them)."""
+    import threading
+
+    import numpy as np
+
+    from eovax_torch.serving.server import make_server
+
+    httpd = make_server(served, port=0, max_batch=max_batch, batch_wait_ms=3.0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    replies = requests.with_name(f"replies_{max_batch}.npy")
+    label = f"daemon {'max_batch=' + str(max_batch) if max_batch else 'unbatched'}"
+    try:
+        proc, counts = drive(
+            f"{label}: {SERVE_REQUESTS} B=1 reconstruct requests", lambda: subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-clients", base,
+                 str(requests), str(replies)], capture_output=True, text=True, timeout=900),
+            None)
+        metrics = get_json(base, "/metrics")
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=30)
+        httpd.server_close()
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: clients failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    seconds = json.loads(proc.stdout.strip().splitlines()[-1])["seconds"]
+    m = metrics["reconstruct"]
+    calls = metrics["_batching"]["reconstruct"]["batches"] if max_batch else SERVE_REQUESTS
+    if m["count"] != SERVE_REQUESTS or m["errors"] or counts != launches(
+            *(calls * n for n in (48, 52, 2))):
+        raise AssertionError(f"{label}: metrics {metrics}, launches {counts} for {calls} calls")
+    row = dict(requests=SERVE_REQUESTS, seconds=seconds, requests_per_s=SERVE_REQUESTS / seconds,
+               p50_ms=m["p50_ms"], p99_ms=m["p99_ms"], device_calls=calls,
+               batching=metrics.get("_batching", {}).get("reconstruct"))
+    print(f"{label}: {row['requests_per_s']:.2f} requests/s ({SERVE_REQUESTS} from "
+          f"{SERVE_CLIENTS} client threads of another process in {seconds:.3f} s), p50 "
+          f"{m['p50_ms']} ms, p99 {m['p99_ms']} ms, {calls} device calls, batching "
+          f"{row['batching']} [{card}]")
+    return np.load(replies), row
+
+
+def serve_cli_process(art: Path, card: str) -> None:
+    """``python -m eovax_torch.cli.serve`` as a process on port 0: one request,
+    /healthz, SIGTERM, exit 0."""
+    import signal
+
+    import numpy as np
+
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "eovax_torch.cli.serve", str(art), "--port",
+                             "0", "--warmup", "1"], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(300, proc.kill)  # a server that never starts stops the read
+    watchdog.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving "):
+                break
+        if not lines or not lines[-1].startswith("serving "):
+            raise AssertionError(f"serve CLI did not start: {lines} {proc.stderr.read()[-3000:]}")
+        up = time.perf_counter() - t0
+        base = lines[-1].split(" on ")[1].split("/v1/")[0]
+        if get_json(base, "/healthz") != {"status": "ok"}:
+            raise AssertionError("serve CLI: /healthz")
+        x = np.random.default_rng(41).standard_normal((1, 12, 256, 256)).astype(np.float32)
+        y = post_npy(base, "/v1/reconstruct?modality=S2L2A", npy_bytes(x))
+        if y.shape != x.shape or not np.isfinite(y).all():
+            raise AssertionError(f"serve CLI reply {y.shape}")
+        proc.send_signal(signal.SIGTERM)
+        rest, err = proc.communicate(timeout=120)
+        if proc.returncode != 0 or "shut down" not in rest:
+            raise AssertionError(f"serve CLI exit {proc.returncode}: {rest} {err[-3000:]}")
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(f"serve CLI: up in {up:.1f} s ({'; '.join(lines)}), /healthz ok, one reconstruct "
+          f"{tuple(y.shape)} finite, SIGTERM -> exit 0 [{card}]")
+
+
+def serving_phase(model, sd: dict, card: str, g) -> dict:
+    """Phase 15: the serving path at full width. Returns the kernels' launches of
+    one artifact ``reconstruct`` at B=16 and of one SR-artifact call at B=4."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.cli import export as export_cli
+    from eovax_torch.cli.train_super_res import build_denoiser_from_config
+    from eovax_torch.core.config import load_yaml
+    from eovax_torch.core.precision import DEFAULT_POLICY
+    from eovax_torch.data.sen2naip import SEN2NAIP_WVS
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.kernels import ops
+    from eovax_torch.models.sr_diffusion import DDIMSampler
+    from eovax_torch.serving import ServedModel, per_sample_seeds
+    from eovax_torch.serving.batching import to_host
+    from eovax_torch.serving.server import make_server, warmup
+
+    dev = g.device
+    s2 = wavelengths_for("S2L2A")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serving_", dir=ROOT / "build"))
+    sr_export = None
+    try:
+        # ---- the SR artifact's export, in a process of its own ---------------------
+        # Tracing the unrolled DDIM-50 graph takes minutes of the host: the export
+        # CLI runs it while this process checks the VAE artifact and the daemon.
+        torch.save({"state_dict": sd}, tmp / "eo-vae.ckpt")
+        lm = load_yaml(str(SR_CONFIG))["lightning_module"]
+        denoiser, unet = build_denoiser_from_config(lm, policy=DEFAULT_POLICY, device=dev)
+        unet.load_state_dict(sr_state_dict(unet, seed=10))
+        torch.save(unet.state_dict(), tmp / "unet.pt")
+        sr_t0 = time.perf_counter()
+        with open(tmp / "sr_export.log", "w") as sr_log:
+            sr_export = subprocess.Popen(
+                [sys.executable, "-m", "eovax_torch.cli.export", "--config",
+                 str(ROOT / "configs" / "eo-vae.yaml"), "--ckpt", str(tmp / "eo-vae.ckpt"),
+                 "--output", str(tmp / "sr"), "--sr-config", str(SR_CONFIG), "--sr-ckpt",
+                 str(tmp / "unet.pt"), "--sr-steps", str(SR_STEPS), "--resolution", "128"],
+                cwd=ROOT, stdout=sr_log, stderr=subprocess.STDOUT)
+
+        # ---- the VAE artifact: the export CLI on configs/eo-vae.yaml -------------
+        art, compact = tmp / "artifact", tmp / "artifact_compact"
+        for out, extra in ((art, []), (compact, ["--compact-weights"])):
+            t0 = time.perf_counter()
+            export_cli.main(["--config", str(ROOT / "configs" / "eo-vae.yaml"), "--ckpt",
+                             str(tmp / "eo-vae.ckpt"), "--output", str(out), "--modalities",
+                             "S2L2A", "--resolution", "256", "--precision", "16-mixed", *extra])
+            print(f"export CLI{' ' + extra[0] if extra else ''}: {time.perf_counter() - t0:.1f} s "
+                  f"with the model's build and load; {file_sizes(out)} [{card}]")
+        t0 = time.perf_counter()
+        served = ServedModel.load(str(art))
+        for name in ("reconstruct", "encode_spatial_normalized", "decode_spatial_normalized"):
+            served._fn(name, "S2L2A")
+        print(f"ServedModel.load on the card: {time.perf_counter() - t0:.1f} s with its 3 graphs")
+        stamp("phase 15: export and load")
+
+        counts = {}
+        for b in (1, 3, 16):
+            x = torch.randn(b, 12, 256, 256, generator=g, device=dev)
+            y, counts = drive(f"artifact reconstruct [{b},12,256,256] bf16",
+                              lambda: served.reconstruct(x), launches(48, 52, 2))
+            ref = model.reconstruct(x, s2)
+            err, rel = rel_err(y, ref)
+            same = torch.equal(y, ref)
+            print(f"artifact reconstruct B={b} vs the live model: torch.equal {same}, "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} tol {TOL_GN_BF16:g}")
+            if not (same or rel <= TOL_GN_BF16) or tuple(y.shape) != tuple(x.shape):
+                raise AssertionError(f"artifact reconstruct B={b} disagrees with the live model")
+        x = torch.randn(3, 12, 256, 256, generator=g, device=dev)
+        z, _ = drive("artifact encode_spatial_normalized [3,12,256,256]",
+                     lambda: served.encode_spatial_normalized(x), launches(*SERVE_ENCODE))
+        y, _ = drive("artifact decode_spatial_normalized [3,32,32,32]",
+                     lambda: served.decode_spatial_normalized(z), launches(*SERVE_DECODE))
+        for label, out, ref in (("encode", z, model.encode_spatial_normalized(x, s2)),
+                                ("decode", y, model.decode_spatial_normalized(z, s2))):
+            err, rel = rel_err(out, ref)
+            if not (torch.equal(out, ref) or rel <= TOL_GN_BF16):
+                raise AssertionError(f"artifact {label} disagrees with the live model: {rel}")
+            print(f"artifact {label} vs the live model: torch.equal {torch.equal(out, ref)}, "
+                  f"rel={rel:.3e}")
+        small = ServedModel.load(str(compact))
+        yc = small.reconstruct(x)
+        err, rel = rel_err(yc, served.reconstruct(x))
+        print(f"compact-weights artifact (bf16 parameters) vs the fp32-parameter one "
+              f"[3,12,256,256]: max_abs_err={err:.3e} rel={rel:.3e} tol {TOL_MODEL_BF16:g}")
+        if rel > TOL_MODEL_BF16 or not torch.isfinite(yc).all():
+            raise AssertionError("the compact-weights artifact disagrees")
+        del small, yc
+
+        x16 = torch.randn(16, 12, 256, 256, generator=g, device=dev)
+        times = {}
+        for b in (16, 1):
+            for label in ("artifact", "live", "live", "artifact"):
+                fn = ((lambda: served.reconstruct(x16[:b])) if label == "artifact"
+                      else (lambda: model.reconstruct(x16[:b], s2)))
+                times.setdefault((b, label), []).append(cuda_ms(fn, 10))
+            print(f"time reconstruct [{b},12,256,256] bf16: artifact {times[b, 'artifact']} ms, "
+                  f"live model {times[b, 'live']} ms (CUDA events, 10 calls after 2, order A L L "
+                  f"A) [{card}]")
+        # One request's path without HTTP: the payload to the card, the graph, the
+        # reply to the host (as the daemon's handler runs it), 8 in a row.
+        payload = np.random.default_rng(42).standard_normal((1, 12, 256, 256)).astype(np.float32)
+        walls = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            to_host(served.reconstruct(payload))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"time one B=1 request's device path (host numpy in, host numpy out), 8 in a row: "
+              f"{[round(w, 3) for w in walls]} ms [{card}]")
+        times = {f"{label} B={b}": v for (b, label), v in times.items()}
+        stamp("phase 15: artifact against the live model")
+
+        # ---- the custom ops' dispatch on the live path ----------------------------
+        xu, cu = (torch.randn(8, 32, 64, 64, generator=g, device=dev) for _ in range(2))
+        tu = torch.rand(8, generator=g, device=dev)
+        dispatch = {}
+        with torch.inference_mode():
+            for label, fn in (("UNet eval [8,32,64,64]", lambda: unet(xu, tu, cu)),
+                              ("reconstruct [16,12,256,256]", lambda: model.reconstruct(x16, s2))):
+                row = {"direct": [], "op": []}
+                for route in ("direct", "op", "op", "direct"):
+                    with ops.live() if route == "op" else contextlib.nullcontext():
+                        row[route].append(cuda_ms(fn, 20))
+                direct, op = (sum(v) / len(v) for v in (row["direct"], row["op"]))
+                dispatch[label] = dict(row, cost_pct=100 * (op / direct - 1))
+                print(f"time {label} bf16, live path direct {row['direct']} ms vs through the "
+                      f"eovax:: custom ops {row['op']} ms: {100 * (op / direct - 1):+.2f} % "
+                      f"(CUDA events, 20 calls after 2, order D O O D) [{card}]")
+        stamp("phase 15: custom-op dispatch")
+
+        # ---- the daemon -------------------------------------------------------------
+        warmup(served, batch_sizes=(1, 2, 4, 8, 16))
+        requests = tmp / "requests.npy"
+        np.save(requests, np.random.default_rng(40).standard_normal(
+            (SERVE_REQUESTS, 1, 12, 256, 256)).astype(np.float32))
+        plain, unbatched = serve_clients(served, requests, 0, card)
+        batched_replies, batched = serve_clients(served, requests, 16, card)
+        # Other batch sizes take other GroupNorm plans and cuDNN algorithms: the
+        # whole model's bf16 limit.
+        worst = max(rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
+                    for a, b in zip(batched_replies, plain))
+        print(f"daemon: batched replies vs unbatched ones rel <= {worst:.3e} "
+              f"tol {TOL_MODEL_BF16:g}")
+        if worst > TOL_MODEL_BF16:
+            raise AssertionError("batched replies disagree with unbatched ones")
+        stamp("phase 15: daemon")
+
+        serve_cli_process(art, card)
+        stamp("phase 15: serve CLI")
+
+        # ---- loading: the port's .msgpack of the phase's weights -------------------
+        t0 = time.perf_counter()
+        model.save(str(tmp / "eo-vae.msgpack"))
+        saved = time.perf_counter() - t0
+        fresh = EOFluxVAE(shipped_config(12), policy=DEFAULT_POLICY, device=dev, seed=1)
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(str(tmp / "eo-vae.msgpack"))
+        loaded = time.perf_counter() - t0
+        same = torch.equal(fresh.reconstruct(x, s2), model.reconstruct(x, s2))
+        print(f"EOFluxVAE.save .msgpack {(tmp / 'eo-vae.msgpack').stat().st_size / 2**20:.1f} MiB "
+              f"in {saved:.2f} s, load_checkpoint in {loaded:.2f} s: reconstruct torch.equal "
+              f"{same} [{card}]")
+        if not same:
+            raise AssertionError("the .msgpack round trip changed the model")
+        del fresh
+        stamp("phase 15: .msgpack loading")
+
+        # ---- the SR artifact: DDIM-50 at LR 128² ----------------------------------
+        rc = sr_export.wait(timeout=600)
+        log = (tmp / "sr_export.log").read_text()
+        if rc != 0:
+            raise AssertionError(f"the SR export CLI failed ({rc}): {log[-3000:]}")
+        print(f"SR export CLI (DDIM-{SR_STEPS}, LR 128², a process started at the phase's "
+              f"start; {time.perf_counter() - sr_t0:.1f} s to its end): {log.strip()} [{card}]")
+        t0 = time.perf_counter()
+        sr = ServedModel.load(str(tmp / "sr"))
+        sr._fn("super_resolve")
+        print(f"ServedModel.load of the SR artifact: {time.perf_counter() - t0:.1f} s")
+        lr = torch.randn(4, 4, 128, 128, generator=g, device=dev)
+        sr_counts, sr_ms = {}, {}
+        for b in (1, 4):
+            y, sr_counts = drive(f"SR artifact super_resolve [{b},4,128,128] DDIM-{SR_STEPS}",
+                                 lambda: sr.super_resolve(lr[:b], seed=5), launches(*SR_CALL))
+            if tuple(y.shape) != (b, 4, 128, 128) or not torch.isfinite(y).all():
+                raise AssertionError("SR artifact gave a wrong shape or non-finite values")
+            sr_ms[b] = cuda_ms(lambda: sr.super_resolve(lr[:b], seed=5), 3, warmup=1)
+            print(f"time SR artifact super_resolve [{b},4,128,128] DDIM-{SR_STEPS}: "
+                  f"{sr_ms[b]:.3f} ms/call, {b * 1e3 / sr_ms[b]:.2f} imgs/s [{card}]")
+        y4 = sr.super_resolve(lr, seed=5)
+        worst = 0.0
+        for i in range(4):
+            if not torch.equal(sr.noise(per_sample_seeds(5, 4))[i:i + 1], sr.noise([5 + i])):
+                raise AssertionError(f"SR row {i}: the noise differs from the B=1 call's")
+            worst = max(worst, rel_err(y4[i:i + 1], sr.super_resolve(lr[i:i + 1],
+                                                                     seed=5 + i))[1])
+        print(f"SR artifact row i of B=4 vs the B=1 call with seed 5+i: noise equal, outputs "
+              f"rel <= {worst:.3e} tol {TOL_MODEL_BF16:g}")
+        if worst > TOL_MODEL_BF16:
+            raise AssertionError("SR artifact rows disagree with their B=1 calls")
+        with torch.inference_mode():  # the live composition from the same x1
+            z_lr = model.encode_spatial_normalized(lr[:1], SEN2NAIP_WVS)
+            z_hr = DDIMSampler(denoiser, steps=SR_STEPS)(unet, sr.noise([5]), z_lr)
+            ref = model.decode_spatial_normalized(z_hr, SEN2NAIP_WVS)
+        err, rel = rel_err(sr.super_resolve(lr[:1], seed=5), ref)
+        print(f"SR artifact vs encode -> DDIMSampler -> decode live from the same x1: "
+              f"max_abs_err={err:.3e} rel={rel:.3e} tol {TOL_MODEL_BF16:g}")
+        if rel > TOL_MODEL_BF16:
+            raise AssertionError("SR artifact disagrees with the live composition")
+        stamp("phase 15: SR artifact")
+
+        srv = make_server(sr, port=0, max_batch=4, batch_wait_ms=200.0)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            sr.super_resolve(lr, seed=0)  # the coalesced size, once
+            x1 = lr[:1].cpu().numpy()
+            replies, errors = {}, []
+
+            def post(seed):
+                try:
+                    replies[seed] = post_npy(base, f"/v1/super_resolve?seed={seed}",
+                                             npy_bytes(x1))
+                except Exception as e:  # noqa: BLE001 (reported below)
+                    errors.append(e)
+
+            clients = [threading.Thread(target=post, args=(s,)) for s in (3, 11, 12, 40)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+            stats = get_json(base, "/metrics")["_batching"]["super_resolve"]
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+            srv.server_close()
+        if errors or stats["requests"] != 4 or stats["max_samples_per_batch"] < 2:
+            raise AssertionError(f"SR daemon: {errors} {stats}")
+        worst = max(rel_err(torch.from_numpy(replies[s]),
+                            sr.super_resolve(x1, seed=s).float().cpu())[1]
+                    for s in (3, 11, 12, 40))
+        print(f"daemon SR: 4 concurrent requests in {stats['batches']} device calls, each reply "
+              f"vs its own B=1 call rel <= {worst:.3e} tol {TOL_MODEL_BF16:g}")
+        if worst > TOL_MODEL_BF16:
+            raise AssertionError("batched SR requests lost their seeds")
+        del sr
+        stamp("phase 15: SR daemon")
+    finally:
+        if sr_export is not None and sr_export.poll() is None:
+            sr_export.kill()
+            sr_export.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": counts, "sr_launches": sr_counts, "sr_ms": sr_ms,
+            "reconstruct_ms": times, "dispatch": dispatch,
+            "daemon": {"unbatched": unbatched, "batched": batched}}
+
+
 def main() -> int:
     import torch
 
@@ -4312,6 +4773,7 @@ def main() -> int:
     bases_counts = bases_phase(card, gan_ms)
     refine = refine_phase(sd, card, g)
     legacy_counts = legacy_phase(card)
+    serving = serving_phase(model, sd, card, g)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -4375,6 +4837,9 @@ def main() -> int:
         entry["legacy_launches"] = legacy_counts[entry["name"]]
         if entry["name"] in refine["shapes"]:
             entry["refine_shapes"] = refine["shapes"][entry["name"]]
+        # Phase 15: an artifact reconstruct at B=16, an SR-artifact call at B=4.
+        entry["serving_launches"] = serving["launches"][entry["name"]]
+        entry["serving_sr_launches"] = serving["sr_launches"][entry["name"]]
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -4385,4 +4850,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dp_rank_main(sys.argv[1:]) if sys.argv[1:2] == ["--dp-rank"] else main())
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[1:]))
+    if sys.argv[1:2] == ["--serve-clients"]:
+        sys.exit(serve_clients_main(sys.argv[2:]))
+    sys.exit(main())

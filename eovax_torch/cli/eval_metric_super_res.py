@@ -13,8 +13,9 @@ Usage:
         [--num-batches 8] [--output results/sr-metrics] [--device cuda]
 
 ``--sr-ckpt`` is a torch state dict of the port's UNet
-(``eovax_torch.models.unet.UNet``; from the JAX package's params through
-``eovax_torch.utils.convert.state_dict_from_variables``).
+(``eovax_torch.models.unet.UNet``; ``sr-final.pt`` of the port's trainer) or
+the ``.msgpack`` that the JAX package's SR trainer writes (``sr-best.msgpack``,
+its params through ``eovax_torch.utils.convert.state_dict_from_variables``).
 """
 
 from __future__ import annotations
@@ -100,6 +101,7 @@ def main(argv=None) -> None:
     from eovax_torch.data.sen2naip import Sen2NaipCrossSensorLatent
     from eovax_torch.models.eo_flux_vae import EOFluxVAE
     from eovax_torch.train.sr import DiffusionSuperRes
+    from eovax_torch.utils.convert import read_state_dict
 
     vae = EOFluxVAE.from_config(args.vae_config, args.vae_ckpt, policy=DEFAULT_POLICY,
                                 device=args.device)
@@ -108,7 +110,7 @@ def main(argv=None) -> None:
         {"denoiser": {"backbone": {"in_channels": z, "out_channels": z, "cond_channels": z}}},
         device=vae.device,
     )
-    unet.load_state_dict(torch.load(args.sr_ckpt, map_location=vae.device), strict=True)
+    unet.load_state_dict(read_state_dict(args.sr_ckpt), strict=True)
     trainer = DiffusionSuperRes(
         denoiser=denoiser, init_params=unet, sampler_steps=args.sr_steps,
     )

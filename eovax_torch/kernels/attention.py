@@ -17,6 +17,9 @@ When an input requires grad, :func:`flash_attention` is a
 recomputes the fp32 probabilities from the saved q, k and v in tensor ops: the
 JAX trainer's gradient is autodiff of ``sdpa_auto``'s plain einsum, outside any
 Pallas kernel, and this is that gradient.
+
+The forward is also the custom op ``eovax::flash_attention``
+(:mod:`eovax_torch.kernels.ops`), through which a ``torch.export`` trace reaches it.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import functools
 
 import torch
 
-from eovax_torch.kernels import build
+from eovax_torch.kernels import build, ops
 
 SOURCE = "flash_attention.cu"
 KERNEL_HEAD_DIMS = (64, 128, 256, 512)
@@ -71,9 +74,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+def _launch_counted(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -107,6 +108,27 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("eovax::flash_attention", mutates_args=(), device_types="cpu")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return flash_attention_plain(q, k, v)
+
+
+_flash_attention_op.register_kernel("cuda")(_launch_counted)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v):
+    return torch.empty_like(q)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if ops.through_op():
+        return _flash_attention_op(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    return _launch_counted(q, k, v)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
@@ -126,7 +148,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     is enabled and an input requires it, the output carries the backward of
     :func:`flash_attention_backward`.
     """
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if (torch.is_grad_enabled() and not torch.compiler.is_exporting()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return _FlashAttention.apply(q, k, v)
     return _forward(q, k, v)
 

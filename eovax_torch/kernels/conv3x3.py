@@ -17,6 +17,9 @@ same kernel on the flipped, in/out-transposed weights without bias
 (:func:`conv3x3_dx`), the weight gradient as the library's conv weight
 gradient in the compute dtype (the JAX package leaves it to XLA), and the bias
 gradient as Σg in fp32; each is cast to its input's dtype.
+
+The forward is also the custom op ``eovax::conv3x3`` (:mod:`eovax_torch.kernels.ops`),
+through which a ``torch.export`` trace reaches it.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from eovax_torch.kernels import build
+from eovax_torch.kernels import build, ops
 
 SOURCE = "conv3x3.cu"
 KERNEL_CI_MULTIPLE = 16  # the bf16 kernel's K chunk
@@ -129,12 +132,31 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, what: s
     return out
 
 
-def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w, bias)
+def _launch_counted(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     out = _launch(x, w, bias, "conv3x3")
     conv3x3.launches += 1
     return out
+
+
+@torch.library.custom_op("eovax::conv3x3", mutates_args=(), device_types="cpu")
+def _conv3x3_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return conv3x3_plain(x, w, bias)
+
+
+_conv3x3_op.register_kernel("cuda")(_launch_counted)
+
+
+@_conv3x3_op.register_fake
+def _(x, w, bias):
+    return x.new_empty((x.shape[0], w.shape[0], x.shape[2], x.shape[3]))
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    if ops.through_op():
+        return _conv3x3_op(x, w, bias)
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, bias)
+    return _launch_counted(x, w, bias)
 
 
 def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -175,7 +197,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
     (and add one to ``conv3x3.launches``) or raise. Where grad is enabled and
     an input requires it, the output carries the backward described above.
     """
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or bias.requires_grad):
+    if (torch.is_grad_enabled() and not torch.compiler.is_exporting()
+            and (x.requires_grad or w.requires_grad or bias.requires_grad)):
         return _Conv3x3.apply(x, w, bias)
     return _forward(x, w, bias)
 

@@ -22,6 +22,11 @@ whose backward is :func:`group_norm_backward`: the JAX package's closed form
 hand-written kernel (one cluster per (batch, group) that reads x and the
 output gradient once, on the plan of :func:`_bwd_plan`) and a few [B, C]
 tensor ops.
+
+The forward without statistics is also the custom op ``eovax::group_norm``
+(:mod:`eovax_torch.kernels.ops`), through which a ``torch.export`` trace reaches
+it; the op takes the plan and checks the operands inside, where the batch is a
+number.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from eovax_torch.kernels import build
+from eovax_torch.kernels import build, ops
 
 SOURCE = "groupnorm.cu"
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -181,10 +186,18 @@ def _ptr(t):
 
 def _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats):
     """The forward on either device; with ``with_stats`` also (mean, rstd) [B, G]."""
+    if not with_stats and ops.through_op():
+        return _group_norm_op(x, weight, bias, ada_scale, ada_shift, groups, eps, swish)
     if x.device.type == "cpu":
         mean, rstd = group_stats_plain(x, groups, eps)
         out = _normalize_plain(x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
         return (out, mean, rstd) if with_stats else out
+    return _launch(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats)
+
+
+def _launch(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats):
+    """Check the operands, plan and launch the forward kernel on a CUDA tensor
+    (adds one to ``group_norm.launches``)."""
     ada_stride = _check_params(x, weight, bias, groups, ada_scale, ada_shift, "group_norm")
     b, c, h, w = x.shape
     plan = _fwd_plan(b, c, groups, h * w, x.element_size(), aligned=x.data_ptr() % 16 == 0)
@@ -202,6 +215,24 @@ def _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_sta
     build.check(lib, code, "group_norm")
     group_norm.launches += 1
     return (out, stats[0], stats[1]) if with_stats else out
+
+
+@torch.library.custom_op("eovax::group_norm", mutates_args=(), device_types="cpu")
+def _group_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   ada_scale: torch.Tensor | None, ada_shift: torch.Tensor | None, groups: int,
+                   eps: float, swish: bool) -> torch.Tensor:
+    return group_norm_plain(x, weight, bias, groups, eps, ada_scale=ada_scale,
+                            ada_shift=ada_shift, swish=swish)
+
+
+@_group_norm_op.register_kernel("cuda")
+def _(x, weight, bias, ada_scale, ada_shift, groups, eps, swish):
+    return _launch(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats=False)
+
+
+@_group_norm_op.register_fake
+def _(x, weight, bias, ada_scale, ada_shift, groups, eps, swish):
+    return torch.empty_like(x)
 
 
 def _plane_coefficients(x, mean, rstd, weight, bias, ada_scale, ada_shift):
@@ -459,7 +490,8 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups
     :func:`group_norm_backward`.
     """
     inputs = (x, weight, bias, ada_scale, ada_shift)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+    if (torch.is_grad_enabled() and not torch.compiler.is_exporting()
+            and any(t is not None and t.requires_grad for t in inputs)):
         return _GroupNorm.apply(x, weight, bias, ada_scale, ada_shift, groups, eps, swish)
     return _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats=False)
 

@@ -1,6 +1,8 @@
 """EOFluxVAE — the published inference API on PyTorch.
 
-Port of ``eovax/models/eo_flux_vae.py``: ``from_config``, ``reconstruct``,
+Port of ``eovax/models/eo_flux_vae.py``: ``from_config``, ``from_pretrained``,
+``load_checkpoint`` (the JAX package's ``.msgpack`` files as well as the
+reference's torch files), ``save``, ``reconstruct``,
 ``encode_spatial_normalized``, ``decode_spatial_normalized``,
 ``encode_to_latent``, ``decode_raw``, ``encode``, ``decode`` and
 ``forward(x, wvs, sample_posterior, scale, angle)``. Tensors cross the API
@@ -23,6 +25,8 @@ from eovax_torch.core.precision import FULL_PRECISION, Policy
 from eovax_torch.models.backbone import EOVAECore
 from eovax_torch.nn.distributions import DiagonalGaussian
 from eovax_torch.nn.init import init_parameters
+from eovax_torch.utils import flax_msgpack
+from eovax_torch.utils.convert import state_dict_from_variables, variables_from_state_dict
 
 _STEM_PREFIXES = {"encoder": "encoder.conv_in", "decoder": "decoder.conv_out"}
 
@@ -72,13 +76,37 @@ class EOFluxVAE:
             model.load_checkpoint(ckpt_path, ignore_keys=ignore_keys, strict=strict)
         return model
 
+    @classmethod
+    def from_pretrained(cls, repo_id: str, *, ckpt_filename: str = "eo-vae.ckpt",
+                        config_filename: str = "model_config.yaml", revision: str | None = None,
+                        cache_dir: str | None = None, local_files_only: bool = False,
+                        policy: Policy = FULL_PRECISION, ignore_keys: tuple[str, ...] = (),
+                        device: str | torch.device | None = None) -> "EOFluxVAE":
+        """Download the config and the checkpoint from the Hugging Face Hub and build."""
+        try:
+            from huggingface_hub import hf_hub_download
+        except ImportError as exc:  # pragma: no cover
+            raise ImportError("huggingface_hub is required for from_pretrained") from exc
+
+        kw = dict(repo_id=repo_id, revision=revision, cache_dir=cache_dir,
+                  local_files_only=local_files_only)
+        config_path = hf_hub_download(filename=config_filename, **kw)
+        ckpt_path = hf_hub_download(filename=ckpt_filename, **kw)
+        return cls.from_config(config_path, ckpt_path, policy=policy, device=device,
+                               ignore_keys=ignore_keys)
+
     # ------------------------------------------------------------- checkpoint
 
     def load_checkpoint(self, path: str, *, ignore_keys: tuple[str, ...] = (),
                         strict: bool = True) -> None:
-        """Load a reference torch checkpoint: a Lightning ``.ckpt``
+        """Load the JAX package's ``.msgpack``/``.eovax`` file (its variables
+        tree, through :mod:`eovax_torch.utils.flax_msgpack` and
+        :func:`~eovax_torch.utils.convert.state_dict_from_variables`; every
+        weight, strictly) or a reference torch checkpoint: a Lightning ``.ckpt``
         (``state_dict``), a stage-1 distilled ``.pt`` (stem state dicts only)
-        or a Flux teacher ``.safetensors`` (body only).
+        or a Flux teacher ``.safetensors`` (body only). An orbax checkpoint
+        directory is refused: the JAX package's ``eovax.cli.convert_checkpoint``
+        turns it into a ``.msgpack`` file.
 
         With dynamic stems, a full checkpoint's static ``conv_in``/``conv_out``
         (its ``weight`` and ``bias``, where it holds the static ``weight``) are
@@ -88,6 +116,16 @@ class EOFluxVAE:
         """
         if not os.path.exists(path):
             raise FileNotFoundError(f"Checkpoint not found: {path}")
+        if os.path.isdir(path):
+            raise ValueError(
+                f"{path} is a directory (an orbax checkpoint of the JAX package), which the "
+                "port does not read: convert it to .msgpack with `python -m "
+                "eovax.cli.convert_checkpoint --config <model yaml> --input <dir> --output "
+                "<file>.msgpack` where the JAX package is installed")
+        if path.endswith((".msgpack", ".eovax")):
+            self.core.load_state_dict(
+                state_dict_from_variables(flax_msgpack.read(path)), strict=True)
+            return
         raw = read_checkpoint(path)
         dynamic = {"encoder": self.config.encoder.use_dynamic_ops,
                    "decoder": self.config.decoder.use_dynamic_ops}
@@ -126,6 +164,10 @@ class EOFluxVAE:
             raise ValueError(f"Critical weights missing from checkpoint ({len(missing)}): "
                              f"{missing[:10]}")
         self.core.load_state_dict(load, strict=False)
+
+    def save(self, path: str) -> None:
+        """Write the weights as the JAX package's ``.msgpack`` variables file."""
+        flax_msgpack.write(path, variables_from_state_dict(self.core.state_dict()))
 
     # ----------------------------------------------------------------- params
 

@@ -16,6 +16,11 @@ same rules map the SR UNet's params (``eovax_torch.models.unet.UNet`` names
 its modules to match), :func:`discriminator_state_dict` a discriminator's,
 with its spectral-norm statistics, and :func:`dofa_state_dict` a DOFA tree's.
 
+:func:`variables_from_state_dict` is the inverse: the port's state dict back to
+the JAX package's ``{"params", "batch_stats"}`` tree, names and layouts, which
+:mod:`eovax_torch.utils.flax_msgpack` writes as a ``.msgpack`` file that the
+JAX package loads.
+
 The shared-basis stems (``eovax_torch.nn.dynamic_basis``) keep the JAX
 package's names (``basis_bank`` [num_bases, K, K], ``hypernet.backbone_0`` …
 ``expansion``, ``wv_proj``, ``bias_generator_0``/``_2``), and the multi-stage
@@ -53,10 +58,43 @@ _REWRITES = [
 ]
 
 
+# The inverse of each rule of _REWRITES, for variables_from_state_dict.
+_INVERSE = [
+    (re.compile(r"(^|\.)down\.(\d+)\.block\.(\d+)\."), r"\1down_\2_block_\3."),
+    (re.compile(r"(^|\.)down\.(\d+)\.downsample\."), r"\1down_\2_downsample."),
+    (re.compile(r"(^|\.)up\.(\d+)\.block\.(\d+)\."), r"\1up_\2_block_\3."),
+    (re.compile(r"(^|\.)up\.(\d+)\.upsample\."), r"\1up_\2_upsample."),
+    (re.compile(r"(^|\.)mid\.block_(\d)\."), r"\1mid_block_\2."),
+    (re.compile(r"(^|\.)mid\.attn_(\d)\."), r"\1mid_attn_\2."),
+    (re.compile(r"(transformer_encoder|transformer)\.layers\.(\d+)\."), r"\1.layers_\2."),
+    (re.compile(r"fc_weight\.(\d+)\."), r"fc_weight_\1."),
+    (re.compile(r"(^|\.)conditioner\.mlp\.(\d+)\."), r"\1conditioner.mlp_\2."),
+    (re.compile(r"(^|\.)blocks\.(\d+)\."), r"\1blocks_\2."),
+    (re.compile(r"(^|\.)attn\.qkv\."), r"\1attn_qkv."),
+    (re.compile(r"(^|\.)attn\.proj\."), r"\1attn_proj."),
+    (re.compile(r"(^|\.)mlp\.fc1\."), r"\1mlp_fc1."),
+    (re.compile(r"(^|\.)mlp\.fc2\."), r"\1mlp_fc2."),
+    (re.compile(r"(^|\.)heads\.(\d+)\.(\d+)\."), r"\1head_\2_\3."),
+]
+
+
 def _torch_module_path(path: str) -> str:
     for pat, repl in _REWRITES:
         path = pat.sub(repl, path)
     return path
+
+
+def _flax_module_path(path: str) -> str:
+    for pat, repl in _INVERSE:
+        path = pat.sub(repl, path)
+    return path
+
+
+def _float32(leaf) -> np.ndarray:
+    """A leaf (numpy array, scalar or tensor, bf16 included) as fp32 numpy."""
+    if torch.is_tensor(leaf):
+        return leaf.detach().float().cpu().numpy()
+    return np.asarray(leaf, np.float32)
 
 
 def state_dict_from_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -71,7 +109,7 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> dict[str, torch.T
             for k, v in tree.items():
                 walk(v, path + (k,))
             return
-        arr = np.asarray(tree, np.float32)
+        arr = _float32(tree)
         leaf = path[-1]
         if len(path) >= 2 and path[-2] == "in_proj":  # packed q/k/v projection
             prefix = _torch_module_path(".".join(path[:-2]) + ".")
@@ -95,6 +133,53 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> dict[str, torch.T
     walk(variables.get("params", {}), ())
     walk(variables.get("batch_stats", {}), ())
     return out
+
+
+def variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The inverse of :func:`state_dict_from_variables`: the port's state dict →
+    the JAX package's ``{"params", "batch_stats"}`` tree of fp32 numpy arrays
+    (``num_batches_tracked`` has no counterpart and is dropped). A ``weight`` is
+    a conv kernel (OIHW → HWIO) or a Dense kernel ([O, I] → [I, O]) unless it is
+    1-D, a norm's ``scale``."""
+    tree: dict[str, Any] = {}
+
+    def put(collection: str, module: str, leaf: str, arr: np.ndarray) -> None:
+        node = tree.setdefault(collection, {})
+        for part in filter(None, module.split(".")):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+
+    for key, value in state_dict.items():
+        module, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = _float32(value)
+        path = _flax_module_path(module + ".") if module else ""
+        if leaf in ("in_proj_weight", "in_proj_bias"):  # packed q/k/v projection
+            put("params", path + "in_proj", "kernel" if leaf == "in_proj_weight" else "bias",
+                arr.T if leaf == "in_proj_weight" else arr)
+        elif leaf == "weight" and arr.ndim == 1:
+            put("params", path, "scale", arr)
+        elif leaf == "weight":
+            put("params", path, "kernel", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)
+        elif leaf in ("running_mean", "running_var"):
+            put("batch_stats", path, "mean" if leaf == "running_mean" else "var", arr)
+        else:
+            put("params", path, leaf, arr)
+    return tree
+
+
+def read_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A network's state dict from a file: the JAX package's ``.msgpack``
+    variables file (``{"params", ...}``, as its trainers write it) through
+    :func:`state_dict_from_variables`, or a torch file holding the state dict
+    itself or ``{"state_dict": ...}``."""
+    if path.endswith((".msgpack", ".eovax")):
+        from eovax_torch.utils import flax_msgpack
+
+        return state_dict_from_variables(flax_msgpack.read(path))
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    return raw.get("state_dict", raw)
 
 
 def discriminator_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor flax's
+``msgpack``: the port reads and writes ``.msgpack`` files itself)."""
 
 import ast
 import json
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "eovax_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eovax")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eovax", "msgpack")
 
 
 def _modules():
