@@ -305,6 +305,34 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    ``reconstruct`` launches as ``serving_launches`` and an SR-artifact call's
    as ``serving_sr_launches``.
 
+16. int8 (W8A8) serving. ``conv3x3_int8`` (``csrc/conv3x3_int8.cu``) against
+   its plain version, ``torch.equal``: every finite bf16 value at four ranges
+   (a one-hot centre tap), [4,512,256,256] 512→256, [4,128,512,512] 128→128,
+   [4,512,64,64] 512→512 and [2,128,37,53] 128→128 each at the dynamic range,
+   a static one above it and one that saturates, and the input of the
+   decoder's level-0 ``conv1`` captured from an int8 ``reconstruct``. Phase
+   3's weights under ``INT8_POLICY``: ``reconstruct`` [16,12,256,256] live
+   (weights quantized on the fly) with exact launches 48 int8 / 0 bf16
+   conv3x3 / 52 / 2 and its distance from the bf16 model;
+   ``eovax_torch.cli.export --precision int8`` without and with
+   ``--calibrate-npz`` (4 images the phase writes): 48 convs quantized, each
+   artifact ``torch.equal`` to its live model at B = 1 and 16 with the same
+   launches; the daemon on the dynamic artifact (64 B=1 requests, unbatched
+   and ``max_batch=16``; the dynamic range spans a micro-batch, so replies
+   are held within ``TOL_INT8_BATCH``); times: the kernel at the three
+   shapes beside its plain version, the bf16 hand kernel and cuDNN's bf16
+   conv (PyTorch has no int8 conv on CUDA), TOP/s, the bound at the int8
+   peak and the dynamic abs-max's share; ``reconstruct`` B=16 bf16 and int8,
+   live and both artifacts. The int8 SR artifact (phase 8's UNet, DDIM-4,
+   LR 128²), exported by the CLI in a process started at the phase's start
+   (the daemon and the times wait for it): 48 + the UNet's eligible convs
+   quantized, calls at B = 1 and 4 with exact launches, their ms. Files under
+   ``build/chip_smoke_int8_*``, removed at the end. The ``kernels`` line's
+   entries carry the int8 ``reconstruct``'s launches as ``int8_launches``,
+   its artifact's as ``int8_serving_launches`` and an int8 SR call's as
+   ``int8_sr_launches``; ``conv3x3_int8``'s ``launches`` is the int8
+   ``reconstruct``'s, its main path.
+
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
 taken again, up to three in all, and a third short one fails the script; the
@@ -454,9 +482,10 @@ def profile_kernels(label: str, fn, card: str, calls: int = 2) -> dict:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         ms = e.self_device_time_total / 1e3 / calls
         print(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count // calls:<4d} {e.key[:96]}")
-    for group, tag in (("conv3x3", "conv3x3_"), ("group_norm", "gn_fwd_"),
-                       ("group_norm_backward", "gn_bwd_"), ("flash_attention", "flash_")):
-        ours = [e for e in kernels if tag in e.key]
+    for group, tags in (("conv3x3", ("conv3x3_bf16_", "conv3x3_f32_")),
+                        ("conv3x3_int8", ("conv3x3_int8_",)), ("group_norm", ("gn_fwd_",)),
+                        ("group_norm_backward", ("gn_bwd_",)), ("flash_attention", ("flash_",))):
+        ours = [e for e in kernels if any(tag in e.key for tag in tags)]
         ms = sum(e.self_device_time_total for e in ours) / 1e3 / calls
         count = sum(e.count for e in ours) // calls
         print(f"  {group} kernels: {ms:.3f} ms/call x{count}, {100 * ms / busy_ms:.2f}% of "
@@ -782,11 +811,12 @@ def drive(label: str, fn, expected: dict | None):
     where it passes None). Returns the output and the counts."""
     import torch
 
-    from eovax_torch.kernels import attention, conv3x3, groupnorm
+    from eovax_torch.kernels import attention, conv3x3, groupnorm, qconv
 
     # (wrapper, its count): the kernels' launches, and the attention backward's
     # calls (tensor ops, no kernel of its own).
     counters = {"conv3x3": (conv3x3.conv3x3, "launches"),
+                "conv3x3_int8": (qconv.conv3x3_int8, "launches"),
                 "group_norm": (groupnorm.group_norm, "launches"),
                 "flash_attention": (attention.flash_attention, "launches"),
                 "conv3x3_dx": (conv3x3.conv3x3_dx, "launches"),
@@ -805,11 +835,11 @@ def drive(label: str, fn, expected: dict | None):
 
 
 def launches(conv: int, gn: int, attn: int, conv_dx: int = 0, gn_bwd: int = 0,
-             attn_bwd: int = 0) -> dict:
+             attn_bwd: int = 0, conv_int8: int = 0) -> dict:
     """The launch counts ``drive`` expects; ``gn_channel_sums`` is on no path: 0."""
     return {"conv3x3": conv, "group_norm": gn, "flash_attention": attn, "conv3x3_dx": conv_dx,
             "group_norm_backward": gn_bwd, "flash_attention_backward": attn_bwd,
-            "gn_channel_sums": 0}
+            "gn_channel_sums": 0, "conv3x3_int8": conv_int8}
 
 
 def sen2naip_batches(n_batches: int, batch: int, seed: int) -> list[dict]:
@@ -4103,11 +4133,12 @@ def serve_clients_main(argv: list[str]) -> int:
     return 0 if not errors else 1
 
 
-def serve_clients(served, requests: Path, max_batch: int, card: str):
+def serve_clients(served, requests: Path, max_batch: int, card: str, per_call: dict | None = None):
     """``make_server`` on a thread, and ``SERVE_CLIENTS`` client threads in another
     process posting the B=1 ``reconstruct`` payloads of ``requests``. Returns the
     replies in request order and the run's numbers (requests/s, the daemon's
-    p50/p99, its device calls; the kernels' launches checked against them)."""
+    p50/p99, its device calls; the kernels' launches checked against them,
+    ``per_call`` a device call: the bf16 artifact's 48/52/2 by default)."""
     import threading
 
     import numpy as np
@@ -4136,8 +4167,9 @@ def serve_clients(served, requests: Path, max_batch: int, card: str):
     seconds = json.loads(proc.stdout.strip().splitlines()[-1])["seconds"]
     m = metrics["reconstruct"]
     calls = metrics["_batching"]["reconstruct"]["batches"] if max_batch else SERVE_REQUESTS
-    if m["count"] != SERVE_REQUESTS or m["errors"] or counts != launches(
-            *(calls * n for n in (48, 52, 2))):
+    per_call = per_call or launches(48, 52, 2)
+    if m["count"] != SERVE_REQUESTS or m["errors"] or counts != {
+            k: calls * n for k, n in per_call.items()}:
         raise AssertionError(f"{label}: metrics {metrics}, launches {counts} for {calls} calls")
     row = dict(requests=SERVE_REQUESTS, seconds=seconds, requests_per_s=SERVE_REQUESTS / seconds,
                p50_ms=m["p50_ms"], p99_ms=m["p99_ms"], device_calls=calls,
@@ -4453,6 +4485,311 @@ def serving_phase(model, sd: dict, card: str, g) -> dict:
     return {"launches": counts, "sr_launches": sr_counts, "sr_ms": sr_ms,
             "reconstruct_ms": times, "dispatch": dispatch,
             "daemon": {"unbatched": unbatched, "batched": batched}}
+
+
+# Phase 16: int8 (W8A8) serving. The int8 kernel's main-path shapes [B, Ci, Co, H, W]
+# (ResnetBlock convs of a decode at 256², 512² and 64² planes), the activation ranges it
+# is held at (× the input's abs-max: dynamic, a static range above it, one that
+# saturates), and the int8 SR artifact's sampler.
+INT8_SHAPES = ((4, 512, 256, 256, 256), (4, 128, 128, 512, 512), (4, 512, 512, 64, 64))
+INT8_ODD = (2, 128, 128, 37, 53)
+INT8_RANGES = {"dynamic": 1.0, "static": 1.5, "saturating": 0.25}
+INT8_SR_STEPS = 4
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak (NVIDIA data sheet, SXM)
+# Replies of the int8 artifact batched by the daemon against the same requests
+# unbatched: the dynamic range is taken over the whole micro-batch (and its pad
+# rows), so a reply moves by up to a few int8 steps of each conv; relative to
+# max |reply|.
+TOL_INT8_BATCH = 1e-1
+
+
+def check_int8(x, wq, sw, bias, label: str) -> float:
+    """The int8 kernel against its plain version at each of ``INT8_RANGES``,
+    ``torch.equal`` held; returns the largest max abs error."""
+    import torch
+
+    from eovax_torch.kernels.qconv import conv3x3_int8, conv3x3_int8_plain
+
+    amax = torch.linalg.vector_norm(x, float("inf")).float()
+    worst = 0.0
+    for name, factor in INT8_RANGES.items():
+        out = conv3x3_int8(x, wq, sw, bias, amax * factor)
+        torch.cuda.synchronize()
+        ref = conv3x3_int8_plain(x, wq, sw, bias, amax * factor)
+        same, err = torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+        print(f"kernel-vs-plain conv3x3_int8 {label} {tuple(x.shape)}->{wq.shape[0]} {x.dtype} "
+              f"{name} range: torch.equal {same}, max_abs_err={err:.3e} "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"conv3x3_int8 disagrees with its plain version at {label} {name}")
+        worst = max(worst, err)
+    return worst
+
+
+def every_bf16(dev):
+    """Every finite bf16 value once, as a [1, 32, H, 64] bf16 tensor (zeros after)."""
+    import torch
+
+    vals = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    vals = vals[torch.isfinite(vals)]
+    x = torch.zeros(-(-vals.numel() // (32 * 64)) * 32 * 64, dtype=torch.bfloat16, device=dev)
+    x[: vals.numel()] = vals.to(dev)
+    return x.reshape(1, 32, -1, 64)
+
+
+def check_int8_every_bf16(dev) -> None:
+    """The kernel quantizes every finite bf16 value as the plain version does (its
+    IEEE quotient is a corrected reciprocal product), at four ranges: the
+    identity over 32 channels at the centre tap, unit scales, so each output is
+    one quantized input."""
+    import torch
+
+    from eovax_torch.kernels.qconv import conv3x3_int8, conv3x3_int8_plain
+
+    x = every_bf16(dev)
+    wq = torch.zeros(32, 32, 3, 3, dtype=torch.int8, device=dev)
+    wq[torch.arange(32), torch.arange(32), 1, 1] = 1
+    sw = torch.ones(32, device=dev)
+    for amax in (1.0, 3.7, 1e-3, 300.0):
+        a = torch.tensor(amax, device=dev)
+        out = conv3x3_int8(x, wq, sw, None, a)
+        torch.cuda.synchronize()
+        if not torch.equal(out, conv3x3_int8_plain(x, wq, sw, None, a)):
+            raise AssertionError(f"conv3x3_int8 quantizes some bf16 value otherwise at amax {amax}")
+    print("kernel-vs-plain conv3x3_int8: every finite bf16 value at amax 1, 3.7, 1e-3, 300 "
+          "quantized as the plain version quantizes it (torch.equal)")
+
+
+def int8_phase(model, sd: dict, card: str, g) -> dict:
+    """Phase 16: int8 (W8A8) serving at full width. Returns the int8 kernel's
+    checks and times, and the launches of one int8 ``reconstruct`` at B=16 (live,
+    the kernels' main path here), of its artifact, and of an int8 SR-artifact call."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.cli import export as export_cli
+    from eovax_torch.cli.train_super_res import build_denoiser_from_config
+    from eovax_torch.core.config import load_yaml
+    from eovax_torch.core.precision import INT8_POLICY
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.kernels.conv3x3 import conv3x3
+    from eovax_torch.kernels.qconv import (
+        conv3x3_int8,
+        conv3x3_int8_plain,
+        quantize_symmetric,
+        should_use_int8,
+    )
+    from eovax_torch.nn.blocks import Conv3x3
+    from eovax_torch.serving import ServedModel
+
+    dev = g.device
+    s2 = wavelengths_for("S2L2A")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_int8_", dir=ROOT / "build"))
+    sr_export = None
+    try:
+        # ---- the int8 SR artifact's export (DDIM-4), in a process of its own ---------
+        torch.save({"state_dict": sd}, tmp / "eo-vae.ckpt")
+        lm = load_yaml(str(SR_CONFIG))["lightning_module"]
+        _, unet = build_denoiser_from_config(lm, policy=INT8_POLICY, device=dev)
+        unet.load_state_dict(sr_state_dict(unet, seed=10))
+        torch.save(unet.state_dict(), tmp / "unet.pt")
+        unet_int8 = sum(isinstance(m, Conv3x3) and should_use_int8(
+            (1, m.in_channels), m.weight.shape, (1, 1), torch.bfloat16) for m in unet.modules())
+        del unet
+        sr_t0 = time.perf_counter()
+        with open(tmp / "sr_export.log", "w") as sr_log:
+            sr_export = subprocess.Popen(
+                [sys.executable, "-m", "eovax_torch.cli.export", "--config",
+                 str(ROOT / "configs" / "eo-vae.yaml"), "--ckpt", str(tmp / "eo-vae.ckpt"),
+                 "--output", str(tmp / "sr"), "--sr-config", str(SR_CONFIG), "--sr-ckpt",
+                 str(tmp / "unet.pt"), "--sr-steps", str(INT8_SR_STEPS), "--resolution", "128",
+                 "--precision", "int8"], cwd=ROOT, stdout=sr_log, stderr=subprocess.STDOUT)
+
+        # ---- the kernel against its plain version --------------------------------
+        check_int8_every_bf16(dev)
+        errs = {}
+        for shape in (*INT8_SHAPES, INT8_ODD):
+            x, w, bias = conv_inputs(*shape, torch.bfloat16, g)
+            wq, sw = quantize_symmetric(w, dim=(1, 2, 3))
+            errs[shape] = check_int8(x, wq, sw.reshape(-1), bias, "synthetic")
+            del x, w, bias
+        torch.cuda.empty_cache()
+
+        # ---- the live int8 model at full width ------------------------------------
+        live = EOFluxVAE(shipped_config(12), sd, policy=INT8_POLICY, device=dev)
+        x16 = torch.randn(16, 12, 256, 256, generator=g, device=dev)
+        captured = {}
+        conv1 = live.core.decoder.up[0].block[0].conv1
+
+        def capture(mod, args, out):  # returns None: the output stays as it is
+            captured["x"] = args[0].clone()
+
+        hook = conv1.register_forward_hook(capture)
+        live.reconstruct(x16[:4], s2)  # warm-up, and the hook's capture
+        hook.remove()
+        with torch.inference_mode():
+            wq, sw = quantize_symmetric(conv1.weight, dim=(1, 2, 3))
+            errs["captured"] = check_int8(captured.pop("x"), wq, sw.reshape(-1),
+                                          conv1.bias.float(), "decoder-up0-block0-conv1-captured")
+        torch.cuda.empty_cache()
+        per_call = launches(0, 52, 2, conv_int8=48)
+        y8, counts = drive("int8 reconstruct [16,12,256,256] (INT8_POLICY, weights on the fly)",
+                           lambda: live.reconstruct(x16, s2), per_call)
+        if tuple(y8.shape) != (16, 12, 256, 256) or not torch.isfinite(y8).all():
+            raise AssertionError("int8 reconstruct gave a wrong shape or non-finite values")
+        yb = model.reconstruct(x16, s2)
+        err, rel = rel_err(y8, yb)
+        rms = ((y8.float() - yb.float()).pow(2).mean().sqrt() / yb.float().std()).item()
+        print(f"int8 reconstruct vs the bf16 model [16,12,256,256]: max_abs_err={err:.3e} "
+              f"rel={rel:.3e}, rms/std {rms:.3e} (N(0, 0.02) weights) [{card}]")
+        for label, fn, tag in (("bf16", lambda: model.reconstruct(x16, s2), "conv3x3_bf16_"),
+                               ("int8", lambda: live.reconstruct(x16, s2), "conv3x3_int8_")):
+            profile_full(f"{label} reconstruct [16,12,256,256]", fn, card, {tag: 48, "gn_fwd_": 52})
+        stamp("phase 16: int8 kernel vs plain, live int8 reconstruct")
+
+        # ---- the export CLI: --precision int8, dynamic and calibrated -------------
+        np.savez(tmp / "calib.npz", images=np.random.default_rng(16).standard_normal(
+            (4, 12, 256, 256)).astype(np.float32))
+        arts = {"dynamic": tmp / "int8", "calibrated": tmp / "int8_calibrated"}
+        for kind, out in arts.items():
+            extra = ["--calibrate-npz", str(tmp / "calib.npz")] if kind == "calibrated" else []
+            t0 = time.perf_counter()
+            export_cli.main(["--config", str(ROOT / "configs" / "eo-vae.yaml"), "--ckpt",
+                             str(tmp / "eo-vae.ckpt"), "--output", str(out), "--modalities",
+                             "S2L2A", "--resolution", "256", "--precision", "int8", *extra])
+            print(f"export CLI --precision int8 ({kind}): {time.perf_counter() - t0:.1f} s with "
+                  f"the model's build and load; {file_sizes(out)} [{card}]")
+        served = {kind: ServedModel.load(str(out)) for kind, out in arts.items()}
+        q = served["calibrated"]._manifest["quantization"]
+        if (served["dynamic"]._manifest["quantization"]["quantized_convs"] != 48
+                or q != {"weights": "int8-symmetric-per-out-channel", "quantized_convs": 48,
+                         "activations": "static-percentile-calibrated"}):
+            raise AssertionError(f"int8 manifests: {q}")
+        refs = {"dynamic": live, "calibrated": EOFluxVAE(
+            shipped_config(12), served["calibrated"]._state, policy=INT8_POLICY, device=dev)}
+        art_counts = {}
+        for kind, art in served.items():
+            for b in (1, 16):
+                y, art_counts[kind] = drive(f"int8 artifact ({kind}) reconstruct [{b},12,256,256]",
+                                            lambda: art.reconstruct(x16[:b]), per_call)
+                same = torch.equal(y, refs[kind].reconstruct(x16[:b], s2))
+                print(f"int8 artifact ({kind}) B={b} vs the live int8 model: torch.equal {same}")
+                if not same:
+                    raise AssertionError(f"the int8 artifact ({kind}) differs from the live model")
+        err, rel = rel_err(served["calibrated"].reconstruct(x16), y8)
+        print(f"calibrated (static ranges) vs dynamic int8 reconstruct [16,12,256,256]: "
+              f"max_abs_err={err:.3e} rel={rel:.3e}")
+        stamp("phase 16: int8 export and artifacts")
+
+        # The daemon and the times wait for the SR export's process: it shares the
+        # host and the card.
+        rc = sr_export.wait(timeout=600)
+        log = (tmp / "sr_export.log").read_text()
+        if rc != 0:
+            raise AssertionError(f"the int8 SR export CLI failed ({rc}): {log[-3000:]}")
+        print(f"int8 SR export CLI (DDIM-{INT8_SR_STEPS}, LR 128², a process started at the "
+              f"phase's start; {time.perf_counter() - sr_t0:.1f} s to its end): {log.strip()} "
+              f"[{card}]")
+
+        # ---- the daemon on the dynamic int8 artifact -------------------------------
+        requests = tmp / "requests.npy"
+        np.save(requests, np.random.default_rng(40).standard_normal(
+            (SERVE_REQUESTS, 1, 12, 256, 256)).astype(np.float32))
+        plain, unbatched = serve_clients(served["dynamic"], requests, 0, card, per_call)
+        batched_replies, batched = serve_clients(served["dynamic"], requests, 16, card, per_call)
+        worst = max(rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
+                    for a, b in zip(batched_replies, plain))
+        print(f"daemon int8: batched replies vs unbatched ones rel <= {worst:.3e} "
+              f"tol {TOL_INT8_BATCH:g} (the dynamic range spans the micro-batch)")
+        if worst > TOL_INT8_BATCH:
+            raise AssertionError("int8 batched replies disagree with unbatched ones")
+        stamp("phase 16: int8 daemon")
+
+        # ---- times -----------------------------------------------------------------
+        rows = []
+        for shape in INT8_SHAPES:
+            x, w, bias = conv_inputs(*shape, torch.bfloat16, g)
+            wq, sw = quantize_symmetric(w, dim=(1, 2, 3))
+            sw = sw.reshape(-1)
+            wb, bb = w.bfloat16(), bias.bfloat16()
+            amax = torch.linalg.vector_norm(x, float("inf")).float()
+            with torch.inference_mode():
+                kernel_ms = cuda_ms(lambda: conv3x3_int8(x, wq, sw, bias, amax), 10)
+                absmax_ms = cuda_ms(lambda: torch.linalg.vector_norm(x, float("inf")), 10)
+                bf16_ms = cuda_ms(lambda: conv3x3(x, w, bias), 10)
+                cudnn_ms = cuda_ms(lambda: F.conv2d(x, wb, bb, padding=1), 10)
+                plain_ms = cuda_ms(lambda: conv3x3_int8_plain(x, wq, sw, bias, amax), 2, warmup=1)
+            b, ci, co, h, wd = shape
+            ops = 2.0 * b * h * wd * 9 * ci * co
+            nbytes = 2.0 * x.numel() + wq.numel() + 4.0 * 2 * co + 4 + 2.0 * b * co * h * wd
+            row = dict(shape=list(shape), ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                       **bound(ops, H100_INT8_OPS, nbytes), tops=ops / kernel_ms / 1e9,
+                       absmax_ms=absmax_ms, absmax_share=absmax_ms / (absmax_ms + kernel_ms),
+                       bf16_kernel_ms=bf16_ms, cudnn_bf16_ms=cudnn_ms)
+            rows.append(row)
+            print(f"time conv3x3_int8 {list(shape)} bf16 in/out: kernel {kernel_ms:.4f} ms "
+                  f"({row['tops']:.1f} TOP/s), plain {plain_ms:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {100 * row['bound_ms'] / kernel_ms:.1f}"
+                  f"% of it), the dynamic abs-max {absmax_ms:.4f} ms "
+                  f"({100 * row['absmax_share']:.1f}% of the two); beside the bf16 hand kernel "
+                  f"{bf16_ms:.4f} ms and cuDNN bf16 {cudnn_ms:.4f} ms (no int8 conv in PyTorch) "
+                  f"[{card}]")
+            del x, w, bias, wb, bb
+        torch.cuda.empty_cache()
+        recon_ms = {}
+        order = ("bf16 live", "int8 live", "int8 artifact", "int8 calibrated artifact")
+        fns = {"bf16 live": lambda x: model.reconstruct(x, s2),
+               "int8 live": lambda x: live.reconstruct(x, s2),
+               "int8 artifact": lambda x: served["dynamic"].reconstruct(x),
+               "int8 calibrated artifact": lambda x: served["calibrated"].reconstruct(x)}
+        for b in (16, 1):
+            for label in (*order, *reversed(order)):
+                x = x16[:b]
+                recon_ms.setdefault(f"{label} B={b}", []).append(cuda_ms(
+                    lambda: fns[label](x), 5 if b == 16 else 10))
+        print(f"time reconstruct [B,12,256,256]: {recon_ms} ms (CUDA events, 5 (B=16) or 10 "
+              f"(B=1) calls after 2, order {' '.join(order)} and back) [{card}]")
+        # The graphs run on the host's pace where their calls are short: the
+        # profile says how much of a B=16 artifact call the card is busy.
+        profile_full("int8 artifact reconstruct [16,12,256,256]",
+                     lambda: served["dynamic"].reconstruct(x16), card,
+                     {"conv3x3_int8_": 48, "gn_fwd_": 52})
+        stamp("phase 16: int8 times")
+
+        # ---- the int8 SR artifact (DDIM-4, LR 128²) -------------------------------
+        sr = ServedModel.load(str(tmp / "sr"))
+        n_sr = sr._manifest["quantization"]["quantized_convs"]
+        if n_sr != 48 + unet_int8:
+            raise AssertionError(f"int8 SR artifact: {n_sr} quantized convs, not 48 + {unet_int8}")
+        e, d, u = SERVE_ENCODE, SERVE_DECODE, UNET_EVAL
+        sr_call = launches(INT8_SR_STEPS * (u[0] - unet_int8), e[1] + d[1] + INT8_SR_STEPS * u[1],
+                           e[2] + d[2] + INT8_SR_STEPS * u[2],
+                           conv_int8=e[0] + d[0] + INT8_SR_STEPS * unet_int8)
+        lr = torch.randn(4, 4, 128, 128, generator=g, device=dev)
+        sr_ms = {}
+        for b in (1, 4):
+            y, sr_counts = drive(f"int8 SR artifact super_resolve [{b},4,128,128] "
+                                 f"DDIM-{INT8_SR_STEPS}", lambda: sr.super_resolve(lr[:b], seed=5),
+                                 sr_call)
+            if tuple(y.shape) != (b, 4, 128, 128) or not torch.isfinite(y).all():
+                raise AssertionError("int8 SR artifact gave a wrong shape or non-finite values")
+            sr_ms[b] = cuda_ms(lambda: sr.super_resolve(lr[:b], seed=5), 3, warmup=1)
+            print(f"time int8 SR artifact super_resolve [{b},4,128,128] DDIM-{INT8_SR_STEPS}: "
+                  f"{sr_ms[b]:.3f} ms/call ({unet_int8} of the UNet's {u[0]} convs int8) [{card}]")
+        stamp("phase 16: int8 SR artifact")
+    finally:
+        if sr_export is not None and sr_export.poll() is None:
+            sr_export.kill()
+            sr_export.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": counts, "serving_launches": art_counts["dynamic"],
+            "sr_launches": sr_counts, "errs": errs, "rows": rows, "reconstruct_ms": recon_ms,
+            "sr_ms": sr_ms, "daemon": {"unbatched": unbatched, "batched": batched}}
 
 
 def main() -> int:
@@ -4774,6 +5111,7 @@ def main() -> int:
     refine = refine_phase(sd, card, g)
     legacy_counts = legacy_phase(card)
     serving = serving_phase(model, sd, card, g)
+    int8 = int8_phase(model, sd, card, g)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -4827,6 +5165,17 @@ def main() -> int:
          **bwd_timings["group_norm_backward", (16, 128, 256, 256)],
          "shapes": [dict(shape=list(shape), **bwd_timings["group_norm_backward", shape])
                     for shape in ((16, 128, 256, 256), (16, 256, 256, 256))]},
+        # No Pallas kernel: the JAX package's int8 conv is XLA (qconv.py:47, 114), and
+        # PyTorch has no int8 conv on CUDA (library_ms null; the bf16 hand kernel's
+        # and cuDNN's bf16 conv's times stand beside it in each row).
+        {"name": "conv3x3_int8", "route": "cuda",
+         "source": "eovax_torch/kernels/csrc/conv3x3_int8.cu",
+         "replaces": "eovax/kernels/qconv.py:47",
+         "launches": int8["launches"]["conv3x3_int8"],
+         "max_abs_err": max(int8["errs"].values()),
+         **{k: int8["rows"][0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by", "bf16_kernel_ms", "cudnn_bf16_ms")},
+         "shapes": int8["rows"]},
     ]
     for entry in kernels:  # the run's short profiler traces, each taken again
         entry["profile_retries"] = dict(PROFILE_RETRIES)
@@ -4840,6 +5189,10 @@ def main() -> int:
         # Phase 15: an artifact reconstruct at B=16, an SR-artifact call at B=4.
         entry["serving_launches"] = serving["launches"][entry["name"]]
         entry["serving_sr_launches"] = serving["sr_launches"][entry["name"]]
+        # Phase 16: an int8 reconstruct at B=16, its artifact, an int8 SR-artifact call.
+        entry["int8_launches"] = int8["launches"][entry["name"]]
+        entry["int8_serving_launches"] = int8["serving_launches"][entry["name"]]
+        entry["int8_sr_launches"] = int8["sr_launches"][entry["name"]]
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

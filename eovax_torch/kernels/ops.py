@@ -1,5 +1,6 @@
 """The hand kernels' forwards as torch custom ops (``eovax::conv3x3``,
-``eovax::group_norm``, ``eovax::flash_attention``), for ``torch.export``.
+``eovax::conv3x3_int8``, ``eovax::group_norm``, ``eovax::flash_attention``),
+for ``torch.export``.
 
 A ``torch.export`` trace runs on fake tensors: a launch that reads
 ``data_ptr()`` fails there, and a choice between kernel and plain version

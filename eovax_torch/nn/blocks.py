@@ -10,8 +10,9 @@ the compute dtype.
   compute dtype where the JAX package rounds after the norm, then computes
   AdaIN and swish in the compute dtype).
 - ResnetBlock ``conv1``/``conv2``: 3×3 SAME convs through
-  :func:`eovax_torch.kernels.conv3x3.conv3x3`, where the JAX package calls
-  ``policy_conv3x3``.
+  :func:`eovax_torch.kernels.conv3x3.conv3x3`, or under an int8 policy through
+  :mod:`eovax_torch.kernels.qconv` (:class:`Conv3x3`), where the JAX package
+  calls ``policy_conv3x3``.
 - Downsample: asymmetric (0,1,0,1) pad, then a VALID 3×3 stride-2 conv.
 - Upsample: nearest ×2, then a 3×3 conv (the plain form; the JAX package's
   input-dilated lowering computes the same up to tap-sum reassociation).
@@ -37,6 +38,12 @@ from eovax_torch.core.precision import FULL_PRECISION, Policy
 from eovax_torch.kernels.attention import flash_attention
 from eovax_torch.kernels.conv3x3 import conv3x3
 from eovax_torch.kernels.groupnorm import group_norm
+from eovax_torch.kernels.qconv import (
+    abs_percentile,
+    int8_conv3x3,
+    int8_conv3x3_prequant,
+    should_use_int8,
+)
 
 
 class Conv2d(nn.Conv2d):
@@ -53,13 +60,57 @@ class Conv2d(nn.Conv2d):
 
 
 class Conv3x3(Conv2d):
-    """3×3 stride-1 SAME conv through the conv3x3 kernel (``Conv2d``'s parameters)."""
+    """3×3 stride-1 SAME conv (``Conv2d``'s parameters) through the policy's conv
+    algorithm, the JAX package's ``policy_conv3x3``:
+
+    - ``"direct"``: the conv3x3 kernel;
+    - ``"int8"``: with an int8 ``weight`` (loaded from a state that
+      :func:`~eovax_torch.kernels.qconv.quantize_state_int8` wrote, beside its
+      ``kernel_scale`` and, if calibrated, ``act_scale`` buffers) the
+      pre-quantized int8 conv; with a float weight the on-the-fly int8 conv where
+      :func:`~eovax_torch.kernels.qconv.should_use_int8` holds, else the conv3x3
+      kernel;
+    - ``"int8-calib"``: the conv3x3 kernel, after appending the eligible input's
+      |x| percentile (a device scalar) to ``calib_amax``.
+    """
 
     def __init__(self, in_channels: int, out_channels: int, policy: Policy = FULL_PRECISION):
         super().__init__(in_channels, out_channels, 3, padding=1, policy=policy)
+        self.calib_amax: list[torch.Tensor] = []
+
+    def to_int8(self, act_scale: bool) -> None:
+        """Hold an int8 weight (not trained), a ``kernel_scale`` buffer and, with
+        ``act_scale``, an ``act_scale`` buffer, for a quantized state to fill."""
+        w = self.weight
+        if w.dtype != torch.int8:
+            self.weight = nn.Parameter(torch.zeros(w.shape, dtype=torch.int8, device=w.device),
+                                       requires_grad=False)
+            self.register_buffer("kernel_scale", torch.ones(w.shape[0], device=w.device))
+        if act_scale and "act_scale" not in self._buffers:
+            self.register_buffer("act_scale", torch.ones((), device=w.device))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        if prefix + "kernel_scale" in state_dict:
+            self.to_int8(act_scale=prefix + "act_scale" in state_dict)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3(self.policy.cast_to_compute(x), self.weight, self.bias)
+        policy = self.policy
+        x = policy.cast_to_compute(x)
+        algo = policy.conv_algorithm
+        if self.weight.dtype == torch.int8:
+            if algo != "int8":  # a plain conv would read the integers as numbers
+                raise ValueError(f"an int8 weight needs the int8 conv algorithm, not {algo!r}")
+            return int8_conv3x3_prequant(x, self.weight, self.kernel_scale, self.bias,
+                                         act_scale=self._buffers.get("act_scale"),
+                                         compute_dtype=policy.compute_dtype)
+        if algo == "int8":
+            if should_use_int8(x.shape, self.weight.shape, (1, 1), policy.compute_dtype):
+                return int8_conv3x3(x, self.weight, self.bias, compute_dtype=policy.compute_dtype)
+        elif algo == "int8-calib" and should_use_int8(x.shape, self.weight.shape, (1, 1),
+                                                      policy.compute_dtype):
+            self.calib_amax.append(abs_percentile(x, policy.calib_percentile))
+        return conv3x3(x, self.weight, self.bias)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -24,20 +24,27 @@ Design notes:
 - The batch dimension is symbolic (``torch.export.Dim``); H and W are fixed
   per artifact — export several resolutions if needed.
 - The hand kernels appear in the graphs as the custom ops ``eovax::conv3x3``,
-  ``eovax::group_norm`` and ``eovax::flash_attention``
+  ``eovax::conv3x3_int8``, ``eovax::group_norm`` and ``eovax::flash_attention``
   (:mod:`eovax_torch.kernels.ops`): on the card each launches its kernel
   (and counts the launch), on the CPU it computes its plain version.
-- The dtype policy (fp32 or bf16) is traced into the graphs and recorded in
-  the manifest; the tensors cross the API in NCHW, as the model takes them.
+- The dtype policy (fp32, bf16 or int8) is traced into the graphs and recorded
+  in the manifest; the tensors cross the API in NCHW, as the model takes them.
+- int8 (W8A8): an ``INT8_POLICY`` model's body-conv weights are quantized once
+  at export (int8 weights and fp32 per-channel scales in ``params.pt``, the
+  manifest's ``quantization`` block), with dynamic per-tensor activation
+  ranges or static ones from :func:`calibrate_activations`. A dynamic range
+  spans the whole batch, so a request's reply depends on the requests (and the
+  pad rows) it is batched with, as in the JAX package; static ranges do not.
 - The artifact format (``eovax-torch-serving-v1``) is not the JAX package's
   StableHLO format: neither loads the other's artifacts.
-- Not ported yet: int8 serving (ROADMAP Queue 1 item 9) and data-parallel
-  serving over several cards (``ServedModel.with_mesh``, item 8c).
+- Not ported yet: data-parallel serving over several cards
+  (``ServedModel.with_mesh``, ROADMAP Queue 1 item 8c).
 """
 
 from eovax_torch.serving.batching import MicroBatcher  # noqa: F401
 from eovax_torch.serving.export import (  # noqa: F401
     ServedModel,
+    calibrate_activations,
     export_model,
     export_sr_pipeline,
     per_sample_seeds,

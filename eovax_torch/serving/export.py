@@ -10,8 +10,14 @@ design. An artifact is a directory of
   batch and no weights of its own;
 - ``manifest.json``: the JAX package's manifest keys (``resolution``,
   ``params``, ``functions`` → ``file``, ``modality``, ``input_shape``,
-  ``dtype``, ``extra_args``) under the format :data:`FORMAT`, plus the policy
-  and the device the graphs were traced on.
+  ``dtype``, ``extra_args``, and for an int8 model ``quantization``) under the
+  format :data:`FORMAT`, plus the policy and the device the graphs were traced on.
+
+Under the int8 policy the body convs' weights are quantized once, at export
+(:func:`eovax_torch.kernels.qconv.quantize_state_int8`): ``params.pt`` holds
+their int8 weights with fp32 ``kernel_scale`` (and, calibrated by
+:func:`calibrate_activations`, ``act_scale``) tensors, and the graphs call
+``eovax::conv3x3_int8``.
 """
 
 from __future__ import annotations
@@ -40,8 +46,6 @@ FORMAT = "eovax-torch-serving-v1"
 _MANIFEST = "manifest.json"
 _PARAMS = "params.pt"
 
-_INT8 = ("int8 serving is not ported yet (ROADMAP Queue 1 item 9: it needs an int8 "
-         "conv3x3 kernel)")
 _MESH = ("data-parallel serving over several cards is not ported yet "
          "(ROADMAP Queue 1 item 8c)")
 
@@ -64,7 +68,8 @@ def per_sample_seeds(seed: int, n: int):
 
 def _cast_float_params(state: dict, params: set, params_dtype) -> dict:
     """``state`` with its float parameters (the keys in ``params``) cast to
-    ``params_dtype``; buffers (the latent BatchNorm's running statistics) stay."""
+    ``params_dtype``; buffers (the latent BatchNorm's running statistics, the int8
+    convs' ``kernel_scale`` / ``act_scale``) and int8 weights stay."""
     return {k: v.to(params_dtype) if k in params and v.is_floating_point() else v
             for k, v in state.items()}
 
@@ -76,16 +81,33 @@ def _upcast(state: dict) -> dict:
             for k, v in state.items()}
 
 
-def _meta_copy(module: nn.Module) -> nn.Module:
+def _quant_manifest(quantized_convs: int, act_scales=None) -> dict:
+    return {
+        "weights": "int8-symmetric-per-out-channel",
+        "quantized_convs": quantized_convs,
+        "activations": (
+            "static-percentile-calibrated" if act_scales else
+            "dynamic-per-tensor-absmax"
+        ),
+    }
+
+
+def _meta_copy(module: nn.Module, state: dict) -> nn.Module:
     """A copy of ``module`` whose parameters and buffers are on the meta device
-    (no data is copied). A traced graph then holds no weights: they come in
-    with ``state``."""
+    (no data is copied), with the int8 convs that ``state`` holds. A traced graph
+    then holds no weights: they come in with ``state``."""
+    from eovax_torch.nn.blocks import Conv3x3
+
     memo: dict[int, Any] = {}
     for p in module.parameters():
         memo[id(p)] = nn.Parameter(p.detach().to("meta"), requires_grad=p.requires_grad)
     for b in module.buffers():
         memo[id(b)] = b.detach().to("meta")
-    return copy.deepcopy(module, memo).eval()
+    out = copy.deepcopy(module, memo).eval()
+    for name, m in out.named_modules():
+        if isinstance(m, Conv3x3) and f"{name}.kernel_scale" in state:
+            m.to_int8(act_scale=f"{name}.act_scale" in state)
+    return out
 
 
 class _Holder(nn.Module):
@@ -109,9 +131,9 @@ class _Surface(nn.Module):
     """``(state, x) → core.<method>(x, wvs)`` with the core's weights from
     ``state``; the modality's wavelengths are a buffer of the graph."""
 
-    def __init__(self, core: nn.Module, method: str, wvs, device: torch.device):
+    def __init__(self, core: nn.Module, state: dict, method: str, wvs, device: torch.device):
         super().__init__()
-        object.__setattr__(self, "_holder", _Holder(_meta_copy(core)))  # not a submodule
+        object.__setattr__(self, "_holder", _Holder(_meta_copy(core, state)))  # not a submodule
         self._method = method
         self.register_buffer("wvs", torch.as_tensor(np.asarray(wvs, np.float32), device=device))
 
@@ -125,10 +147,11 @@ class _SRPipeline(nn.Module):
     de-normalize the latent, decode; ``state`` is ``{"vae", "sr",
     "latent_norm": {"mean", "std"}}``."""
 
-    def __init__(self, core: nn.Module, unet: nn.Module, sampler, wvs, device: torch.device):
+    def __init__(self, core: nn.Module, unet: nn.Module, state: dict, sampler, wvs,
+                 device: torch.device):
         super().__init__()
-        object.__setattr__(self, "_vae", _Holder(_meta_copy(core)))
-        object.__setattr__(self, "_unet", _Holder(_meta_copy(unet)))
+        object.__setattr__(self, "_vae", _Holder(_meta_copy(core, state["vae"])))
+        object.__setattr__(self, "_unet", _Holder(_meta_copy(unet, state["sr"])))
         object.__setattr__(self, "_sampler", sampler)
         self._sigma1 = float(sampler.denoiser.schedule.sigma(1.0))
         self.register_buffer("wvs", torch.as_tensor(np.asarray(wvs, np.float32), device=device))
@@ -222,7 +245,50 @@ def _export(module: nn.Module, args: tuple, path: str) -> None:
 
 
 def _policy_name(policy) -> str:
+    if _int8(policy):
+        return "int8"
     return "bf16" if policy.compute_dtype == torch.bfloat16 else "fp32"
+
+
+def _int8(policy) -> bool:
+    return policy.conv_algorithm == "int8"
+
+
+def calibrate_activations(model, batches, modality: str = "S2L2A",
+                          percentile: float = 99.9) -> dict[str, float]:
+    """Percentile activation calibration for the int8 export.
+
+    Runs representative batches (NCHW fp32, physical-norm units) through an
+    ``INT8_CALIB_POLICY`` twin of ``model`` (its ``reconstruct``) and returns
+    ``{conv module path: amax}``, the static ranges that
+    ``export_model(act_scales=...)`` stores: for each eligible conv, the largest
+    |input| ``percentile`` over batches and calls. A few batches suffice: the
+    scale needs the bulk |activation| range, not dataset statistics.
+    """
+    import dataclasses
+
+    from eovax_torch.core.precision import INT8_CALIB_POLICY
+    from eovax_torch.data.wavelengths import WAVELENGTHS
+    from eovax_torch.kernels.qconv import act_scales_from_calibration
+    from eovax_torch.models.backbone import EOVAECore
+    from eovax_torch.nn.blocks import Conv3x3
+
+    policy = dataclasses.replace(INT8_CALIB_POLICY, calib_percentile=percentile)
+    twin = EOVAECore(model.config.encoder, model.config.decoder, policy)
+    twin.load_state_dict(model.core.state_dict(), strict=True)
+    twin.to(model.device).eval()
+    convs = {name: m for name, m in twin.named_modules() if isinstance(m, Conv3x3)}
+    wvs = torch.as_tensor(np.asarray(WAVELENGTHS[modality], np.float32), device=model.device)
+    records = []
+    with torch.inference_mode():
+        for batch in batches:
+            for m in convs.values():
+                m.calib_amax.clear()
+            twin.reconstruct(torch.as_tensor(np.asarray(batch, np.float32),
+                                              device=model.device).contiguous(), wvs)
+            records.append({name: torch.stack(m.calib_amax).tolist()
+                            for name, m in convs.items() if m.calib_amax})
+    return act_scales_from_calibration(records)
 
 
 def export_model(
@@ -247,18 +313,24 @@ def export_model(
     statistics stay fp32, and the graph computes with the stored values as the
     policy does with fp32 ones.
 
-    ``act_scales`` is refused: int8 serving is ROADMAP Queue 1 item 9.
+    An int8-policy model has its body-conv weights quantized once here: the
+    artifact stores int8 weights and per-channel ``kernel_scale`` tensors (and,
+    with ``act_scales`` from :func:`calibrate_activations`, static ``act_scale``
+    tensors), so serving quantizes no weight per call.
     """
     from eovax_torch.data.wavelengths import WAVELENGTHS
+    from eovax_torch.kernels.qconv import quantize_state_int8
 
-    if act_scales:
-        raise NotImplementedError(_INT8)
     unknown = set(functions) - set(_FUNCTIONS)
     if unknown:
         raise ValueError(f"unknown functions {sorted(unknown)}; choose from {list(_FUNCTIONS)}")
+    if act_scales and not _int8(model.policy):
+        raise ValueError("act_scales requires an int8-policy model")
     os.makedirs(out_dir, exist_ok=True)
     core = model.core
-    state = core.state_dict()
+    state, quantized = core.state_dict(), 0
+    if _int8(model.policy):
+        state, quantized = quantize_state_int8(state, act_scales)
     if params_dtype is not None:
         state = _cast_float_params(state, {k for k, _ in core.named_parameters()}, params_dtype)
     torch.save(state, os.path.join(out_dir, _PARAMS))
@@ -276,6 +348,8 @@ def export_model(
         "device": str(device),
         "functions": {},
     }
+    if quantized:
+        manifest["quantization"] = _quant_manifest(quantized, act_scales)
     for modality in modalities:
         wvs = WAVELENGTHS[modality]
         for name in functions:
@@ -284,7 +358,7 @@ def export_model(
                           else (len(wvs), resolution, resolution))
             x = torch.zeros((2, *per_sample), device=device)
             fname = f"{name}.{modality}.pt2"
-            _export(_Surface(core, method, wvs, device), (state, x),
+            _export(_Surface(core, state, method, wvs, device), (state, x),
                     os.path.join(out_dir, fname))
             manifest["functions"][f"{name}.{modality}"] = {
                 "file": fname,
@@ -309,6 +383,7 @@ def export_sr_pipeline(
     wvs=None,
     latent_stats: tuple | None = None,
     params_dtype: torch.dtype | None = None,
+    denoiser_policy=None,
 ) -> dict:
     """Export the stage-3 pipeline — encode → ``steps``-step sampler → decode —
     as one graph ``(state, x_lr, eps) → y`` with a symbolic batch.
@@ -326,10 +401,22 @@ def export_sr_pipeline(
     ``latent_stats``: optional (mean[C], std[C]) per latent channel (the
     Sen2NAIP HR statistics); identity when omitted. ``params_dtype``: as in
     :func:`export_model`, for both networks; ``latent_norm`` stays fp32.
+
+    ``denoiser_policy`` is required when ``model.policy`` is int8: the policy
+    the UNet was built with, which must be int8 too. Both networks' body convs
+    (the VAE's ResnetBlocks, the UNet's TimeResBlocks) are then quantized once,
+    with dynamic activation ranges.
     """
     from eovax_torch.data.sen2naip import SEN2NAIP_WVS
+    from eovax_torch.kernels.qconv import quantize_state_int8
     from eovax_torch.models.sr_diffusion import make_sampler
 
+    if _int8(model.policy) and getattr(denoiser_policy, "conv_algorithm", None) != "int8":
+        raise ValueError(
+            "int8 SR export: the denoiser must have been built with the same int8 "
+            "policy, and denoiser_policy=<that policy> must be passed to confirm it: "
+            "quantized UNet weights under any other policy would not take the int8 conv. "
+            "cli/export builds the denoiser with policy=model.policy and forwards it.")
     sampler_obj = make_sampler(sampler, denoiser, steps=steps)  # a bad name fails first
     os.makedirs(out_dir, exist_ok=True)
     z_ch = model.config.encoder.z_channels
@@ -344,6 +431,11 @@ def export_sr_pipeline(
                      for v in latent_stats)
 
     vae_state, sr_state = model.core.state_dict(), unet.state_dict()
+    quantized = 0
+    if _int8(model.policy):
+        (vae_state, n_vae), (sr_state, n_sr) = (quantize_state_int8(vae_state),
+                                                quantize_state_int8(sr_state))
+        quantized = n_vae + n_sr
     if params_dtype is not None:
         vae_state = _cast_float_params(
             vae_state, {k for k, _ in model.core.named_parameters()}, params_dtype)
@@ -356,7 +448,7 @@ def export_sr_pipeline(
     in_shape = (len(wvs_arr), resolution, resolution)
     latent_shape = (z_ch, latent_hw, latent_hw)
     fname = "super_resolve.pt2"
-    _export(_SRPipeline(model.core, unet, sampler_obj, wvs_arr, device),
+    _export(_SRPipeline(model.core, unet, state, sampler_obj, wvs_arr, device),
             (state, torch.zeros((2, *in_shape), device=device),
              torch.zeros((2, *latent_shape), device=device)),
             os.path.join(out_dir, fname))
@@ -383,6 +475,8 @@ def export_sr_pipeline(
             }
         },
     }
+    if quantized:
+        manifest["quantization"] = _quant_manifest(quantized)
     with open(os.path.join(out_dir, _MANIFEST), "w") as f:
         json.dump(manifest, f, indent=2)
     return manifest
@@ -416,6 +510,7 @@ class ServedModel:
         import eovax_torch.kernels.attention  # noqa: F401  (registers the eovax:: ops)
         import eovax_torch.kernels.conv3x3  # noqa: F401
         import eovax_torch.kernels.groupnorm  # noqa: F401
+        import eovax_torch.kernels.qconv  # noqa: F401
         from eovax_torch.core.device import resolve_device
 
         device = resolve_device(device)

@@ -21,6 +21,12 @@ the JAX package's ``{"params", "batch_stats"}`` tree, names and layouts, which
 :mod:`eovax_torch.utils.flax_msgpack` writes as a ``.msgpack`` file that the
 JAX package loads.
 
+An int8 params tree (the JAX package's ``quantize_params_int8``: an int8 HWIO
+``kernel`` with an fp32 ``kernel_scale`` [O] and a scalar ``act_scale`` beside
+it) maps to an int8 OIHW ``weight`` with ``kernel_scale``/``act_scale`` tensors,
+the state that :func:`eovax_torch.kernels.qconv.quantize_state_int8` writes;
+:func:`module_path` maps a JAX module path (an ``act_scales`` key) to the port's.
+
 The shared-basis stems (``eovax_torch.nn.dynamic_basis``) keep the JAX
 package's names (``basis_bank`` [num_bases, K, K], ``hypernet.backbone_0`` …
 ``expansion``, ``wv_proj``, ``bias_generator_0``/``_2``), and the multi-stage
@@ -90,6 +96,12 @@ def _flax_module_path(path: str) -> str:
     return path
 
 
+def module_path(path: tuple[str, ...]) -> str:
+    """A JAX module path (``("encoder", "down_0_block_1", "conv1")``) as the
+    port's (``"encoder.down.0.block.1.conv1"``)."""
+    return _torch_module_path(".".join(path) + ".")[:-1]
+
+
 def _float32(leaf) -> np.ndarray:
     """A leaf (numpy array, scalar or tensor, bf16 included) as fp32 numpy."""
     if torch.is_tensor(leaf):
@@ -97,19 +109,26 @@ def _float32(leaf) -> np.ndarray:
     return np.asarray(leaf, np.float32)
 
 
+def _array(leaf) -> np.ndarray:
+    """A leaf as numpy: an int8 quantized weight as it is, anything else fp32."""
+    if getattr(leaf, "dtype", None) in (np.int8, torch.int8):
+        return leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf)
+    return _float32(leaf)
+
+
 def state_dict_from_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` tree of numpy arrays → the port's state dict."""
     out: dict[str, torch.Tensor] = {}
 
     def put(key: str, arr: np.ndarray) -> None:
-        out[key] = torch.from_numpy(np.array(arr, np.float32))  # a writable copy
+        out[key] = torch.from_numpy(np.array(arr))  # a writable copy
 
     def walk(tree, path: tuple[str, ...]) -> None:
         if isinstance(tree, Mapping):
             for k, v in tree.items():
                 walk(v, path + (k,))
             return
-        arr = _float32(tree)
+        arr = _array(tree)
         leaf = path[-1]
         if len(path) >= 2 and path[-2] == "in_proj":  # packed q/k/v projection
             prefix = _torch_module_path(".".join(path[:-2]) + ".")
@@ -153,7 +172,7 @@ def variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict[st
         module, _, leaf = key.rpartition(".")
         if leaf == "num_batches_tracked":
             continue
-        arr = _float32(value)
+        arr = _array(value)
         path = _flax_module_path(module + ".") if module else ""
         if leaf in ("in_proj_weight", "in_proj_bias"):  # packed q/k/v projection
             put("params", path + "in_proj", "kernel" if leaf == "in_proj_weight" else "bias",

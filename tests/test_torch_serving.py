@@ -297,18 +297,20 @@ def test_export_cli(tmp_path, capsys):
     assert served._manifest["policy"] == "fp32"
     y = served.reconstruct(np.zeros((1, 3, 32, 32), np.float32), modality="S2RGB")
     assert y.shape == (1, 3, 32, 32) and torch.isfinite(y).all()
-    for extra in (["--precision", "int8"], ["--calibrate-npz", "calib.npz"]):
-        with pytest.raises(SystemExit):
-            export_main(["--config", str(cfg), "--output", str(tmp_path / "x"),
-                         "--device", "cpu", *extra])
-        assert "ROADMAP Queue 1 item 9" in capsys.readouterr().err
+    # Calibration is for int8 artifacts only (tests/test_torch_serving_int8.py).
+    with pytest.raises(SystemExit):
+        export_main(["--config", str(cfg), "--output", str(tmp_path / "x"),
+                     "--device", "cpu", "--calibrate-npz", "calib.npz"])
+    assert "--calibrate-npz requires --precision int8" in capsys.readouterr().err
 
 
 def test_int8_and_mesh_are_refused_with_their_roadmap_items(models, artifact, served, tmp_path,
                                                             capsys):
     from eovax_torch.cli.serve import main as serve_main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    # int8 serving is ported (tests/test_torch_serving_int8.py): static ranges
+    # need an int8-policy model, as in the JAX package.
+    with pytest.raises(ValueError, match="act_scales requires an int8-policy model"):
         export_model(models[1], str(tmp_path / "q"), modalities=("S2RGB",), resolution=32,
                      act_scales={"encoder.conv_in": 1.0})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8c"):
