@@ -286,10 +286,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    with the live path direct and through the ``eovax::`` ops
    (``eovax_torch.kernels.ops.live``). The export CLI with ``--sr-config``
    (phase 8's full-width UNet, its weights a test-written ``--sr-ckpt``),
-   DDIM-50, LR 128² (4-band Sen2NAIP), in a process started at the phase's
-   start (its trace takes minutes of the host): export and load seconds, the
-   ``.pt2``'s size; calls at B = 1 and 4 with exact launches
-   2348/2452/52 (the encode's, the decode's and 50 UNet evals), their ms; row
+   DDIM-4 (phase 8 times DDIM-50 on the live model), LR 128² (4-band
+   Sen2NAIP), in a process started at the phase's start: export and load
+   seconds, the ``.pt2``'s size; calls at B = 1 and 4 with exact launches
+   232/244/6 (the encode's, the decode's and 4 UNet evals), their ms; row
    i of B = 4 against the B = 1 call with seed 5+i (noise ``torch.equal``,
    outputs within 1e-1) and the B = 1 call against the live encode →
    ``DDIMSampler`` → decode from the same x1. The daemon: ``make_server`` on
@@ -297,11 +297,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    payloads, unbatched and with ``max_batch=16``: requests/s, p50/p99 from
    ``/metrics``, launches equal to the device calls' 48/52/2 each, batched
    replies against unbatched ones; 4 concurrent SR requests coalesced, each
-   against its own B=1 call. ``python -m eovax_torch.cli.serve`` as a process:
-   ``/healthz``, one request, SIGTERM, exit 0. ``EOFluxVAE.save`` to
+   against its own B=1 call. ``python -m eovax_torch.cli.serve --mesh`` as a
+   process (data parallel over every visible card): ``/healthz``, one
+   request, SIGTERM, exit 0. ``EOFluxVAE.save`` to
    ``.msgpack`` and ``load_checkpoint`` into a fresh model: ``reconstruct``
    ``torch.equal``. Files under ``build/chip_smoke_serving_*``, removed at the
-   end. The ``kernels`` line's hand-kernel entries carry the artifact's B=16
+   end, but for the bf16 artifact, the SR artifact and the checkpoint, which
+   phase 17 takes. The ``kernels`` line's hand-kernel entries carry the artifact's B=16
    ``reconstruct`` launches as ``serving_launches`` and an SR-artifact call's
    as ``serving_sr_launches``.
 
@@ -327,11 +329,36 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    LR 128²), exported by the CLI in a process started at the phase's start
    (the daemon and the times wait for it): 48 + the UNet's eligible convs
    quantized, calls at B = 1 and 4 with exact launches, their ms. Files under
-   ``build/chip_smoke_int8_*``, removed at the end. The ``kernels`` line's
+   ``build/chip_smoke_int8_*``, removed at the end, but for the two int8
+   artifacts, which phase 17 takes. The ``kernels`` line's
    entries carry the int8 ``reconstruct``'s launches as ``int8_launches``,
    its artifact's as ``int8_serving_launches`` and an int8 SR call's as
    ``int8_sr_launches``; ``conv3x3_int8``'s ``launches`` is the int8
    ``reconstruct``'s, its main path.
+
+17. Serving over several cards, the Winograd policy, the eval CLIs. (a)
+   ``ServedModel.with_mesh`` of phases 15-16's artifacts over every visible
+   card and over the card repeated 4 times (``make_device_mesh``): the bf16
+   and the calibrated int8 ``reconstruct`` at B = 16 (split into equal row
+   blocks) and B = 3 (undivided: whole on the first card), ``torch.equal`` to
+   the single-card calls on each block, with exact launches 48/52/2 (int8: 48
+   ``conv3x3_int8``) a block; the dynamic int8 artifact refused; the DDIM-4
+   SR artifact's row i of B = 4 ``torch.equal`` to its B = 1 call with seed
+   5+i; ``MicroBatcher`` over the repeated mesh (buckets of 4, 8, 16; a B=1
+   request padded to 4 rows, equal to its direct call); phase 15 runs the
+   serve CLI with ``--mesh``. (b)
+   Phase 3's weights under ``WINOGRAD_POLICY``: ``reconstruct``
+   [16,12,256,256] with exact launches 0 conv3x3 / 52 / 2 (its 48 ResnetBlock
+   convs are Winograd products), its rms distance from the direct bf16 model
+   within ``TOL_WINOGRAD_RMS``, and its time beside the direct bf16 model with
+   the hand conv kernel and with cuDNN's conv (CUDA events, 10 calls after 2).
+   (c) ``evaluate_metrics_tokenizer`` (2 synthetic S2L2A batches of 4) and
+   ``visual_eval`` (S2L2A and S2RGB batches of 2) on phase 15's checkpoint,
+   with their launches; ``slope_ms`` of a ``reconstruct`` [4,12,256,256]
+   beside its CUDA-event time; ``profiling.trace`` writing a Chrome trace
+   with the kernels' rows. The ``kernels`` line's entries carry the repeated
+   mesh's bf16 B=16 ``reconstruct`` launches as ``mesh_launches`` and the
+   Winograd ``reconstruct``'s as ``winograd_launches``.
 
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
@@ -350,6 +377,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -544,6 +572,12 @@ def check_gn_forward_rows(label: str, rows: dict, expected: int) -> None:
     if fwd != expected or old:
         raise AssertionError(f"{label}: GroupNorm forward rows {fwd} (expected {expected}), "
                              f"earlier kernels {old}")
+
+
+def rms_over_std(out, ref) -> float:
+    """The rms of ``out - ref`` over ``ref``'s standard deviation."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).pow(2).mean().sqrt() / ref.std()).item()
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -4057,9 +4091,10 @@ def legacy_phase(card: str) -> dict:
 
 
 # Phase 15: serving. Launches of one SR-artifact call (conv3x3 / group_norm /
-# flash_attention): the encode's and the decode's, and 50 UNet evals (DDIM-50).
+# flash_attention): the encode's and the decode's, and 4 UNet evals (DDIM-4;
+# phase 8 times DDIM-50 on the live model).
 SERVE_ENCODE, SERVE_DECODE = (20, 22, 1), (28, 30, 1)
-SR_STEPS = 50
+SR_STEPS = 4
 SR_CALL = tuple(e + d + SR_STEPS * u for e, d, u in zip(SERVE_ENCODE, SERVE_DECODE, UNET_EVAL))
 # Requests the daemon answers in each mode, from this many client threads.
 SERVE_REQUESTS, SERVE_CLIENTS = 64, 16
@@ -4133,12 +4168,15 @@ def serve_clients_main(argv: list[str]) -> int:
     return 0 if not errors else 1
 
 
-def serve_clients(served, requests: Path, max_batch: int, card: str, per_call: dict | None = None):
+def serve_clients(served, requests: Path, max_batch: int, card: str, per_call: dict | None = None,
+                  run=drive):
     """``make_server`` on a thread, and ``SERVE_CLIENTS`` client threads in another
-    process posting the B=1 ``reconstruct`` payloads of ``requests``. Returns the
+    process posting the B=1 ``reconstruct`` payloads of the ``.npy`` ``requests``
+    (all of them, however many). Returns the
     replies in request order and the run's numbers (requests/s, the daemon's
     p50/p99, its device calls; the kernels' launches checked against them,
-    ``per_call`` a device call: the bf16 artifact's 48/52/2 by default)."""
+    ``per_call`` a device call: the bf16 artifact's 48/52/2 by default; the
+    launches counted by ``run``, ``drive``)."""
     import threading
 
     import numpy as np
@@ -4151,9 +4189,10 @@ def serve_clients(served, requests: Path, max_batch: int, card: str, per_call: d
     thread.start()
     replies = requests.with_name(f"replies_{max_batch}.npy")
     label = f"daemon {'max_batch=' + str(max_batch) if max_batch else 'unbatched'}"
+    n = len(np.load(requests, mmap_mode="r"))
     try:
-        proc, counts = drive(
-            f"{label}: {SERVE_REQUESTS} B=1 reconstruct requests", lambda: subprocess.run(
+        proc, counts = run(
+            f"{label}: {n} B=1 reconstruct requests", lambda: subprocess.run(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-clients", base,
                  str(requests), str(replies)], capture_output=True, text=True, timeout=900),
             None)
@@ -4166,24 +4205,25 @@ def serve_clients(served, requests: Path, max_batch: int, card: str, per_call: d
         raise AssertionError(f"{label}: clients failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     seconds = json.loads(proc.stdout.strip().splitlines()[-1])["seconds"]
     m = metrics["reconstruct"]
-    calls = metrics["_batching"]["reconstruct"]["batches"] if max_batch else SERVE_REQUESTS
+    calls = metrics["_batching"]["reconstruct"]["batches"] if max_batch else n
     per_call = per_call or launches(48, 52, 2)
-    if m["count"] != SERVE_REQUESTS or m["errors"] or counts != {
-            k: calls * n for k, n in per_call.items()}:
+    if m["count"] != n or m["errors"] or counts != {
+            k: calls * c for k, c in per_call.items()}:
         raise AssertionError(f"{label}: metrics {metrics}, launches {counts} for {calls} calls")
-    row = dict(requests=SERVE_REQUESTS, seconds=seconds, requests_per_s=SERVE_REQUESTS / seconds,
+    row = dict(requests=n, seconds=seconds, requests_per_s=n / seconds,
                p50_ms=m["p50_ms"], p99_ms=m["p99_ms"], device_calls=calls,
                batching=metrics.get("_batching", {}).get("reconstruct"))
-    print(f"{label}: {row['requests_per_s']:.2f} requests/s ({SERVE_REQUESTS} from "
+    print(f"{label}: {row['requests_per_s']:.2f} requests/s ({n} from "
           f"{SERVE_CLIENTS} client threads of another process in {seconds:.3f} s), p50 "
           f"{m['p50_ms']} ms, p99 {m['p99_ms']} ms, {calls} device calls, batching "
           f"{row['batching']} [{card}]")
     return np.load(replies), row
 
 
-def serve_cli_process(art: Path, card: str) -> None:
-    """``python -m eovax_torch.cli.serve`` as a process on port 0: one request,
-    /healthz, SIGTERM, exit 0."""
+def serve_cli_process(art: Path, card: str, extra: tuple = ()) -> list[str]:
+    """``python -m eovax_torch.cli.serve`` as a process on port 0 (with ``extra``
+    arguments): one request, /healthz, SIGTERM, exit 0. Returns its lines up to
+    the address."""
     import signal
 
     import numpy as np
@@ -4192,7 +4232,7 @@ def serve_cli_process(art: Path, card: str) -> None:
 
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "eovax_torch.cli.serve", str(art), "--port",
-                             "0", "--warmup", "1"], cwd=ROOT, stdout=subprocess.PIPE,
+                             "0", "--warmup", "1", *extra], cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     watchdog = threading.Timer(300, proc.kill)  # a server that never starts stops the read
     watchdog.start()
@@ -4221,13 +4261,16 @@ def serve_cli_process(art: Path, card: str) -> None:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
-    print(f"serve CLI: up in {up:.1f} s ({'; '.join(lines)}), /healthz ok, one reconstruct "
-          f"{tuple(y.shape)} finite, SIGTERM -> exit 0 [{card}]")
+    print(f"serve CLI{' ' + ' '.join(extra) if extra else ''}: up in {up:.1f} s "
+          f"({'; '.join(lines)}), /healthz ok, one reconstruct {tuple(y.shape)} finite, "
+          f"SIGTERM -> exit 0 [{card}]")
+    return lines
 
 
-def serving_phase(model, sd: dict, card: str, g) -> dict:
+def serving_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
     """Phase 15: the serving path at full width. Returns the kernels' launches of
-    one artifact ``reconstruct`` at B=16 and of one SR-artifact call at B=4."""
+    one artifact ``reconstruct`` at B=16 and of one SR-artifact call at B=4. Moves
+    the bf16 artifact, the SR artifact and the checkpoint into ``keep``."""
     import tempfile
     import threading
 
@@ -4253,7 +4296,7 @@ def serving_phase(model, sd: dict, card: str, g) -> dict:
     sr_export = None
     try:
         # ---- the SR artifact's export, in a process of its own ---------------------
-        # Tracing the unrolled DDIM-50 graph takes minutes of the host: the export
+        # Tracing the unrolled sampler's graph takes the host a while: the export
         # CLI runs it while this process checks the VAE artifact and the daemon.
         torch.save({"state_dict": sd}, tmp / "eo-vae.ckpt")
         lm = load_yaml(str(SR_CONFIG))["lightning_module"]
@@ -4376,7 +4419,11 @@ def serving_phase(model, sd: dict, card: str, g) -> dict:
             raise AssertionError("batched replies disagree with unbatched ones")
         stamp("phase 15: daemon")
 
-        serve_cli_process(art, card)
+        # The CLI's one process serves phase 17's mesh too: over every visible card.
+        lines = serve_cli_process(art, card, ("--mesh",))
+        want = f"data-parallel over {torch.cuda.device_count()} devices"
+        if want not in lines:
+            raise AssertionError(f"serve --mesh did not print {want!r}: {lines}")
         stamp("phase 15: serve CLI")
 
         # ---- loading: the port's .msgpack of the phase's weights -------------------
@@ -4396,7 +4443,7 @@ def serving_phase(model, sd: dict, card: str, g) -> dict:
         del fresh
         stamp("phase 15: .msgpack loading")
 
-        # ---- the SR artifact: DDIM-50 at LR 128² ----------------------------------
+        # ---- the SR artifact: DDIM-4 at LR 128² -----------------------------------
         rc = sr_export.wait(timeout=600)
         log = (tmp / "sr_export.log").read_text()
         if rc != 0:
@@ -4476,6 +4523,8 @@ def serving_phase(model, sd: dict, card: str, g) -> dict:
             raise AssertionError("batched SR requests lost their seeds")
         del sr
         stamp("phase 15: SR daemon")
+        for name, src in (("bf16", art), ("sr", tmp / "sr"), ("eo-vae.ckpt", tmp / "eo-vae.ckpt")):
+            shutil.move(str(src), str(keep / name))
     finally:
         if sr_export is not None and sr_export.poll() is None:
             sr_export.kill()
@@ -4560,10 +4609,11 @@ def check_int8_every_bf16(dev) -> None:
           "quantized as the plain version quantizes it (torch.equal)")
 
 
-def int8_phase(model, sd: dict, card: str, g) -> dict:
+def int8_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
     """Phase 16: int8 (W8A8) serving at full width. Returns the int8 kernel's
     checks and times, and the launches of one int8 ``reconstruct`` at B=16 (live,
-    the kernels' main path here), of its artifact, and of an int8 SR-artifact call."""
+    the kernels' main path here), of its artifact, and of an int8 SR-artifact call.
+    Moves the dynamic and the calibrated int8 artifacts into ``keep``."""
     import tempfile
 
     import numpy as np
@@ -4643,7 +4693,7 @@ def int8_phase(model, sd: dict, card: str, g) -> dict:
             raise AssertionError("int8 reconstruct gave a wrong shape or non-finite values")
         yb = model.reconstruct(x16, s2)
         err, rel = rel_err(y8, yb)
-        rms = ((y8.float() - yb.float()).pow(2).mean().sqrt() / yb.float().std()).item()
+        rms = rms_over_std(y8, yb)
         print(f"int8 reconstruct vs the bf16 model [16,12,256,256]: max_abs_err={err:.3e} "
               f"rel={rel:.3e}, rms/std {rms:.3e} (N(0, 0.02) weights) [{card}]")
         for label, fn, tag in (("bf16", lambda: model.reconstruct(x16, s2), "conv3x3_bf16_"),
@@ -4781,6 +4831,8 @@ def int8_phase(model, sd: dict, card: str, g) -> dict:
             print(f"time int8 SR artifact super_resolve [{b},4,128,128] DDIM-{INT8_SR_STEPS}: "
                   f"{sr_ms[b]:.3f} ms/call ({unet_int8} of the UNet's {u[0]} convs int8) [{card}]")
         stamp("phase 16: int8 SR artifact")
+        for kind, out in arts.items():
+            shutil.move(str(out), str(keep / f"int8_{kind}"))
     finally:
         if sr_export is not None and sr_export.poll() is None:
             sr_export.kill()
@@ -4790,6 +4842,192 @@ def int8_phase(model, sd: dict, card: str, g) -> dict:
     return {"launches": counts, "serving_launches": art_counts["dynamic"],
             "sr_launches": sr_counts, "errs": errs, "rows": rows, "reconstruct_ms": recon_ms,
             "sr_ms": sr_ms, "daemon": {"unbatched": unbatched, "batched": batched}}
+
+
+# Phase 17: serving over several cards, the Winograd policy, the eval CLIs.
+# The Winograd model's rms distance from the direct bf16 model over the output's
+# spread: the bound that tests/test_torch_winograd.py holds the tiny VAE to
+# (its Winograd and direct bf16 models, both bf16).
+TOL_WINOGRAD_RMS = 5e-2
+MESH_REPEATS = 4
+
+
+def check_mesh(label: str, served, mesh, x, per_block: dict, run=drive) -> dict:
+    """``served.with_mesh(mesh).reconstruct(x)`` through ``run`` (``drive``):
+    exact launches, ``per_block`` a row block (one block where the device count
+    does not divide the batch), and ``torch.equal`` to ``served``'s single-card
+    calls on each block. Returns the launches."""
+    import torch
+
+    view = served.with_mesh(mesh)
+    blocks = mesh.size if len(x) % mesh.size == 0 else 1
+    y, counts = run(f"{label} with_mesh({mesh.size} x {mesh.devices[0]}"
+                      f"{'' if len(set(mesh.devices)) == 1 else ' ...'}) reconstruct "
+                      f"{list(x.shape)}", lambda: view.reconstruct(x),
+                      {k: blocks * n for k, n in per_block.items()})
+    rows = len(x) // blocks
+    ref = torch.cat([served.reconstruct(x[i * rows:(i + 1) * rows]) for i in range(blocks)])
+    same = torch.equal(y, ref)
+    print(f"{label} over {mesh.size} devices, B={len(x)} in {blocks} block(s) of {rows}: "
+          f"torch.equal to the single-card calls on each block {same}, on {y.device}")
+    if not same or y.device != mesh.devices[0]:
+        raise AssertionError(f"{label}: the mesh's result differs from the per-block calls")
+    return counts
+
+
+def check_mesh_sr(sr, mesh, lr, seed: int, per_call: dict, run=drive) -> dict:
+    """Row i of ``sr.with_mesh(mesh)``'s B = mesh-size call with ``seed`` is the
+    B = 1 call with ``seed + i`` bit for bit (one row a device), through ``run``
+    (``drive``)."""
+    import torch
+
+    n = mesh.size
+    y, counts = run(f"SR artifact with_mesh({n}) super_resolve {list(lr[:n].shape)} "
+                      f"DDIM-{SR_STEPS}", lambda: sr.with_mesh(mesh).super_resolve(lr[:n], seed=seed),
+                      {k: n * v for k, v in per_call.items()})
+    same = [torch.equal(y[i:i + 1], sr.super_resolve(lr[i:i + 1], seed=seed + i))
+            for i in range(n)]
+    print(f"SR artifact over {n} devices: row i torch.equal to the B=1 call with seed "
+          f"{seed}+i: {same}")
+    if not all(same):
+        raise AssertionError("SR rows over the mesh differ from their B=1 calls")
+    return counts
+
+
+def mesh_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
+    """Phase 17: ``with_mesh`` of the kept artifacts, the Winograd policy, the eval
+    CLIs and host utilities. Returns the launches of the repeated mesh's bf16
+    ``reconstruct`` at B=16 and of the Winograd ``reconstruct``."""
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.cli import evaluate_metrics_tokenizer, visual_eval
+    from eovax_torch.core.precision import WINOGRAD_POLICY
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.nn import blocks
+    from eovax_torch.parallel.mesh import make_device_mesh
+    from eovax_torch.serving import MicroBatcher, ServedModel
+    from eovax_torch.utils import profiling
+    from eovax_torch.utils.slopetime import chained_ms
+
+    dev = g.device
+    s2 = wavelengths_for("S2L2A")
+    x16 = torch.randn(16, 12, 256, 256, generator=g, device=dev)
+
+    # ---- (a) with_mesh ------------------------------------------------------------
+    meshes = (make_device_mesh(), make_device_mesh([dev] * MESH_REPEATS))
+    served = {kind: ServedModel.load(str(keep / kind))
+              for kind in ("bf16", "int8_calibrated", "int8_dynamic")}
+    per_block = {"bf16": launches(48, 52, 2), "int8_calibrated": launches(0, 52, 2, conv_int8=48)}
+    counts = {}
+    for kind, per in per_block.items():
+        for mesh in meshes:
+            for b in (16, 3):
+                c = check_mesh(kind, served[kind], mesh, x16[:b], per)
+                if kind == "bf16" and b == 16 and mesh is meshes[1]:
+                    counts = c
+    try:
+        served["int8_dynamic"].with_mesh(meshes[1])
+        raise AssertionError("with_mesh of a dynamic int8 artifact did not raise")
+    except ValueError as e:
+        print(f"with_mesh of the dynamic int8 artifact refused: {str(e)[:90]}...")
+    sr = ServedModel.load(str(keep / "sr"))
+    lr = torch.randn(MESH_REPEATS, 4, 128, 128, generator=g, device=dev)
+    check_mesh_sr(sr, meshes[1], lr, 5, launches(*SR_CALL))
+    del sr
+    view = served["bf16"].with_mesh(meshes[1])
+    mb = MicroBatcher(view, threading.Lock(), max_batch=16, max_wait_ms=3.0)
+    try:
+        x1 = np.random.default_rng(43).standard_normal((1, 12, 256, 256)).astype(np.float32)
+        y1, _ = drive("MicroBatcher over the repeated mesh: one B=1 request",
+                      lambda: mb.submit("reconstruct", "S2L2A", x1),
+                      {k: MESH_REPEATS * n for k, n in launches(48, 52, 2).items()})
+        same = np.array_equal(y1, served["bf16"].reconstruct(x1).float().cpu().numpy())
+        stats = mb.stats()["reconstruct"]
+    finally:
+        mb.close()
+    print(f"MicroBatcher over {MESH_REPEATS} devices: buckets {mb.buckets}, a B=1 request "
+          f"padded to {MESH_REPEATS} rows (pad waste {stats['pad_waste_pct']} %), reply equal to "
+          f"the direct call {same}")
+    if mb.buckets != [4, 8, 16] or not same:
+        raise AssertionError("MicroBatcher over the mesh")
+    del served, view
+    torch.cuda.empty_cache()
+    stamp("phase 17: with_mesh")
+
+    # ---- (b) the Winograd policy ------------------------------------------------
+    wino = EOFluxVAE(shipped_config(12), sd, policy=WINOGRAD_POLICY, device=dev)
+    yw, wino_counts = drive("Winograd reconstruct [16,12,256,256] (WINOGRAD_POLICY)",
+                            lambda: wino.reconstruct(x16, s2), launches(0, 52, 2))
+    yb = model.reconstruct(x16, s2)
+    rms = rms_over_std(yw, yb)
+    err, rel = rel_err(yw, yb)
+    print(f"Winograd vs direct bf16 reconstruct [16,12,256,256]: rms/std {rms:.4e} tol "
+          f"{TOL_WINOGRAD_RMS:g}, max_abs_err={err:.3e} rel={rel:.3e} [{card}]")
+    if not (rms <= TOL_WINOGRAD_RMS and torch.isfinite(yw).all()):
+        raise AssertionError("the Winograd model is too far from the direct bf16 model")
+    times = {}
+    direct_conv = blocks.conv3x3
+
+    def cudnn_conv(x, w, bias):
+        return F.conv2d(x, w.to(x.dtype), None if bias is None else bias.to(x.dtype), padding=1)
+
+    fns = {"winograd": lambda: wino.reconstruct(x16, s2),
+           "direct hand kernel": lambda: model.reconstruct(x16, s2),
+           "direct cuDNN": lambda: model.reconstruct(x16, s2)}
+    for label in (*fns, *reversed(fns)):
+        blocks.conv3x3 = cudnn_conv if label == "direct cuDNN" else direct_conv
+        try:
+            times.setdefault(label, []).append(cuda_ms(fns[label], 10))
+        finally:
+            blocks.conv3x3 = direct_conv
+    print(f"time reconstruct [16,12,256,256] bf16: {times} ms (CUDA events, 10 calls after 2, "
+          f"order W K C C K W) [{card}]")
+    del wino, yw, yb
+    torch.cuda.empty_cache()
+    stamp("phase 17: Winograd")
+
+    # ---- (c) the eval CLIs and host utilities --------------------------------------
+    out = keep / "eval"
+    out.mkdir()
+    ckpt, cfg = str(keep / "eo-vae.ckpt"), str(ROOT / "configs" / "eo-vae.yaml")
+    drive(
+        "evaluate_metrics_tokenizer.main 2 synthetic S2L2A batches of 4 at 256²",
+        lambda: evaluate_metrics_tokenizer.main(
+            ["--config", cfg, "--ckpt", ckpt, "--modalities", "S2L2A", "--num-batches", "2",
+             "--batch-size", "4", "--synthetic-data", "--output", str(out / "metrics.json")]),
+        launches(2 * 48, 2 * 52, 2 * 2))
+    metrics = json.loads((out / "metrics.json").read_text())
+    print(f"evaluate_metrics_tokenizer: {metrics}")
+    if not all(np.isfinite(v) for v in metrics["S2L2A"].values()):
+        raise AssertionError("evaluate_metrics_tokenizer gave non-finite metrics")
+    drive("visual_eval.main S2L2A and S2RGB synthetic batches of 2 at 256²",
+          lambda: visual_eval.main(["--config", cfg, "--ckpt", ckpt, "--modalities", "S2L2A",
+                                    "S2RGB", "--batch-size", "2", "--synthetic-data",
+                                    "--out-dir", str(out / "viz")]),
+          launches(2 * (48 + 20), 2 * (52 + 22), 2 * (2 + 1)))
+    pngs = sorted(p.name for p in (out / "viz").rglob("*.png"))
+    print(f"visual_eval wrote {pngs}")
+    if len(pngs) != 4:
+        raise AssertionError(f"visual_eval: {pngs}")
+    x4 = x16[:4]
+    slope = chained_ms(lambda _, x: model.reconstruct(x, s2), x4, lo=2, hi=6)
+    events = cuda_ms(lambda: model.reconstruct(x4, s2), 10)
+    print(f"time reconstruct [4,12,256,256] bf16: slope_ms {slope:.3f} ms/iteration (chains of "
+          f"2 and 6, one synchronize), CUDA events {events:.3f} ms/call [{card}]")
+    with profiling.trace(str(out / "trace"), host_tracer_level=1):
+        model.reconstruct(x4, s2)
+    trace = json.loads((out / "trace" / "trace.json").read_text())["traceEvents"]
+    gn_rows = sum("gn_fwd_" in e.get("name", "") for e in trace if e.get("cat") == "kernel")
+    print(f"profiling.trace: {(out / 'trace' / 'trace.json').stat().st_size / 2**20:.2f} MiB, "
+          f"{len(trace)} events, {gn_rows} gn_fwd_ kernel rows")
+    stamp("phase 17: eval CLIs and host utilities")
+    return {"launches": counts, "winograd_launches": wino_counts, "winograd_rms": rms,
+            "winograd_ms": times, "slope_ms": slope, "events_ms": events}
 
 
 def main() -> int:
@@ -5110,8 +5348,13 @@ def main() -> int:
     bases_counts = bases_phase(card, gan_ms)
     refine = refine_phase(sd, card, g)
     legacy_counts = legacy_phase(card)
-    serving = serving_phase(model, sd, card, g)
-    int8 = int8_phase(model, sd, card, g)
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=ROOT / "build"))
+    try:
+        serving = serving_phase(model, sd, card, g, keep)
+        int8 = int8_phase(model, sd, card, g, keep)
+        mesh = mesh_phase(model, sd, card, g, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -5193,6 +5436,9 @@ def main() -> int:
         entry["int8_launches"] = int8["launches"][entry["name"]]
         entry["int8_serving_launches"] = int8["serving_launches"][entry["name"]]
         entry["int8_sr_launches"] = int8["sr_launches"][entry["name"]]
+        # Phase 17: the card repeated 4 times, bf16 reconstruct B=16; Winograd B=16.
+        entry["mesh_launches"] = mesh["launches"][entry["name"]]
+        entry["winograd_launches"] = mesh["winograd_launches"][entry["name"]]
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,10 +6,11 @@ Port of ``eovax/cli/serve.py``. Usage:
         [--warmup 1 8] [--max-batch 16] [--device cuda]
 
 Loads the artifact with ``ServedModel.load`` onto the card (no model code
-needed), warms the requested batch sizes, then blocks on ``serve_forever``
-until SIGTERM (or Ctrl-C), which shuts it down cleanly. Protocol: see
-eovax_torch/serving/server.py. ``--mesh`` (data parallel over several cards)
-is not ported yet: ROADMAP Queue 1 item 8c.
+needed), optionally fans it out data-parallel over every visible card
+(``--mesh``; with ``--device cpu`` a one-device mesh of the host), warms the
+requested batch sizes, then blocks on ``serve_forever`` until SIGTERM (or
+Ctrl-C), which shuts it down cleanly. Protocol: see
+eovax_torch/serving/server.py.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ def main(argv=None) -> None:
     parser.add_argument("--port", type=int, default=8000,
                         help="0 binds an ephemeral port (printed at startup)")
     parser.add_argument("--mesh", action="store_true",
-                        help="data parallel over several cards: not ported yet "
-                        "(ROADMAP Queue 1 item 8c)")
+                        help="split request batches data-parallel over all "
+                        "visible cards (ServedModel.with_mesh). One host thread "
+                        "issues every card's graph in turn: at small batches this "
+                        "serves fewer requests/s than one card (PERF.md)")
     parser.add_argument("--warmup", type=int, nargs="*", default=[1],
                         help="batch sizes to call once before serving (default: 1; "
                         "pass no values to skip)")
@@ -41,14 +44,23 @@ def main(argv=None) -> None:
                         help="log one line per request")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    if args.mesh:
-        parser.error("--mesh is not ported yet (ROADMAP Queue 1 item 8c)")
 
     from eovax_torch.serving import ServedModel
     from eovax_torch.serving.server import make_server, warmup
 
     served = ServedModel.load(args.artifact, device=args.device)
     warm_batches = list(args.warmup)
+    if args.mesh:
+        from eovax_torch.parallel.mesh import make_device_mesh
+
+        mesh = make_device_mesh(None if served.device.type == "cuda" else [served.device])
+        served = served.with_mesh(mesh)
+        n = mesh.size
+        print(f"data-parallel over {n} devices")
+        # Traffic whose batch the device count divides takes the split path;
+        # warm it too, or the first such batch meets cold cuDNN choices.
+        if warm_batches and not any(b % n == 0 for b in warm_batches):
+            warm_batches.append(n)
     httpd = make_server(served, host=args.host, port=args.port,
                         quiet=not args.verbose, max_batch=args.max_batch,
                         batch_wait_ms=args.batch_wait_ms)

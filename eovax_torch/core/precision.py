@@ -12,10 +12,12 @@ the bf16 policy too). Its counterpart here is TF32 switched off for cuDNN
 convolutions and cuBLAS matmuls, which :meth:`Policy.activate` does.
 
 ``conv_algorithm`` picks how the ResnetBlock and SR UNet 3×3 convs run:
-``"direct"`` (the conv3x3 kernel; the training path), ``"int8"`` (W8A8
-through :mod:`eovax_torch.kernels.qconv`, inference only) or ``"int8-calib"``
-(the direct conv, recording each eligible conv input's |x| percentile for
-static int8 scales).
+``"direct"`` (the conv3x3 kernel; the training path), ``"winograd"``
+(F(2×2, 3×3) as batched matrix products, :mod:`eovax_torch.kernels.winograd`,
+where its dispatch rule holds), ``"int8"`` (W8A8 through
+:mod:`eovax_torch.kernels.qconv`, inference only) or ``"int8-calib"`` (the
+direct conv, recording each eligible conv input's |x| percentile for static
+int8 scales).
 """
 
 from __future__ import annotations
@@ -56,6 +58,9 @@ FULL_PRECISION = Policy()
 #: bf16 compute, fp32 params and statistics — the inference policy.
 DEFAULT_POLICY = Policy(compute_dtype=torch.bfloat16)
 
+#: DEFAULT_POLICY + Winograd F(2×2, 3×3) for the big 3×3 convs.
+WINOGRAD_POLICY = dataclasses.replace(DEFAULT_POLICY, conv_algorithm="winograd")
+
 #: DEFAULT_POLICY + W8A8 int8 body convs — quantized inference serving.
 INT8_POLICY = dataclasses.replace(DEFAULT_POLICY, conv_algorithm="int8")
 
@@ -71,9 +76,8 @@ def policy_from_name(name: str) -> Policy:
         return FULL_PRECISION
     if name in ("16-mixed", "bf16-mixed", "bf16", "bfloat16", "mixed"):
         return DEFAULT_POLICY
+    if name in ("bf16-winograd", "winograd"):
+        return WINOGRAD_POLICY
     if name in ("int8", "w8a8"):
         return INT8_POLICY
-    if name in ("bf16-winograd", "winograd"):
-        raise ValueError(f"precision policy {name!r}: the Winograd conv is not ported yet "
-                         "(ROADMAP Queue 1 item 10)")
     raise ValueError(f"Unknown precision policy: {name!r}")

@@ -112,6 +112,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -871,36 +873,42 @@ int refused(cudaError_t err) {
 }
 
 // How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
-// memory the card holds at once (cudaOccupancyMaxActiveClusters) of a cluster
-// kernel, into *count. Sets the kernel's attributes first: 16-CTA clusters
-// allowed, shared memory preferred over L1, and the dynamic shared memory the
-// plan asks for. The attributes and the answers are kept per kernel (not
-// thread-safe).
+// memory the current card holds at once (cudaOccupancyMaxActiveClusters) of a
+// cluster kernel, into *count. Sets the kernel's attributes first: 16-CTA
+// clusters allowed, shared memory preferred over L1, and the dynamic shared
+// memory the plan asks for. CUDA holds a function's attributes per device, so
+// the attributes set and the answers are kept per (device, kernel), the device
+// the current one (the wrappers enter the input's device); a mutex guards the
+// tables, which host threads driving several cards share.
 int active_clusters(const void* kernel, int cluster, int smem, int* count) {
-  constexpr int kCache = 64, kKernels = 8;
-  struct Answer { const void* kernel; int cluster, smem, count; };
-  struct Attrs { const void* kernel; int smem; };
+  constexpr int kCache = 256, kKernels = 64;
+  struct Answer { int device; const void* kernel; int cluster, smem, count; };
+  struct Attrs { int device; const void* kernel; int smem; };
   static Answer answers[kCache];
   static Attrs attrs[kKernels];
   static int n_answers = 0, n_attrs = 0;
+  static std::mutex mutex;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return refused(err);
+  const std::lock_guard<std::mutex> lock(mutex);
   for (int i = 0; i < n_answers; ++i) {
     const Answer& a = answers[i];
-    if (a.kernel == kernel && a.cluster == cluster && a.smem == smem) {
+    if (a.device == device && a.kernel == kernel && a.cluster == cluster && a.smem == smem) {
       *count = a.count;
       return 0;
     }
   }
   int at = 0;
-  while (at < n_attrs && attrs[at].kernel != kernel) ++at;
+  while (at < n_attrs && !(attrs[at].device == device && attrs[at].kernel == kernel)) ++at;
   if (at == kKernels) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
   if (at == n_attrs) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return refused(err);
-    attrs[n_attrs++] = Attrs{kernel, 0};
+    attrs[n_attrs++] = Attrs{device, kernel, 0};
   }
   if (smem > attrs[at].smem) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -911,7 +919,7 @@ int active_clusters(const void* kernel, int cluster, int smem, int* count) {
   const cudaLaunchConfig_t cfg = cluster_config(1, cluster, smem, nullptr, &attr);
   err = cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
   if (err != cudaSuccess) return refused(err);
-  if (n_answers < kCache) answers[n_answers++] = Answer{kernel, cluster, smem, *count};
+  if (n_answers < kCache) answers[n_answers++] = Answer{device, kernel, cluster, smem, *count};
   return 0;
 }
 

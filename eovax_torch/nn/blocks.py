@@ -10,7 +10,8 @@ the compute dtype.
   compute dtype where the JAX package rounds after the norm, then computes
   AdaIN and swish in the compute dtype).
 - ResnetBlock ``conv1``/``conv2``: 3×3 SAME convs through
-  :func:`eovax_torch.kernels.conv3x3.conv3x3`, or under an int8 policy through
+  :func:`eovax_torch.kernels.conv3x3.conv3x3`, or under a Winograd or int8
+  policy through :mod:`eovax_torch.kernels.winograd` or
   :mod:`eovax_torch.kernels.qconv` (:class:`Conv3x3`), where the JAX package
   calls ``policy_conv3x3``.
 - Downsample: asymmetric (0,1,0,1) pad, then a VALID 3×3 stride-2 conv.
@@ -44,6 +45,7 @@ from eovax_torch.kernels.qconv import (
     int8_conv3x3_prequant,
     should_use_int8,
 )
+from eovax_torch.kernels.winograd import should_use_winograd, winograd_conv3x3
 
 
 class Conv2d(nn.Conv2d):
@@ -64,6 +66,9 @@ class Conv3x3(Conv2d):
     algorithm, the JAX package's ``policy_conv3x3``:
 
     - ``"direct"``: the conv3x3 kernel;
+    - ``"winograd"``: F(2×2, 3×3) where
+      :func:`~eovax_torch.kernels.winograd.should_use_winograd` holds, else the
+      conv3x3 kernel;
     - ``"int8"``: with an int8 ``weight`` (loaded from a state that
       :func:`~eovax_torch.kernels.qconv.quantize_state_int8` wrote, beside its
       ``kernel_scale`` and, if calibrated, ``act_scale`` buffers) the
@@ -104,7 +109,11 @@ class Conv3x3(Conv2d):
             return int8_conv3x3_prequant(x, self.weight, self.kernel_scale, self.bias,
                                          act_scale=self._buffers.get("act_scale"),
                                          compute_dtype=policy.compute_dtype)
-        if algo == "int8":
+        if algo == "winograd":
+            if should_use_winograd(x.shape, self.weight.shape, (1, 1), policy.compute_dtype):
+                return winograd_conv3x3(x, self.weight, self.bias,
+                                        compute_dtype=policy.compute_dtype)
+        elif algo == "int8":
             if should_use_int8(x.shape, self.weight.shape, (1, 1), policy.compute_dtype):
                 return int8_conv3x3(x, self.weight, self.bias, compute_dtype=policy.compute_dtype)
         elif algo == "int8-calib" and should_use_int8(x.shape, self.weight.shape, (1, 1),

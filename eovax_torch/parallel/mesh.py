@@ -29,9 +29,12 @@ The backend is the caller's, never swapped behind its back:
 card, and gloo for the CPU; gloo on CUDA tensors only when the caller names
 it. A failed initialisation raises.
 
-The JAX package's single-process multi-device ``shard_batch`` has no
-counterpart: with one process per card a process never places a batch on
-several devices.
+Serving runs the other way: one process drives several cards
+(:class:`DeviceMesh`, the JAX package's ``make_mesh`` over a process's local
+devices), and ``ServedModel.with_mesh`` splits a request batch into row
+blocks, one a device. The JAX package's training-side ``shard_batch`` has no
+counterpart: with one process per card a training process never places a
+batch on several devices.
 """
 
 from __future__ import annotations
@@ -105,6 +108,46 @@ def make_mesh(device: str | torch.device | None = None) -> DataMesh:
     group."""
     return DataMesh(device=resolve_device(device), rank=process_index(),
                     world_size=process_count())
+
+
+#: The name of a one-process mesh's single axis, the JAX package's ``DATA_AXIS``.
+DATA_AXIS = "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """Devices of one process, laid out on named axes (row-major ``devices``,
+    ``shape`` the size of each axis), the JAX package's ``Mesh`` for serving.
+    A device may appear more than once: the CPU tests hold an 8-way mesh of
+    the host, and one card repeated runs the split path."""
+
+    devices: tuple[torch.device, ...]
+    shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axis_names) or int(np.prod(self.shape)) != len(
+                self.devices) or not self.devices:
+            raise ValueError(f"mesh of {len(self.devices)} devices cannot take the shape "
+                             f"{self.shape} on axes {self.axis_names}")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_device_mesh(devices=None, axis: str = DATA_AXIS) -> DeviceMesh:
+    """1-D mesh over every visible card (``cuda:0 … cuda:n-1``) or the given
+    devices (strings or ``torch.device``; an unindexed ``cuda`` is ``cuda:0``).
+    Raises without a card when none are given."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_device_mesh: no CUDA device is available; pass the "
+                               "devices (e.g. ['cpu'] * 8) to build a mesh of others")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = tuple(torch.device("cuda", 0) if torch.device(d) == torch.device("cuda")
+                    else torch.device(d) for d in devices)
+    return DeviceMesh(devices, (len(devices),), (axis,))
 
 
 def _collective_device() -> torch.device:

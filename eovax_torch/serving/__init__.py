@@ -37,12 +37,18 @@ Design notes:
   pad rows) it is batched with, as in the JAX package; static ranges do not.
 - The artifact format (``eovax-torch-serving-v1``) is not the JAX package's
   StableHLO format: neither loads the other's artifacts.
-- Not ported yet: data-parallel serving over several cards
-  (``ServedModel.with_mesh``, ROADMAP Queue 1 item 8c).
+- Several cards: ``ServedModel.with_mesh(make_device_mesh())`` serves one
+  process's cards data-parallel (a copy of the weights a card, a batch split
+  into row blocks, the result gathered on the first card; the view is a
+  ``MeshServedModel``); ``serve --mesh``. A dynamic-range int8 artifact is
+  refused there: its range spans the batch it is called on, and a split would
+  change it. One host thread issues every card's graph in turn, so a host-paced
+  artifact (small batches, int8) runs slower over several cards than on one.
 """
 
 from eovax_torch.serving.batching import MicroBatcher  # noqa: F401
 from eovax_torch.serving.export import (  # noqa: F401
+    MeshServedModel,
     ServedModel,
     calibrate_activations,
     export_model,

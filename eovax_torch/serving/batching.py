@@ -106,13 +106,12 @@ class MicroBatcher:
         # queues or a shape-fuzzing client grows them without bound.
         self._idle_ttl = float(idle_key_ttl_s)
         ladder = [b for b in _LADDER if b < max_batch] + [int(max_batch)]
-        # Mesh-sharded serving (a served object with a ``_mesh``, as the JAX
-        # package's ServedModel.with_mesh gives; ROADMAP item 8c here): a
-        # batch not divisible by the device count would replicate — round
-        # each bucket up to a device-count multiple so every coalesced
-        # dispatch shards.
+        # Mesh-split serving (ServedModel.with_mesh): a batch not divisible
+        # by the device count runs whole on the first device (1/N
+        # efficiency) — round each bucket up to a device-count multiple so
+        # every coalesced dispatch splits.
         mesh = getattr(served, "_mesh", None)
-        self._round = int(mesh.devices.size) if mesh is not None else 1
+        self._round = len(mesh.devices) if mesh is not None else 1
         if self._round > 1:
             n = self._round
             ladder = [max(n, -(-b // n) * n) for b in ladder]

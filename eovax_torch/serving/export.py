@@ -46,9 +46,6 @@ FORMAT = "eovax-torch-serving-v1"
 _MANIFEST = "manifest.json"
 _PARAMS = "params.pt"
 
-_MESH = ("data-parallel serving over several cards is not ported yet "
-         "(ROADMAP Queue 1 item 8c)")
-
 
 def per_sample_seeds(seed: int, n: int):
     """``[seed, seed+1, …, seed+n-1]`` as int32 with wraparound.
@@ -244,9 +241,19 @@ def _export(module: nn.Module, args: tuple, path: str) -> None:
     torch.export.save(program, path)
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """An unindexed CUDA device as the current card's index (where there is a
+    card), so that a mesh's ``cuda:0`` and a loader's ``cuda`` compare equal."""
+    if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _policy_name(policy) -> str:
     if _int8(policy):
         return "int8"
+    if policy.conv_algorithm == "winograd":
+        return "bf16-winograd"
     return "bf16" if policy.compute_dtype == torch.bfloat16 else "fp32"
 
 
@@ -485,7 +492,8 @@ def export_sr_pipeline(
 class ServedModel:
     """Runs an exported artifact: the graphs and the weights, without the model
     code (the hand kernels' custom ops are registered by importing this module).
-    Graphs load lazily on first use, onto the device the loader was given."""
+    Graphs load lazily on first use, onto the device the loader was given.
+    Several cards: :meth:`with_mesh`."""
 
     #: modality the convenience methods default to when the caller passes
     #: none — the flagship 12-band Sentinel-2 L2A surface. The HTTP layer
@@ -493,15 +501,43 @@ class ServedModel:
     #: daemon behavior can't drift.
     DEFAULT_MODALITY = "S2L2A"
 
-    def __init__(self, out_dir: str, manifest: dict, state: Any, device: torch.device):
+    def __init__(self, out_dir: str, manifest: dict, state: Any, device: torch.device,
+                 programs: dict | None = None):
         self._dir = out_dir
         self._manifest = manifest
         self._state = state
         self.device = device
         self._fns: dict[str, Any] = {}
+        #: the programs as loaded from disk, shared by a mesh's models on other
+        #: devices than the loaded one's (None: this model loads its own)
+        self._programs = programs
 
-    def with_mesh(self, mesh) -> "ServedModel":
-        raise NotImplementedError(_MESH)
+    def with_mesh(self, mesh) -> "MeshServedModel":
+        """Data-parallel serving view over a 1-D
+        :class:`~eovax_torch.parallel.mesh.DeviceMesh` (any axis name: the batch
+        splits over its single axis). This model serves its own device's share;
+        every other distinct device of the mesh gets a copy of the weights and
+        graphs moved there from programs loaded from disk once for all of them."""
+        if len(mesh.axis_names) != 1:
+            raise ValueError(f"with_mesh expects a 1-D mesh, got {mesh.axis_names}")
+        quant = self._manifest.get("quantization") or {}
+        if mesh.size > 1 and quant.get("activations") == "dynamic-per-tensor-absmax":
+            raise ValueError(
+                "with_mesh: this int8 artifact takes its activation ranges dynamically, "
+                "over the whole batch it is called on; split over the mesh, each device "
+                "would take its own range over its rows and give another result (the JAX "
+                "package's mesh reduces the range across the sharded batch). Export a "
+                "calibrated artifact (export --precision int8 --calibrate-npz ...), whose "
+                "static ranges split exactly.")
+        programs: dict[str, Any] = {}
+        models = {}
+        for dev in mesh.devices:
+            if dev not in models:
+                models[dev] = self if dev == self.device else ServedModel(
+                    self._dir, self._manifest,
+                    torch.utils._pytree.tree_map(lambda t: t.to(dev), self._state), dev,
+                    programs=programs)
+        return MeshServedModel(mesh, models)
 
     @classmethod
     def load(cls, out_dir: str, device: str | torch.device | None = None) -> "ServedModel":
@@ -513,7 +549,7 @@ class ServedModel:
         import eovax_torch.kernels.qconv  # noqa: F401
         from eovax_torch.core.device import resolve_device
 
-        device = resolve_device(device)
+        device = _indexed(resolve_device(device))
         with open(os.path.join(out_dir, _MANIFEST)) as f:
             manifest = json.load(f)
         if manifest.get("format") != FORMAT:
@@ -543,11 +579,19 @@ class ServedModel:
     def _fn(self, name: str, modality: str | None = None):
         key, entry = self._entry(name, modality)
         if key not in self._fns:
-            program = torch.export.load(os.path.join(self._dir, entry["file"]))
-            if torch.device(self._manifest["device"]) != self.device:
+            shared = self._programs is not None
+            program = self._programs.get(key) if shared else None
+            if program is None:
+                program = torch.export.load(os.path.join(self._dir, entry["file"]))
+                if shared:
+                    self._programs[key] = program
+            if _indexed(torch.device(self._manifest["device"])) != self.device:
                 from torch.export.passes import move_to_device_pass
 
-                program = move_to_device_pass(program, self.device)
+                # The pass moves in place: a program that other devices share
+                # is copied first.
+                program = move_to_device_pass(copy.deepcopy(program) if shared else program,
+                                              self.device)
             self._fns[key] = program.module()
         return self._fns[key]
 
@@ -562,15 +606,12 @@ class ServedModel:
         _, entry = self._entry(name, modality)
         return tuple(int(d) for d in entry["input_shape"][1:])
 
-    def _tensor(self, x) -> torch.Tensor:
-        with warnings.catch_warnings():  # a daemon's payload is a read-only view: never written
-            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-            return torch.as_tensor(x, dtype=torch.float32, device=self.device).contiguous()
-
-    def _call(self, name: str, x, modality: str | None) -> torch.Tensor:
+    def _call(self, name: str, x, modality: str | None, *extra) -> torch.Tensor:
+        """The graph of ``name`` on the payload ``x`` and the device tensors
+        ``extra``."""
         fn = self._fn(name, modality)
         with torch.inference_mode():
-            return fn(self._state, self._tensor(x))
+            return fn(self._state, _host(x).to(self.device).contiguous(), *extra)
 
     def reconstruct(self, x, modality: str = DEFAULT_MODALITY) -> torch.Tensor:
         return self._call("reconstruct", x, modality)
@@ -615,16 +656,60 @@ class ServedModel:
         an int is expanded to :func:`per_sample_seeds` (sample ``i`` ≡
         the B=1 call with ``seed+i``); a length-B int sequence pins each
         sample's draw directly."""
-        fn = self._fn("super_resolve")
+        self._entry("super_resolve", None)  # the KeyError of an artifact without it
         if not self.per_sample_seed():
             raise ValueError("this artifact's super_resolve takes no per-sample seed vector "
                              "(manifest extra_args lacks 'seed:int32[b]')")
-        x = self._tensor(x)
-        seeds = (per_sample_seeds(int(seed), x.shape[0]) if np.ndim(seed) == 0
+        n = len(x)
+        seeds = (per_sample_seeds(int(seed), n) if np.ndim(seed) == 0
                  else np.asarray(seed, np.int64).reshape(-1))
-        if seeds.shape[0] != x.shape[0]:
+        if seeds.shape[0] != n:
             raise ValueError(
                 f"need one seed per sample: got {seeds.shape[0]} "
-                f"seeds for batch {x.shape[0]}")
+                f"seeds for batch {n}")
         with torch.inference_mode():
-            return fn(self._state, x, self.noise(seeds))
+            # Over a mesh the noise splits with the rows: row i's is the B = 1
+            # call's with seed[i], on whichever device the row runs.
+            return self._call("super_resolve", x, None, self.noise(seeds))
+
+
+def _host(x) -> torch.Tensor:
+    """A payload as a fp32 tensor where it is (numpy on the host)."""
+    with warnings.catch_warnings():  # a daemon's payload is a read-only view: never written
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.as_tensor(x, dtype=torch.float32)
+
+
+class MeshServedModel(ServedModel):
+    """:meth:`ServedModel.with_mesh`'s view: data-parallel serving over the
+    mesh's devices, one single-device :class:`ServedModel` each (``models``).
+    A batch that the device count divides is split into equal row blocks, one
+    a device, issued from this thread without a host sync between the devices,
+    and gathered on the mesh's first device: a row's result is the
+    single-device call's on its block. A batch that the count does not divide
+    runs whole on the first device (the result of the JAX package's replicated
+    branch). Everything else is the first device's model's."""
+
+    def __init__(self, mesh, models: dict):
+        first = models[mesh.devices[0]]
+        super().__init__(first._dir, first._manifest, first._state, first.device,
+                         first._programs)
+        self._fns = first._fns
+        self._mesh = mesh
+        self._models = models
+
+    def with_mesh(self, mesh) -> "MeshServedModel":
+        return self._models[self.device].with_mesh(mesh)
+
+    def _call(self, name: str, x, modality: str | None, *extra) -> torch.Tensor:
+        n, size = len(x), self._mesh.size
+        if size == 1 or n % size:
+            return super()._call(name, x, modality, *extra)
+        rows = n // size
+        args = (_host(x), *extra)
+        # Every block's input is copied and every call issued before any result
+        # is gathered.
+        blocks = [(self._models[dev], [a[i * rows:(i + 1) * rows].to(dev) for a in args])
+                  for i, dev in enumerate(self._mesh.devices)]
+        outs = [m._call(name, xb, modality, *eb) for m, (xb, *eb) in blocks]
+        return torch.cat([y.to(self.device) for y in outs])

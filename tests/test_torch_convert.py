@@ -182,10 +182,20 @@ def test_policy_from_name(name, dtype):
 
 
 def test_policy_from_name_rejects_unported_policies():
-    # int8 is ported (tests/test_torch_qconv.py); the Winograd conv is not.
+    # Every policy name of the JAX package is ported (int8 in
+    # tests/test_torch_qconv.py, the Winograd conv in tests/test_torch_winograd.py);
+    # a name it does not know is refused as it refuses it.
+    from eovax.core.precision import policy_from_name as jax_policy_from_name
+
     for name in ("winograd", "bf16-winograd"):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 10"):
+        policy = policy_from_name(name)
+        assert policy.conv_algorithm == jax_policy_from_name(name).conv_algorithm == "winograd"
+        assert policy.compute_dtype == torch.bfloat16
+    for name in ("fp8", "winograd-fp32"):
+        with pytest.raises(ValueError, match="Unknown precision policy"):
             policy_from_name(name)
+        with pytest.raises(ValueError, match="Unknown precision policy"):
+            jax_policy_from_name(name)
 
 
 def test_config_dataclasses_match_jax_package():

@@ -305,19 +305,32 @@ def test_export_cli(tmp_path, capsys):
 
 
 def test_int8_and_mesh_are_refused_with_their_roadmap_items(models, artifact, served, tmp_path,
-                                                            capsys):
+                                                            capsys, monkeypatch):
+    """What is still refused, as the JAX package refuses it: static ranges
+    without an int8 policy, and a mesh of more than one axis (int8 serving is in
+    ``tests/test_torch_serving_int8.py``, the mesh in
+    ``tests/test_torch_serving_mesh.py``); ``serve --mesh`` itself runs."""
     from eovax_torch.cli.serve import main as serve_main
+    from eovax_torch.parallel.mesh import DeviceMesh
+    from eovax_torch.serving import server as server_mod
 
-    # int8 serving is ported (tests/test_torch_serving_int8.py): static ranges
-    # need an int8-policy model, as in the JAX package.
     with pytest.raises(ValueError, match="act_scales requires an int8-policy model"):
         export_model(models[1], str(tmp_path / "q"), modalities=("S2RGB",), resolution=32,
                      act_scales={"encoder.conv_in": 1.0})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8c"):
-        served.with_mesh(None)
-    with pytest.raises(SystemExit):
-        serve_main([artifact[0], "--mesh", "--device", "cpu"])
-    assert "ROADMAP Queue 1 item 8c" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="1-D mesh"):
+        served.with_mesh(DeviceMesh((torch.device("cpu"),) * 4, (2, 2), ("data", "model")))
+
+    class _Stop(Exception):
+        pass
+
+    def stop(*_a, **_k):  # the server is made: stop before it serves
+        raise _Stop
+
+    monkeypatch.setattr(server_mod, "make_server", stop)
+    with pytest.raises(_Stop):
+        serve_main([artifact[0], "--mesh", "--device", "cpu", "--warmup", "3"])
+    out = capsys.readouterr().out
+    assert "data-parallel over 1 devices" in out and "ROADMAP" not in out
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(artifact, monkeypatch, tmp_path):
