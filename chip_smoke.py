@@ -324,8 +324,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    are held within ``TOL_INT8_BATCH``); times: the kernel at the three
    shapes beside its plain version, the bf16 hand kernel and cuDNN's bf16
    conv (PyTorch has no int8 conv on CUDA), TOP/s, the bound at the int8
-   peak and the dynamic abs-max's share; ``reconstruct`` B=16 bf16 and int8,
-   live and both artifacts. The int8 SR artifact (phase 8's UNet, DDIM-4,
+   peak and the kernel's share of it (``bound_share`` in each row of the
+   ``kernels`` line), and the dynamic abs-max's share; ``reconstruct`` B=16
+   bf16 and int8, live and both artifacts. The int8 SR artifact (phase 8's UNet, DDIM-4,
    LR 128²), exported by the CLI in a process started at the phase's start
    (the daemon and the times wait for it): 48 + the UNet's eligible convs
    quantized, calls at B = 1 and 4 with exact launches, their ms. Files under
@@ -4780,10 +4781,11 @@ def int8_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
                        **bound(ops, H100_INT8_OPS, nbytes), tops=ops / kernel_ms / 1e9,
                        absmax_ms=absmax_ms, absmax_share=absmax_ms / (absmax_ms + kernel_ms),
                        bf16_kernel_ms=bf16_ms, cudnn_bf16_ms=cudnn_ms)
+            row["bound_share"] = row["bound_ms"] / kernel_ms
             rows.append(row)
             print(f"time conv3x3_int8 {list(shape)} bf16 in/out: kernel {kernel_ms:.4f} ms "
                   f"({row['tops']:.1f} TOP/s), plain {plain_ms:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {100 * row['bound_ms'] / kernel_ms:.1f}"
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {100 * row['bound_share']:.1f}"
                   f"% of it), the dynamic abs-max {absmax_ms:.4f} ms "
                   f"({100 * row['absmax_share']:.1f}% of the two); beside the bf16 hand kernel "
                   f"{bf16_ms:.4f} ms and cuDNN bf16 {cudnn_ms:.4f} ms (no int8 conv in PyTorch) "
@@ -5417,7 +5419,8 @@ def main() -> int:
          "launches": int8["launches"]["conv3x3_int8"],
          "max_abs_err": max(int8["errs"].values()),
          **{k: int8["rows"][0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                             "bound_by", "bf16_kernel_ms", "cudnn_bf16_ms")},
+                                             "bound_by", "bound_share", "bf16_kernel_ms",
+                                             "cudnn_bf16_ms")},
          "shapes": int8["rows"]},
     ]
     for entry in kernels:  # the run's short profiler traces, each taken again

@@ -46,9 +46,9 @@ import torch.nn.functional as F
 from eovax_torch.kernels import build, ops
 
 SOURCE = "conv3x3_int8.cu"
-KERNEL_CI_MULTIPLE = 32  # the kernel's K chunk: one m16n8k32 step a tap
+KERNEL_CI_MULTIPLE = 32  # the kernel's K chunk: one wgmma k32 step a tap
 _ENTRY = {torch.bfloat16: "eovax_conv3x3_int8_bf16", torch.float32: "eovax_conv3x3_int8_f32"}
-_PIXEL_TILE = (4, 32)  # output rows × columns per block
+_PIXEL_TILE = (4, 64)  # output rows × columns per block
 
 _INFERENCE_ONLY = (
     "int8_conv3x3 is inference-only: gradients through the round() "
@@ -144,6 +144,18 @@ def check_operands(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
         raise ValueError(f"{what}: shape {tuple(x.shape)} is outside the kernel's grid")
 
 
+def int8_weight_layout(wq: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 ``wq`` [Co, Ci, 3, 3] as the kernel reads it, contiguous
+    ``[3, 3, Ci/16, Co, 16]``: element (co, ci, ky, kx) at byte
+    ``((ky·3 + kx)·(Ci/16) + ci/16)·Co·16 + co·16 + ci % 16``. A (tap, 16-channel
+    group) is then Co·16 contiguous bytes, one 16-byte row an output channel: the
+    rows of the kernel's shared-memory core matrices. One copy."""
+    co, ci = wq.shape[:2]
+    wt = torch.empty((3, 3, ci // 16, co, 16), dtype=wq.dtype, device=wq.device)
+    wt.copy_(wq.reshape(co, ci // 16, 16, 3, 3).permute(3, 4, 1, 0, 2))
+    return wt
+
+
 def _launch_counted(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                     bias: torch.Tensor | None, amax: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
@@ -151,10 +163,7 @@ def _launch_counted(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     check_operands(x, wq, w_scale, bias, amax)
     b, ci, h, wd = x.shape
     co = wq.shape[0]
-    # The kernel reads the weights as [Ci/32, 3, 3, Co, 32]: a K chunk's 32 input
-    # channels of one tap and output channel are 32 contiguous bytes. One copy.
-    wt = torch.empty((ci // 32, 3, 3, co, 32), dtype=torch.int8, device=x.device)
-    wt.copy_(wq.reshape(co, ci // 32, 32, 3, 3).permute(1, 3, 4, 0, 2))
+    wt = int8_weight_layout(wq)
     w_scale, amax = w_scale.contiguous(), amax.contiguous()
     bias_ptr = None if bias is None else bias.contiguous().data_ptr()
     out = torch.empty((b, co, h, wd), dtype=x.dtype, device=x.device)

@@ -3,36 +3,51 @@
 Builds variants of ``eovax_torch/kernels/csrc/conv3x3_int8.cu``, each the
 kernel with one part changed or taken out by a text edit of the source, and
 times each with CUDA events at the main path's three shapes (the same as
-``chip_smoke.py`` phase 16):
+``chip_smoke.py`` phase 16) and at the int8 SR UNet's shapes of an LR 128²
+call at B = 4 (its 256- and 128-channel levels on 16² and 8² latent planes,
+where the 64-column tile computes 16 or 8 columns):
 
 - ``kernel``: the source as it is (also held against the plain version);
-- ``no-slab``: the slab of each K chunk after the first is not loaded, so the
-  time is that of the weights' copies, the products and the barriers (wrong
-  results);
-- ``no-products``: the mma.sync products are dropped (wrong results);
-- ``reciprocal``: the quantization's product with the reciprocal without its
-  FMA correction (results off by a step where the two round apart);
-- ``ieee-division``: the quotient by ``__fdiv_rn`` (an IEEE division with its
-  range check, a call a value) in place of the corrected product;
-- ``one-block``: ``__launch_bounds__(256, 1)``: registers unbounded by a
-  second block an SM, one block an SM;
-- ``lds32``: the fragments read with 32-bit shared loads in place of
-  ``ldmatrix.x4``.
+- ``no-slab``: the slab of each K chunk after the first two is neither
+  loaded nor quantized nor stored, so the time is that of the weights'
+  copies, the products and the barriers (wrong results);
+- ``no-weights``: the weights of each K chunk after the first two are not
+  copied (wrong results): the time without their traffic from L2;
+- ``no-halo``: the slab's two halo columns are not loaded (zeros; wrong
+  results): the time without their 2-byte loads, one 32-byte sector each;
+- ``cached-slab``: every K chunk after the first three loads chunk 2's slab
+  again (wrong results): the same loads, but from the cache;
+- ``no-products``: the wgmma products are dropped (wrong results);
+- ``no-quantize``: the slab is stored unquantized, the top byte of each value
+  (wrong results): the time without the quantization's arithmetic;
+- ``three-stages``: a ring of 3 stages in place of 4, so a chunk's weights
+  are copied while only one chunk of products runs;
+- ``parent`` (with ``--parent``): the kernel of another revision, built from
+  ``git show <rev>:eovax_torch/kernels/csrc/conv3x3_int8.cu`` (or from a file
+  holding that source, where the checkout has no git), with the weights in the
+  layout that revision's wrapper made: a same-run comparison.
+
+Beside them, ``torch._int_mm`` on pre-made int8 operands of the equivalent
+GEMM (M = B·H·W, K = 9·Ci, N = Co) as a yardstick of the card's library int8
+GEMM rate (``int_mm_ms``; it computes no conv).
 
 The variants that must stay exact are held against the plain version at each
 shape and on every finite bf16 value at four activation ranges (a one-hot
-centre tap, so each output is one quantized input).
+centre tap, so each output is one quantized input). Each shape times every
+variant in order and then in reverse, on the same inputs.
 
 Each line gives the time, TOP/s and the share of the int8 bound (1,979 TOP/s,
 NVIDIA's data sheet), with the card's name and power limit; ``ptxas``
-registers and spills are printed per variant. The variants are built with the
-package's nvcc flags into ``build/ablate_conv3x3_int8/``.
+registers, spills and wgmma serialization warnings (C7515) are printed per
+variant. The variants are built with the package's nvcc flags into
+``build/ablate_conv3x3_int8/``.
 
-    python3 scripts/ablate_conv3x3_int8.py
+    python3 scripts/ablate_conv3x3_int8.py [--parent REV_OR_FILE]
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import ctypes
 import subprocess
@@ -45,58 +60,48 @@ sys.path.insert(0, str(ROOT))
 from eovax_torch.kernels import build, qconv  # noqa: E402
 
 OUT_DIR = ROOT / "build" / "ablate_conv3x3_int8"
-SHAPES = ((4, 512, 256, 256, 256), (4, 128, 128, 512, 512), (4, 512, 512, 64, 64))
+SHAPES = ((4, 512, 256, 256, 256), (4, 128, 128, 512, 512), (4, 512, 512, 64, 64),
+          (4, 256, 256, 16, 16), (4, 512, 256, 16, 16), (4, 128, 128, 8, 8), (4, 256, 128, 8, 8))
 INT8_OPS = 1979e12
 
-_BOUNDS = ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")
-_PRODUCTS = """        mma_s8(acc[0][j], a[0], b[0], b[1]);
-        mma_s8(acc[1][j], a[1], b[0], b[1]);
-        mma_s8(acc[0][j + 1], a[0], b[2], b[3]);
-        mma_s8(acc[1][j + 1], a[1], b[2], b[3]);
+_REFILL = """      store_slab(smem + stage + kWBytes, regs, tid, q);
+      if (refill + 1 < nchunks) load_slab(regs, xb, s, (refill + 1) * kKC, y0, x0, tid, q);
 """
-_QUOTIENT = "  int v = __float2int_rn(__fmaf_rn(__fmaf_rn(-q0, sx, f), rsx, q0));\n"
-_LDMATRIX = """      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(a[i], sa + 4 * swz((wm + dy) * kSlabW + 16 * i + dx + lr + 8 * (lm & 1),
-                                   4 * (lm >> 1)));
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, sb + 4 * swz(tap * kBN + wn * 64 + 8 * j + lr + 8 * (lm >> 1), 4 * (lm & 1)));
-"""
-_LDS32 = """      const uint32_t* slab = reinterpret_cast<const uint32_t*>(smem + stage * kStageBytes);
-      const uint32_t* wsm = slab + kSlabBytes / 4;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int pa = (wm + dy) * kSlabW + 16 * i + dx + g, pb = pa + 8;
-        a[i][0] = slab[swz(pa, tg)];
-        a[i][1] = slab[swz(pb, tg)];
-        a[i][2] = slab[swz(pa, tg + 4)];
-        a[i][3] = slab[swz(pb, tg + 4)];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t b[4];
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int n = tap * kBN + wn * 64 + 8 * (j + t) + g;
-          b[2 * t] = wsm[swz(n, tg)];
-          b[2 * t + 1] = wsm[swz(n, tg + 4)];
-        }
+_WEIGHTS = "      load_weights(smem_u + stage, wt, s, co0, refill * kKC, tid);\n"
+_HALO = "    if (y >= 0 && y < s.H && xx >= 0 && xx < s.W) {\n      const unsigned short* p"
+_NEXT = "load_slab(regs, xb, s, (refill + 1) * kKC, y0, x0, tid, q);"
+_PRODUCTS = "  mma_steps(acc, lo_a, lo_b, first, std::make_integer_sequence<int, 9 * kWGRows>{});\n"
+_QUOTIENT = """  f = fminf(fmaxf(f, -q.lim), q.lim);
+  const float q0 = __fmul_rn(f, q.rsx);
+  const float t = __fmaf_rn(__fmaf_rn(-q0, q.sx, f), q.rsx, q0);
+  return __float_as_uint(__fadd_rn(t, 12582912.0f));
 """
 VARIANTS = {
     "kernel": [],
-    "no-slab": [("    if (cc + 1 < chunks)\n      load_slab(", "    if (cc < 0)\n      load_slab(")],
-    "no-products": [(_PRODUCTS, "        acc[0][j][0] += a[0][0] ^ b[0];\n"
-                                "        acc[1][j][1] += a[1][1] ^ b[3];\n")],
-    "reciprocal": [(_QUOTIENT, "  int v = __float2int_rn(q0);\n")],
-    "ieee-division": [(_QUOTIENT, "  int v = __float2int_rn(__fdiv_rn(f, sx));\n")],
-    "one-block": [_BOUNDS],
-    "lds32": [(_LDMATRIX, _LDS32)],
+    "no-slab": [(_REFILL, "")],
+    "no-weights": [(_WEIGHTS, "")],
+    "no-halo": [(_HALO, _HALO.replace("y >= 0 && y < s.H && xx >= 0 && xx < s.W", "tid < 0"))],
+    "cached-slab": [(_NEXT, _NEXT.replace("(refill + 1) * kKC", "(kStages - 2) * kKC"))],
+    "no-products": [(_PRODUCTS, "")],
+    "no-quantize": [(_QUOTIENT, "  return __float_as_uint(f) >> 24;\n")],
+    "three-stages": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
 }
-EXACT = ("kernel", "ieee-division", "one-block", "lds32")
+EXACT = ("kernel", "three-stages", "parent")
+
+
+def parent_layout(wq):
+    """The weights as the wrapper before the wgmma kernel laid them out:
+    [Ci/32, 3, 3, Co, 32] int8."""
+    co, ci = wq.shape[:2]
+    return wq.reshape(co, ci // 32, 32, 3, 3).permute(1, 3, 4, 0, 2).contiguous()
+
+
+def parent_source(spec: str) -> str:
+    """The kernel's source at a git revision, or in a file."""
+    if Path(spec).is_file():
+        return Path(spec).read_text()
+    return subprocess.run(["git", "show", f"{spec}:eovax_torch/kernels/csrc/{qconv.SOURCE}"],
+                          cwd=ROOT, capture_output=True, text=True, check=True).stdout
 
 
 def variant_source(edits) -> str:
@@ -108,9 +113,10 @@ def variant_source(edits) -> str:
     return src
 
 
-def build_variant(name: str) -> tuple[str, ctypes.CDLL, str]:
+def build_variant(item: tuple[str, str]) -> tuple[str, ctypes.CDLL, str]:
+    name, src = item
     cu = OUT_DIR / f"{name}.cu"
-    cu.write_text(variant_source(VARIANTS[name]))
+    cu.write_text(src)
     so = cu.with_suffix(".so")
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
                           capture_output=True, text=True)
@@ -124,10 +130,11 @@ def build_variant(name: str) -> tuple[str, ctypes.CDLL, str]:
     # The bf16 kernel's lines: its entry name holds the bf16 type.
     at = next(i for i, line in enumerate(log) if "Compiling entry" in line and "bfloat16" in line)
     ptxas = [line.strip() for line in log[at:at + 4] if "registers" in line or "spill" in line]
-    return name, lib, "; ".join(ptxas)
+    c7515 = sum("C7515" in line for line in log)
+    return name, lib, "; ".join(ptxas) + f"; C7515 warnings: {c7515}"
 
 
-def check_every_bf16(name: str, lib, dev) -> None:
+def check_every_bf16(name: str, lib, layout, dev) -> None:
     """Every finite bf16 value through the variant at four ranges, against the
     plain version: the identity over 32 channels at the centre tap, unit scales."""
     import torch
@@ -138,7 +145,7 @@ def check_every_bf16(name: str, lib, dev) -> None:
     wq = torch.zeros(32, 32, 3, 3, dtype=torch.int8, device=dev)
     wq[torch.arange(32), torch.arange(32), 1, 1] = 1
     sw = torch.ones(32, device=dev)
-    wt = wq.reshape(32, 1, 32, 3, 3).permute(1, 3, 4, 0, 2).contiguous()
+    wt = layout(wq)
     out = torch.empty_like(x)
     for amax in (1.0, 3.7, 1e-3, 300.0):
         a = torch.tensor(amax, device=dev)
@@ -152,61 +159,104 @@ def check_every_bf16(name: str, lib, dev) -> None:
           "plain version")
 
 
+def events_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def int_mm_ms(shape, dev) -> float:
+    """``torch._int_mm`` of pre-made int8 operands at the conv's GEMM: A [M, K]
+    row-major, B [K, N] column-major, int32 out."""
+    import torch
+
+    b, ci, co, h, w = shape
+    m, k = b * h * w, 9 * ci
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8, device=dev)
+    bt = torch.randint(-127, 128, (co, k), generator=g, dtype=torch.int8, device=dev).t()
+    ms = events_ms(lambda: torch._int_mm(a, bt))
+    del a, bt
+    torch.cuda.empty_cache()
+    return ms
+
+
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", help="a git revision, or a file holding its kernel source")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("ablate_conv3x3_int8: needs a CUDA card", file=sys.stderr)
         return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = list(pool.map(build_variant, VARIANTS))
+    sources = {name: variant_source(edits) for name, edits in VARIANTS.items()}
+    layouts = {name: qconv.int8_weight_layout for name in sources}
+    if args.parent:
+        sources["parent"] = parent_source(args.parent)
+        layouts["parent"] = parent_layout
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build_variant, sources.items()))
     dev = torch.device("cuda")
+    libs = {}
     for name, lib, ptxas in built:
         print(f"{name}: ptxas {ptxas}")
         if name in EXACT:
-            check_every_bf16(name, lib, dev)
-        for shape in SHAPES:
-            b, ci, co, h, w = shape
-            g = torch.Generator(device=dev).manual_seed(0)
-            x = torch.randn(b, ci, h, w, generator=g, device=dev).to(torch.bfloat16)
-            wq, sw = qconv.quantize_symmetric(0.05 * torch.randn(co, ci, 3, 3, generator=g,
-                                                                 device=dev), dim=(1, 2, 3))
-            sw = sw.reshape(-1)
-            bias = torch.randn(co, generator=g, device=dev)
-            amax = torch.linalg.vector_norm(x, float("inf")).float()
-            wt = wq.reshape(co, ci // 32, 32, 3, 3).permute(1, 3, 4, 0, 2).contiguous()
-            out = torch.empty(b, co, h, w, device=dev, dtype=torch.bfloat16)
-            stream = torch.cuda.current_stream().cuda_stream
+            check_every_bf16(name, lib, layouts[name], dev)
+        libs[name] = lib
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape in SHAPES:
+        b, ci, co, h, w = shape
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(b, ci, h, w, generator=g, device=dev).to(torch.bfloat16)
+        wq, sw = qconv.quantize_symmetric(0.05 * torch.randn(co, ci, 3, 3, generator=g,
+                                                             device=dev), dim=(1, 2, 3))
+        sw = sw.reshape(-1)
+        bias = torch.randn(co, generator=g, device=dev)
+        amax = torch.linalg.vector_norm(x, float("inf")).float()
+        out = torch.empty(b, co, h, w, device=dev, dtype=torch.bfloat16)
+        ref = qconv.conv3x3_int8_plain(x, wq, sw, bias, amax)
+        ops = 2.0 * b * h * w * 9 * ci * co
+        times: dict[str, list[float]] = {}
+        for name in (*libs, *reversed(libs)):
+            wt = layouts[name](wq)
 
-            def call():
-                code = lib.eovax_conv3x3_int8_bf16(
-                    x.data_ptr(), wt.data_ptr(), sw.data_ptr(), bias.data_ptr(), amax.data_ptr(),
-                    out.data_ptr(), b, ci, co, h, w, stream)
+            def call(fn=libs[name].eovax_conv3x3_int8_bf16, wt=wt, name=name):
+                code = fn(x.data_ptr(), wt.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+                          amax.data_ptr(), out.data_ptr(), b, ci, co, h, w, stream)
                 if code != 0:
                     raise RuntimeError(f"{name}: CUDA error {code}")
 
-            for _ in range(2):
+            if name in EXACT and name not in times:
                 call()
-            equal = ""
-            if name in EXACT:
                 torch.cuda.synchronize()
-                same = torch.equal(out, qconv.conv3x3_int8_plain(x, wq, sw, bias, amax))
-                if not same:
+                if not torch.equal(out, ref):
                     raise AssertionError(f"{name} disagrees with the plain version at {shape}")
-                equal = ", torch.equal to the plain version"
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(10):
-                call()
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / 10
-            ops = 2.0 * b * h * w * 9 * ci * co
-            print(f"  {name} {list(shape)}: {ms:.4f} ms, {ops / ms / 1e9:.1f} TOP/s, "
-                  f"{100 * ops / INT8_OPS * 1e3 / ms:.1f}% of the int8 bound{equal} [{card}]")
+            times.setdefault(name, []).append(events_ms(call))
+        for name, (first, second) in times.items():
+            ms = (first + second) / 2
+            equal = ", torch.equal to the plain version" if name in EXACT else ""
+            print(f"  {name} {list(shape)}: {ms:.4f} ms ({first:.4f} / {second:.4f} in order and "
+                  f"reversed), {ops / ms / 1e9:.1f} TOP/s, {100 * ops / INT8_OPS * 1e3 / ms:.1f}% "
+                  f"of the int8 bound{equal} [{card}]")
+        del x, out, ref
+        mm = int_mm_ms(shape, dev)
+        print(f"  int_mm_ms {list(shape)}: {mm:.4f} ms, torch._int_mm [{b * h * w}, {9 * ci}] x "
+              f"[{9 * ci}, {co}], {ops / mm / 1e9:.1f} TOP/s, "
+              f"{100 * ops / INT8_OPS * 1e3 / mm:.1f}% of the int8 bound (a GEMM yardstick, "
+              f"no conv) [{card}]")
     return 0
 
 

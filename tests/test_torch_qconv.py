@@ -220,13 +220,22 @@ def test_gradient_through_int8_raises(entry):
 
 def test_kernel_envelope_and_operands_raise():
     """The kernel's checks, on meta tensors (any device): Ci a multiple of 32,
-    int8 weights, fp32 scales and bias, one fp32 range; a non-CUDA device."""
+    the grid of (4, 64) pixel tiles (at most 65535 of them), int8 weights, fp32
+    scales and bias, one fp32 range; a non-CUDA device."""
     meta = dict(device="meta")
     x, wq = torch.empty(1, 48, 8, 8, dtype=torch.bfloat16, **meta), torch.empty(
         64, 48, 3, 3, dtype=torch.int8, **meta)
     ws, b, amax = (torch.empty(64, **meta), torch.empty(64, **meta), torch.empty((), **meta))
     with pytest.raises(ValueError, match="Ci a multiple of 32"):
         qconv.check_operands(x, wq, ws, b, amax)
+    assert qconv._PIXEL_TILE == (4, 64)
+    wq32 = torch.empty(64, 32, 3, 3, dtype=torch.int8, **meta)
+    # 65536 tiles of the (4, 32) tile, 32768 of the (4, 64) one: inside the grid.
+    qconv.check_operands(torch.empty(1, 32, 4, 32 * 65536, **meta), wq32, ws, b, amax)
+    qconv.check_operands(torch.empty(1, 32, 4 * 65535, 64, **meta), wq32, ws, b, amax)
+    for h, w in ((4, 64 * 65535 + 1), (4 * 65536, 64), (8, 64 * 32768)):  # 65536 tiles
+        with pytest.raises(ValueError, match="outside the kernel's grid"):
+            qconv.check_operands(torch.empty(1, 32, h, w, **meta), wq32, ws, b, amax)
     x = torch.empty(1, 64, 8, 8, dtype=torch.bfloat16, **meta)
     wq = torch.empty(64, 64, 3, 3, dtype=torch.int8, **meta)
     qconv.check_operands(x, wq, ws, b, amax)
@@ -239,6 +248,25 @@ def test_kernel_envelope_and_operands_raise():
             qconv.check_operands(*bad)
     with pytest.raises(ValueError, match="unsupported device"):
         qconv.conv3x3_int8(x, wq, ws, b, amax)
+
+
+@pytest.mark.parametrize("ci", [32, 64, 512])
+def test_int8_weight_layout_puts_each_weight_where_the_kernel_reads_it(ci):
+    """Element (co, ci, ky, kx) of an OIHW ``wq`` lands at byte
+    ((ky·3 + kx)·(Ci/16) + ci/16)·Co·16 + co·16 + ci % 16 of the kernel's
+    weights: the address its 16-byte copies read for a (tap, 16-channel group,
+    output channel). Co = 200 is a partial block of 128."""
+    co = 200
+    wq = torch.from_numpy(np.random.default_rng(ci).integers(-127, 128, (co, ci, 3, 3),
+                                                             dtype=np.int8))
+    wt = qconv.int8_weight_layout(wq)
+    assert wt.dtype == torch.int8 and wt.is_contiguous() and wt.shape == (3, 3, ci // 16, co, 16)
+    o, i, ky, kx = np.meshgrid(np.arange(co), np.arange(ci), np.arange(3), np.arange(3),
+                               indexing="ij")
+    at = ((ky * 3 + kx) * (ci // 16) + i // 16) * co * 16 + o * 16 + i % 16
+    flat = wt.reshape(-1).numpy()
+    np.testing.assert_array_equal(flat[at], wq.numpy())
+    assert np.unique(at).size == flat.size  # every byte is some weight's
 
 
 def test_kernel_library_is_keyed_by_source_hash():
@@ -553,7 +581,14 @@ def cuda_device():
     [(2, 128, 128, 64, 64, torch.bfloat16), (1, 512, 256, 32, 32, torch.bfloat16),
      (2, 128, 128, 37, 53, torch.bfloat16), (3, 32, 200, 5, 100, torch.bfloat16),
      (1, 64, 96, 9, 40, torch.bfloat16), (2, 128, 64, 37, 53, torch.float32),
-     (1, 32, 130, 4, 32, torch.float32)],
+     (1, 32, 130, 4, 32, torch.float32),
+     # The (4, 64) tile's edges: W a tile, a tile and a column, two tiles and two
+     # columns, a quarter tile; H not a multiple of 4; 1, 2 or 3 K chunks (fewer
+     # than the ring's 4 stages); Co = 200, a partial N block.
+     (1, 32, 200, 5, 64, torch.bfloat16), (2, 64, 128, 8, 65, torch.bfloat16),
+     (1, 96, 200, 5, 130, torch.bfloat16), (2, 128, 64, 16, 16, torch.bfloat16),
+     (1, 32, 200, 5, 65, torch.float32), (1, 64, 128, 4, 130, torch.float32),
+     (2, 128, 128, 16, 16, torch.float32)],
 )
 def test_kernel_equals_plain_on_card(cuda_device, b, ci, co, h, w, dtype, scale):
     """The kernel against its plain version on the card, bit for bit: the int32
@@ -588,6 +623,34 @@ def test_kernel_quantizes_every_bf16_value_as_plain(cuda_device, amax):
     sw, a = torch.ones(32, device=cuda_device), torch.tensor(amax, device=cuda_device)
     assert torch.equal(qconv.conv3x3_int8(x, wq, sw, None, a),
                        qconv.conv3x3_int8_plain(x, wq, sw, None, a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("tap", range(9))
+def test_kernel_one_hot_tap_on_card(cuda_device, tap, dtype):
+    """One tap alone, a permutation of 64 channels (4 groups of 16 over 2 K
+    chunks), unit scales: each output is one quantized input, shifted by the
+    tap and moved to its permuted channel. A wrong wgmma descriptor stride
+    (LBO, SBO), tap offset or weight layout shows as a transposed or shifted
+    tap. Two tiles each way: H = 6, W = 70."""
+    ky, kx = divmod(tap, 3)
+    c, h, w = 64, 6, 70
+    g = torch.Generator(device=cuda_device).manual_seed(tap)
+    x = torch.randn(1, c, h, w, generator=g, device=cuda_device).to(dtype)
+    perm = (torch.arange(c, device=cuda_device) * 37 + 5) % c
+    wq = torch.zeros(c, c, 3, 3, dtype=torch.int8, device=cuda_device)
+    wq[perm, torch.arange(c, device=cuda_device), ky, kx] = 1
+    sw = torch.ones(c, device=cuda_device)
+    amax = x.float().abs().amax()
+    out = qconv.conv3x3_int8(x, wq, sw, None, amax)
+    torch.cuda.synchronize()
+    sx = qconv.quant_step(amax)
+    xq = torch.nn.functional.pad(torch.clamp(torch.round(x.float() / sx), -127, 127), (1, 1, 1, 1))
+    want = torch.empty_like(out)
+    want[:, perm] = (xq[:, :, ky:ky + h, kx:kx + w] * (sx * sw[0])).to(dtype)
+    assert torch.equal(out, want)
+    assert torch.equal(out, qconv.conv3x3_int8_plain(x, wq, sw, None, amax))
 
 
 @pytest.mark.gpu
