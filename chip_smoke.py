@@ -27,7 +27,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    - ``conv3x3``: [4,128,512,512] 128→128, [4,512,256,256] 512→256 and
      [4,512,64,64] 512→512 bf16, [2,48,37,53] 48→96 bf16 (a width that is
      not a multiple of 8 or 64), [2,64,37,53] 64→96 fp32, and the input of
-     the decoder's level-0 ``conv1``.
+     the decoder's level-0 ``conv1``;
+   - one call of each conv and attention wrapper outside its kernel's
+     envelope, which the wrapper widens for the kernel, against its plain
+     version: bf16 conv3x3 with Ci = 24 (channels padded) and on a 4096² plane
+     (65536 (4, 64) tiles: two row bands, two launches), its data gradient
+     with Ci = 24, attention at D = 96 (padded to 128), the int8 conv with
+     Ci = 144 (``torch.equal`` to the CPU), each with its exact launches;
+     GroupNorm with 65 channels a group (no plan of its kernels) raises.
 3. Drive the main path at full width: the shipped architecture (ch=128,
    ch_mult (1,2,4,4), 2 res blocks, z=32, wavelength stems with 4 layers
    and 256 planes), bf16 ``DEFAULT_POLICY``, weights N(0, 0.02) from a
@@ -130,8 +137,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    1750 / 1825 / 25; the UNet on [2,32,32,32] and DDIM-4 and DPM++(2M)-4 from
    one x1 on the card against the CPU; times (one UNet eval at B = 8 and 16
    beside its operations bound from the layers' shapes, the three samplers
-   at B = 8, the pipeline of ``eovax/cli/benchmark.py`` at its ``--all``
-   settings with its timing keys, one profiled DDIM step with 48
+   at B = 8, one profiled DDIM step with 48
    ``gn_fwd_`` rows, each kernel at
    the UNet's shapes with its device time); and
    ``eovax_torch.cli.eval_metric_super_res.main`` on 8 AOIs of latents that
@@ -162,7 +168,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    whose ``sr-final.pt`` ``eval_metric_super_res.main`` loads strictly.
 10. Stage-1 distillation at the full width of ``configs/weight_distill.yaml``
    (transformer generators, 4 layers, 256 planes; Flux-sized stems) in fp32
-   with TF32 off against a random teacher: 50 steps of ``run_distillation``
+   with TF32 off against a random teacher: 20 steps of ``run_distillation``
    on the card against the CPU (losses and generated stems within 1e-4
    relative, the loss falls), ms/step, and ``weight_distill.main`` writing a
    file that ``load_distilled_checkpoint`` reads back into a core.
@@ -205,8 +211,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    steps: the GAN term gated off, the adaptive weight computed) at
    [1,3,112,112], fp32 and bf16 against fp32 on the CPU, the LPIPS and the
    adaptive weight's reconstruction half ‖∂rec/∂kernel‖ and, in fp32, the
-   weight and its GAN half too (in bf16 they are printed beside the CPU's own
-   bf16 step); at [16,3,224,224] bf16 with the start steps cut to 0, the
+   weight and its GAN half too (in bf16 they are printed); at [16,3,224,224] bf16 with the start steps cut to 0, the
    first step's hooked tensors (the decoder's 224² ``conv1`` and ``norm2``,
    its 28² ``conv1`` and ``norm1``, the mid attention's [16,784,512] q, k, v)
    through conv3x3, conv3x3_dx, group_norm, group_norm_backward and
@@ -293,7 +298,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    i of B = 4 against the B = 1 call with seed 5+i (noise ``torch.equal``,
    outputs within 1e-1) and the B = 1 call against the live encode →
    ``DDIMSampler`` → decode from the same x1. The daemon: ``make_server`` on
-   a thread, 16 client threads posting 64 B=1 ``reconstruct`` ``.npy``
+   a thread, 16 client threads posting ``DAEMON_REQUESTS`` (16) B=1 ``reconstruct`` ``.npy``
    payloads, unbatched and with ``max_batch=16``: requests/s, p50/p99 from
    ``/metrics``, launches equal to the device calls' 48/52/2 each, batched
    replies against unbatched ones; 4 concurrent SR requests coalesced, each
@@ -319,7 +324,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    ``eovax_torch.cli.export --precision int8`` without and with
    ``--calibrate-npz`` (4 images the phase writes): 48 convs quantized, each
    artifact ``torch.equal`` to its live model at B = 1 and 16 with the same
-   launches; the daemon on the dynamic artifact (64 B=1 requests, unbatched
+   launches; the daemon on the dynamic artifact (``DAEMON_REQUESTS`` B=1
+   requests, unbatched
    and ``max_batch=16``; the dynamic range spans a micro-batch, so replies
    are held within ``TOL_INT8_BATCH``); times: the kernel at the three
    shapes beside its plain version, the bf16 hand kernel and cuDNN's bf16
@@ -360,6 +366,29 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    with the kernels' rows. The ``kernels`` line's entries carry the repeated
    mesh's bf16 B=16 ``reconstruct`` launches as ``mesh_launches`` and the
    Winograd ``reconstruct``'s as ``winograd_launches``.
+
+18. The benchmark CLI (``eovax_torch.cli.benchmark``, in this process).
+   ``main(["--all"])`` at the CLI's widths and shapes, its depth cut by
+   ``ALL_DEPTH``: ``reconstruct`` bf16 and int8 at 12-band 256² B=16 and the
+   bf16 serving artifact's (80 calls each, the slope of 5 and 15), the
+   stage-2 train step (48 steps, the slope of 3 and 9), the SR pipeline at LR
+   128² B=1 with DDIM-50 and DPM++(2M)-25 (6 calls of each stage a sampler)
+   and ``encode_split`` over 2 + 1 batches of 16 Sen2NAIP-shaped 512² pairs,
+   each after a warm batch; the serving section times phase 15's bf16
+   artifact (the same architecture) in place of its own export. Each section
+   is driven with the counts set to 0
+   just before it, and its launches must be exactly its calls times phases
+   3, 5, 8 and 16's counts a call (``all_section_launches``); its seconds are
+   printed; the ledger's keys are the JAX CLI's, every time and rate finite
+   and positive, one ``JSON_RESULT:`` line; the SR sub-runs'
+   ``architecture.output_shape`` [1,4,128,128] and finite timings (phase 8
+   copied this pipeline by hand before). Then ``--int8-quality`` on the
+   default model at B = 1, 256² over S2RGB (from a written ``.npz``), S1RTC,
+   S2L2A and S2L1C (synthetic): 192 / 416 / 16 launches and 192
+   ``conv3x3_int8``, finite rows. The ``kernels`` line's entries carry each
+   section's launches as ``all_launches``, the quality table's as
+   ``quality_launches``, and phase 2's widened calls' errors as
+   ``widened_max_abs_err``.
 
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
@@ -838,6 +867,77 @@ def bench_state_dict(model, seed: int) -> dict:
         else:
             sd[name] = torch.empty(t.shape).normal_(0.0, 0.02, generator=g)
     return sd
+
+
+def check_widened(g) -> dict:
+    """One call of each conv and attention wrapper at a shape outside its
+    kernel's envelope, which the wrapper widens for the kernel, against the plain
+    version: bf16 conv3x3 with Ci = 24 (padded to 32), a 4096² plane (65536
+    (4, 64) tiles: two row bands, two launches), its data gradient with Ci = 24,
+    attention at D = 96 (padded to 128), the int8 conv with Ci = 144 (a width
+    ``should_use_int8`` takes; padded to 160), each counted as its launches.
+    GroupNorm with 65 channels a group, which no plan of its kernels cuts,
+    raises. Returns the max abs errors."""
+    import torch
+
+    from eovax_torch.kernels import attention, conv3x3, groupnorm, qconv
+
+    dev = g.device
+    errs = {}
+
+    def once(name, fn, counted, launches):
+        before = counted.launches
+        out = fn()
+        torch.cuda.synchronize()
+        if counted.launches != before + launches:
+            raise AssertionError(f"{name}: {counted.launches - before} launches, "
+                                 f"expected {launches}")
+        return out
+
+    x, w, bias = conv_inputs(2, 24, 48, 37, 53, torch.bfloat16, g)
+    out = once("conv3x3 Ci=24", lambda: conv3x3.conv3x3(x, w, bias), conv3x3.conv3x3, 1)
+    errs["conv3x3 Ci=24"] = check("conv3x3 (widened)", "[2,24,37,53]->48 bf16 Ci=24", out,
+                                  conv3x3.conv3x3_plain(x, w, bias), TOL_CONV_BF16)
+    # The data gradient of a conv 48 → 24: g [2, 24, 37, 53], so the dx conv's Ci is 24.
+    gy = torch.randn(2, 24, 37, 53, generator=g, device=dev).to(torch.bfloat16)
+    wd = 0.05 * torch.randn(24, 48, 3, 3, generator=g, device=dev)
+    out = once("conv3x3_dx Ci=24", lambda: conv3x3.conv3x3_dx(gy, wd), conv3x3.conv3x3_dx, 1)
+    errs["conv3x3_dx Ci=24"] = check("conv3x3_dx (widened)", "g [2,24,37,53] -> 48 bf16", out,
+                                     conv3x3.conv3x3_dx_plain(gy, wd), TOL_CONV_BF16)
+    x, w, bias = conv_inputs(1, 16, 16, 4096, 4096, torch.bfloat16, g)
+    out = once("conv3x3 4096²", lambda: conv3x3.conv3x3(x, w, bias), conv3x3.conv3x3, 2)
+    errs["conv3x3 4096²"] = check("conv3x3 (two row bands)",
+                                  "[1,16,4096,4096]->16 bf16 (65536 tiles)", out,
+                                  conv3x3.conv3x3_plain(x, w, bias), TOL_CONV_BF16)
+    del x, out
+    q, k, v = (torch.randn(2, 1024, 96, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    out = once("flash_attention D=96", lambda: attention.flash_attention(q, k, v),
+               attention.flash_attention, 1)
+    errs["flash_attention D=96"] = check("flash_attention (widened)", "[2,1024,96] bf16", out,
+                                         attention.flash_attention_plain(q, k, v), TOL_BF16)
+    x = torch.randn(2, 144, 37, 53, generator=g, device=dev).to(torch.bfloat16)
+    w = 0.05 * torch.randn(128, 144, 3, 3, generator=g, device=dev)
+    bias = 0.1 * torch.randn(128, generator=g, device=dev)
+    out = once("int8 conv Ci=144",
+               lambda: qconv.int8_conv3x3(x, w, bias, compute_dtype=torch.bfloat16),
+               qconv.conv3x3_int8, 1)
+    ref = qconv.int8_conv3x3(x.cpu(), w.cpu(), bias.cpu(), compute_dtype=torch.bfloat16)
+    same = torch.equal(out.cpu(), ref)
+    errs["int8 Ci=144"] = (out.cpu().float() - ref.float()).abs().max().item()
+    print(f"int8 conv (widened) [2,144,37,53]->128 bf16 on the card vs the CPU: torch.equal "
+          f"{same}")
+    if not same:
+        raise AssertionError("the widened int8 conv disagrees with the CPU")
+    x = torch.randn(2, 32 * 65, 16, 16, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.ones(32 * 65, device=dev)
+    try:
+        groupnorm.group_norm(x, w, torch.zeros_like(w), swish=True)
+    except ValueError as e:
+        print(f"group_norm [2,2080,16,16] (65 channels a group, no kernel plan): raises {e}")
+    else:
+        raise AssertionError("group_norm with 65 channels a group did not raise")
+    return errs
 
 
 def drive(label: str, fn, expected: dict | None):
@@ -1941,7 +2041,6 @@ def sr_phase(vae, vae_sd: dict, card: str, g) -> dict:
     from eovax_torch.cli.train_super_res import build_denoiser_from_config
     from eovax_torch.core.config import load_yaml
     from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
-    from eovax_torch.data.sen2naip import SEN2NAIP_WVS
     from eovax_torch.kernels.attention import flash_attention, flash_attention_plain
     from eovax_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
     from eovax_torch.kernels.groupnorm import group_norm, group_norm_plain
@@ -2110,25 +2209,6 @@ def sr_phase(vae, vae_sd: dict, card: str, g) -> dict:
                             lambda: DDIMSampler(denoiser, steps=1)(unet, x1, cond8), card,
                             {"gn_fwd_": UNET_EVAL[1]})
         check_gn_forward_rows("SR DDIM step [8,32,64,64] bf16", rows, UNET_EVAL[1])
-
-        # The pipeline of eovax/cli/benchmark.py (its --all settings): encode a 4-band
-        # LR 128² image, sample its latent, decode.
-        naip = SEN2NAIP_WVS
-        lr = torch.randn(1, 4, 128, 128, generator=g, device=dev)
-        z_lr = vae.encode_spatial_normalized(lr, naip)
-        for tag, sampler in (("ddim50", ddim), ("dpmpp2m25", dpm)):
-            x1_lr = sampler.init(torch.Generator(dev).manual_seed(2), z_lr.shape)
-            pred = sampler(unet, x1_lr, z_lr)
-            img = vae.decode_spatial_normalized(pred, naip)
-            if tuple(img.shape) != (1, 4, 128, 128) or not torch.isfinite(img).all():
-                raise AssertionError(f"SR pipeline {tag} gave a wrong shape or non-finite values")
-            timing = {"encode": cuda_ms(lambda: vae.encode_spatial_normalized(lr, naip), 20),
-                      "sr_forward": cuda_ms(lambda: sampler(unet, x1_lr, z_lr), 5, warmup=1),
-                      "decode": cuda_ms(lambda: vae.decode_spatial_normalized(pred, naip), 20)}
-            timing["total"] = sum(timing.values())
-            print(f"sr_pipeline_512_{tag} " + json.dumps(
-                {"timing_ms": timing, "throughput_imgs_per_sec": 1e3 / timing["total"],
-                 "latent": list(z_lr.shape)}) + f" [{card}]")
 
     # Each kernel at the UNet's shapes: kernel, plain, library, bound.
     rows = {"flash_attention": [], "group_norm": [], "conv3x3": []}
@@ -2479,6 +2559,9 @@ def sr_train_phase(vae_sd: dict, card: str, g) -> dict:
     return counts
 
 
+DISTILL_CHECK_STEPS = 20
+
+
 def distill_phase(card: str) -> None:
     """Phase 10: stage-1 weight distillation at the full width of
     ``configs/weight_distill.yaml`` in fp32 (TF32 off), against a random teacher."""
@@ -2501,7 +2584,8 @@ def distill_phase(card: str) -> None:
                "encoder_bias": 0.05 * torch.randn(128, generator=gt),
                "decoder_weight": 0.1 * torch.randn(3, 128, 3, 3, generator=gt),
                "decoder_bias": 0.05 * torch.randn(3, generator=gt)}
-    dcfg = distill.DistillConfig(max_steps=50, log_every_n_steps=1, val_every_n_steps=10)
+    dcfg = distill.DistillConfig(max_steps=DISTILL_CHECK_STEPS, log_every_n_steps=1,
+                                 val_every_n_steps=10)
     wvs = torch.tensor(dcfg.rgb_wavelengths)
     runs = {}
     for device in ("cpu", "cuda"):
@@ -2516,9 +2600,9 @@ def distill_phase(card: str) -> None:
     (cpu_losses, cpu_stems), (losses, stems) = runs["cpu"], runs["cuda"]
     loss_rel = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
     stem_rel = max(float((a - r).norm() / r.norm()) for a, r in zip(stems, cpu_stems))
-    ok = (len(losses) == 50 and np.isfinite(losses).all() and losses[-1] < losses[0]
-          and loss_rel <= 1e-4 and stem_rel <= 1e-4)
-    print(f"distillation 50 steps ({cfg.encoder.stem.num_layers} layers, "
+    ok = (len(losses) == DISTILL_CHECK_STEPS and np.isfinite(losses).all()
+          and losses[-1] < losses[0] and loss_rel <= 1e-4 and stem_rel <= 1e-4)
+    print(f"distillation {DISTILL_CHECK_STEPS} steps ({cfg.encoder.stem.num_layers} layers, "
           f"{cfg.encoder.stem.wv_planes} planes, stems [128,3,3,3] and [3,128,3,3]) fp32 on "
           f"the card vs the CPU: losses {losses[0]:.6g} -> {losses[-1]:.6g}, max rel "
           f"{loss_rel:.3e}; stems |diff|/|ref| {stem_rel:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
@@ -3092,10 +3176,9 @@ def dofa_phase(card: str) -> dict:
         stamp("phase 12: DOFA card vs CPU")
 
         # -- the body's generator gradients with the term on, card (fp32, bf16) vs CPU
-        # fp32; the adaptive weight's two halves, and the CPU's own bf16 weight.
+        # fp32; the adaptive weight's two halves.
         x_small = torch.randn(1, 3, 112, 112, generator=torch.Generator().manual_seed(6))
         ref = dofa_grads(raw, sd, disc_sd, FULL_PRECISION, "cpu", x_small, rgb)
-        cpu_bf16 = dofa_grads(raw, sd, disc_sd, DEFAULT_POLICY, "cpu", x_small, rgb)[1]
         for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
                                    ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
             grads, got = dofa_grads(raw, sd, disc_sd, policy, dev, x_small, rgb)
@@ -3105,7 +3188,7 @@ def dofa_phase(card: str) -> dict:
             # Held: the LPIPS and ‖∂rec/∂kernel‖ in both; the weight and
             # ‖∂gan/∂kernel‖ in fp32 only. In bf16 the GAN half is the bf16
             # NLayerDiscriminator's input gradient (phase 11's cancellation),
-            # printed beside the CPU's own bf16 reading.
+            # printed.
             held = ("lpips", "rec_norm") + (("weight", "gan_norm") if label == "fp32" else ())
             ok = all(rel[k] <= tol for k in held) and ref[1]["lpips"] > 0
             print(f"generator step {label} with the DOFA LPIPS on the card vs fp32 on the CPU "
@@ -3113,14 +3196,6 @@ def dofa_phase(card: str) -> dict:
                   + ", ".join(f"{k} {got[k]:.6g} vs {ref[1][k]:.6g} (rel {rel[k]:.3e}"
                               f"{'' if k in held else ', printed'})" for k in got)
                   + f" (tol {tol:g}) {'ok' if ok else 'FAIL'}")
-            if label == "bf16":
-                print("generator step bf16 with the DOFA LPIPS on the CPU [1,3,112,112], the "
-                      "second witness: "
-                      + ", ".join(f"{k} {cpu_bf16[k]:.6g} (card bf16 vs CPU bf16 rel "
-                                  f"{abs(got[k] - cpu_bf16[k]) / abs(cpu_bf16[k]):.3e}, "
-                                  f"CPU bf16 vs CPU fp32 rel "
-                                  f"{abs(cpu_bf16[k] - ref[1][k]) / abs(ref[1][k]):.3e})"
-                                  for k in got))
             if not ok:
                 raise AssertionError(f"the LPIPS or the adaptive weight's halves ({label}) "
                                      "disagree")
@@ -4099,6 +4174,9 @@ SR_STEPS = 4
 SR_CALL = tuple(e + d + SR_STEPS * u for e, d, u in zip(SERVE_ENCODE, SERVE_DECODE, UNET_EVAL))
 # Requests the daemon answers in each mode, from this many client threads.
 SERVE_REQUESTS, SERVE_CLIENTS = 64, 16
+# The requests of phases 15 and 16's daemons, one for each client thread (the
+# 4-card script sends SERVE_REQUESTS).
+DAEMON_REQUESTS = 16
 
 
 def file_sizes(out: Path) -> str:
@@ -4268,6 +4346,16 @@ def serve_cli_process(art: Path, card: str, extra: tuple = ()) -> list[str]:
     return lines
 
 
+def process_state(label: str) -> None:
+    """Print this process's threads and the objects its garbage collector tracks:
+    what a host-paced call's time may depend on besides the host."""
+    import gc
+    import threading
+
+    names = sorted(t.name for t in threading.enumerate())
+    print(f"{label}: {len(names)} threads {names}, {len(gc.get_objects())} tracked objects")
+
+
 def serving_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
     """Phase 15: the serving path at full width. Returns the kernels' launches of
     one artifact ``reconstruct`` at B=16 and of one SR-artifact call at B=4. Moves
@@ -4293,6 +4381,7 @@ def serving_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
 
     dev = g.device
     s2 = wavelengths_for("S2L2A")
+    process_state("phase 15 start")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serving_", dir=ROOT / "build"))
     sr_export = None
     try:
@@ -4407,7 +4496,7 @@ def serving_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
         warmup(served, batch_sizes=(1, 2, 4, 8, 16))
         requests = tmp / "requests.npy"
         np.save(requests, np.random.default_rng(40).standard_normal(
-            (SERVE_REQUESTS, 1, 12, 256, 256)).astype(np.float32))
+            (DAEMON_REQUESTS, 1, 12, 256, 256)).astype(np.float32))
         plain, unbatched = serve_clients(served, requests, 0, card)
         batched_replies, batched = serve_clients(served, requests, 16, card)
         # Other batch sizes take other GroupNorm plans and cuDNN algorithms: the
@@ -4749,7 +4838,7 @@ def int8_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
         # ---- the daemon on the dynamic int8 artifact -------------------------------
         requests = tmp / "requests.npy"
         np.save(requests, np.random.default_rng(40).standard_normal(
-            (SERVE_REQUESTS, 1, 12, 256, 256)).astype(np.float32))
+            (DAEMON_REQUESTS, 1, 12, 256, 256)).astype(np.float32))
         plain, unbatched = serve_clients(served["dynamic"], requests, 0, card, per_call)
         batched_replies, batched = serve_clients(served["dynamic"], requests, 16, card, per_call)
         worst = max(rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
@@ -4802,8 +4891,8 @@ def int8_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
             for label in (*order, *reversed(order)):
                 x = x16[:b]
                 recon_ms.setdefault(f"{label} B={b}", []).append(cuda_ms(
-                    lambda: fns[label](x), 5 if b == 16 else 10))
-        print(f"time reconstruct [B,12,256,256]: {recon_ms} ms (CUDA events, 5 (B=16) or 10 "
+                    lambda: fns[label](x), 3 if b == 16 else 5))
+        print(f"time reconstruct [B,12,256,256]: {recon_ms} ms (CUDA events, 3 (B=16) or 5 "
               f"(B=1) calls after 2, order {' '.join(order)} and back) [{card}]")
         # The graphs run on the host's pace where their calls are short: the
         # profile says how much of a B=16 artifact call the card is busy.
@@ -5032,6 +5121,173 @@ def mesh_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
             "winograd_ms": times, "slope_ms": slope, "events_ms": events}
 
 
+# The ledger of ``eovax_torch.cli.benchmark --all``: each key with its row's keys,
+# the JAX CLI's (tests/test_torch_benchmark_cli.py reads them from its source).
+ALL_LEDGER_KEYS = {
+    "mode": None, "methodology": None,
+    **{f"reconstruct_{tag}": {"batch", "ms_per_batch", "imgs_per_sec"}
+       for tag in ("bf16", "int8")},
+    "train_step_bf16": {"batch", "ms_per_step", "imgs_per_sec", "loss", "optimizer"},
+    **{f"sr_pipeline_512_{tag}": {"timing_ms", "throughput_imgs_per_sec"}
+       for tag in ("ddim50", "dpmpp2m25")},
+    "serving_artifact_bf16": {"batch", "ms_per_batch", "imgs_per_sec"},
+    "encode_latents_bulk": {"batch", "resolution", "spatial_norm",
+                            *(f"{k}_{tag}" for k in ("pairs_per_sec", "patches_512_per_sec")
+                              for tag in ("uncompressed", "compressed"))},
+}
+# The sections of --all, each a function of the module that phase 18 counts.
+ALL_SECTIONS = ("_bench_reconstruct", "_bench_train_step", "_bench_sr_pipeline",
+                "_bench_serving", "_bench_encode_bulk")
+QUALITY_MODALITIES = ("S2RGB", "S1RTC", "S2L2A", "S2L1C")
+# --all's depth here, cut from the CLI's (slope chains of 10 and 30 calls and of 6
+# and 18 steps, 20 iterations a SR stage, 4 + 2 bulk batches) to keep the script
+# inside its time on a slow host; the widths and shapes are the CLI's.
+ALL_DEPTH = {"ALL_LO": 5, "ALL_HI": 15, "TRAIN_LO": 3, "TRAIN_HI": 9, "SR_ITERS": 3,
+             "BULK_RUNS": (("uncompressed", False, 2), ("compressed", True, 1))}
+
+
+def all_section_launches() -> dict:
+    """The exact launches of each ``--all`` section (a list: ``_bench_reconstruct``
+    runs bf16, then int8), from its settings and the per-call counts phases 3, 5, 8
+    and 16 hold: 48 / 52 / 2 a ``reconstruct`` (int8: 48 ``conv3x3_int8``),
+    48 / 52 / 2 + 48 / 52 / 2 a train step, 20 / 22 / 1 an encode and 28 / 30 / 1
+    a decode (``SERVE_ENCODE``, ``SERVE_DECODE``), ``UNET_EVAL`` a UNet eval."""
+    from eovax_torch.cli import benchmark as bm
+
+    n = 4 * (bm.ALL_LO + bm.ALL_HI)  # slope_ms: each length twice to warm, twice timed
+    m = 4 * (bm.TRAIN_LO + bm.TRAIN_HI)
+    iters = int(bm.SR_ARGV[bm.SR_ARGV.index("--iters") + 1])
+    calls = 3 + iters  # the pipeline once, then each stage built, warmed, and timed chained
+    enc_dec = [e + d for e, d in zip(SERVE_ENCODE, SERVE_DECODE)]
+    evals = sum(steps for _, _, steps in bm.SR_RUNS)  # DPM++(2M): one eval a step
+    sr = [len(bm.SR_RUNS) * calls * ed + calls * evals * u for ed, u in zip(enc_dec, UNET_EVAL)]
+    encodes = 2 * sum(1 + batches for _, _, batches in bm.BULK_RUNS)  # LR and HR a batch
+    return {
+        "_bench_reconstruct": [launches(48 * n, 52 * n, 2 * n),
+                               launches(0, 52 * n, 2 * n, conv_int8=48 * n)],
+        "_bench_train_step": [launches(48 * m, 52 * m, 2 * m, 48 * m, 52 * m, 2 * m)],
+        "_bench_sr_pipeline": [launches(*sr)],
+        "_bench_serving": [launches(48 * n, 52 * n, 2 * n)],
+        "_bench_encode_bulk": [launches(*(encodes * c for c in SERVE_ENCODE))],
+    }
+
+
+def benchmark_phase(card: str, artifact: Path) -> dict:
+    """Phase 18: ``eovax_torch.cli.benchmark`` on the card. ``main(["--all"])`` at
+    the CLI's widths, its depth cut by ``ALL_DEPTH``, with each section's
+    launches exact and its seconds; the SR sub-runs' JSON (its
+    ``architecture``); then
+    ``--int8-quality`` on the default model at B = 1, 256², the S2RGB image from a
+    written ``.npz`` and the other three modalities synthetic. The serving
+    section times ``artifact``, phase 15's bf16 export of the same architecture,
+    in place of exporting its own (phase 15 drives the export). Returns the
+    launches of each section and the ledger."""
+    import io
+    import math
+    import tempfile
+
+    import numpy as np
+
+    import eovax_torch.serving as serving
+    from eovax_torch.cli import benchmark as bm
+
+    process_state("phase 18 start")
+    depth = {k: v for k, v in ALL_DEPTH.items() if k != "SR_ITERS"}
+    depth["SR_ARGV"] = [*bm.SR_ARGV[:bm.SR_ARGV.index("--iters") + 1], str(ALL_DEPTH["SR_ITERS"])]
+    cli_depth = {k: getattr(bm, k) for k in depth}
+    for k, v in depth.items():
+        setattr(bm, k, v)
+    expected = all_section_launches()
+    sections: dict[str, list] = {}
+    sub_runs: list[dict] = []
+    originals = {name: getattr(bm, name) for name in (*ALL_SECTIONS, "main")}
+    export_model = serving.export_model
+
+    def reused_export(model, out, **kw):  # phase 15's artifact of the same architecture
+        shutil.copytree(artifact, out, dirs_exist_ok=True)
+
+    def counted(name, fn):
+        def run(*args, **kw):
+            i = len(sections.setdefault(name, []))
+            t0 = time.perf_counter()
+            out, got = drive(f"benchmark --all {name}[{i}]", lambda: fn(*args, **kw),
+                             expected[name][i])
+            print(f"benchmark --all {name}[{i}]: {time.perf_counter() - t0:.1f} s", flush=True)
+            sections[name].append(got)
+            return out
+        return run
+
+    def sub_run(argv=None, **kw):  # the SR sub-runs: read each one's JSON before it goes
+        originals["main"](argv, **kw)
+        sub_runs.append(json.loads(Path(argv[argv.index("--output") + 1]).read_text()))
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_bench_", dir=ROOT / "build"))
+    try:
+        for name in ALL_SECTIONS:
+            setattr(bm, name, counted(name, originals[name]))
+        bm.main = sub_run
+        serving.export_model = reused_export
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            originals["main"](["--all", "--output", str(tmp / "all.json")])
+        seconds = time.perf_counter() - t0
+    finally:
+        for name, fn in [*originals.items(), *cli_depth.items()]:
+            setattr(bm, name, fn)
+        serving.export_model = export_model
+    print(out.getvalue(), end="")
+    ledger = json.loads((tmp / "all.json").read_text())
+    markers = [line for line in out.getvalue().splitlines() if line.startswith("JSON_RESULT:")]
+    if len(markers) != 1 or json.loads(markers[0][len("JSON_RESULT:"):]) != ledger:
+        raise AssertionError(f"benchmark --all printed {len(markers)} JSON_RESULT lines")
+    keys = {k: set(v) if isinstance(v, dict) else None for k, v in ledger.items()}
+    numbers = [v for row in ledger.values() if isinstance(row, dict)
+               for v in (row["timing_ms"].values() if "timing_ms" in row else ())
+               ] + [v for row in ledger.values() if isinstance(row, dict) for k, v in row.items()
+                    if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    if keys != ALL_LEDGER_KEYS or not all(math.isfinite(v) and v > 0 for v in numbers):
+        raise AssertionError(f"benchmark --all ledger {ledger}")
+    if sections.keys() != expected.keys() or any(len(v) != len(expected[k])
+                                                  for k, v in sections.items()):
+        raise AssertionError(f"benchmark --all ran sections {list(sections)}")
+    for r in sub_runs:
+        if (r["architecture"]["output_shape"] != [1, 4, 128, 128]
+                or not all(math.isfinite(v) and v > 0 for v in r["timing_ms"].values())):
+            raise AssertionError(f"benchmark SR sub-run {r}")
+    print(f"benchmark --all: {seconds:.1f} s; {len(sub_runs)} SR sub-runs, output "
+          f"{sub_runs[0]['architecture']['output_shape']}, peak memory "
+          f"{[r['memory_gb']['peak_memory'] for r in sub_runs]} GiB [{card}]")
+    print(f"benchmark --all ledger {json.dumps(ledger)} [{card}]")
+    stamp("phase 18: benchmark --all")
+
+    npz = tmp / "quality.npz"
+    np.savez(npz, S2RGB=np.random.default_rng(18).standard_normal((1, 3, 256, 256))
+             .astype(np.float32))
+    out = io.StringIO()
+    per = len(QUALITY_MODALITIES)
+    try:
+        with contextlib.redirect_stdout(out):
+            _, quality_launches = drive(
+                "benchmark --int8-quality, 4 modalities at [1,C,256,256]",
+                lambda: bm.main(["--int8-quality", "--resolution", "256", "--quality-npz",
+                                 str(npz), "--modalities", *QUALITY_MODALITIES, "--output",
+                                 str(tmp / "quality.json")]),
+                launches(48 * per, 104 * per, 4 * per, conv_int8=48 * per))
+    finally:
+        print(out.getvalue(), end="")
+    table = json.loads((tmp / "quality.json").read_text())
+    markers = [line for line in out.getvalue().splitlines() if line.startswith("JSON_RESULT:")]
+    rows = table["modalities"]
+    if (len(markers) != 1 or set(rows) != set(QUALITY_MODALITIES)
+            or not all(math.isfinite(v) for row in rows.values() for v in row.values())):
+        raise AssertionError(f"benchmark --int8-quality: {table}")
+    print(f"benchmark --int8-quality: {json.dumps(table)} [{card}]")
+    shutil.rmtree(tmp, ignore_errors=True)
+    stamp("phase 18: benchmark --int8-quality")
+    return {"sections": sections, "ledger": ledger, "quality_launches": quality_launches}
+
+
 def main() -> int:
     import torch
 
@@ -5109,6 +5365,7 @@ def main() -> int:
                               ((2, 48, 96, 37, 53), torch.bfloat16, TOL_CONV_BF16),
                               ((2, 64, 96, 37, 53), torch.float32, TOL_CONV_F32)):
         conv_errs[shape] = check_conv(*conv_inputs(*shape, dtype, g), tol, "synthetic")
+    widened_errs = check_widened(g)
     torch.cuda.empty_cache()
     stamp("phase 2: kernels vs plain")
 
@@ -5355,6 +5612,9 @@ def main() -> int:
         serving = serving_phase(model, sd, card, g, keep)
         int8 = int8_phase(model, sd, card, g, keep)
         mesh = mesh_phase(model, sd, card, g, keep)
+        del model
+        torch.cuda.empty_cache()
+        bench = benchmark_phase(card, keep / "bf16")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
@@ -5442,6 +5702,19 @@ def main() -> int:
         # Phase 17: the card repeated 4 times, bf16 reconstruct B=16; Winograd B=16.
         entry["mesh_launches"] = mesh["launches"][entry["name"]]
         entry["winograd_launches"] = mesh["winograd_launches"][entry["name"]]
+        # Phase 18: each section of benchmark --all (reconstruct: bf16, then int8), and
+        # --int8-quality.
+        entry["all_launches"] = {name.removeprefix("_bench_"): [c[entry["name"]] for c in runs]
+                                 for name, runs in bench["sections"].items()}
+        entry["quality_launches"] = bench["quality_launches"][entry["name"]]
+    # Phase 2: one call of each conv and attention wrapper outside its kernel's
+    # envelope, widened for the kernel, against its plain version.
+    widened = {"conv3x3": ["conv3x3 Ci=24", "conv3x3 4096²"],
+               "conv3x3_dx": ["conv3x3_dx Ci=24"], "flash_attention": ["flash_attention D=96"],
+               "conv3x3_int8": ["int8 Ci=144"]}
+    for entry in kernels:
+        entry["widened_max_abs_err"] = {k: widened_errs[k]
+                                        for k in widened.get(entry["name"], [])}
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

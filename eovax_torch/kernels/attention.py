@@ -6,11 +6,17 @@ Port of ``eovax/kernels/attention.py``. On a CUDA tensor
 S ≥ 4096 to its Pallas kernel; here the kernel is the path's attention
 whatever the length). On a CPU tensor it computes
 :func:`flash_attention_plain`, the plain PyTorch version of the same
-function. It never falls back from the kernel.
+function.
 
 The kernel takes bf16 (the inference policy) and fp32 (``FULL_PRECISION``),
-with D in :data:`KERNEL_HEAD_DIMS`; the logits, softmax statistics and the
-P·V accumulator are fp32, and the output has the input's dtype.
+with D in :data:`KERNEL_HEAD_DIMS` and at most 65535 batch rows (its grid's
+y); the logits, softmax statistics and the P·V accumulator are fp32, and the
+output has the input's dtype. Where one launch cannot take the shape as it is
+(:func:`in_kernel_envelope`) the wrapper widens it for the kernel: a narrower D
+is zero-padded to the next kernel width Dk (q scaled by √(Dk/D) in its dtype,
+so the kernel's 1/√Dk gives q·kᵀ/√D; the zero columns add nothing to q·kᵀ, and
+the output's are dropped), and more than 65535 batch rows run as several
+launches, each adding one to the count. D above 512 raises.
 
 When an input requires grad, :func:`flash_attention` is a
 ``torch.autograd.Function`` whose backward, :func:`flash_attention_backward`,
@@ -28,8 +34,9 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
-from eovax_torch.kernels import build, ops
+from eovax_torch.kernels import build, grid, ops
 
 SOURCE = "flash_attention.cu"
 KERNEL_HEAD_DIMS = (64, 128, 256, 512)
@@ -41,6 +48,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
+
+
+def in_kernel_envelope(q_shape) -> bool:
+    """Whether one launch takes q, k, v of shape [B, S, D] as they are: D in
+    :data:`KERNEL_HEAD_DIMS` and B at most 65535 (the grid's y). Outside it the
+    wrapper pads D to a kernel width or launches in batch blocks."""
+    b, s, d = q_shape
+    return d in KERNEL_HEAD_DIMS and b <= grid.GRID_LIMIT
+
+
+def widened(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v [B, S, D] at the kernel width Dk, the least of
+    :data:`KERNEL_HEAD_DIMS` not below D: zero columns appended, q scaled by
+    √(Dk/D) (one rounding to its dtype) so that the kernel's 1/√Dk scale gives
+    q·kᵀ/√D. The attention of the result, less its last Dk − D columns, is that
+    of the inputs. Raises ValueError for D above the widest kernel."""
+    d = q.shape[-1]
+    if d > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: D={d} is wider than the kernel's widest, "
+                         f"{KERNEL_HEAD_DIMS[-1]}")
+    dk = next(w for w in KERNEL_HEAD_DIMS if w >= d)
+    if dk == d:
+        return q, k, v
+    q = (q.float() * (dk / d) ** 0.5).to(q.dtype)
+    return tuple(F.pad(t, (0, dk - d)) for t in (q, k, v))
 
 
 @functools.cache
@@ -90,22 +122,27 @@ def _launch_counted(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     b, s, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: D={d} not in {KERNEL_HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    if b == 0 or s == 0:
+    if b == 0 or s == 0 or d == 0:
         return torch.empty_like(q)
+    if not in_kernel_envelope(q.shape):
+        q, k, v = widened(q, k, v)
+    dk = q.shape[-1]
     lib = _library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, d, stream
-        )
-    build.check(lib, code, "flash_attention")
-    flash_attention.launches += 1
-    return out
+        row = s * dk * q.element_size()  # bytes of one batch row
+        for b0 in range(0, b, grid.GRID_LIMIT):
+            at = b0 * row
+            code = getattr(lib, _ENTRY[q.dtype])(
+                q.data_ptr() + at, k.data_ptr() + at, v.data_ptr() + at, out.data_ptr() + at,
+                min(grid.GRID_LIMIT, b - b0), s, dk, stream
+            )
+            build.check(lib, code, "flash_attention")
+            flash_attention.launches += 1
+    return out if dk == d else out[..., :d].contiguous()
 
 
 @torch.library.custom_op("eovax::flash_attention", mutates_args=(), device_types="cpu")
@@ -144,7 +181,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """softmax(q kᵀ / √D) v for single-head [B, S, D] tensors.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (and add one to ``flash_attention.launches``) or raise. Where grad
+    kernel (and add one to ``flash_attention.launches`` a launch) or raise. Where grad
     is enabled and an input requires it, the output carries the backward of
     :func:`flash_attention_backward`.
     """

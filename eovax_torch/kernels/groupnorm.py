@@ -10,7 +10,14 @@ instead), so that a norm → AdaIN → swish sequence reads its input once and
 writes its output once. :func:`gn_channel_sums`
 keeps the TPU kernel's contract (per-(B, C) fp32 Σx and Σx²) on a statistics
 kernel of its own. On a CPU tensor each function computes its plain PyTorch
-version. Neither falls back from the kernel.
+version.
+
+Where no plan of the kernels cuts a group (:func:`in_kernel_envelope`: more
+than 64 channels a group that no cluster of up to 16 CTAs splits on channel
+boundaries, an odd cpg above 64 for one, and no warp plan; or a grid past
+2³¹ − 1 CTAs) a CUDA tensor raises ``ValueError``: the JAX package computes
+GroupNorm in XLA at every width, and these widths wait for a plan that splits
+a group's pixels.
 
 The kernels take bf16 (the inference policy) and fp32 (``FULL_PRECISION``);
 statistics and arithmetic are fp32, and the output has the input's dtype.
@@ -200,7 +207,10 @@ def _launch(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stat
     (adds one to ``group_norm.launches``)."""
     ada_stride = _check_params(x, weight, bias, groups, ada_scale, ada_shift, "group_norm")
     b, c, h, w = x.shape
-    plan = _fwd_plan(b, c, groups, h * w, x.element_size(), aligned=x.data_ptr() % 16 == 0)
+    aligned = x.data_ptr() % 16 == 0
+    if not in_kernel_envelope(b, c, groups, h * w, x.element_size(), aligned=aligned):
+        raise ValueError(_no_plan("group_norm", x.shape, groups))
+    plan = _fwd_plan(b, c, groups, h * w, x.element_size(), aligned=aligned)
     weight, bias, ada_scale, ada_shift = _fp32(weight, bias, ada_scale, ada_shift)
     out = torch.empty_like(x)
     stats = torch.empty(2, b, groups, device=x.device, dtype=torch.float32) if with_stats else None
@@ -316,7 +326,8 @@ _BWD_SMEM_TARGET = 64 * 1024
 _MIN_CTAS = 264
 
 
-def _cluster_sizes(cpg: int, n: int, itemsize: int) -> list[int]:
+@functools.lru_cache(maxsize=256)
+def _cluster_sizes(cpg: int, n: int, itemsize: int) -> tuple[int, ...]:
     """The cluster sizes that cut a group of ``cpg`` planes of ``n`` elements on
     channel boundaries: cpg/k whole planes a CTA (at most ``_MAX_SEGMENTS``),
     or 1/m of one plane (k = m·cpg), a whole number of 16-byte vectors where n
@@ -329,7 +340,7 @@ def _cluster_sizes(cpg: int, n: int, itemsize: int) -> list[int]:
         m = k // cpg
         return k % cpg == 0 and n % m == 0 and (n % vec != 0 or (n // m) % vec == 0)
 
-    return [k for k in _CLUSTER_SIZES if splits(k)]
+    return tuple(k for k in _CLUSTER_SIZES if splits(k))
 
 
 def _plan(b: int, c: int, groups: int, n: int, itemsize: int, operands: int, target: int,
@@ -359,8 +370,8 @@ def _fwd_plan(b: int, c: int, groups: int, n: int, itemsize: int,
     groups and elements of ``itemsize`` bytes: the warp plan for a group of at
     most 32·``_WARP_VECS`` 16-byte vectors (n a whole number of them, x
     ``aligned`` to 16 bytes), else a cluster plan on ``_FWD_SMEM_TARGET``."""
-    span, vec = c // groups * n, 16 // itemsize
-    if aligned and n % vec == 0 and span <= 32 * _WARP_VECS * vec:
+    if _warp_plan(c, groups, n, itemsize, aligned):
+        span = c // groups * n
         return FwdPlan(0, span, span, 0)
     k, slice_, resident = _plan(b, c, groups, n, itemsize, 1, _FWD_SMEM_TARGET, "group_norm",
                                 _FWD_MIN_SLICE_BYTES)
@@ -373,6 +384,38 @@ def _bwd_plan(b: int, c: int, groups: int, n: int, itemsize: int) -> BwdPlan:
     k, slice_, resident = _plan(b, c, groups, n, itemsize, 2, _BWD_SMEM_TARGET,
                                 "group_norm_backward")
     return BwdPlan(k, slice_, resident, 2 * itemsize * resident)
+
+
+def _warp_plan(c: int, groups: int, n: int, itemsize: int, aligned: bool) -> bool:
+    """Whether the forward takes the warp plan: a group of at most 32·``_WARP_VECS``
+    16-byte vectors, n a whole number of them, x 16-byte aligned."""
+    span, vec = c // groups * n, 16 // itemsize
+    return aligned and n % vec == 0 and span <= 32 * _WARP_VECS * vec
+
+
+def in_kernel_envelope(b: int, c: int, groups: int, n: int, itemsize: int, *,
+                       forward: bool = True, aligned: bool = True) -> bool:
+    """Whether the forward kernel (or with ``forward`` False the backward) has a
+    plan for x [b, c, n] (n = H·W) in ``groups`` groups of elements of
+    ``itemsize`` bytes, x 16-byte ``aligned`` or not: the forward's warp plan, or a
+    cluster size that cuts a group on channel boundaries (:func:`_cluster_sizes`),
+    with at most 2³¹ − 1 CTAs in the grid (``shape_ok`` in ``csrc/groupnorm.cu``)."""
+    if min(b, c, groups, n) <= 0:
+        return False
+    if forward and _warp_plan(c, groups, n, itemsize, aligned):
+        return b * groups <= 0x7FFFFFFF
+    if not _cluster_sizes(c // groups, n, itemsize):
+        return False
+    if b * groups * _CLUSTER_SIZES[-1] <= 0x7FFFFFFF:  # any plan's grid fits
+        return True
+    plan = (_fwd_plan(b, c, groups, n, itemsize, aligned) if forward
+            else _bwd_plan(b, c, groups, n, itemsize))
+    return b * groups * plan.cluster <= 0x7FFFFFFF
+
+
+def _no_plan(what: str, shape, groups: int) -> str:
+    return (f"{what}: no kernel plan for x {tuple(shape)} in {groups} groups "
+            f"({shape[1] // groups} channels a group)")
 
 
 def active_clusters(plan: FwdPlan | BwdPlan, dtype: torch.dtype, vec: bool = True) -> int:
@@ -390,17 +433,24 @@ def active_clusters(plan: FwdPlan | BwdPlan, dtype: torch.dtype, vec: bool = Tru
     return count.value
 
 
-def _backward_kernel(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
+def _check_backward(g, x, mean, rstd, weight, bias, ada_scale, ada_shift) -> None:
+    """Raise ValueError unless these are operands of the backward on a CUDA tensor."""
     groups = mean.shape[-1]
-    ada_stride = _check_params(x, weight, bias, groups, ada_scale, ada_shift,
-                               "group_norm_backward")
+    _check_params(x, weight, bias, groups, ada_scale, ada_shift, "group_norm_backward")
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
         raise ValueError("group_norm_backward: g must be a contiguous tensor like x")
-    b, c, h, w = x.shape
+    b = x.shape[0]
     if (mean.shape != (b, groups) or rstd.shape != mean.shape
             or mean.device != x.device or rstd.device != x.device):
         raise ValueError(f"group_norm_backward: mean and rstd must be [{b}, groups] on x's "
                          f"device, got {tuple(mean.shape)}, {tuple(rstd.shape)}")
+
+
+def _backward_kernel(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
+    """Plan and launch the backward kernel on operands that :func:`_check_backward` took."""
+    groups = mean.shape[-1]
+    b, c, h, w = x.shape
+    ada_stride = 0 if ada_scale is None or ada_scale.dim() == 1 else c
     mean, rstd, weight, bias, ada_scale, ada_shift = _fp32(mean, rstd, weight, bias, ada_scale,
                                                            ada_shift)
     plan = _bwd_plan(b, c, groups, h * w, x.element_size())
@@ -446,6 +496,10 @@ def group_norm_backward(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor, rs
     if x.device.type == "cpu":
         return group_norm_backward_plain(g, x, mean, rstd, weight, bias, ada_scale=ada_scale,
                                          ada_shift=ada_shift, swish=swish)
+    _check_backward(g, x, mean, rstd, weight, bias, ada_scale, ada_shift)
+    b, c, h, w = x.shape
+    if not in_kernel_envelope(b, c, mean.shape[-1], h * w, x.element_size(), forward=False):
+        raise ValueError(_no_plan("group_norm_backward", x.shape, mean.shape[-1]))
     out = _backward(_backward_kernel, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
     group_norm_backward.launches += 1
     return out

@@ -24,8 +24,13 @@ in the order of the JAX package's operations, each rounded once as there;
 :func:`conv3x3_int8_plain` computes the same in tensor ops (the int32 sum
 exactly, in float64), so the two are equal bit for bit. On a CPU tensor
 :func:`conv3x3_int8` computes the plain version; on a CUDA tensor it launches
-the kernel (and adds one to ``conv3x3_int8.launches``) or raises: input
-channels must be a multiple of :data:`KERNEL_CI_MULTIPLE`. The forward is also
+the kernel (and adds one to ``conv3x3_int8.launches`` a launch). Where one
+launch cannot take the shape as it is (:func:`in_kernel_envelope`) the wrapper
+widens it for the kernel, as :mod:`eovax_torch.kernels.conv3x3` does: input
+channels zero-padded to a multiple of :data:`KERNEL_CI_MULTIPLE` (a zero
+quantizes to 0 at any range, and the padded weights are 0), and a plane or
+batch past the grid in several launches (:mod:`eovax_torch.kernels.grid`); the
+range ``amax`` is the whole tensor's either way. The forward is also
 the custom op ``eovax::conv3x3_int8`` (:mod:`eovax_torch.kernels.ops`), through
 which a ``torch.export`` trace reaches it.
 
@@ -43,7 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from eovax_torch.kernels import build, ops
+from eovax_torch.kernels import build, grid, ops
 
 SOURCE = "conv3x3_int8.cu"
 KERNEL_CI_MULTIPLE = 32  # the kernel's K chunk: one wgmma k32 step a tap
@@ -109,16 +114,26 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def in_kernel_envelope(x_shape, co: int) -> bool:
+    """Whether one launch takes a conv of NCHW ``x_shape`` to ``co`` output channels
+    as it is: input channels a multiple of :data:`KERNEL_CI_MULTIPLE`, a non-empty
+    input and output, and a grid of at most 65535 (4, 64) pixel tiles and 65535
+    batch rows. Outside it the wrapper pads the channels or launches in pieces."""
+    b, ci, h, w = x_shape
+    return (ci % KERNEL_CI_MULTIPLE == 0 and min(b, ci, h, w, co) > 0
+            and grid.fits(b, h, w, _PIXEL_TILE))
+
+
 def check_operands(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                    bias: torch.Tensor | None, amax: torch.Tensor) -> None:
-    """Raise ValueError unless the kernel takes these operands (on any device)."""
+    """Raise ValueError unless these are operands of the conv (on any device);
+    the shape's envelope is :func:`in_kernel_envelope`'s."""
     what = "conv3x3_int8"
     if x.dtype not in _ENTRY:
         raise ValueError(f"{what}: x must be bfloat16 or float32, got {x.dtype}")
     if x.dim() != 4 or wq.dim() != 4 or wq.shape[1:] != (x.shape[1], 3, 3):
         raise ValueError(f"{what}: x [B, Ci, H, W] and wq [Co, Ci, 3, 3] expected, got "
                          f"{tuple(x.shape)}, {tuple(wq.shape)}")
-    b, ci, h, wd = x.shape
     co = wq.shape[0]
     if wq.dtype != torch.int8:
         raise ValueError(f"{what}: wq must be int8, got {wq.dtype}")
@@ -136,12 +151,6 @@ def check_operands(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
         raise ValueError(f"{what}: every operand must be on one device")
     if not x.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous")
-    if ci % KERNEL_CI_MULTIPLE:
-        raise ValueError(f"{what}: the kernel needs Ci a multiple of {KERNEL_CI_MULTIPLE}, "
-                         f"got Ci={ci}")
-    th, tw = _PIXEL_TILE
-    if x.numel() == 0 or co == 0 or -(-h // th) * -(-wd // tw) > 65535 or b > 65535:
-        raise ValueError(f"{what}: shape {tuple(x.shape)} is outside the kernel's grid")
 
 
 def int8_weight_layout(wq: torch.Tensor) -> torch.Tensor:
@@ -156,26 +165,50 @@ def int8_weight_layout(wq: torch.Tensor) -> torch.Tensor:
     return wt
 
 
+def _launch(x: torch.Tensor, wt: torch.Tensor, w_scale: torch.Tensor,
+            bias: torch.Tensor | None, amax: torch.Tensor, co: int) -> torch.Tensor:
+    """One launch on contiguous ``x`` inside the grid, weights from
+    :func:`int8_weight_layout` (adds one to ``conv3x3_int8.launches``)."""
+    b, ci, h, wd = x.shape
+    out = torch.empty((b, co, h, wd), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        code = getattr(lib, _ENTRY[x.dtype])(
+            x.data_ptr(), wt.data_ptr(), w_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), amax.data_ptr(), out.data_ptr(),
+            b, ci, co, h, wd, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(lib, code, "conv3x3_int8")
+    conv3x3_int8.launches += 1
+    return out
+
+
+def _run(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+         bias: torch.Tensor | None, amax: torch.Tensor) -> torch.Tensor:
+    """The conv of checked operands on the kernel, widened where
+    :func:`in_kernel_envelope` says so."""
+    b, ci, h, wd = x.shape
+    co = wq.shape[0]
+    if min(b, h, wd, co) == 0:
+        return x.new_empty((b, co, h, wd))
+    if not in_kernel_envelope(x.shape, co):
+        pad = -ci % KERNEL_CI_MULTIPLE if ci else KERNEL_CI_MULTIPLE
+        if pad:  # zero channels and zero weights: the int32 sums do not change
+            x = F.pad(x, (0, 0, 0, 0, 0, pad))
+            wq = F.pad(wq, (0, 0, 0, 0, 0, pad))
+    wt = int8_weight_layout(wq)
+    w_scale, amax = w_scale.contiguous(), amax.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    return grid.in_pieces(x, co, _PIXEL_TILE,
+                          lambda piece: _launch(piece, wt, w_scale, bias, amax, co))
+
+
 def _launch_counted(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                     bias: torch.Tensor | None, amax: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_int8: unsupported device {x.device}")
     check_operands(x, wq, w_scale, bias, amax)
-    b, ci, h, wd = x.shape
-    co = wq.shape[0]
-    wt = int8_weight_layout(wq)
-    w_scale, amax = w_scale.contiguous(), amax.contiguous()
-    bias_ptr = None if bias is None else bias.contiguous().data_ptr()
-    out = torch.empty((b, co, h, wd), dtype=x.dtype, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        code = getattr(lib, _ENTRY[x.dtype])(
-            x.data_ptr(), wt.data_ptr(), w_scale.data_ptr(), bias_ptr, amax.data_ptr(),
-            out.data_ptr(), b, ci, co, h, wd, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(lib, code, "conv3x3_int8")
-    conv3x3_int8.launches += 1
-    return out
+    return _run(x, wq, w_scale, bias, amax)
 
 
 @torch.library.custom_op("eovax::conv3x3_int8", mutates_args=(), device_types="cpu")

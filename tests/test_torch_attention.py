@@ -123,6 +123,50 @@ def test_non_cpu_non_cuda_tensor_raises():
         attention.flash_attention(q, q, q)
 
 
+@pytest.mark.parametrize("shape,inside", [
+    ((2, 64, 64), True), ((2, 64, 128), True), ((2, 64, 256), True), ((2, 64, 512), True),
+    ((2, 64, 96), False), ((2, 64, 32), False), ((2, 64, 1024), False), ((1, 16, 768), False),
+    ((65535, 16, 64), True), ((65536, 16, 64), False)])
+def test_kernel_envelope_case_by_case(shape, inside):
+    """D in (64, 128, 256, 512) and B at most 65535 (the kernel's grid y)."""
+    assert attention.in_kernel_envelope(shape) == inside
+
+
+@pytest.mark.parametrize("d", [96, 32, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_library_path_matches_jax_sdpa_auto(d, dtype):
+    """The path the card takes at a width the kernel lacks: the inputs
+    zero-padded to the next kernel width Dk, q scaled by √(Dk/D), the attention
+    of the widened inputs (the plain version standing in for the kernel) less
+    the padded columns, against the JAX package's attention at D. fp32: to the
+    tolerance above; bf16: sdpa_auto rounds P to bf16 and q's scaled copy
+    rounds once more here, then one output rounding (2e-2 of max |ref|)."""
+    import jax.numpy as jnp
+
+    from eovax.kernels.attention import sdpa_auto
+
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    q, k, v = _qkv(2, 80, d, seed=5)
+    ref = np.asarray(sdpa_auto(*(jnp.asarray(a, jd) for a in (q, k, v))), np.float32)
+    wide = attention.widened(*(torch.from_numpy(a).to(dtype) for a in (q, k, v)))
+    dk = next(w for w in attention.KERNEL_HEAD_DIMS if w >= d)
+    assert all(t.shape == (2, 80, dk) and t.dtype == dtype for t in wide)
+    assert attention.in_kernel_envelope(wide[0].shape)
+    out = attention.flash_attention_plain(*wide)[..., :d]
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    else:
+        assert np.abs(out.float().numpy() - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
+def test_widened_leaves_kernel_widths_and_raises_above_them():
+    q = torch.zeros(1, 4, 128)
+    assert all(a is b for a, b in zip(attention.widened(q, q, q), (q, q, q)))
+    q = torch.zeros(1, 4, 1024)
+    with pytest.raises(ValueError, match="D=1024"):
+        attention.widened(q, q, q)
+
+
 def test_kernel_library_is_keyed_by_source_hash():
     lib = build.library_path(attention.SOURCE)
     assert lib.parent == build.BUILD_DIR
@@ -187,9 +231,35 @@ def test_kernel_permutation_is_exact(cuda_device, b, s, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,d,dtype,launches", [(2, 96, torch.bfloat16, 1),
+                                                (2, 96, torch.float32, 1),
+                                                (2, 32, torch.bfloat16, 1),
+                                                (65537, 64, torch.bfloat16, 2)],
+                         ids=["96-bf16", "96-fp32", "32-bf16", "batch-past-the-grid"])
+def test_outside_the_envelope_widens_for_the_kernel_on_card(cuda_device, b, d, dtype, launches):
+    """A width the kernel lacks (padded to the next) and a batch past its grid
+    (two launches): the kernel computes each, one count a launch, within the
+    card's tolerances of the plain version."""
+    s = 16 if b > 2 else 300
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn(b, s, d, generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    before = attention.flash_attention.launches
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == before + launches
+    ref = attention.flash_attention_plain(q, k, v).float()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert out.dtype == dtype and out.shape == q.shape and out.is_contiguous()
+    assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
-    q = torch.zeros(1, 64, 96, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="D=96"):
+    """Operand errors raise, and D above the widest kernel; a narrower width
+    is widened for it (``test_outside_the_envelope_widens_for_the_kernel_on_card``)."""
+    q = torch.zeros(1, 64, 1024, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D=1024"):
         attention.flash_attention(q, q, q)
     q = torch.zeros(1, 64, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtypes"):

@@ -206,6 +206,79 @@ def test_non_cpu_non_cuda_tensor_raises():
         groupnorm.gn_channel_sums(x)
 
 
+# (B, C, groups, H·W, itemsize, forward, inside): a group that no cluster of up to
+# 16 CTAs cuts on channel boundaries (odd cpg above 64, 2·odd above 128, cpg
+# above 1024) is outside both kernels unless the forward's warp plan takes it
+# whole; every width of the shipped models (cpg 1-16) is inside.
+GN_ENVELOPE_CASES = [
+    ((16, 128, 32, 65536, 2, True), True), ((16, 512, 32, 1024, 2, False), True),
+    ((8, 64, 32, 256, 2, True), True), ((1, 32 * 64, 32, 4096, 2, False), True),
+    ((1, 32 * 65, 32, 64, 2, True), False), ((1, 32 * 65, 32, 64, 2, False), False),
+    ((1, 32 * 65, 32, 16, 2, True), True),  # the warp plan: 1040 elements, one warp
+    ((1, 32 * 65, 32, 16, 2, False), False), ((1, 32 * 130, 32, 64, 4, True), False),
+    ((1, 32 * 132, 32, 64, 4, True), True), ((1, 32 * 2048, 32, 64, 2, True), False),
+    ((0, 64, 32, 64, 2, True), False),
+]
+
+
+@pytest.mark.parametrize("case,inside", GN_ENVELOPE_CASES,
+                         ids=["x".join(map(str, c[0][:4])) + ("-fwd" if c[0][5] else "-bwd")
+                              + f"-{c[0][4]}" for c in GN_ENVELOPE_CASES])
+def test_kernel_envelope_case_by_case(case, inside):
+    b, c, groups, n, itemsize, forward = case
+    assert groupnorm.in_kernel_envelope(b, c, groups, n, itemsize, forward=forward) == inside
+
+
+def test_kernel_envelope_holds_every_shipped_width():
+    """The VAE (128-512 channels, 32 groups) and the SR UNets (min(32, C) groups)
+    at every plane they run: inside both kernels."""
+    for c in (32, 64, 128, 256, 512):
+        for n in (16, 64, 256, 1024, 4096, 16384, 65536, 262144):
+            for itemsize in (2, 4):
+                for forward in (True, False):
+                    assert groupnorm.in_kernel_envelope(16, c, 32, n, itemsize, forward=forward)
+
+
+@pytest.mark.parametrize("swish,ada", [(False, None), (True, "batched")])
+def test_library_path_matches_jax_outside_the_envelope(swish, ada):
+    """65 channels a group (C = 2080, 32 groups), where the card's kernels have
+    no plan and raise: the CPU's forward and backward against the JAX package's
+    ``group_norm`` and ``jax.vjp`` of it with AdaIN and swish."""
+    import jax
+    import jax.numpy as jnp
+
+    from eovax.kernels.groupnorm import group_norm as jax_group_norm
+    from eovax.nn.blocks import swish as jax_swish
+
+    b, c, groups = 2, 32 * 65, 32
+    assert not groupnorm.in_kernel_envelope(b, c, groups, 8 * 8, 4)
+    x = _x((b, c, 8, 8), seed=20, loc=0.5)
+    w, bias = _params(c, seed=21)
+    rng = np.random.default_rng(22)
+    extra = [] if ada is None else [(1.0 + 0.2 * rng.standard_normal((b, c))).astype(np.float32),
+                                    (0.2 * rng.standard_normal((b, c))).astype(np.float32)]
+    g = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jax_fn(xx, ww, bb, *st):
+        y = jax_group_norm(xx, ww, bb, groups, 1e-6, False)
+        if st:
+            y = y * st[0][:, None, None, :] + st[1][:, None, None, :]
+        return jax_swish(y) if swish else y
+
+    ref, vjp = jax.vjp(jax_fn, jnp.asarray(_nhwc(x)), jnp.asarray(w), jnp.asarray(bias),
+                       *map(jnp.asarray, extra))
+    refs = vjp(jnp.asarray(_nhwc(g)))
+    t = [torch.from_numpy(a) for a in [x, w, bias] + extra]
+    kw = dict(ada_scale=t[3], ada_shift=t[4]) if extra else {}
+    out = groupnorm.group_norm(*t[:3], groups, 1e-6, swish=swish, **kw)
+    np.testing.assert_allclose(out.numpy(), _nchw(ref), **TOL_F32)
+    mean, rstd = groupnorm.group_stats_plain(t[0], groups, 1e-6)
+    grads = groupnorm.group_norm_backward_plain(torch.from_numpy(g), t[0], mean, rstd, *t[1:3],
+                                                swish=swish, **kw)
+    for got, want in zip(grads, [_nchw(refs[0])] + [np.asarray(r) for r in refs[1:]]):
+        np.testing.assert_allclose(got.numpy(), want, **TOL_BWD)
+
+
 def test_kernel_library_is_keyed_by_source_hash():
     lib = build.library_path(groupnorm.SOURCE)
     assert lib.parent == build.BUILD_DIR
@@ -637,6 +710,20 @@ def test_backward_kernels_match_plain_on_card(cuda_device, shape, dtype, ada, sw
             continue
         tol = TOL_BWD_CARD[dtype] if name == "dx" else 1e-4
         assert (a.float() - r.float()).abs().max().item() <= tol * r.abs().max().item(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_outside_the_envelope_raises_on_card(cuda_device, dtype):
+    """65 channels a group: no plan of either kernel cuts the group, so the
+    forward and the backward raise rather than compute off the kernels."""
+    x, w, bias, kw = _card_inputs(cuda_device, (2, 32 * 65, 8, 8), dtype, "batched", loc=0.5)
+    with pytest.raises(ValueError, match="65 channels a group"):
+        groupnorm.group_norm(x, w, bias, swish=True, **kw)
+    mean, rstd = (t.to(cuda_device) for t in groupnorm.group_stats_plain(x.cpu(), 32, 1e-6))
+    with pytest.raises(ValueError, match="65 channels a group"):
+        groupnorm.group_norm_backward(torch.ones_like(x), x, mean, rstd, w, bias, swish=True,
+                                      **kw)
 
 
 @pytest.mark.gpu

@@ -107,12 +107,15 @@ def test_quantize_symmetric_matches_jax(per_channel):
     np.testing.assert_array_equal(s.reshape(-1).numpy(), s_ref)
 
 
-SHAPES = [(1, 128, 128, 8, 8), (2, 128, 128, 9, 13)]
+# Ci = 144: inside should_use_int8, outside the kernel's envelope (Ci a multiple
+# of 32), where the card computes the plain version these hold to the JAX package.
+SHAPES = [(1, 128, 128, 8, 8), (2, 128, 128, 9, 13), (1, 144, 128, 6, 7)]
+SHAPE_IDS = ["1x128x8x8", "2x128x9x13", "1x144x6x7"]
 DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", SHAPES, ids=["1x128x8x8", "2x128x9x13"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 def test_int8_conv3x3_matches_jax(shape, dtype):
     from eovax.kernels.qconv import int8_conv3x3, quantize_symmetric
 
@@ -130,7 +133,7 @@ def test_int8_conv3x3_matches_jax(shape, dtype):
 
 @pytest.mark.parametrize("scale", ["dynamic", "static", "saturating"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", SHAPES, ids=["1x128x8x8", "2x128x9x13"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 def test_int8_conv3x3_prequant_matches_jax(shape, dtype, scale):
     """Export-time weights with the dynamic range, a static range at the true
     abs-max, and one at a quarter of it (a quarter of the activations saturate)."""
@@ -188,11 +191,18 @@ def test_dispatch_rule_matches_jax():
 
     cases = [((2, 32, 32, 256), (3, 3, 256, 256), (1, 1)), ((2, 32, 32, 64), (3, 3, 64, 256), (1, 1)),
              ((2, 32, 32, 256), (3, 3, 256, 64), (1, 1)), ((2, 32, 32, 256), (3, 3, 256, 256), (2, 2)),
-             ((2, 32, 32, 256), (1, 1, 256, 256), (1, 1)), ((1, 8, 8, 128), (3, 3, 128, 128), (1, 1))]
+             ((2, 32, 32, 256), (1, 1, 256, 256), (1, 1)), ((1, 8, 8, 128), (3, 3, 128, 128), (1, 1)),
+             ((1, 8, 8, 144), (3, 3, 144, 128), (1, 1)),
+             ((1, 8, 8, 160), (3, 3, 160, 128), (1, 1))]
     for xs, ks, st in cases:
         for jd, td in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
             nchw, oihw = (xs[0], xs[3], xs[1], xs[2]), (ks[3], ks[2], ks[0], ks[1])
             assert qconv.should_use_int8(nchw, oihw, st, td) == should_use_int8(xs, ks, st, jd)
+    # Ci = 144 and 160 take the int8 path in both packages; the card's kernel takes
+    # 160 (5 K chunks of 32) and computes 144 outside it.
+    for ci, inside in ((144, False), (160, True)):
+        assert qconv.should_use_int8((1, ci, 8, 8), (128, ci, 3, 3), (1, 1), torch.bfloat16)
+        assert qconv.in_kernel_envelope((1, ci, 8, 8), 128) == inside
 
 
 def test_policies():
@@ -219,23 +229,28 @@ def test_gradient_through_int8_raises(entry):
 
 
 def test_kernel_envelope_and_operands_raise():
-    """The kernel's checks, on meta tensors (any device): Ci a multiple of 32,
-    the grid of (4, 64) pixel tiles (at most 65535 of them), int8 weights, fp32
-    scales and bias, one fp32 range; a non-CUDA device."""
+    """The kernel's envelope, a rule on shapes (:func:`qconv.in_kernel_envelope`):
+    Ci a multiple of 32, the grid of (4, 64) pixel tiles (at most 65535 of them)
+    and batch rows, a non-empty conv; outside it a CUDA call computes the plain
+    version. The operand checks, on meta tensors (any device), still raise:
+    int8 weights, fp32 scales and bias, one fp32 range; a non-CUDA device."""
     meta = dict(device="meta")
-    x, wq = torch.empty(1, 48, 8, 8, dtype=torch.bfloat16, **meta), torch.empty(
-        64, 48, 3, 3, dtype=torch.int8, **meta)
-    ws, b, amax = (torch.empty(64, **meta), torch.empty(64, **meta), torch.empty((), **meta))
-    with pytest.raises(ValueError, match="Ci a multiple of 32"):
-        qconv.check_operands(x, wq, ws, b, amax)
+    assert not qconv.in_kernel_envelope((1, 48, 8, 8), 64)
+    assert not qconv.in_kernel_envelope((1, 144, 8, 8), 64)  # should_use_int8 takes it
+    assert qconv.in_kernel_envelope((1, 32, 8, 8), 64)
+    assert qconv.in_kernel_envelope((1, 160, 8, 8), 64)
     assert qconv._PIXEL_TILE == (4, 64)
-    wq32 = torch.empty(64, 32, 3, 3, dtype=torch.int8, **meta)
     # 65536 tiles of the (4, 32) tile, 32768 of the (4, 64) one: inside the grid.
-    qconv.check_operands(torch.empty(1, 32, 4, 32 * 65536, **meta), wq32, ws, b, amax)
-    qconv.check_operands(torch.empty(1, 32, 4 * 65535, 64, **meta), wq32, ws, b, amax)
+    assert qconv.in_kernel_envelope((1, 32, 4, 32 * 65536), 64)
+    assert qconv.in_kernel_envelope((1, 32, 4 * 65535, 64), 64)
     for h, w in ((4, 64 * 65535 + 1), (4 * 65536, 64), (8, 64 * 32768)):  # 65536 tiles
-        with pytest.raises(ValueError, match="outside the kernel's grid"):
-            qconv.check_operands(torch.empty(1, 32, h, w, **meta), wq32, ws, b, amax)
+        assert not qconv.in_kernel_envelope((1, 32, h, w), 64)
+    assert qconv.in_kernel_envelope((65535, 32, 4, 4), 64)
+    for shape, co in (((65536, 32, 4, 4), 64), ((0, 32, 4, 4), 64), ((1, 32, 4, 4), 0)):
+        assert not qconv.in_kernel_envelope(shape, co)
+    ws, b, amax = (torch.empty(64, **meta), torch.empty(64, **meta), torch.empty((), **meta))
+    x = torch.empty(1, 48, 8, 8, dtype=torch.bfloat16, **meta)
+    qconv.check_operands(x, torch.empty(64, 48, 3, 3, dtype=torch.int8, **meta), ws, b, amax)
     x = torch.empty(1, 64, 8, 8, dtype=torch.bfloat16, **meta)
     wq = torch.empty(64, 64, 3, 3, dtype=torch.int8, **meta)
     qconv.check_operands(x, wq, ws, b, amax)
@@ -248,6 +263,39 @@ def test_kernel_envelope_and_operands_raise():
             qconv.check_operands(*bad)
     with pytest.raises(ValueError, match="unsupported device"):
         qconv.conv3x3_int8(x, wq, ws, b, amax)
+
+
+def _plain_launch(x, wt, w_scale, bias, amax, co):
+    """The kernel's launch, replaced by the plain version on the weights it reads
+    (``int8_weight_layout`` turned back to OIHW)."""
+    wq = wt.permute(3, 2, 4, 0, 1).reshape(co, x.shape[1], 3, 3)
+    qconv.conv3x3_int8.launches += 1
+    return qconv.conv3x3_int8_plain(x, wq, w_scale, bias, amax).contiguous()
+
+
+@pytest.mark.parametrize("shape,limit,launches", [((2, 144, 9, 13), 65535, 1),
+                                                  ((3, 48, 13, 140), 3, 7)],
+                         ids=["ci-144", "ci-48-in-pieces"])
+def test_widening_computes_the_int8_conv(monkeypatch, shape, limit, launches):
+    """Outside the kernel's envelope the wrapper pads the channels to 32 and cuts
+    the conv into launches its grid holds, the range the whole tensor's; with
+    each launch replaced by the plain version of what it reads, the result is
+    the whole conv's bit for bit."""
+    from eovax_torch.kernels import grid
+
+    monkeypatch.setattr(grid, "GRID_LIMIT", limit)
+    monkeypatch.setattr(qconv, "_launch", _plain_launch)
+    g = np.random.default_rng(14)
+    x = torch.from_numpy(g.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    k = torch.from_numpy((0.05 * g.standard_normal((64, shape[1], 3, 3))).astype(np.float32))
+    bias = torch.from_numpy(g.standard_normal(64).astype(np.float32))
+    wq, sw = qconv.quantize_symmetric(k, dim=(1, 2, 3))
+    amax = x.float().abs().amax()
+    assert not qconv.in_kernel_envelope(x.shape, 64)
+    before = qconv.conv3x3_int8.launches
+    out = qconv._run(x, wq, sw.reshape(-1), bias, amax)
+    assert qconv.conv3x3_int8.launches == before + launches
+    assert torch.equal(out, qconv.conv3x3_int8_plain(x, wq, sw.reshape(-1), bias, amax))
 
 
 @pytest.mark.parametrize("ci", [32, 64, 512])
@@ -581,7 +629,7 @@ def cuda_device():
     [(2, 128, 128, 64, 64, torch.bfloat16), (1, 512, 256, 32, 32, torch.bfloat16),
      (2, 128, 128, 37, 53, torch.bfloat16), (3, 32, 200, 5, 100, torch.bfloat16),
      (1, 64, 96, 9, 40, torch.bfloat16), (2, 128, 64, 37, 53, torch.float32),
-     (1, 32, 130, 4, 32, torch.float32),
+     (1, 32, 130, 4, 32, torch.float32), (1, 160, 128, 8, 8, torch.bfloat16),
      # The (4, 64) tile's edges: W a tile, a tile and a column, two tiles and two
      # columns, a quarter tile; H not a multiple of 4; 1, 2 or 3 K chunks (fewer
      # than the ring's 4 stages); Co = 200, a partial N block.
@@ -654,8 +702,22 @@ def test_kernel_one_hot_tap_on_card(cuda_device, tap, dtype):
 
 
 @pytest.mark.gpu
-def test_kernel_outside_its_envelope_raises_on_card(cuda_device):
-    x = torch.randn(1, 48, 8, 8, device=cuda_device, dtype=torch.bfloat16)
-    wq, sw = qconv.quantize_symmetric(torch.randn(64, 48, 3, 3, device=cuda_device), dim=(1, 2, 3))
-    with pytest.raises(ValueError, match="Ci a multiple of 32"):
-        qconv.int8_conv3x3_prequant(x, wq, sw.reshape(-1), None)
+@pytest.mark.parametrize("ci", [48, 144])
+def test_kernel_outside_its_envelope_widens_for_it_on_card(cuda_device, ci):
+    """Ci not a multiple of 32 (144 is a width ``should_use_int8`` takes): both
+    entry points pad the channels and launch the kernel once, equal to the plain
+    version bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(ci)
+    x = torch.randn(1, ci, 8, 8, generator=g, device=cuda_device).to(torch.bfloat16)
+    k = torch.randn(64, ci, 3, 3, generator=g, device=cuda_device) * 0.05
+    bias = torch.randn(64, generator=g, device=cuda_device)
+    wq, sw = qconv.quantize_symmetric(k, dim=(1, 2, 3))
+    launches = qconv.conv3x3_int8.launches
+    outs = [qconv.int8_conv3x3_prequant(x, wq, sw.reshape(-1), bias),
+            qconv.int8_conv3x3(x, k, bias)]
+    torch.cuda.synchronize()
+    assert qconv.conv3x3_int8.launches == launches + 2
+    amax = x.float().abs().amax()
+    want = qconv.conv3x3_int8_plain(x, wq, sw.reshape(-1), bias.float(), amax)
+    for out in outs:
+        assert torch.equal(out, want)
