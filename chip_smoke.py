@@ -34,7 +34,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      (65536 (4, 64) tiles: two row bands, two launches), its data gradient
      with Ci = 24, attention at D = 96 (padded to 128), the int8 conv with
      Ci = 144 (``torch.equal`` to the CPU), each with its exact launches;
-     GroupNorm with 65 channels a group (no plan of its kernels) raises.
+   - the shapes past the kernels' first plans, each one launch against its
+     plain version in bf16 and fp32: GroupNorm with AdaIN [B, C] + swish on
+     the pixel-split plan, forward and backward, at [2,2080,16,16] (65
+     channels a group) and [2,2048,16,16] in one group (``GroupNorm(1,
+     2048)``), two calls of each bit-identical; attention at D = 640 and 1024
+     on the D-split kernel; and ``AttnBlock(640)`` on the card (fp32 and
+     bf16) against fp32 on the CPU.
 3. Drive the main path at full width: the shipped architecture (ch=128,
    ch_mult (1,2,4,4), 2 res blocks, z=32, wavelength stems with 4 layers
    and 256 planes), bf16 ``DEFAULT_POLICY``, weights N(0, 0.02) from a
@@ -58,7 +64,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    and none of the two kernels it replaced); the GroupNorm forward's device
    time (CUDA-graph replays) at the train step's 8 shapes, the 512² call's
    2-4 MiB groups and the SR UNet's two, beside ``F.group_norm`` +
-   ``F.silu``, its bound, the share of it, its plan and active clusters.
+   ``F.silu``, its bound, the share of it, its plan and active clusters;
+   the shapes past the kernels' first plans (``GN_SPLIT_TIMED``,
+   ``ATTN_SPLIT_TIMED``: the pixel-split GroupNorm forward and backward at
+   [4,2080,128,128] and ``GroupNorm(1, 2048)`` at [4,2048,64,64], the D-split
+   attention at [4,4096,1024], [4,1024,640] and [4,1024,520]), each checked against its
+   plain version once and timed beside it, its library call and its bound
+   (the ``kernels`` line's ``split_shapes``).
 5. Train: the stage-2 generator step (``eovax_torch.train.stage2``) at full
    width, 12-band 256² B=16 bf16, Charbonnier + MS-SSIM (start step 0), Adam
    at the shipped base lr 1e-4 with the clip at 1.0 (the 2000-step warmup
@@ -473,6 +485,14 @@ GN_FWD_EDGES = (((4, 256, 512, 512), "bfloat16", 0.0), ((4, 512, 256, 256), "bfl
                 ((2, 256, 256, 256), "float32", 30.0), ((2, 32, 64, 64), "float32", 0.0),
                 ((8, 64, 16, 16), "bfloat16", 0.0))
 
+# The shapes past the kernels' first plans, timed in phase 4 (bf16): GroupNorm
+# + swish on the pixel-split plan, forward and backward, at 65 channels a group
+# and in one group of 2048 channels; attention on the D-split kernel at
+# D = 1024 and 640 (multiples of 64, taken as they are) and 520 (zero-padded
+# to 576 by the wrapper, the copies in its time).
+GN_SPLIT_TIMED = (((4, 2080, 128, 128), 32), ((4, 2048, 64, 64), 1))
+ATTN_SPLIT_TIMED = ((4, 4096, 1024), (4, 1024, 640), (4, 1024, 520))
+
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 
@@ -813,7 +833,7 @@ def check_gn_backward_repeat(grad, x, weight, bias, label: str, **kw) -> None:
         raise AssertionError(f"group_norm_backward differs between two calls at {label}")
 
 
-def gn_plan(shape, dtype, forward: bool) -> tuple:
+def gn_plan(shape, dtype, forward: bool, groups: int = 32) -> tuple:
     """The forward's or the backward's plan for ``shape``, whether it takes 16-byte
     vectors, and how many of its clusters the card holds at once."""
     import torch
@@ -822,13 +842,13 @@ def gn_plan(shape, dtype, forward: bool) -> tuple:
 
     b, c, h, w = shape
     itemsize = torch.tensor([], dtype=dtype).element_size()
-    plan = (_fwd_plan if forward else _bwd_plan)(b, c, 32, h * w, itemsize)
+    plan = (_fwd_plan if forward else _bwd_plan)(b, c, groups, h * w, itemsize)
     vec = (h * w) % (16 // itemsize) == 0
     return plan, vec, active_clusters(plan, dtype, vec)
 
 
-def gn_plan_line(shape, dtype, forward: bool) -> str:
-    plan, vec, clusters = gn_plan(shape, dtype, forward)
+def gn_plan_line(shape, dtype, forward: bool, groups: int = 32) -> str:
+    plan, vec, clusters = gn_plan(shape, dtype, forward, groups)
     if plan.cluster == 0:
         return f"{plan._asdict()}: the warp plan, a warp a group in registers"
     streamed = f", {plan.slice - plan.resident} streamed" if plan.resident < plan.slice else ""
@@ -869,6 +889,185 @@ def bench_state_dict(model, seed: int) -> dict:
     return sd
 
 
+def launched(name: str, fn, counted, launches: int):
+    """``fn()``, which must add exactly ``launches`` to ``counted.launches``."""
+    import torch
+
+    before = counted.launches
+    out = fn()
+    torch.cuda.synchronize()
+    if counted.launches != before + launches:
+        raise AssertionError(f"{name}: {counted.launches - before} launches, "
+                             f"expected {launches}")
+    return out
+
+
+def check_gn_split(shape, groups: int, dtype, g) -> dict:
+    """GroupNorm with AdaIN [B, C] + swish on the pixel-split plan: the forward
+    and the backward, one launch each, against their plain versions (with the
+    forward's saved mean and rstd), and two calls of each bit-identical. Returns
+    the max abs errors of y and dx."""
+    import torch
+
+    from eovax_torch.kernels import groupnorm
+
+    dev = g.device
+    b, c, h, w = shape
+    label = f"{list(shape)} G={groups} {str(dtype).removeprefix('torch.')}"
+    print(f"group_norm plan {label}: forward {gn_plan_line(shape, dtype, True, groups)}; "
+          f"backward {gn_plan_line(shape, dtype, False, groups)}")
+    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+    wt = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+    bias = 0.1 * torch.randn(c, generator=g, device=dev)
+    kw = gn_variants(b, c, g)["adain[B,C]+swish"]
+    args = (x, wt, bias, groups, 1e-6, kw["ada_scale"], kw["ada_shift"], True)
+    first = launched(f"group_norm {label}", lambda: groupnorm._forward(*args, with_stats=True),
+                     groupnorm.group_norm, 1)
+    grad = torch.randn(shape, generator=g, device=dev).to(dtype)
+    stats = groupnorm.group_stats_plain(x, groups, 1e-6)
+    got = launched(f"group_norm_backward {label}",
+                   lambda: groupnorm.group_norm_backward(grad, x, *stats, wt, bias, **kw),
+                   groupnorm.group_norm_backward, 1)
+    bargs = (grad, x, *stats, wt, bias, kw["ada_scale"], kw["ada_shift"], True)
+    pairs = [(first, groupnorm._forward(*args, with_stats=True)),
+             (groupnorm._backward_kernel(*bargs), groupnorm._backward_kernel(*bargs))]
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for one, two in pairs for u, v in zip(one, two))
+    print(f"kernel repeat group_norm and group_norm_backward (pixel-split) {label}: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"the pixel-split GroupNorm differs between two calls at {label}")
+    bf16 = dtype == torch.bfloat16
+    errs = {f"group_norm {label}": check(
+        "group_norm (pixel-split)", label, first[0],
+        groupnorm.group_norm_plain(x, wt, bias, groups, **kw), TOL_GN_BF16 if bf16 else TOL_GN_F32)}
+    for name, u, ref in zip(("mean", "rstd"), first[1:], stats):
+        check("group_norm saved (pixel-split)", f"{label} {name}", u, ref, TOL_GN_F32)
+    ref = groupnorm.group_norm_backward_plain(grad, x, *stats, wt, bias, **kw)
+    for name, u, r in zip(("dx", "dweight", "dbias", "d_ada_scale", "d_ada_shift"), got, ref):
+        err = check("group_norm_backward (pixel-split)", f"{label} {name}", u, r,
+                    TOL_GN_BF16 if bf16 and name == "dx" else TOL_GN_BWD_F32)
+        if name == "dx":
+            errs[f"group_norm_backward {label}"] = err
+    return errs
+
+
+def check_attn_block_640(g) -> None:
+    """``AttnBlock(640)`` (D = 640: the D-split kernel) with N(0, 0.02) weights
+    from a seed, on the card in fp32 and bf16 against fp32 on the CPU, one
+    GroupNorm and one attention launch a call, to the model tolerances."""
+    import torch
+
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.nn.blocks import AttnBlock
+
+    ref_block = AttnBlock(640)
+    gen = torch.Generator().manual_seed(5)
+    sd = {k: torch.empty(v.shape).normal_(0.0, 0.02, generator=gen)
+          for k, v in ref_block.state_dict().items()}
+    sd["norm.weight"] += 1.0
+    ref_block.load_state_dict(sd)
+    x = torch.randn(2, 640, 16, 16, generator=gen)
+    with torch.no_grad():
+        ref = ref_block(x)
+    for name, policy, tol in (("fp32", FULL_PRECISION, TOL_MODEL_F32),
+                              ("bf16", DEFAULT_POLICY, TOL_MODEL_BF16)):
+        block = AttnBlock(640, policy).to(g.device)
+        block.load_state_dict(sd)
+        with torch.no_grad():
+            out, _ = drive(f"AttnBlock(640) [2,640,16,16] {name}", lambda: block(x.to(g.device)),
+                           launches(0, 1, 1))
+        err, rel = rel_err(out.float().cpu(), ref)
+        ok = rel <= tol and bool(torch.isfinite(out).all())
+        print(f"AttnBlock(640) {name} on the card vs fp32 on the CPU [2,640,16,16]: "
+              f"max_abs_err={err:.3e} rel={rel:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"AttnBlock(640) ({name}) disagrees with the CPU")
+
+
+def time_split_shapes(g, card: str) -> dict:
+    """The pixel-split GroupNorm forward (+ swish) and backward at
+    ``GN_SPLIT_TIMED`` and the D-split attention at ``ATTN_SPLIT_TIMED``, bf16:
+    each against its plain version once, then its launches a call and its
+    device time (CUDA events) beside the plain version's, one PyTorch call's
+    computing the same function (``F.group_norm`` + ``F.silu``, autograd of it,
+    ``scaled_dot_product_attention``) and its bound. Returns the rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from eovax_torch.kernels import attention, groupnorm
+
+    dev = g.device
+    rows = {"group_norm": [], "group_norm_backward": [], "flash_attention": []}
+
+    def row(name, shape, fn, counted, plain, library, flops, flops_per_s, nbytes, **extra):
+        launched(f"{name} {shape}", fn, counted, 1)  # one launch a call
+        ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 3)
+        library_ms = cuda_ms(library, 10)
+        r = dict(shape=list(shape), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 launches=1, **bound(flops, flops_per_s, nbytes), **extra)
+        r["bound_share"] = r["bound_ms"] / ms
+        rows[name].append(r)
+        print(f"time {name} {list(shape)} bf16 {extra}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {100 * r['bound_share']:.1f}% of it) [{card}]")
+
+    for shape, groups in GN_SPLIT_TIMED:
+        b, c = shape[:2]
+        x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(torch.bfloat16)
+        grad = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        stats = groupnorm.group_stats_plain(x, groups, 1e-6)
+        label = f"{list(shape)} G={groups} bf16"
+        check("group_norm (pixel-split)", label,
+              groupnorm.group_norm(x, w, bias, groups, swish=True),
+              groupnorm.group_norm_plain(x, w, bias, groups, swish=True), TOL_GN_BF16)
+        check("group_norm_backward (pixel-split)", f"{label} dx",
+              groupnorm.group_norm_backward(grad, x, *stats, w, bias, swish=True)[0],
+              groupnorm.group_norm_backward_plain(grad, x, *stats, w, bias, swish=True)[0],
+              TOL_GN_BF16)
+        xr, wr, br = (t.detach().clone().requires_grad_()
+                      for t in (x, w.bfloat16(), bias.bfloat16()))
+        y = F.silu(F.group_norm(xr, groups, wr, br, 1e-6))
+        for forward in (True, False):
+            plan, _, clusters = gn_plan(shape, torch.bfloat16, forward, groups)
+            extra = dict(groups=groups, plan=plan._asdict(), active_clusters=clusters)
+            if forward:
+                row("group_norm", shape,
+                    lambda: groupnorm.group_norm(x, w, bias, groups, swish=True),
+                    groupnorm.group_norm,
+                    lambda: groupnorm.group_norm_plain(x, w, bias, groups, swish=True),
+                    lambda: F.silu(F.group_norm(x, groups, w.bfloat16(), bias.bfloat16(), 1e-6)),
+                    GN_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, 4.0 * x.numel(), **extra)
+            else:
+                # The least traffic: x and g read once, dx written once.
+                row("group_norm_backward", shape,
+                    lambda: groupnorm.group_norm_backward(grad, x, *stats, w, bias, swish=True),
+                    groupnorm.group_norm_backward,
+                    lambda: groupnorm.group_norm_backward_plain(grad, x, *stats, w, bias,
+                                                                swish=True),
+                    lambda: torch.autograd.grad(y, (xr, wr, br), grad, retain_graph=True),
+                    GN_BWD_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, 6.0 * x.numel(),
+                    **extra)
+        del x, grad, xr, y
+        torch.cuda.empty_cache()
+    for shape in ATTN_SPLIT_TIMED:
+        b, s, d = shape
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        check("flash_attention (D-split)", f"{list(shape)} bf16",
+              attention.flash_attention(q, k, v), attention.flash_attention_plain(q, k, v),
+              TOL_BF16)
+        row("flash_attention", shape, lambda: attention.flash_attention(q, k, v),
+            attention.flash_attention, lambda: attention.flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v), 4.0 * b * s * s * d,
+            H100_BF16_FLOPS, 4.0 * b * s * d * 2)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_widened(g) -> dict:
     """One call of each conv and attention wrapper at a shape outside its
     kernel's envelope, which the wrapper widens for the kernel, against the plain
@@ -876,67 +1075,66 @@ def check_widened(g) -> dict:
     (4, 64) tiles: two row bands, two launches), its data gradient with Ci = 24,
     attention at D = 96 (padded to 128), the int8 conv with Ci = 144 (a width
     ``should_use_int8`` takes; padded to 160), each counted as its launches.
-    GroupNorm with 65 channels a group, which no plan of its kernels cuts,
-    raises. Returns the max abs errors."""
+    Then the shapes past the kernels' first plans, in bf16 and fp32: GroupNorm
+    on the pixel-split plan at 65 channels a group and in one group of 2048
+    channels (:func:`check_gn_split`), attention at D = 640 and 1024 on the
+    D-split kernel, and ``AttnBlock(640)`` (:func:`check_attn_block_640`).
+    Returns the max abs errors."""
     import torch
 
-    from eovax_torch.kernels import attention, conv3x3, groupnorm, qconv
+    from eovax_torch.kernels import attention, conv3x3, qconv
 
     dev = g.device
     errs = {}
 
-    def once(name, fn, counted, launches):
-        before = counted.launches
-        out = fn()
-        torch.cuda.synchronize()
-        if counted.launches != before + launches:
-            raise AssertionError(f"{name}: {counted.launches - before} launches, "
-                                 f"expected {launches}")
-        return out
-
     x, w, bias = conv_inputs(2, 24, 48, 37, 53, torch.bfloat16, g)
-    out = once("conv3x3 Ci=24", lambda: conv3x3.conv3x3(x, w, bias), conv3x3.conv3x3, 1)
+    out = launched("conv3x3 Ci=24", lambda: conv3x3.conv3x3(x, w, bias), conv3x3.conv3x3, 1)
     errs["conv3x3 Ci=24"] = check("conv3x3 (widened)", "[2,24,37,53]->48 bf16 Ci=24", out,
                                   conv3x3.conv3x3_plain(x, w, bias), TOL_CONV_BF16)
     # The data gradient of a conv 48 → 24: g [2, 24, 37, 53], so the dx conv's Ci is 24.
     gy = torch.randn(2, 24, 37, 53, generator=g, device=dev).to(torch.bfloat16)
     wd = 0.05 * torch.randn(24, 48, 3, 3, generator=g, device=dev)
-    out = once("conv3x3_dx Ci=24", lambda: conv3x3.conv3x3_dx(gy, wd), conv3x3.conv3x3_dx, 1)
+    out = launched("conv3x3_dx Ci=24", lambda: conv3x3.conv3x3_dx(gy, wd), conv3x3.conv3x3_dx, 1)
     errs["conv3x3_dx Ci=24"] = check("conv3x3_dx (widened)", "g [2,24,37,53] -> 48 bf16", out,
                                      conv3x3.conv3x3_dx_plain(gy, wd), TOL_CONV_BF16)
     x, w, bias = conv_inputs(1, 16, 16, 4096, 4096, torch.bfloat16, g)
-    out = once("conv3x3 4096²", lambda: conv3x3.conv3x3(x, w, bias), conv3x3.conv3x3, 2)
+    out = launched("conv3x3 4096²", lambda: conv3x3.conv3x3(x, w, bias), conv3x3.conv3x3, 2)
     errs["conv3x3 4096²"] = check("conv3x3 (two row bands)",
                                   "[1,16,4096,4096]->16 bf16 (65536 tiles)", out,
                                   conv3x3.conv3x3_plain(x, w, bias), TOL_CONV_BF16)
     del x, out
     q, k, v = (torch.randn(2, 1024, 96, generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
-    out = once("flash_attention D=96", lambda: attention.flash_attention(q, k, v),
+    out = launched("flash_attention D=96", lambda: attention.flash_attention(q, k, v),
                attention.flash_attention, 1)
     errs["flash_attention D=96"] = check("flash_attention (widened)", "[2,1024,96] bf16", out,
                                          attention.flash_attention_plain(q, k, v), TOL_BF16)
     x = torch.randn(2, 144, 37, 53, generator=g, device=dev).to(torch.bfloat16)
     w = 0.05 * torch.randn(128, 144, 3, 3, generator=g, device=dev)
     bias = 0.1 * torch.randn(128, generator=g, device=dev)
-    out = once("int8 conv Ci=144",
+    out = launched("int8 conv Ci=144",
                lambda: qconv.int8_conv3x3(x, w, bias, compute_dtype=torch.bfloat16),
                qconv.conv3x3_int8, 1)
     ref = qconv.int8_conv3x3(x.cpu(), w.cpu(), bias.cpu(), compute_dtype=torch.bfloat16)
     same = torch.equal(out.cpu(), ref)
-    errs["int8 Ci=144"] = (out.cpu().float() - ref.float()).abs().max().item()
+    errs["conv3x3_int8 Ci=144"] = (out.cpu().float() - ref.float()).abs().max().item()
     print(f"int8 conv (widened) [2,144,37,53]->128 bf16 on the card vs the CPU: torch.equal "
           f"{same}")
     if not same:
         raise AssertionError("the widened int8 conv disagrees with the CPU")
-    x = torch.randn(2, 32 * 65, 16, 16, generator=g, device=dev).to(torch.bfloat16)
-    w = torch.ones(32 * 65, device=dev)
-    try:
-        groupnorm.group_norm(x, w, torch.zeros_like(w), swish=True)
-    except ValueError as e:
-        print(f"group_norm [2,2080,16,16] (65 channels a group, no kernel plan): raises {e}")
-    else:
-        raise AssertionError("group_norm with 65 channels a group did not raise")
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, groups in (((2, 2080, 16, 16), 32), ((2, 2048, 16, 16), 1)):
+            errs.update(check_gn_split(shape, groups, dtype, g))
+        for d in (640, 1024):
+            q, k, v = (torch.randn(2, 333, d, generator=g, device=dev).to(dtype)
+                       for _ in range(3))
+            label = f"[2,333,{d}] {str(dtype).removeprefix('torch.')}"
+            out = launched(f"flash_attention {label}", lambda: attention.flash_attention(q, k, v),
+                       attention.flash_attention, 1)
+            errs[f"flash_attention {label}"] = check(
+                "flash_attention (D-split)", label, out, attention.flash_attention_plain(q, k, v),
+                TOL_BF16 if dtype == torch.bfloat16 else TOL_F32)
+    check_attn_block_640(g)
     return errs
 
 
@@ -5573,6 +5771,8 @@ def main() -> int:
         del x
     torch.cuda.empty_cache()
 
+    split_rows = time_split_shapes(g, card)
+
     conv_rates = []  # [B, Ci, Co, H, W] each: kernel and cuDNN TFLOP/s
     for shape in ((4, 128, 128, 512, 512), (4, 512, 256, 256, 256), (4, 512, 512, 64, 64)):
         x, w, bias = conv_inputs(*shape, torch.bfloat16, g)
@@ -5628,7 +5828,8 @@ def main() -> int:
          "gan_launches": gan["flash_attention"], "dofa_launches": dofa_counts["flash_attention"],
          "gan_backward_calls": gan["flash_attention_backward"],
          "srtrain_launches": srtrain["flash_attention"],
-         "sr_shapes": sr["shapes"]["flash_attention"]},
+         "sr_shapes": sr["shapes"]["flash_attention"],
+         "split_shapes": split_rows["flash_attention"]},
         {"name": "group_norm", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/groupnorm.cu",
          "replaces": "eovax/kernels/groupnorm.py:31",
@@ -5637,7 +5838,8 @@ def main() -> int:
          **timings["group_norm", (4, 128, 512, 512)], "shapes": gn_rows,
          "sr_launches": sr["launches"]["group_norm"], "srtrain_launches": srtrain["group_norm"],
          "gan_launches": gan["group_norm"], "dofa_launches": dofa_counts["group_norm"],
-         "sr_shapes": sr["shapes"]["group_norm"], "gn_channel_sums": {
+         "sr_shapes": sr["shapes"]["group_norm"], "split_shapes": split_rows["group_norm"],
+         "gn_channel_sums": {
              **timings["gn_channel_sums"], "train_launches": train_counts["gn_channel_sums"],
              "sr_launches": sr["launches"]["gn_channel_sums"],
              "srtrain_launches": srtrain["gn_channel_sums"],
@@ -5669,7 +5871,8 @@ def main() -> int:
          "max_abs_err": bwd_errs["group_norm_backward", (16, 128, 256, 256)]["swish"],
          **bwd_timings["group_norm_backward", (16, 128, 256, 256)],
          "shapes": [dict(shape=list(shape), **bwd_timings["group_norm_backward", shape])
-                    for shape in ((16, 128, 256, 256), (16, 256, 256, 256))]},
+                    for shape in ((16, 128, 256, 256), (16, 256, 256, 256))],
+         "split_shapes": split_rows["group_norm_backward"]},
         # No Pallas kernel: the JAX package's int8 conv is XLA (qconv.py:47, 114), and
         # PyTorch has no int8 conv on CUDA (library_ms null; the bf16 hand kernel's
         # and cuDNN's bf16 conv's times stand beside it in each row).
@@ -5708,13 +5911,12 @@ def main() -> int:
                                  for name, runs in bench["sections"].items()}
         entry["quality_launches"] = bench["quality_launches"][entry["name"]]
     # Phase 2: one call of each conv and attention wrapper outside its kernel's
-    # envelope, widened for the kernel, against its plain version.
-    widened = {"conv3x3": ["conv3x3 Ci=24", "conv3x3 4096²"],
-               "conv3x3_dx": ["conv3x3_dx Ci=24"], "flash_attention": ["flash_attention D=96"],
-               "conv3x3_int8": ["int8 Ci=144"]}
-    for entry in kernels:
-        entry["widened_max_abs_err"] = {k: widened_errs[k]
-                                        for k in widened.get(entry["name"], [])}
+    # envelope, widened for the kernel, and of each shape past the kernels' first
+    # plans (GroupNorm's pixel-split plan, attention's D-split kernel), against its
+    # plain version.
+    for entry in kernels:  # each error's key starts with its wrapper's name
+        entry["widened_max_abs_err"] = {k: v for k, v in widened_errs.items()
+                                        if k.split(" ")[0] == entry["name"]}
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

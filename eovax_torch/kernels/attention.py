@@ -9,14 +9,16 @@ whatever the length). On a CPU tensor it computes
 function.
 
 The kernel takes bf16 (the inference policy) and fp32 (``FULL_PRECISION``),
-with D in :data:`KERNEL_HEAD_DIMS` and at most 65535 batch rows (its grid's
-y); the logits, softmax statistics and the P·V accumulator are fp32, and the
-output has the input's dtype. Where one launch cannot take the shape as it is
-(:func:`in_kernel_envelope`) the wrapper widens it for the kernel: a narrower D
-is zero-padded to the next kernel width Dk (q scaled by √(Dk/D) in its dtype,
-so the kernel's 1/√Dk gives q·kᵀ/√D; the zero columns add nothing to q·kᵀ, and
-the output's are dropped), and more than 65535 batch rows run as several
-launches, each adding one to the count. D above 512 raises.
+with D in :data:`KERNEL_HEAD_DIMS` or, in its D-split variant, any multiple of
+64 above 512, and at most 65535 batch rows (its grid's y); the logits, softmax
+statistics and the P·V accumulator are fp32, and the output has the input's
+dtype. Where one launch cannot take the shape as it is
+(:func:`in_kernel_envelope`) the wrapper widens it for the kernel
+(:func:`widened`): a narrower D is zero-padded to the next kernel width Dk (q
+scaled by √(Dk/D) in its dtype, so the kernel's 1/√Dk gives q·kᵀ/√D), a wider
+D to the next multiple of 64 (the D-split kernel takes the true D's 1/√D); the
+zero columns add nothing to q·kᵀ, and the output's are dropped. More than
+65535 batch rows run as several launches, each adding one to the count.
 
 When an input requires grad, :func:`flash_attention` is a
 ``torch.autograd.Function`` whose backward, :func:`flash_attention_backward`,
@@ -40,7 +42,11 @@ from eovax_torch.kernels import build, grid, ops
 
 SOURCE = "flash_attention.cu"
 KERNEL_HEAD_DIMS = (64, 128, 256, 512)
+# D above the widest kernel width goes to the D-split kernel, padded to this.
+_SPLIT_ALIGN = 64
 _ENTRY = {torch.bfloat16: "eovax_flash_attention_bf16", torch.float32: "eovax_flash_attention_f32"}
+_SPLIT_ENTRY = {torch.bfloat16: "eovax_flash_attention_split_bf16",
+                torch.float32: "eovax_flash_attention_split_f32"}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -50,28 +56,37 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
 
 
+def _kernel_width(d: int) -> int:
+    """The D a launch takes for head width ``d``: the least of
+    :data:`KERNEL_HEAD_DIMS` not below it, or above them the next multiple of
+    ``_SPLIT_ALIGN`` (the D-split kernel)."""
+    if d > KERNEL_HEAD_DIMS[-1]:
+        return -(-d // _SPLIT_ALIGN) * _SPLIT_ALIGN
+    return next(w for w in KERNEL_HEAD_DIMS if w >= d)
+
+
 def in_kernel_envelope(q_shape) -> bool:
-    """Whether one launch takes q, k, v of shape [B, S, D] as they are: D in
-    :data:`KERNEL_HEAD_DIMS` and B at most 65535 (the grid's y). Outside it the
-    wrapper pads D to a kernel width or launches in batch blocks."""
+    """Whether one launch takes q, k, v of shape [B, S, D] as they are: D a kernel
+    width (in :data:`KERNEL_HEAD_DIMS`, or a multiple of 64 above them for the
+    D-split kernel) and B at most 65535 (the grid's y). Outside it the wrapper
+    pads D to a kernel width or launches in batch blocks."""
     b, s, d = q_shape
-    return d in KERNEL_HEAD_DIMS and b <= grid.GRID_LIMIT
+    return _kernel_width(d) == d and b <= grid.GRID_LIMIT
 
 
 def widened(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """q, k, v [B, S, D] at the kernel width Dk, the least of
-    :data:`KERNEL_HEAD_DIMS` not below D: zero columns appended, q scaled by
-    √(Dk/D) (one rounding to its dtype) so that the kernel's 1/√Dk scale gives
-    q·kᵀ/√D. The attention of the result, less its last Dk − D columns, is that
-    of the inputs. Raises ValueError for D above the widest kernel."""
+    """q, k, v [B, S, D] at the kernel width Dk of :func:`_kernel_width`, zero
+    columns appended. Up to the widest of :data:`KERNEL_HEAD_DIMS` q is scaled
+    by √(Dk/D) (one rounding to its dtype) so that the kernel's 1/√Dk scale gives
+    q·kᵀ/√D; above it q is left as it is, since the D-split kernel takes the
+    true D's scale. The attention of the result, less its last Dk − D columns,
+    is that of the inputs."""
     d = q.shape[-1]
-    if d > KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention: D={d} is wider than the kernel's widest, "
-                         f"{KERNEL_HEAD_DIMS[-1]}")
-    dk = next(w for w in KERNEL_HEAD_DIMS if w >= d)
+    dk = _kernel_width(d)
     if dk == d:
         return q, k, v
-    q = (q.float() * (dk / d) ** 0.5).to(q.dtype)
+    if d <= KERNEL_HEAD_DIMS[-1]:
+        q = (q.float() * (dk / d) ** 0.5).to(q.dtype)
     return tuple(F.pad(t, (0, dk - d)) for t in (q, k, v))
 
 
@@ -81,6 +96,10 @@ def _library() -> ctypes.CDLL:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in _SPLIT_ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -130,15 +149,18 @@ def _launch_counted(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         q, k, v = widened(q, k, v)
     dk = q.shape[-1]
     lib = _library()
+    # D above the widest kernel width: the D-split kernel, told the true D's scale.
+    entry, extra = ((_SPLIT_ENTRY[q.dtype], (d,)) if dk > KERNEL_HEAD_DIMS[-1]
+                    else (_ENTRY[q.dtype], ()))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         row = s * dk * q.element_size()  # bytes of one batch row
         for b0 in range(0, b, grid.GRID_LIMIT):
             at = b0 * row
-            code = getattr(lib, _ENTRY[q.dtype])(
+            code = getattr(lib, entry)(
                 q.data_ptr() + at, k.data_ptr() + at, v.data_ptr() + at, out.data_ptr() + at,
-                min(grid.GRID_LIMIT, b - b0), s, dk, stream
+                min(grid.GRID_LIMIT, b - b0), s, dk, *extra, stream
             )
             build.check(lib, code, "flash_attention")
             flash_attention.launches += 1

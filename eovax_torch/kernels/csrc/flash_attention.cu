@@ -69,6 +69,10 @@
 // The fp32 variant (FULL_PRECISION) is a plain FMA kernel: 8 warps × 4 query
 // rows, lane j scores key j of a 32-key tile, lane l owns columns l + 32i.
 //
+// D above 512 takes the D-split variants (bf16 and fp32, below each path):
+// the output cut into chunks of 512 columns on the grid's z, each block
+// recomputing the logits over D in stages of 512 columns.
+//
 // Plain C interface, loaded with ctypes. Each entry point launches on the
 // given stream and returns cudaGetLastError() (0 on success).
 
@@ -531,6 +535,213 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- bf16, D above 512
+//
+// D above 512 (the wrapper pads D to Dp, a multiple of 64, with zero columns,
+// and passes the true D's 1/√D): no tile of width D fits in shared memory
+// beside the others, and no thread holds 64 rows of D/2 fp32 output columns.
+// So the grid's z cuts the output into chunks of kSplitCols columns, and a
+// block owns 64 query rows of one chunk. It runs the online softmax over all
+// key tiles, as flash_bf16_kernel does, but for each key tile it accumulates
+// the logits over d in stages of kSplitCols columns: the stage's columns of Q
+// and of the key tile are copied into the Q and K tiles, each warpgroup adds
+// its half of the stage's k-steps to its partial logits (the wgmma
+// accumulator carries them across stages), and after the last stage the two
+// halves are added as in flash_bf16_kernel. P·V then covers only the block's
+// chunk of V. Every chunk recomputes the full logits, and Q is read again
+// for every key tile: the cost of a simple kernel that is right at any D.
+// Columns past Dp are zero-filled in V and never stored.
+constexpr int kSplitCols = 512;
+
+// Rows row0 .. row0+63, columns col0 .. col0+kSplitCols-1 of a [S, ld] matrix
+// into the tile at shared address dst, laid out as load_tile lays them out;
+// rows at or beyond S and columns at or beyond ld are zero-filled.
+__device__ __forceinline__ void load_tile_cols(uint32_t dst, const __nv_bfloat16* src, int row0,
+                                               int S, int ld, int col0, int tid) {
+  constexpr int kChunks = kSplitCols / 8;
+#pragma unroll 4
+  for (int c = 0; c < kBQ * kChunks / kThreads; ++c) {
+    const int i = tid + c * kThreads;
+    const int r = i / kChunks, ch = i % kChunks;
+    const int gr = row0 + r, gc = col0 + ch * 8;
+    const bool ok = gr < S && gc < ld;
+    cp_async16(dst + ch / 8 * kColBytes + r * 128 + ((ch ^ r) & 7) * 16,
+               src + (ok ? (size_t)gr * ld + gc : 0), ok);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bf16_split_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                            int S, int Dp, float scale_log2) {
+  constexpr int DC = kSplitCols;
+  using L = Smem<DC>;
+  constexpr int kAcc = DC / 4;  // fp32 output registers a thread: 64 rows × DC/2 columns / 128
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  unsigned char* tiles = smem + (sQ - raw);
+  const uint32_t sK = sQ + L::kTile, sV = sK + L::kTile;
+
+  const int tid = threadIdx.x, wg = tid / 128, t128 = tid % 128;
+  const int warp = t128 / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kBQ;
+  const int c0 = blockIdx.z * DC;  // this block's output columns [c0, c0 + DC)
+  const size_t base = (size_t)blockIdx.y * S * Dp;
+  const __nv_bfloat16* qb = q + base;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+
+  const uint32_t lo_q = desc_lo(sQ, kQKLBO);
+  const uint32_t lo_k = desc_lo(sK, kQKLBO);
+  const uint32_t lo_v = desc_lo(sV + col_offset(wg * DC / 2), kVLBO);
+  float4* part = reinterpret_cast<float4*>(tiles + 3 * L::kTile);
+  float4* mine = part + wg * (kPart / 4) + t128;
+  const float4* theirs = part + (1 - wg) * (kPart / 4) + t128;
+
+  float acc[kAcc];                        // written first by the first tile's P·V
+  float m_i[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (log2 units)
+  float l_i[2] = {0.f, 0.f};              // running sum over this thread's columns
+
+  const int ntiles = (S + kBK - 1) / kBK;
+  for (int j = 0; j < ntiles; ++j) {
+    __syncthreads();  // both warpgroups are done with V_{j-1}, the partials and the last stage
+    load_tile_cols(sV, vb, j * kBK, S, Dp, c0, tid);
+    cp_async_commit();  // group: V_j
+
+    // The partial logits over this warpgroup's half of each stage's k-steps.
+    float s[32];  // written first by the first k-step
+    for (int d0 = 0; d0 < Dp; d0 += DC) {
+      if (d0 > 0) __syncthreads();  // both warpgroups are done with the stage before
+      load_tile_cols(sQ, qb, q0, S, Dp, d0, tid);
+      load_tile_cols(sK, kb, j * kBK, S, Dp, d0, tid);
+      cp_async_commit();  // group: the stage's Q and K
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();  // the stage (and, at the first, V_j) is in place
+      const int half = (Dp - d0 < DC ? Dp - d0 : DC) / 32;  // k-steps of each warpgroup
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_operand(s[i]);
+      wgmma_fence();
+      for (int kk = wg * half; kk < (wg + 1) * half; ++kk) {
+        const uint32_t off = qk_step(kk);
+        wgmma_ss_m64n64k16<0, 0>(s, lo_q + off, lo_k + off, d0 > 0 || kk > wg * half ? 1u : 0u);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_operand(s[i]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      mine[i * 128] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+    warpgroups_sync();  // both partials are written
+
+    // The full logits (own + other's: the same sum in both warpgroups), masked and in log2 units.
+    const int key0 = j * kBK + 2 * t;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 x = theirs[i * 128];
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 4 * i + e;  // column 8i + 2t + (e & 1), row g + 8·(e >> 1)
+        const float y = key0 + 8 * i + (e & 1) < S ? (s[r] + xs[e]) * scale_log2 : -INFINITY;
+        s[r] = y;
+        mx[e >> 1] = fmaxf(mx[e >> 1], y);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      const float m_new = fmaxf(m_i[h], mx[h]);  // finite: every tile has a valid key
+      alpha[h] = exp2f(m_i[h] - m_new);
+      m_i[h] = m_new;
+    }
+    uint32_t p[kBK / 16][4];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p0 = exp2f(s[8 * kk + 2 * r] - m_i[r & 1]);
+        const float p1 = exp2f(s[8 * kk + 2 * r + 1] - m_i[r & 1]);
+        rs[r & 1] += p0 + p1;
+        p[kk][r] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_i[h] = l_i[h] * alpha[h] + rs[h];
+    if (j > 0) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+
+    // O += P·V_j over this block's chunk (V_j landed with the first stage).
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_operand(p[kk][r]);
+    wgmma_fence();
+    pv_steps<DC / 2>(acc, p, lo_v, j == 0 ? 1u : 0u, std::make_integer_sequence<int, kBK / 16>{});
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_i[h];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    inv[h] = 1.f / l;
+  }
+
+  // The output chunk staged in the Q and K tiles as [64 rows][kEpiLD], then
+  // its columns below Dp written 16 bytes at a time.
+  __syncthreads();  // both warpgroups are done with the last stage's Q and K
+  __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(tiles);
+#pragma unroll
+  for (int jj = 0; jj < kAcc / 4; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + g + 8 * h, col = wg * (DC / 2) + 8 * jj + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(staged + row * L::kEpiLD + col) = __floats2bfloat162_rn(
+          acc[4 * jj + 2 * h] * inv[h], acc[4 * jj + 2 * h + 1] * inv[h]);
+    }
+  __syncthreads();
+
+  __nv_bfloat16* ob = o + base;
+  constexpr int kChunks = DC / 8;
+  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    if (q0 + r < S && c0 + 8 * c < Dp)
+      *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * Dp + c0 + 8 * c) =
+          *reinterpret_cast<const uint4*>(staged + r * L::kEpiLD + 8 * c);
+  }
+}
+
+int launch_bf16_split(const void* q, const void* k, const void* v, void* o, int B, int S, int Dp,
+                      float scale_log2, cudaStream_t stream) {
+  const size_t bytes = Smem<kSplitCols>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_split_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kBQ - 1) / kBQ, B, (Dp + kSplitCols - 1) / kSplitCols);
+  flash_bf16_split_kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Dp, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- fp32 path
 
 constexpr int kFRows = 4;                  // query rows per warp
@@ -649,13 +860,130 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   return (int)cudaGetLastError();
 }
 
+// D above 512 in fp32: flash_f32_kernel over a chunk of kSplitCols output
+// columns a block (the grid's z), its logits summed over d in pieces of
+// kSplitCols columns of the query rows and of the key tile, each staged in
+// shared memory. Lane l owns columns c0 + l + 32i of the chunk.
+constexpr size_t f32_split_bytes() {
+  return (size_t)(kFBQ * kSplitCols + kFBK * (kSplitCols + 1) + kFBK * kSplitCols) *
+         sizeof(float);
+}
+
+__global__ void __launch_bounds__(kFThreads)
+    flash_f32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o, int S, int Dp,
+                           float scale_log2) {
+  constexpr int P = kSplitCols;  // columns of d a piece, and output columns a block
+  constexpr int kNC = P / 32;    // output columns per lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);  // [kFBQ][P]
+  float* sK = sQ + kFBQ * P;                   // [kFBK][P + 1]: lane j reads row j
+  float* sV = sK + kFBK * (P + 1);             // [kFBK][P]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kFBQ;
+  const int c0 = blockIdx.z * P;  // this block's output columns [c0, c0 + P)
+  const size_t base = (size_t)blockIdx.y * S * Dp;
+  const float* qb = q + base;
+  const float* kb = k + base;
+  const float* vb = v + base;
+
+  float acc[kFRows][kNC];
+  float m_i[kFRows], l_i[kFRows];
+#pragma unroll
+  for (int r = 0; r < kFRows; ++r) {
+    m_i[r] = -INFINITY;
+    l_i[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) acc[r][c] = 0.f;
+  }
+
+  for (int j0 = 0; j0 < S; j0 += kFBK) {
+    float s[kFRows] = {};
+    for (int d0 = 0; d0 < Dp; d0 += P) {
+      const int w = Dp - d0 < P ? Dp - d0 : P;
+      __syncthreads();  // the piece before (and the tile before's V) is consumed
+      for (int i = tid; i < kFBQ * P; i += kFThreads) {
+        const int r = i / P, c = i % P;
+        sQ[i] = (q0 + r < S && c < w) ? qb[(size_t)(q0 + r) * Dp + d0 + c] : 0.f;
+        sK[r * (P + 1) + c] = (j0 + r < S && c < w) ? kb[(size_t)(j0 + r) * Dp + d0 + c] : 0.f;
+        if (d0 == 0)
+          sV[i] = (j0 + r < S && c0 + c < Dp) ? vb[(size_t)(j0 + r) * Dp + c0 + c] : 0.f;
+      }
+      __syncthreads();
+      for (int d = 0; d < w; ++d) {
+        const float kd = sK[lane * (P + 1) + d];
+#pragma unroll
+        for (int r = 0; r < kFRows; ++r) s[r] = fmaf(sQ[(warp * kFRows + r) * P + d], kd, s[r]);
+      }
+    }
+    const bool valid = j0 + lane < S;
+#pragma unroll
+    for (int r = 0; r < kFRows; ++r) {
+      const float x = valid ? s[r] * scale_log2 : -INFINITY;
+      float mx = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      const float m_new = fmaxf(m_i[r], mx);
+      const float alpha = exp2f(m_i[r] - m_new);
+      const float p = exp2f(x - m_new);
+      float ps = p;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(kFull, ps, off);
+      l_i[r] = l_i[r] * alpha + ps;
+      m_i[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) acc[r][c] *= alpha;
+      s[r] = p;
+    }
+    for (int jj = 0; jj < kFBK; ++jj) {
+      float pj[kFRows];
+#pragma unroll
+      for (int r = 0; r < kFRows; ++r) pj[r] = __shfl_sync(kFull, s[r], jj);
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) {
+        const float vv = sV[jj * P + lane + 32 * c];
+#pragma unroll
+        for (int r = 0; r < kFRows; ++r) acc[r][c] = fmaf(pj[r], vv, acc[r][c]);
+      }
+    }
+  }
+
+  float* ob = o + base;
+#pragma unroll
+  for (int r = 0; r < kFRows; ++r) {
+    const int row = q0 + warp * kFRows + r;
+    if (row < S) {
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) {
+        const int col = c0 + lane + 32 * c;
+        if (col < Dp) ob[(size_t)row * Dp + col] = acc[r][c] / l_i[r];
+      }
+    }
+  }
+}
+
+int launch_f32_split(const void* q, const void* k, const void* v, void* o, int B, int S, int Dp,
+                     float scale_log2, cudaStream_t stream) {
+  const size_t bytes = f32_split_bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_split_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kFBQ - 1) / kFBQ, B, (Dp + kSplitCols - 1) / kSplitCols);
+  flash_f32_split_kernel<<<grid, kFThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, Dp, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 float scale_log2_for(int D) { return (float)(1.0 / sqrt((double)D)) * kLog2e; }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: contiguous [B, S, D] bf16 on the current device. D in {64, 128, 256, 512}.
+// q, k, v, o: contiguous [B, S, D] bf16 on the current device. D in {64, 128, 256, 512};
+// wider D: eovax_flash_attention_split_bf16.
 int eovax_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
                                int D, void* stream) {
   if (B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
@@ -670,7 +998,8 @@ int eovax_flash_attention_bf16(const void* q, const void* k, const void* v, void
   }
 }
 
-// q, k, v, o: contiguous [B, S, D] fp32 on the current device. D in {64, 128, 256, 512}.
+// q, k, v, o: contiguous [B, S, D] fp32 on the current device. D in {64, 128, 256, 512};
+// wider D: eovax_flash_attention_split_f32.
 int eovax_flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
                               int D, void* stream) {
   if (B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
@@ -683,6 +1012,25 @@ int eovax_flash_attention_f32(const void* q, const void* k, const void* v, void*
     case 512: return launch_f32<512>(q, k, v, o, B, S, sl2, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// q, k, v, o: contiguous [B, S, Dp] in the entry's dtype on the current device,
+// Dp a multiple of 64 above 512; the columns from D on are zero in q and k. The
+// logits are scaled by 1/√D.
+int eovax_flash_attention_split_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                                     int S, int Dp, int D, void* stream) {
+  if (B <= 0 || S <= 0 || Dp <= 512 || Dp % 64 != 0 || D <= 0 || D > Dp)
+    return (int)cudaErrorInvalidValue;
+  return launch_bf16_split(q, k, v, o, B, S, Dp, scale_log2_for(D),
+                           static_cast<cudaStream_t>(stream));
+}
+
+int eovax_flash_attention_split_f32(const void* q, const void* k, const void* v, void* o, int B,
+                                    int S, int Dp, int D, void* stream) {
+  if (B <= 0 || S <= 0 || Dp <= 512 || Dp % 64 != 0 || D <= 0 || D > Dp)
+    return (int)cudaErrorInvalidValue;
+  return launch_f32_split(q, k, v, o, B, S, Dp, scale_log2_for(D),
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* eovax_cuda_error_string(int code) {

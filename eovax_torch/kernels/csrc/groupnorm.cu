@@ -60,7 +60,9 @@
 // shared memory itself. The plan (cluster size, slice, resident length,
 // shared-memory bytes) is chosen by the wrapper (`_fwd_plan` in groupnorm.py)
 // and checked here; a plan that cannot launch, by its shape or because no
-// cluster of it fits on the card, returns an error.
+// cluster of it fits on the card, returns an error. A group that no cluster
+// size cuts on channel boundaries takes the pixel-split plan instead
+// (`gn_fwd_split_kernel`, below the warp plan).
 //
 // Backward (`gn_bwd_kernel`). Replaces the JAX package's `_gn_bwd`
 // (eovax/kernels/groupnorm.py:124-147, the closed-form backward of its
@@ -103,6 +105,8 @@
 // slice, resident length, shared-memory bytes) is chosen by the wrapper
 // (`_bwd_plan` in groupnorm.py) and checked here; a plan that cannot launch,
 // by its shape or because no cluster of it fits on the card, returns an error.
+// A group that no cluster size cuts on channel boundaries takes the
+// pixel-split plan instead (`gn_bwd_split_kernel`).
 //
 // Plain C interface, loaded with ctypes. Each entry point launches on the
 // given stream and returns cudaGetLastError() (0 on success).
@@ -337,16 +341,18 @@ __device__ __forceinline__ void load_any(const T* p, float (&v)[vec_n<T>()]) {
 // Step 1 over the slice's elements [lo, hi): adds Σ dz and Σ dz·x̂ to t1, t2.
 // xp, gp point at the slice's first element, in shared memory or, with
 // kGlobal, in device memory. With kKeep (scalar loads only) each element is
-// also stored at xk, gk: the copy into shared memory of a ragged slice.
-template <typename T, bool kVec, bool kGlobal, bool kKeep = false>
+// also stored at xk, gk: the copy into shared memory of a ragged slice. The
+// range is shared by the block's threads, or with kLanes = 32 by one warp's.
+template <typename T, bool kVec, bool kGlobal, bool kKeep = false, int kLanes = kThreads>
 __device__ __forceinline__ void reduce_range(const T* xp, const T* gp, long lo, long hi,
                                              float mu, float r, float a, float c, int swish,
                                              float& t1, float& t2, T* xk = nullptr,
                                              T* gk = nullptr) {
+  const int lane = kLanes == kThreads ? (int)threadIdx.x : (int)threadIdx.x % kLanes;
   if constexpr (kVec) {
     constexpr int V = vec_n<T>();
 #pragma unroll 2
-    for (long i = lo / V + threadIdx.x; i < hi / V; i += kThreads) {
+    for (long i = lo / V + lane; i < hi / V; i += kLanes) {
       float xv[V], gv[V];
       load_any<T, kGlobal>(xp + i * V, xv);
       load_any<T, kGlobal>(gp + i * V, gv);
@@ -359,7 +365,7 @@ __device__ __forceinline__ void reduce_range(const T* xp, const T* gp, long lo, 
       }
     }
   } else {
-    for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
+    for (long i = lo + lane; i < hi; i += kLanes) {
       const T xe = xp[i], ge = gp[i];
       if constexpr (kKeep) {
         xk[i] = xe;
@@ -805,6 +811,414 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The pixel-split plan, for a group that no cluster size cuts on channel
+// boundaries (an odd cpg above 64, twice an odd cpg above 128, any cpg above
+// 1024, as in GroupNorm(1, C)). CTA `rank` of the cluster owns the `len`
+// elements [rank·slice, rank·slice + len) of the group's run, len = slice but
+// for the last CTA's, which holds the rest. A slice starts and ends anywhere in
+// a channel (on 16-byte vectors where n is a whole number of them), so a
+// channel may be split between neighbouring CTAs, and a slice may hold any
+// number of channels. Both kernels walk a slice's channels in windows of at
+// most kWindow channels, with the window's per-channel coefficients in shared
+// memory, and find an element's channel by one 32-bit division (a window spans
+// less than 2³² elements). The forward needs only the group's sums, so its
+// steps 1-3 are the cluster kernel's, with each CTA's own length. In the
+// backward one warp reduces one channel of the window; a channel whole in the
+// slice is written by its CTA, and a split one by the CTA that holds its first
+// element, which adds the other CTAs' partials of it in rank order through
+// distributed shared memory. The group's Σ a·S1 and Σ a·S2 are each CTA's sums
+// of a·(its partials), added in rank order. No atomics: the results are
+// bit-identical from call to call.
+constexpr int kWindow = 64;
+
+// Channels of one window: at most kWindow, spanning less than 2³² elements
+// (the plan has n < 2³²).
+__device__ __forceinline__ long window_channels(long n) {
+  const long w = 0xFFFFFFFFL / n;
+  return w < kWindow ? w : kWindow;
+}
+
+// Step 4 of the pixel-split forward over the slice's elements [lo, hi):
+// y = (x − μ)·a + c with (a, c) = coef[(org + i) / n] for the element i, which
+// lies org + i elements past the start of the window's first channel, then the
+// optional SiLU. xp, yp as for apply_fwd.
+template <typename T, bool kVec, bool kGlobal>
+__device__ __forceinline__ void apply_fwd_window(const T* xp, T* yp, long lo, long hi, long org,
+                                                 uint32_t n, float mu, const float2* coef,
+                                                 int swish) {
+  if constexpr (kVec) {
+    constexpr int V = vec_n<T>();
+#pragma unroll 4
+    for (long i = lo / V + threadIdx.x; i < hi / V; i += kThreads) {
+      float v[V];
+      load_any<T, kGlobal>(xp + i * V, v);
+      const float2 ac = coef[(uint32_t)(org + i * V) / n];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float t = fmaf(v[j] - mu, ac.x, ac.y);
+        v[j] = swish ? silu(t) : t;
+      }
+      store_vec(yp + i * V, v);
+    }
+  } else {
+    for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const float2 cf = coef[(uint32_t)(org + i) / n];
+      const float t = fmaf(to_float(xp[i]) - mu, cf.x, cf.y);
+      yp[i] = from_float<T>(swish ? silu(t) : t);
+    }
+  }
+}
+
+// Step 3 of the pixel-split backward over the slice's elements [lo, hi):
+// dx = k1·dz + k0 + k2·x̂ with (a, c) = coef[(org + i) / n] and k1 = r·a, as
+// apply_fwd_window finds them.
+template <typename T, bool kVec, bool kGlobal>
+__device__ __forceinline__ void apply_bwd_window(const T* xp, const T* gp, T* dp, long lo, long hi,
+                                                 long org, uint32_t n, float mu, float r,
+                                                 const float2* coef, float k0, float k2,
+                                                 int swish) {
+  if constexpr (kVec) {
+    constexpr int V = vec_n<T>();
+#pragma unroll 2
+    for (long i = lo / V + threadIdx.x; i < hi / V; i += kThreads) {
+      float xv[V], gv[V];
+      load_any<T, kGlobal>(xp + i * V, xv);
+      load_any<T, kGlobal>(gp + i * V, gv);
+      const float2 ac = coef[(uint32_t)(org + i * V) / n];
+      const float k1 = r * ac.x;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xh = (xv[j] - mu) * r;
+        const float dz = dz_of(gv[j], fmaf(xh, ac.x, ac.y), swish);
+        xv[j] = fmaf(k2, xh, fmaf(k1, dz, k0));
+      }
+      store_vec(dp + i * V, xv);
+    }
+  } else {
+    for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const float2 ac = coef[(uint32_t)(org + i) / n];
+      const float xh = (to_float(xp[i]) - mu) * r;
+      const float dz = dz_of(to_float(gp[i]), fmaf(xh, ac.x, ac.y), swish);
+      dp[i] = from_float<T>(fmaf(k2, xh, fmaf(r * ac.x, dz, k0)));
+    }
+  }
+}
+
+// Where a pixel-split CTA's slice lies in its group: its first element, its
+// length, the resident part's length and the channels [first, last] it touches.
+struct SplitSlice {
+  long start, len, res, first, last;
+};
+
+__device__ __forceinline__ SplitSlice split_slice(long span, long n, long slice, long resident,
+                                                  int rank) {
+  SplitSlice s;
+  s.start = (long)rank * slice;
+  s.len = slice < span - s.start ? slice : span - s.start;
+  s.res = resident < s.len ? resident : s.len;
+  s.first = s.start / n;
+  s.last = (s.start + s.len - 1) / n;
+  return s;
+}
+
+// The forward on the pixel-split plan: one cluster of k CTAs per (b, group),
+// grid B·G·k, steps 1-4 of gn_fwd_kernel over this CTA's slice.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 3)
+    gn_fwd_split_kernel(const T* __restrict__ x, T* __restrict__ y, FwdArgs p, long n, long slice,
+                        long resident) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[3 * kWarps];
+  __shared__ float part[4];  // this CTA's Σx, K, Σ(x − K) and Σ(x − K)² of step 1
+  __shared__ float gathered[kMaxCluster][4];
+  __shared__ float2 coef[kWindow];  // (a, c) of the window's channels
+  __shared__ float shift_s;
+  __shared__ __align__(8) uint64_t bar[kFwdChunks];
+  T* xs = reinterpret_cast<T*>(smem);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int bg = blockIdx.x / k;  // b·G + group
+  const int b = bg / (p.C / p.cpg);
+  const int ch_base = (bg % (p.C / p.cpg)) * p.cpg;  // the group's first channel
+  const long span = (long)p.cpg * n;
+  const SplitSlice sl = split_slice(span, n, slice, resident, rank);
+  const long res = sl.res;
+  const size_t off = (size_t)bg * span + sl.start;
+  const T* xg = x + off;
+  T* yg = y + off;
+
+  // The resident part in up to kFwdChunks bulk copies.
+  constexpr int V = vec_n<T>();
+  const long chunk = ((res + kFwdChunks - 1) / kFwdChunks + V - 1) / V * V;
+  if (kVec && threadIdx.x == 0 && res > 0) {
+    for (int q = 0; q * chunk < res; ++q) mbar_init(&bar[q], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (kVec && threadIdx.x == 0) {
+    for (int q = 0; q * chunk < res; ++q) {
+      const long e0 = q * chunk;
+      const uint32_t bytes = (uint32_t)((res - e0 < chunk ? res - e0 : chunk) * sizeof(T));
+      mbar_expect_tx(&bar[q], bytes);
+      bulk_load(xs + e0, xg + e0, bytes, &bar[q]);
+    }
+  }
+
+  // The shift of the shifted sums: the mean of the slice's first elements.
+  const long m = sl.len < kThreads ? sl.len : kThreads;
+  float head[1] = {threadIdx.x < m ? to_float(xg[threadIdx.x]) : 0.f};
+  block_sums(head, red);
+  if (threadIdx.x == 0) shift_s = head[0] / (float)m;
+  __syncthreads();
+  const float K = shift_s;
+
+  // 1. Partial sums, each resident chunk as it lands, then the streamed rest.
+  float acc[3] = {0.f, 0.f, 0.f};
+  if constexpr (kVec) {
+    for (long e0 = 0; e0 < res; e0 += chunk) {
+      const long e1 = e0 + chunk < res ? e0 + chunk : res;
+      mbar_wait(&bar[e0 / chunk], 0);
+      sum_range<T, true, false>(xs, e0, e1, K, acc);
+    }
+  } else {
+    sum_range<T, false, true, true>(xg, 0, res, K, acc, xs);
+  }
+  sum_range<T, kVec, true>(xg, res, sl.len, K, acc);
+  block_sums(acc, red);
+  if (threadIdx.x == 0) {
+    part[0] = acc[0];
+    part[1] = K;
+    part[2] = acc[1];
+    part[3] = acc[2];
+  }
+
+  // 2. The group's mean from every CTA's partials, in rank order.
+  cluster.sync();  // every CTA's partials are in place
+  if (threadIdx.x < k) {
+    const float* rp = cluster.map_shared_rank(&part[0], (int)threadIdx.x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gathered[threadIdx.x][i] = rp[i];
+  }
+  __syncthreads();
+  const float count = (float)n * (float)p.cpg;
+  float sum = 0.f;
+  for (int q = 0; q < k; ++q) sum += gathered[q][0];
+  const float mu = sum / count;
+
+  // 3. The group's M2 in rank order: each CTA's sums about K moved to μ, with
+  // each CTA's own length.
+  float m2 = 0.f;
+  for (int q = 0; q < k; ++q) {
+    const long lq = slice < span - (long)q * slice ? slice : span - (long)q * slice;
+    const float dk = gathered[q][1] - mu;
+    m2 += gathered[q][3] + dk * fmaf((float)lq, dk, 2.f * gathered[q][2]);
+  }
+  cluster_arrive();  // the other CTAs' partials are read
+  const float rstd = rsqrtf(fmaxf(m2, 0.f) / count + p.eps);
+  if (rank == 0 && threadIdx.x == 0 && p.mean != nullptr) {
+    p.mean[bg] = mu;
+    p.rstd[bg] = rstd;
+  }
+
+  // 4. y, a window of the slice's channels at a time, from shared memory where
+  // resident.
+  const long w = window_channels(n);
+  for (long c0 = sl.first; c0 <= sl.last; c0 += w) {
+    const int nw = (int)(sl.last + 1 - c0 < w ? sl.last + 1 - c0 : w);
+    __syncthreads();  // the window before is written; a ragged slice's copy is in place
+    if (threadIdx.x < nw) {
+      const int ch = ch_base + (int)c0 + (int)threadIdx.x;
+      float s = 1.f, t = 0.f;
+      if (p.ada_scale != nullptr) {
+        s = p.ada_scale[(size_t)b * p.ada_stride + ch];
+        t = p.ada_shift[(size_t)b * p.ada_stride + ch];
+      }
+      coef[threadIdx.x] = make_float2(rstd * p.gamma[ch] * s, p.beta[ch] * s + t);
+    }
+    __syncthreads();
+    const long org = sl.start - c0 * n;  // the slice's start past the window's
+    const long lo = org > 0 ? 0 : -org;
+    const long hi = nw * n - org < sl.len ? nw * n - org : sl.len;
+    const long r1 = hi < res ? hi : res, lo2 = lo > res ? lo : res;
+    if (lo < r1)
+      apply_fwd_window<T, kVec, false>(xs, yg, lo, r1, org, (uint32_t)n, mu, coef, p.swish);
+    if (lo2 < hi)
+      apply_fwd_window<T, kVec, true>(xg, yg, lo2, hi, org, (uint32_t)n, mu, coef, p.swish);
+  }
+  cluster_wait();
+}
+
+// The backward on the pixel-split plan: one cluster of k CTAs per (b, group),
+// grid B·G·k, x then g of the slice's first `resident` elements in dynamic
+// shared memory.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 3)
+    gn_bwd_split_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
+                        Chain p, float* __restrict__ s1, float* __restrict__ s2, long n,
+                        long slice, long resident, int swish) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 coef[kWindow];  // (a, c) of the window's channels
+  __shared__ float2 sums[kWindow];  // this slice's (Σ dz, Σ dz·x̂) of each
+  // What the other CTAs read: this slice's partials (S1, S2) of its first and
+  // of its last channel, then its Σ a·S1 and Σ a·S2 over its partials.
+  __shared__ float pub[6];
+  __shared__ float2 group_sums;  // Σ a·S1 and Σ a·S2 over the group
+  __shared__ __align__(8) uint64_t bar[kMaxChunks];
+  T* xs = reinterpret_cast<T*>(smem);
+  T* gs = xs + resident;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int bg = blockIdx.x / k;  // b·G + group
+  const int b = bg / (p.C / p.cpg);
+  const int ch_base = (bg % (p.C / p.cpg)) * p.cpg;  // the group's first channel
+  const long span = (long)p.cpg * n;
+  const SplitSlice sl = split_slice(span, n, slice, resident, rank);
+  const long res = sl.res;
+  const size_t off = (size_t)bg * span + sl.start;
+  const T* xg = x + off;
+  const T* gg = g + off;
+  T* dxg = dx + off;
+
+  // The resident part in up to kMaxChunks bulk copies each of x and g.
+  constexpr int V = vec_n<T>();
+  const long chunk = ((res + kMaxChunks - 1) / kMaxChunks + V - 1) / V * V;
+  if (kVec && threadIdx.x == 0 && res > 0) {
+    for (int q = 0; q * chunk < res; ++q) mbar_init(&bar[q], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (kVec && threadIdx.x == 0) {
+    for (int q = 0; q * chunk < res; ++q) {
+      const long e0 = q * chunk;
+      const uint32_t bytes = (uint32_t)((res - e0 < chunk ? res - e0 : chunk) * sizeof(T));
+      mbar_expect_tx(&bar[q], 2 * bytes);
+      bulk_load(xs + e0, xg + e0, bytes, &bar[q]);
+      bulk_load(gs + e0, gg + e0, bytes, &bar[q]);
+    }
+  }
+
+  // 1. Per-channel partial sums, a window of channels at a time, one warp a
+  // channel; thread 0 folds each window in channel order.
+  const float mu = p.mean[bg], r = p.rstd[bg];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long w = window_channels(n);
+  float ga = 0.f, gx = 0.f;  // thread 0's Σ a·S1, Σ a·S2 over this slice's partials
+  for (long c0 = sl.first; c0 <= sl.last; c0 += w) {
+    const int nw = (int)(sl.last + 1 - c0 < w ? sl.last + 1 - c0 : w);
+    __syncthreads();  // thread 0 has folded the window before
+    if (threadIdx.x < nw)
+      coef[threadIdx.x] = channel_coef(p, b, ch_base + (int)c0 + (int)threadIdx.x);
+    __syncthreads();
+    for (int j = warp; j < nw; j += kWarps) {
+      const long cs = (c0 + j) * n - sl.start;  // the channel's first element, in the slice
+      const long e0 = cs > 0 ? cs : 0, e1 = cs + n < sl.len ? cs + n : sl.len;
+      const long r1 = e1 < res ? e1 : res, lo = e0 > res ? e0 : res;
+      const float2 ac = coef[j];
+      float t1 = 0.f, t2 = 0.f;
+      if constexpr (kVec) {
+        for (long q0 = e0; q0 < r1;) {
+          const int q = (int)(q0 / chunk);
+          const long q1 = (q + 1) * chunk < r1 ? (q + 1) * chunk : r1;
+          mbar_wait(&bar[q], 0);
+          reduce_range<T, true, false, false, 32>(xs, gs, q0, q1, mu, r, ac.x, ac.y, swish, t1,
+                                                  t2);
+          q0 = q1;
+        }
+      } else if (e0 < r1) {
+        reduce_range<T, false, true, true, 32>(xg, gg, e0, r1, mu, r, ac.x, ac.y, swish, t1, t2,
+                                               xs, gs);
+      }
+      if (lo < e1)
+        reduce_range<T, kVec, true, false, 32>(xg, gg, lo, e1, mu, r, ac.x, ac.y, swish, t1, t2);
+      t1 = warp_sum(t1);
+      t2 = warp_sum(t2);
+      if (lane == 0) sums[j] = make_float2(t1, t2);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < nw; ++j) {
+        const long cc = c0 + j;
+        const float2 t = sums[j];
+        ga = fmaf(coef[j].x, t.x, ga);
+        gx = fmaf(coef[j].x, t.y, gx);
+        if (cc * n >= sl.start && (cc + 1) * n <= sl.start + sl.len) {  // whole in this slice
+          s1[(size_t)b * p.C + ch_base + cc] = t.x;
+          s2[(size_t)b * p.C + ch_base + cc] = t.y;
+        }
+        if (cc == sl.first) {
+          pub[0] = t.x;
+          pub[1] = t.y;
+        }
+        if (cc == sl.last) {
+          pub[2] = t.x;
+          pub[3] = t.y;
+        }
+      }
+      pub[4] = ga;
+      pub[5] = gx;
+    }
+  }
+
+  // 2. The group's sums from every CTA's, in rank order; the sums of a split
+  // channel that starts in this slice, from this CTA's partial and those of
+  // the CTAs after it, in rank order.
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int q = 0; q < k; ++q) {
+      const float* rp = cluster.map_shared_rank(&pub[0], q);
+      t1 += rp[4];
+      t2 += rp[5];
+    }
+    group_sums = make_float2(t1, t2);
+    const long end = (sl.last + 1) * n;  // one past the last channel's last element
+    if (sl.last * n >= sl.start && end > sl.start + sl.len) {
+      float c1 = pub[2], c2 = pub[3];
+      for (int q = rank + 1; q < k && (long)q * slice < end; ++q) {
+        const float* rp = cluster.map_shared_rank(&pub[0], q);
+        c1 += rp[0];
+        c2 += rp[1];
+      }
+      s1[(size_t)b * p.C + ch_base + sl.last] = c1;
+      s2[(size_t)b * p.C + ch_base + sl.last] = c2;
+    }
+  }
+  cluster_arrive();  // done with the other CTAs' shared memory
+  if (kVec) {  // every resident chunk has landed (each warp waited only for its channels')
+    for (int q = 0; q * chunk < res; ++q) mbar_wait(&bar[q], 0);
+  }
+
+  // 3. dx, a window of channels at a time, from shared memory where resident.
+  const float inv = 1.f / ((float)n * (float)p.cpg);
+  float k0 = 0.f, k2 = 0.f;
+  for (long c0 = sl.first; c0 <= sl.last; c0 += w) {
+    const int nw = (int)(sl.last + 1 - c0 < w ? sl.last + 1 - c0 : w);
+    __syncthreads();  // the window before is written; group_sums is in place
+    if (c0 == sl.first) {
+      k0 = -r * group_sums.x * inv;
+      k2 = -r * group_sums.y * inv;
+    }
+    if (threadIdx.x < nw)
+      coef[threadIdx.x] = channel_coef(p, b, ch_base + (int)c0 + (int)threadIdx.x);
+    __syncthreads();
+    const long org = sl.start - c0 * n;  // the slice's start past the window's
+    const long lo = org > 0 ? 0 : -org;
+    const long hi = nw * n - org < sl.len ? nw * n - org : sl.len;
+    const long r1 = hi < res ? hi : res, lo2 = lo > res ? lo : res;
+    if (lo < r1)
+      apply_bwd_window<T, kVec, false>(xs, gs, dxg, lo, r1, org, (uint32_t)n, mu, r, coef, k0, k2,
+                                       swish);
+    if (lo2 < hi)
+      apply_bwd_window<T, kVec, true>(xg, gg, dxg, lo2, hi, org, (uint32_t)n, mu, r, coef, k0, k2,
+                                      swish);
+  }
+  cluster_wait();
+}
+
 // Vectors need n to be a whole number of 16-byte vectors and x, y 16-byte aligned.
 template <typename T>
 bool vectorizable(const void* x, const void* y, long n) {
@@ -833,17 +1247,25 @@ Chain make_chain(const void* mean, const void* rstd, const void* gamma, const vo
 
 // The wrapper's plan, checked: `cluster` (a power of two up to kMaxCluster)
 // slices of the group's cpg·n elements, each a whole number of planes or a
-// whole fraction of one plane, at most kMaxSegments channels a slice; the first
+// whole fraction of one plane, at most kMaxSegments channels a slice, or with
+// `split` the pixel-split plan's slices (`slice` elements each but the last,
+// which holds the rest and at least one element; n below 2³²); the first
 // `resident` elements of a slice of each of `operands` tensors (the forward's
 // x; the backward's x and g) in `smem` bytes of shared memory; with 16-byte
 // vectors, slice and resident whole vectors.
 template <typename T>
 bool plan_ok(int cpg, long n, int cluster, long slice, long resident, int smem, bool vec,
-             int operands) {
+             int operands, bool split) {
   if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0) return false;
-  if (slice <= 0 || slice * cluster != (long)cpg * n) return false;
-  if (slice % n != 0 && n % slice != 0) return false;
-  if (slice / (slice < n ? slice : n) > kMaxSegments) return false;
+  const long span = (long)cpg * n;
+  if (split) {
+    if (n > 0xFFFFFFFFL || slice <= 0 || slice * cluster < span || slice * (cluster - 1) >= span)
+      return false;
+  } else {
+    if (slice <= 0 || slice * cluster != span) return false;
+    if (slice % n != 0 && n % slice != 0) return false;
+    if (slice / (slice < n ? slice : n) > kMaxSegments) return false;
+  }
   if (resident < 0 || resident > slice || (long)smem != operands * resident * (long)sizeof(T))
     return false;
   return !vec || (slice % vec_n<T>() == 0 && resident % vec_n<T>() == 0);
@@ -881,7 +1303,7 @@ int refused(cudaError_t err) {
 // the current one (the wrappers enter the input's device); a mutex guards the
 // tables, which host threads driving several cards share.
 int active_clusters(const void* kernel, int cluster, int smem, int* count) {
-  constexpr int kCache = 256, kKernels = 64;
+  constexpr int kCache = 256, kKernels = 128;
   struct Answer { int device; const void* kernel; int cluster, smem, count; };
   struct Attrs { int device; const void* kernel; int smem; };
   static Answer answers[kCache];
@@ -953,7 +1375,7 @@ template <typename T>
 int launch_fwd(const void* x, void* y, const void* gamma, const void* beta, const void* ada_scale,
                const void* ada_shift, int ada_stride, void* mean, void* rstd, int B, int C,
                int groups, long n, float eps, int swish, int cluster, long slice, long resident,
-               int smem, cudaStream_t stream) {
+               int smem, int split, cudaStream_t stream) {
   if (!shape_ok(B, C, groups, n, cluster > 0 ? cluster : 1)) return (int)cudaErrorInvalidValue;
   const FwdArgs p{static_cast<const float*>(gamma),
                   static_cast<const float*>(beta),
@@ -969,7 +1391,7 @@ int launch_fwd(const void* x, void* y, const void* gamma, const void* beta, cons
   const bool vec = vectorizable<T>(x, y, n);
   if (cluster == 0) {  // the warp plan: the group whole in one warp's vectors
     const long span = (long)p.cpg * n;
-    if (!vec || slice != span || resident != span || smem != 0 ||
+    if (!vec || split || slice != span || resident != span || smem != 0 ||
         span > 32L * kWarpVecs * vec_n<T>())
       return (int)cudaErrorInvalidValue;
     const unsigned blocks = (unsigned)((B * groups + kWarps - 1) / kWarps);
@@ -977,9 +1399,10 @@ int launch_fwd(const void* x, void* y, const void* gamma, const void* beta, cons
         static_cast<const T*>(x), static_cast<T*>(y), p, n, B * groups);
     return (int)cudaGetLastError();
   }
-  if (!plan_ok<T>(p.cpg, n, cluster, slice, resident, smem, vec, 1))
+  if (!plan_ok<T>(p.cpg, n, cluster, slice, resident, smem, vec, 1, split != 0))
     return (int)cudaErrorInvalidValue;
-  const auto kernel = vec ? gn_fwd_kernel<T, true> : gn_fwd_kernel<T, false>;
+  const auto kernel = split ? (vec ? gn_fwd_split_kernel<T, true> : gn_fwd_split_kernel<T, false>)
+                            : (vec ? gn_fwd_kernel<T, true> : gn_fwd_kernel<T, false>);
   return launch_clusters(kernel, (unsigned)(B * groups), cluster, smem, stream,
                          static_cast<const T*>(x), static_cast<T*>(y), p, n, slice, resident);
 }
@@ -989,35 +1412,36 @@ template <typename T>
 int launch_bwd(const void* x, const void* g, void* dx, const void* mean, const void* rstd,
                const void* gamma, const void* beta, const void* ada_scale, const void* ada_shift,
                int ada_stride, void* s1, void* s2, int B, int C, int groups, long n, int swish,
-               int cluster, long slice, long resident, int smem, cudaStream_t stream) {
+               int cluster, long slice, long resident, int smem, int split, cudaStream_t stream) {
   if (!shape_ok(B, C, groups, n, cluster)) return (int)cudaErrorInvalidValue;
   const Chain p = make_chain(mean, rstd, gamma, beta, ada_scale, ada_shift, ada_stride, C, groups);
   const bool vec = vectorizable<T>(x, g, n) && vectorizable<T>(dx, dx, n);
-  if (!plan_ok<T>(p.cpg, n, cluster, slice, resident, smem, vec, 2))
+  if (!plan_ok<T>(p.cpg, n, cluster, slice, resident, smem, vec, 2, split != 0))
     return (int)cudaErrorInvalidValue;
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  T* dxt = static_cast<T*>(dx);
-  float* s1f = static_cast<float*>(s1);
-  float* s2f = static_cast<float*>(s2);
-  const unsigned clusters = (unsigned)(B * groups);
-  if (vec)
-    return launch_clusters(gn_bwd_kernel<T, true>, clusters, cluster, smem, stream, xt, gt, dxt,
-                           p, s1f, s2f, n, slice, resident, swish);
-  return launch_clusters(gn_bwd_kernel<T, false>, clusters, cluster, smem, stream, xt, gt, dxt, p,
-                         s1f, s2f, n, slice, resident, swish);
+  const auto kernel = split ? (vec ? gn_bwd_split_kernel<T, true> : gn_bwd_split_kernel<T, false>)
+                            : (vec ? gn_bwd_kernel<T, true> : gn_bwd_kernel<T, false>);
+  return launch_clusters(kernel, (unsigned)(B * groups), cluster, smem, stream,
+                         static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx),
+                         p, static_cast<float*>(s1), static_cast<float*>(s2), n, slice, resident,
+                         swish);
 }
 
-// cudaOccupancyMaxActiveClusters of a cluster kernel's vectorized (vec != 0)
-// or scalar instance, for a plan's cluster size and shared-memory bytes.
+// cudaOccupancyMaxActiveClusters of the forward's (fwd) or the backward's
+// cluster kernel, its vectorized (vec != 0) or scalar instance, on the
+// channel-boundary or (split != 0) the pixel-split plan, for a plan's cluster
+// size and shared-memory bytes.
 template <typename T>
-int clusters_of(bool fwd, int cluster, int smem, int vec, int* count) {
-  const void* kernel =
-      fwd ? (vec ? reinterpret_cast<const void*>(gn_fwd_kernel<T, true>)
-                 : reinterpret_cast<const void*>(gn_fwd_kernel<T, false>))
-          : (vec ? reinterpret_cast<const void*>(gn_bwd_kernel<T, true>)
-                 : reinterpret_cast<const void*>(gn_bwd_kernel<T, false>));
-  return active_clusters(kernel, cluster, smem, count);
+int clusters_of(bool fwd, int cluster, int smem, int vec, int split, int* count) {
+  const void* kernels[2][2][2] = {
+      {{reinterpret_cast<const void*>(gn_bwd_kernel<T, false>),
+        reinterpret_cast<const void*>(gn_bwd_kernel<T, true>)},
+       {reinterpret_cast<const void*>(gn_bwd_split_kernel<T, false>),
+        reinterpret_cast<const void*>(gn_bwd_split_kernel<T, true>)}},
+      {{reinterpret_cast<const void*>(gn_fwd_kernel<T, false>),
+        reinterpret_cast<const void*>(gn_fwd_kernel<T, true>)},
+       {reinterpret_cast<const void*>(gn_fwd_split_kernel<T, false>),
+        reinterpret_cast<const void*>(gn_fwd_split_kernel<T, true>)}}};
+  return active_clusters(kernels[fwd ? 1 : 0][split ? 1 : 0][vec ? 1 : 0], cluster, smem, count);
 }
 
 }  // namespace
@@ -1037,60 +1461,62 @@ int eovax_gn_stats_f32(const void* x, void* mean, void* m2, int planes, long n, 
 
 // Forward. x, y: contiguous [B, C, n]; gamma, beta: fp32 [C]; ada_scale, ada_shift:
 // fp32 [C] (ada_stride 0) or [B, C] (ada_stride C), or both null; mean, rstd: fp32
-// [B, groups] outputs, or both null. cluster, slice, resident, smem: the plan (see
-// plan_ok), or cluster 0 for the warp plan (slice and resident the group's cpg·n
-// elements, at most 32·kWarpVecs 16-byte vectors, smem 0; x and y 16-byte aligned).
+// [B, groups] outputs, or both null. cluster, slice, resident, smem, split: the plan
+// (see plan_ok), or cluster 0 for the warp plan (slice and resident the group's cpg·n
+// elements, at most 32·kWarpVecs 16-byte vectors, smem 0, split 0; x and y 16-byte
+// aligned).
 int eovax_gn_fwd_bf16(const void* x, void* y, const void* gamma, const void* beta,
                       const void* ada_scale, const void* ada_shift, int ada_stride, void* mean,
                       void* rstd, int B, int C, int groups, long n, float eps, int swish,
-                      int cluster, long slice, long resident, int smem, void* stream) {
+                      int cluster, long slice, long resident, int smem, int split, void* stream) {
   return launch_fwd<__nv_bfloat16>(x, y, gamma, beta, ada_scale, ada_shift, ada_stride, mean, rstd,
                                    B, C, groups, n, eps, swish, cluster, slice, resident, smem,
-                                   static_cast<cudaStream_t>(stream));
+                                   split, static_cast<cudaStream_t>(stream));
 }
 
 int eovax_gn_fwd_f32(const void* x, void* y, const void* gamma, const void* beta,
                      const void* ada_scale, const void* ada_shift, int ada_stride, void* mean,
                      void* rstd, int B, int C, int groups, long n, float eps, int swish,
-                     int cluster, long slice, long resident, int smem, void* stream) {
+                     int cluster, long slice, long resident, int smem, int split, void* stream) {
   return launch_fwd<float>(x, y, gamma, beta, ada_scale, ada_shift, ada_stride, mean, rstd, B, C,
-                           groups, n, eps, swish, cluster, slice, resident, smem,
+                           groups, n, eps, swish, cluster, slice, resident, smem, split,
                            static_cast<cudaStream_t>(stream));
 }
 
 // Backward. x, g, dx: contiguous [B, C, n] in one dtype; mean, rstd: fp32 [B, groups];
 // gamma, beta: fp32 [C]; ada_scale, ada_shift as for the apply, or both null; s1, s2:
-// fp32 [B, C] outputs, Σ dz and Σ dz·x̂ per plane. cluster, slice, resident, smem: the
-// plan (see plan_ok).
+// fp32 [B, C] outputs, Σ dz and Σ dz·x̂ per plane. cluster, slice, resident, smem,
+// split: the plan (see plan_ok).
 int eovax_gn_bwd_bf16(const void* x, const void* g, void* dx, const void* mean, const void* rstd,
                       const void* gamma, const void* beta, const void* ada_scale,
                       const void* ada_shift, int ada_stride, void* s1, void* s2, int B, int C,
                       int groups, long n, int swish, int cluster, long slice, long resident,
-                      int smem, void* stream) {
+                      int smem, int split, void* stream) {
   return launch_bwd<__nv_bfloat16>(x, g, dx, mean, rstd, gamma, beta, ada_scale, ada_shift,
                                    ada_stride, s1, s2, B, C, groups, n, swish, cluster, slice,
-                                   resident, smem, static_cast<cudaStream_t>(stream));
+                                   resident, smem, split, static_cast<cudaStream_t>(stream));
 }
 
 int eovax_gn_bwd_f32(const void* x, const void* g, void* dx, const void* mean, const void* rstd,
                      const void* gamma, const void* beta, const void* ada_scale,
                      const void* ada_shift, int ada_stride, void* s1, void* s2, int B, int C,
                      int groups, long n, int swish, int cluster, long slice, long resident,
-                     int smem, void* stream) {
+                     int smem, int split, void* stream) {
   return launch_bwd<float>(x, g, dx, mean, rstd, gamma, beta, ada_scale, ada_shift, ada_stride,
-                           s1, s2, B, C, groups, n, swish, cluster, slice, resident, smem,
+                           s1, s2, B, C, groups, n, swish, cluster, slice, resident, smem, split,
                            static_cast<cudaStream_t>(stream));
 }
 
 // cudaOccupancyMaxActiveClusters of the forward's (fwd != 0) or the backward's
-// vectorized (vec != 0) or scalar instance for a plan's cluster size and
+// vectorized (vec != 0) or scalar instance, on the channel-boundary or
+// (split != 0) the pixel-split plan, for a plan's cluster size and
 // shared-memory bytes, into *count.
-int eovax_gn_clusters_bf16(int fwd, int cluster, int smem, int vec, int* count) {
-  return clusters_of<__nv_bfloat16>(fwd != 0, cluster, smem, vec, count);
+int eovax_gn_clusters_bf16(int fwd, int cluster, int smem, int vec, int split, int* count) {
+  return clusters_of<__nv_bfloat16>(fwd != 0, cluster, smem, vec, split, count);
 }
 
-int eovax_gn_clusters_f32(int fwd, int cluster, int smem, int vec, int* count) {
-  return clusters_of<float>(fwd != 0, cluster, smem, vec, count);
+int eovax_gn_clusters_f32(int fwd, int cluster, int smem, int vec, int split, int* count) {
+  return clusters_of<float>(fwd != 0, cluster, smem, vec, split, count);
 }
 
 const char* eovax_cuda_error_string(int code) {

@@ -12,12 +12,12 @@ keeps the TPU kernel's contract (per-(B, C) fp32 Σx and Σx²) on a statistics
 kernel of its own. On a CPU tensor each function computes its plain PyTorch
 version.
 
-Where no plan of the kernels cuts a group (:func:`in_kernel_envelope`: more
-than 64 channels a group that no cluster of up to 16 CTAs splits on channel
-boundaries, an odd cpg above 64 for one, and no warp plan; or a grid past
-2³¹ − 1 CTAs) a CUDA tensor raises ``ValueError``: the JAX package computes
-GroupNorm in XLA at every width, and these widths wait for a plan that splits
-a group's pixels.
+Every group has a plan: a group that no cluster of up to 16 CTAs cuts on
+channel boundaries (an odd cpg above 64, twice an odd cpg above 128, any cpg
+above 1024, as ``GroupNorm(1, C)``) takes the pixel-split plan, whose slices
+cut the group's pixels anywhere (:func:`_plan`). A grid past 2³¹ − 1 CTAs runs
+as several launches over blocks of the batch (:func:`in_kernel_envelope`),
+each counted in ``launches``.
 
 The kernels take bf16 (the inference policy) and fp32 (``FULL_PRECISION``);
 statistics and arithmetic are fp32, and the output has the input's dtype.
@@ -107,17 +107,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fwd = getattr(lib, f"eovax_gn_fwd_{suffix}")
         fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                         + [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_float, ctypes.c_int]
-                        + [ctypes.c_int, ctypes.c_long, ctypes.c_long, ctypes.c_int]
+                        + [ctypes.c_int, ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int]
                         + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, f"eovax_gn_bwd_{suffix}")
         bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                         + [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_int]
-                        + [ctypes.c_int, ctypes.c_long, ctypes.c_long, ctypes.c_int]
+                        + [ctypes.c_int, ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int]
                         + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         clusters = getattr(lib, f"eovax_gn_clusters_{suffix}")
-        clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        clusters.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         clusters.restype = ctypes.c_int
     return lib
 
@@ -187,8 +187,9 @@ def _fp32(*tensors):
     return [None if t is None else t.float().contiguous() for t in tensors]
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+def _row(t, b0: int):
+    """The address of row ``b0`` of ``t`` along its first dimension (None for None)."""
+    return None if t is None else t.data_ptr() + b0 * t.stride(0) * t.element_size()
 
 
 def _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats):
@@ -203,27 +204,30 @@ def _forward(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_sta
 
 
 def _launch(x, weight, bias, groups, eps, ada_scale, ada_shift, swish, with_stats):
-    """Check the operands, plan and launch the forward kernel on a CUDA tensor
-    (adds one to ``group_norm.launches``)."""
+    """Check the operands, plan and launch the forward kernel on a CUDA tensor (adds
+    one to ``group_norm.launches`` a launch)."""
     ada_stride = _check_params(x, weight, bias, groups, ada_scale, ada_shift, "group_norm")
     b, c, h, w = x.shape
-    aligned = x.data_ptr() % 16 == 0
-    if not in_kernel_envelope(b, c, groups, h * w, x.element_size(), aligned=aligned):
-        raise ValueError(_no_plan("group_norm", x.shape, groups))
-    plan = _fwd_plan(b, c, groups, h * w, x.element_size(), aligned=aligned)
+    n, itemsize, aligned = h * w, x.element_size(), x.data_ptr() % 16 == 0
     weight, bias, ada_scale, ada_shift = _fp32(weight, bias, ada_scale, ada_shift)
     out = torch.empty_like(x)
     stats = torch.empty(2, b, groups, device=x.device, dtype=torch.float32) if with_stats else None
     lib = _library()
+    entry = getattr(lib, f"eovax_gn_fwd_{_SUFFIX[x.dtype]}")
+    ada_rows = ada_stride != 0
     with torch.cuda.device(x.device):
-        code = getattr(lib, f"eovax_gn_fwd_{_SUFFIX[x.dtype]}")(
-            x.data_ptr(), out.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(ada_scale),
-            _ptr(ada_shift), ada_stride, _ptr(stats), _ptr(stats[1]) if with_stats else None,
-            b, c, groups, h * w, eps, int(swish), *plan,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(lib, code, "group_norm")
-    group_norm.launches += 1
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        plan = _fwd_plan(b, c, groups, n, itemsize, aligned=aligned)
+        for b0, b1 in _batch_blocks(b, groups, plan):
+            code = entry(
+                _row(x, b0), _row(out, b0), weight.data_ptr(), bias.data_ptr(),
+                _row(ada_scale, b0 if ada_rows else 0), _row(ada_shift, b0 if ada_rows else 0),
+                ada_stride, _row(stats[0], b0) if with_stats else None,
+                _row(stats[1], b0) if with_stats else None, b1 - b0, c, groups, n, eps,
+                int(swish), *plan, stream,
+            )
+            build.check(lib, code, "group_norm")
+            group_norm.launches += 1
     return (out, stats[0], stats[1]) if with_stats else out
 
 
@@ -286,6 +290,8 @@ class FwdPlan(NamedTuple):
     elements in NCHW: a cluster of ``cluster`` CTAs, each owning ``slice``
     elements on channel boundaries, the first ``resident`` of them (x) in
     ``smem_bytes`` of shared memory and the rest read from device memory twice.
+    With ``split`` (the pixel-split plan) the slices are cut anywhere in the
+    run: each CTA owns ``slice`` elements but the last, which owns the rest.
     ``cluster`` 0 is the warp plan: one warp holds the whole group (``slice``
     and ``resident`` its cpg·n elements) in registers, with no shared memory."""
 
@@ -293,6 +299,7 @@ class FwdPlan(NamedTuple):
     slice: int
     resident: int
     smem_bytes: int
+    split: bool = False
 
 
 class BwdPlan(NamedTuple):
@@ -303,6 +310,7 @@ class BwdPlan(NamedTuple):
     slice: int
     resident: int
     smem_bytes: int
+    split: bool = False
 
 
 _CLUSTER_SIZES = (1, 2, 4, 8, 16)  # above 8 the card's non-portable cluster size
@@ -324,6 +332,8 @@ _BWD_SMEM_TARGET = 64 * 1024
 # Grow the cluster (where the slices allow) until the grid has this many CTAs:
 # two per SM of the H100's 132.
 _MIN_CTAS = 264
+# CTAs of one launch's grid (its x dimension); a larger grid runs in batch blocks.
+_MAX_GRID = 0x7FFFFFFF
 
 
 @functools.lru_cache(maxsize=256)
@@ -343,25 +353,38 @@ def _cluster_sizes(cpg: int, n: int, itemsize: int) -> tuple[int, ...]:
     return tuple(k for k in _CLUSTER_SIZES if splits(k))
 
 
+def _split_slice(span: int, k: int, unit: int) -> int:
+    """The pixel-split plan's slice for ``k`` CTAs: span/k rounded up to whole ``unit``s."""
+    return -(-span // (k * unit)) * unit
+
+
 def _plan(b: int, c: int, groups: int, n: int, itemsize: int, operands: int, target: int,
-          what: str, min_slice_bytes: int = 0) -> tuple[int, int, int]:
-    """(cluster, slice, resident) of a cluster kernel that holds ``operands``
+          min_slice_bytes: int = 0) -> tuple[int, int, int, bool]:
+    """(cluster, slice, resident, split) of a cluster kernel that holds ``operands``
     tensors of a CTA's slice in ``target`` bytes of shared memory: the smallest
     cluster whose slices fit (grown until the grid has ``_MIN_CTAS`` CTAs, while
     a slice keeps ``min_slice_bytes`` of x); where none fits, the largest, with
-    the resident part cut to the target and the rest streamed."""
+    the resident part cut to the target and the rest streamed. The cluster sizes
+    are those that cut a group on channel boundaries; where there is none, the
+    pixel-split plan's, whose slices are whole 16-byte vectors where n is (and
+    single elements otherwise) and leave every CTA at least one element."""
     cpg = c // groups
     span, vec = cpg * n, 16 // itemsize
     sizes = _cluster_sizes(cpg, n, itemsize)
-    if not sizes:
-        raise ValueError(f"{what}: no cluster plan for {cpg} channels a group")
-    fits = [k for k in sizes if operands * itemsize * (span // k) <= target]
+    split = not sizes
+    if split:
+        unit = vec if n % vec == 0 else 1
+        cut = functools.partial(_split_slice, span, unit=unit)
+        sizes = tuple(k for k in _CLUSTER_SIZES if (k - 1) * cut(k) < span)
+    else:
+        cut = span.__floordiv__
+    fits = [k for k in sizes if operands * itemsize * cut(k) <= target]
     k = fits[0] if fits else sizes[-1]
     for m in sizes:
-        if m > k and b * groups * k < _MIN_CTAS and itemsize * (span // m) >= min_slice_bytes:
+        if m > k and b * groups * k < _MIN_CTAS and itemsize * cut(m) >= min_slice_bytes:
             k = m
-    slice_ = span // k
-    return k, slice_, min(slice_, target // (operands * itemsize) // vec * vec)
+    slice_ = cut(k)
+    return k, slice_, min(slice_, target // (operands * itemsize) // vec * vec), split
 
 
 def _fwd_plan(b: int, c: int, groups: int, n: int, itemsize: int,
@@ -373,17 +396,16 @@ def _fwd_plan(b: int, c: int, groups: int, n: int, itemsize: int,
     if _warp_plan(c, groups, n, itemsize, aligned):
         span = c // groups * n
         return FwdPlan(0, span, span, 0)
-    k, slice_, resident = _plan(b, c, groups, n, itemsize, 1, _FWD_SMEM_TARGET, "group_norm",
-                                _FWD_MIN_SLICE_BYTES)
-    return FwdPlan(k, slice_, resident, itemsize * resident)
+    k, slice_, resident, split = _plan(b, c, groups, n, itemsize, 1, _FWD_SMEM_TARGET,
+                                       _FWD_MIN_SLICE_BYTES)
+    return FwdPlan(k, slice_, resident, itemsize * resident, split)
 
 
 def _bwd_plan(b: int, c: int, groups: int, n: int, itemsize: int) -> BwdPlan:
     """The backward kernel's plan, as :func:`_fwd_plan`, on ``_BWD_SMEM_TARGET``
     for x and g."""
-    k, slice_, resident = _plan(b, c, groups, n, itemsize, 2, _BWD_SMEM_TARGET,
-                                "group_norm_backward")
-    return BwdPlan(k, slice_, resident, 2 * itemsize * resident)
+    k, slice_, resident, split = _plan(b, c, groups, n, itemsize, 2, _BWD_SMEM_TARGET)
+    return BwdPlan(k, slice_, resident, 2 * itemsize * resident, split)
 
 
 def _warp_plan(c: int, groups: int, n: int, itemsize: int, aligned: bool) -> bool:
@@ -393,41 +415,41 @@ def _warp_plan(c: int, groups: int, n: int, itemsize: int, aligned: bool) -> boo
     return aligned and n % vec == 0 and span <= 32 * _WARP_VECS * vec
 
 
+def _batch_blocks(b: int, groups: int, plan: FwdPlan | BwdPlan) -> list[tuple[int, int]]:
+    """The batch rows [b0, b1) of each launch on ``plan`` (the plan of the whole
+    batch, which every block keeps): one launch where its grid (``groups``
+    clusters of ``plan.cluster`` CTAs a row; the warp plan a warp a group) holds
+    at most ``_MAX_GRID`` CTAs, else blocks of as many rows as fit."""
+    rows = max(1, _MAX_GRID // (groups * max(plan.cluster, 1)))
+    return [(b0, min(b0 + rows, b)) for b0 in range(0, b, rows)]
+
+
 def in_kernel_envelope(b: int, c: int, groups: int, n: int, itemsize: int, *,
                        forward: bool = True, aligned: bool = True) -> bool:
-    """Whether the forward kernel (or with ``forward`` False the backward) has a
-    plan for x [b, c, n] (n = H·W) in ``groups`` groups of elements of
-    ``itemsize`` bytes, x 16-byte ``aligned`` or not: the forward's warp plan, or a
-    cluster size that cuts a group on channel boundaries (:func:`_cluster_sizes`),
-    with at most 2³¹ − 1 CTAs in the grid (``shape_ok`` in ``csrc/groupnorm.cu``)."""
-    if min(b, c, groups, n) <= 0:
+    """Whether one launch of the forward kernel (or with ``forward`` False the
+    backward) takes x [b, c, n] (n = H·W) in ``groups`` groups of elements of
+    ``itemsize`` bytes, x 16-byte ``aligned`` or not. Every group has a plan (the
+    pixel-split plan where no cluster size cuts it on channel boundaries), so
+    this is whether the plan's grid holds at most ``_MAX_GRID`` CTAs; past it
+    the wrappers launch in batch blocks (:func:`_batch_blocks`)."""
+    if min(b, c, groups, n) <= 0 or c % groups:
         return False
-    if forward and _warp_plan(c, groups, n, itemsize, aligned):
-        return b * groups <= 0x7FFFFFFF
-    if not _cluster_sizes(c // groups, n, itemsize):
-        return False
-    if b * groups * _CLUSTER_SIZES[-1] <= 0x7FFFFFFF:  # any plan's grid fits
-        return True
     plan = (_fwd_plan(b, c, groups, n, itemsize, aligned) if forward
             else _bwd_plan(b, c, groups, n, itemsize))
-    return b * groups * plan.cluster <= 0x7FFFFFFF
-
-
-def _no_plan(what: str, shape, groups: int) -> str:
-    return (f"{what}: no kernel plan for x {tuple(shape)} in {groups} groups "
-            f"({shape[1] // groups} channels a group)")
+    return len(_batch_blocks(b, groups, plan)) == 1
 
 
 def active_clusters(plan: FwdPlan | BwdPlan, dtype: torch.dtype, vec: bool = True) -> int:
     """``cudaOccupancyMaxActiveClusters`` of the forward or backward kernel (by the
-    plan's type; its vectorized or scalar instance) for ``plan``: how many of its
-    clusters the card holds at once (the warp plan launches none: 0)."""
+    plan's type; its vectorized or scalar instance, on its plan's form) for
+    ``plan``: how many of its clusters the card holds at once (the warp plan
+    launches none: 0)."""
     if plan.cluster == 0:
         return 0
     lib = _library()
     count = ctypes.c_int()
     code = getattr(lib, f"eovax_gn_clusters_{_SUFFIX[dtype]}")(
-        int(isinstance(plan, FwdPlan)), plan.cluster, plan.smem_bytes, int(vec),
+        int(isinstance(plan, FwdPlan)), plan.cluster, plan.smem_bytes, int(vec), int(plan.split),
         ctypes.byref(count))
     build.check(lib, code, "active_clusters")
     return count.value
@@ -447,24 +469,31 @@ def _check_backward(g, x, mean, rstd, weight, bias, ada_scale, ada_shift) -> Non
 
 
 def _backward_kernel(g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
-    """Plan and launch the backward kernel on operands that :func:`_check_backward` took."""
+    """Plan and launch the backward kernel on operands that :func:`_check_backward`
+    took (adds one to ``group_norm_backward.launches`` a launch)."""
     groups = mean.shape[-1]
     b, c, h, w = x.shape
-    ada_stride = 0 if ada_scale is None or ada_scale.dim() == 1 else c
+    n, itemsize = h * w, x.element_size()
+    ada_rows = ada_scale is not None and ada_scale.dim() == 2
     mean, rstd, weight, bias, ada_scale, ada_shift = _fp32(mean, rstd, weight, bias, ada_scale,
                                                            ada_shift)
-    plan = _bwd_plan(b, c, groups, h * w, x.element_size())
     dx = torch.empty_like(x)
     sums = torch.empty(2, b, c, device=x.device, dtype=torch.float32)
     lib = _library()
+    entry = getattr(lib, f"eovax_gn_bwd_{_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
-        code = getattr(lib, f"eovax_gn_bwd_{_SUFFIX[x.dtype]}")(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            weight.data_ptr(), bias.data_ptr(), _ptr(ada_scale), _ptr(ada_shift), ada_stride,
-            sums[0].data_ptr(), sums[1].data_ptr(), b, c, groups, h * w, int(swish), *plan,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    build.check(lib, code, "group_norm_backward")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        plan = _bwd_plan(b, c, groups, n, itemsize)
+        for b0, b1 in _batch_blocks(b, groups, plan):
+            at = b0 if ada_rows else 0
+            code = entry(
+                _row(x, b0), _row(g, b0), _row(dx, b0), _row(mean, b0), _row(rstd, b0),
+                weight.data_ptr(), bias.data_ptr(), _row(ada_scale, at), _row(ada_shift, at),
+                c if ada_rows else 0, _row(sums[0], b0), _row(sums[1], b0), b1 - b0, c, groups,
+                n, int(swish), *plan, stream,
+            )
+            build.check(lib, code, "group_norm_backward")
+            group_norm_backward.launches += 1
     return dx, sums[0], sums[1]
 
 
@@ -489,20 +518,15 @@ def group_norm_backward(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor, rs
     in fp32, the AdaIN ones None without AdaIN and summed over B for a [C] AdaIN.
 
     CPU tensors take :func:`group_norm_backward_plain`; CUDA tensors launch the
-    backward kernel once (and add one to ``group_norm_backward.launches``) or
-    raise. The parameter gradients are a few tensor ops on the kernel's
-    per-plane sums.
+    backward kernel once (a batch block a launch past :func:`in_kernel_envelope`;
+    each adds one to ``group_norm_backward.launches``) or raise. The parameter
+    gradients are a few tensor ops on the kernel's per-plane sums.
     """
     if x.device.type == "cpu":
         return group_norm_backward_plain(g, x, mean, rstd, weight, bias, ada_scale=ada_scale,
                                          ada_shift=ada_shift, swish=swish)
     _check_backward(g, x, mean, rstd, weight, bias, ada_scale, ada_shift)
-    b, c, h, w = x.shape
-    if not in_kernel_envelope(b, c, mean.shape[-1], h * w, x.element_size(), forward=False):
-        raise ValueError(_no_plan("group_norm_backward", x.shape, mean.shape[-1]))
-    out = _backward(_backward_kernel, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
-    group_norm_backward.launches += 1
-    return out
+    return _backward(_backward_kernel, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish)
 
 
 def group_norm_backward_plain(g, x, mean, rstd, weight, bias, *, ada_scale=None, ada_shift=None,
@@ -539,9 +563,9 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups
     the optional SiLU; the output has ``x.dtype``.
 
     CPU tensors take :func:`group_norm_plain`; CUDA tensors launch the forward
-    kernel once (and add one to ``group_norm.launches``) or raise. Where grad
-    is enabled and an input requires it, the output carries the backward of
-    :func:`group_norm_backward`.
+    kernel once (a batch block a launch past :func:`in_kernel_envelope`; each adds
+    one to ``group_norm.launches``) or raise. Where grad is enabled and an input
+    requires it, the output carries the backward of :func:`group_norm_backward`.
     """
     inputs = (x, weight, bias, ada_scale, ada_shift)
     if (torch.is_grad_enabled() and not torch.compiler.is_exporting()

@@ -49,7 +49,8 @@ VARIANTS = {
     "no-loads": [(_V_LOAD, ""), (_K_LOAD, ""),
                  (_PROLOGUE, "  load_tile<D>(sV, vb, 0, S, tid);\n" + _PROLOGUE)],
     "no-products": [(_QK, ""), (_PV, "    acc[0] += __uint_as_float(p[0][0] ^ p[3][3]);\n")],
-    "unrolled-loader": [("#pragma unroll 4", "#pragma unroll")],
+    "unrolled-loader": [("#pragma unroll 4  // unrolled fully",
+                         "#pragma unroll  // unrolled fully")],
 }
 
 

@@ -125,10 +125,12 @@ def test_non_cpu_non_cuda_tensor_raises():
 
 @pytest.mark.parametrize("shape,inside", [
     ((2, 64, 64), True), ((2, 64, 128), True), ((2, 64, 256), True), ((2, 64, 512), True),
-    ((2, 64, 96), False), ((2, 64, 32), False), ((2, 64, 1024), False), ((1, 16, 768), False),
-    ((65535, 16, 64), True), ((65536, 16, 64), False)])
+    ((2, 64, 96), False), ((2, 64, 32), False), ((2, 64, 1024), True), ((1, 16, 768), True),
+    ((65535, 16, 64), True), ((65536, 16, 64), False), ((2, 64, 520), False),
+    ((2, 64, 576), True)])
 def test_kernel_envelope_case_by_case(shape, inside):
-    """D in (64, 128, 256, 512) and B at most 65535 (the kernel's grid y)."""
+    """D in (64, 128, 256, 512), or a multiple of 64 above 512 (the D-split
+    kernel), and B at most 65535 (the kernel's grid y)."""
     assert attention.in_kernel_envelope(shape) == inside
 
 
@@ -160,11 +162,96 @@ def test_library_path_matches_jax_sdpa_auto(d, dtype):
 
 
 def test_widened_leaves_kernel_widths_and_raises_above_them():
+    """Kernel widths stay as they are, the D-split kernel's multiples of 64 above
+    512 too; a D above 512 between them is zero-padded to the next multiple of 64
+    with q unscaled (the D-split kernel takes the true D's scale), and no D
+    raises."""
     q = torch.zeros(1, 4, 128)
     assert all(a is b for a, b in zip(attention.widened(q, q, q), (q, q, q)))
     q = torch.zeros(1, 4, 1024)
-    with pytest.raises(ValueError, match="D=1024"):
-        attention.widened(q, q, q)
+    assert all(a is b for a, b in zip(attention.widened(q, q, q), (q, q, q)))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 520, seed=6))
+    wide = attention.widened(q, k, v)
+    assert all(t.shape == (1, 4, 576) for t in wide)
+    for t, ref in zip(wide, (q, k, v)):
+        assert torch.equal(t[..., :520], ref) and not t[..., 520:].any()
+
+
+def _replay_d_split(q, k, v, chunk=512, tile=64):
+    """The D-split kernel in plain PyTorch (fp32): D zero-padded to a multiple of
+    64; for each chunk of ``chunk`` output columns and each tile of ``tile`` keys,
+    the logits accumulated over d in pieces of ``chunk`` columns and scaled by
+    the true D's 1/√D, the online softmax (running max and sum), and the chunk's
+    O += P·V; then O divided by the row sums, less the padded columns."""
+    b, s, d = q.shape
+    dp = -(-d // 64) * 64
+    q, k, v = (torch.nn.functional.pad(t.float(), (0, dp - d)) for t in (q, k, v))
+    scale = 1.0 / d ** 0.5
+    out = torch.empty(b, s, dp)
+    for c0 in range(0, dp, chunk):
+        m = torch.full((b, s, 1), -torch.inf)
+        l_sum = torch.zeros(b, s, 1)
+        acc = torch.zeros(b, s, min(chunk, dp - c0))
+        for j0 in range(0, s, tile):
+            logits = torch.zeros(b, s, min(tile, s - j0))
+            for d0 in range(0, dp, chunk):
+                logits += q[..., d0:d0 + chunk] @ k[:, j0:j0 + tile, d0:d0 + chunk].transpose(1, 2)
+            logits = logits * scale
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l_sum = l_sum * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ v[:, j0:j0 + tile, c0:c0 + chunk]
+            m = m_new
+        out[..., c0:c0 + chunk] = acc / l_sum
+    return out[..., :d]
+
+
+@pytest.mark.parametrize("d", [520, 640, 1024])
+def test_d_split_matches_jax_sdpa_auto(d):
+    """Above D = 512, in fp32: the port's attention (the plain version on the CPU)
+    and the D-split kernel's arithmetic replayed in PyTorch (logits over D in
+    pieces of 512, output in chunks of 512 columns, 1/√D of the true D) against
+    the JAX package's ``sdpa_auto``, to the tolerance above."""
+    import jax.numpy as jnp
+
+    from eovax.kernels.attention import sdpa_auto
+
+    q, k, v = _qkv(2, 150, d, seed=7)
+    ref = np.asarray(sdpa_auto(*map(jnp.asarray, (q, k, v))))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    np.testing.assert_allclose(attention.flash_attention(*t).numpy(), ref, **TOL)
+    np.testing.assert_allclose(_replay_d_split(*t).numpy(), ref, **TOL)
+
+
+def test_attn_block_at_640_channels_matches_jax():
+    """The port's ``AttnBlock`` over a 640-channel latent (D = 640: the D-split
+    kernel's width on the card) against the JAX package's, with the JAX block's
+    variables perturbed by N(0, 0.05) and carried across by
+    ``state_dict_from_variables``; fp32, other summation orders over 640
+    channels: within 1e-5 of max |reference|."""
+    import jax
+    import jax.numpy as jnp
+
+    from eovax.nn import blocks as jb
+    from eovax_torch.nn import blocks as tb
+    from eovax_torch.utils.convert import state_dict_from_variables
+
+    x = np.random.default_rng(8).standard_normal((2, 640, 6, 7)).astype(np.float32)
+    xj = jnp.asarray(np.transpose(x, (0, 2, 3, 1)))
+    jmod = jb.AttnBlock(in_channels=640)
+    noise = np.random.default_rng(9)
+    variables = jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + noise.normal(0.0, 0.05, a.shape)).astype(np.float32),
+        jmod.init(jax.random.PRNGKey(0), xj))
+    ref = np.transpose(np.asarray(jmod.apply(jax.tree_util.tree_map(jnp.asarray, variables), xj)),
+                       (0, 3, 1, 2))
+    block = tb.AttnBlock(640)
+    block.load_state_dict(state_dict_from_variables(variables), strict=True)
+    with torch.no_grad():
+        out = block.eval()(torch.from_numpy(x)).numpy()
+    err = np.abs(out - ref).max()
+    assert err <= 1e-5 * np.abs(ref).max(), (err, np.abs(ref).max())
 
 
 def test_kernel_library_is_keyed_by_source_hash():
@@ -255,12 +342,32 @@ def test_outside_the_envelope_widens_for_the_kernel_on_card(cuda_device, b, d, d
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,dtype", [
+    (2, 77, 520, torch.bfloat16), (2, 77, 520, torch.float32), (3, 333, 640, torch.bfloat16),
+    (2, 129, 640, torch.float32), (1, 1037, 1024, torch.bfloat16), (2, 65, 1024, torch.float32),
+    (1, 257, 2048, torch.bfloat16), (1, 33, 2048, torch.float32)])
+def test_d_split_kernel_matches_plain_on_card(cuda_device, b, s, d, dtype):
+    """D above 512 on the D-split kernel (D = 520 padded to 576; 640, 1024 and
+    2048 as they are), odd S: one launch, within the card's tolerances of the
+    plain version (bf16 2e-2, fp32 1e-4 of max |reference|)."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + s)
+    q, k, v = (torch.randn(b, s, d, generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    before = attention.flash_attention.launches
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and out.is_contiguous()
+    ref = attention.flash_attention_plain(q, k, v).float()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
-    """Operand errors raise, and D above the widest kernel; a narrower width
-    is widened for it (``test_outside_the_envelope_widens_for_the_kernel_on_card``)."""
-    q = torch.zeros(1, 64, 1024, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="D=1024"):
-        attention.flash_attention(q, q, q)
+    """Operand errors raise; a width the kernels lack is widened for them
+    (``test_outside_the_envelope_widens_for_the_kernel_on_card``), and D above
+    512 goes to the D-split kernel (``test_d_split_kernel_matches_plain_on_card``)."""
     q = torch.zeros(1, 64, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtypes"):
         attention.flash_attention(q, q, q)

@@ -206,18 +206,21 @@ def test_non_cpu_non_cuda_tensor_raises():
         groupnorm.gn_channel_sums(x)
 
 
-# (B, C, groups, H·W, itemsize, forward, inside): a group that no cluster of up to
-# 16 CTAs cuts on channel boundaries (odd cpg above 64, 2·odd above 128, cpg
-# above 1024) is outside both kernels unless the forward's warp plan takes it
-# whole; every width of the shipped models (cpg 1-16) is inside.
+# (B, C, groups, H·W, itemsize, forward, inside): every group has a plan of both
+# kernels (a group that no cluster of up to 16 CTAs cuts on channel boundaries,
+# an odd cpg above 64, 2·odd above 128 or cpg above 1024, takes the pixel-split
+# plan; a group of at most 4 KiB the forward's warp plan), so one launch takes
+# every shape whose grid holds at most 2³¹ − 1 CTAs: at cpg 1 and n = 1, one
+# CTA a group, 2³¹/32 rows of 32 groups are one CTA too many.
 GN_ENVELOPE_CASES = [
     ((16, 128, 32, 65536, 2, True), True), ((16, 512, 32, 1024, 2, False), True),
     ((8, 64, 32, 256, 2, True), True), ((1, 32 * 64, 32, 4096, 2, False), True),
-    ((1, 32 * 65, 32, 64, 2, True), False), ((1, 32 * 65, 32, 64, 2, False), False),
+    ((1, 32 * 65, 32, 64, 2, True), True), ((1, 32 * 65, 32, 64, 2, False), True),
     ((1, 32 * 65, 32, 16, 2, True), True),  # the warp plan: 1040 elements, one warp
-    ((1, 32 * 65, 32, 16, 2, False), False), ((1, 32 * 130, 32, 64, 4, True), False),
-    ((1, 32 * 132, 32, 64, 4, True), True), ((1, 32 * 2048, 32, 64, 2, True), False),
+    ((1, 32 * 65, 32, 16, 2, False), True), ((1, 32 * 130, 32, 64, 4, True), True),
+    ((1, 32 * 132, 32, 64, 4, True), True), ((1, 32 * 2048, 32, 64, 2, True), True),
     ((0, 64, 32, 64, 2, True), False),
+    ((2 ** 26 - 1, 32, 32, 1, 2, True), True), ((2 ** 26, 32, 32, 1, 2, True), False),
 ]
 
 
@@ -241,9 +244,9 @@ def test_kernel_envelope_holds_every_shipped_width():
 
 @pytest.mark.parametrize("swish,ada", [(False, None), (True, "batched")])
 def test_library_path_matches_jax_outside_the_envelope(swish, ada):
-    """65 channels a group (C = 2080, 32 groups), where the card's kernels have
-    no plan and raise: the CPU's forward and backward against the JAX package's
-    ``group_norm`` and ``jax.vjp`` of it with AdaIN and swish."""
+    """65 channels a group (C = 2080, 32 groups), which the card's kernels take
+    on the pixel-split plan: the CPU's forward and backward against the JAX
+    package's ``group_norm`` and ``jax.vjp`` of it with AdaIN and swish."""
     import jax
     import jax.numpy as jnp
 
@@ -251,7 +254,7 @@ def test_library_path_matches_jax_outside_the_envelope(swish, ada):
     from eovax.nn.blocks import swish as jax_swish
 
     b, c, groups = 2, 32 * 65, 32
-    assert not groupnorm.in_kernel_envelope(b, c, groups, 8 * 8, 4)
+    assert groupnorm.in_kernel_envelope(b, c, groups, 8 * 8, 4)
     x = _x((b, c, 8, 8), seed=20, loc=0.5)
     w, bias = _params(c, seed=21)
     rng = np.random.default_rng(22)
@@ -277,6 +280,93 @@ def test_library_path_matches_jax_outside_the_envelope(swish, ada):
                                                 swish=swish, **kw)
     for got, want in zip(grads, [_nchw(refs[0])] + [np.asarray(r) for r in refs[1:]]):
         np.testing.assert_allclose(got.numpy(), want, **TOL_BWD)
+
+
+# (shape, groups) whose groups no cluster cuts on channel boundaries: 65 channels
+# a group (odd above 64; n 128², 8², 5·7 ragged and 1), 130 (twice an odd number
+# above 128) and GroupNorm(1, 2048) (above 1024).
+SPLIT_SHAPES = [((4, 2080, 128, 128), 32), ((2, 2080, 8, 8), 32), ((2, 2080, 5, 7), 32),
+                ((2, 2080, 1, 1), 32), ((2, 4160, 24, 24), 32), ((4, 2048, 64, 64), 1),
+                ((2, 2048, 4, 4), 1), ((2, 2048, 1, 1), 1)]
+
+
+def _check_split_plan(plan, c, groups, n, itemsize, operands):
+    """The pixel-split plan: ``cluster`` slices of ``slice`` elements cut anywhere
+    in the group's run, the last the rest and not empty; whole 16-byte vectors
+    where n is a whole number of them; every element of the group owned by one
+    CTA, in its resident or its streamed part, once."""
+    span, vec = c // groups * n, 16 // itemsize
+    assert plan.split and plan.cluster in (1, 2, 4, 8, 16)
+    assert (plan.cluster - 1) * plan.slice < span <= plan.cluster * plan.slice
+    assert 0 < plan.resident <= plan.slice
+    assert plan.smem_bytes == operands * itemsize * plan.resident <= MAX_SMEM
+    if n % vec == 0:
+        assert plan.slice % vec == 0 and plan.resident % vec == 0
+    cover = np.zeros(span, np.int32)
+    for q in range(plan.cluster):
+        lo = q * plan.slice
+        length = min(plan.slice, span - lo)
+        assert length > 0
+        res = min(plan.resident, length)
+        cover[lo:lo + res] += 1
+        cover[lo + res:lo + length] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape,groups", SPLIT_SHAPES,
+                         ids=["x".join(map(str, s)) + f"-G{g}" for s, g in SPLIT_SHAPES])
+def test_split_plan_partitions_each_group(shape, groups, itemsize, forward):
+    """Where no cluster size cuts a group on channel boundaries, both kernels take
+    the pixel-split plan (the forward's warp plan first where the group fits a
+    warp), and one launch takes the shape."""
+    b, c, h, w = shape
+    n = h * w
+    assert not groupnorm._cluster_sizes(c // groups, n, itemsize)
+    assert groupnorm.in_kernel_envelope(b, c, groups, n, itemsize, forward=forward)
+    if forward:
+        plan = groupnorm._fwd_plan(b, c, groups, n, itemsize)
+        if plan.cluster == 0:
+            assert groupnorm._warp_plan(c, groups, n, itemsize, True)
+            return
+        _check_split_plan(plan, c, groups, n, itemsize, operands=1)
+    else:
+        _check_split_plan(groupnorm._bwd_plan(b, c, groups, n, itemsize), c, groups, n,
+                          itemsize, operands=2)
+
+
+def test_split_plan_leaves_every_channel_cut_plan_as_it_was():
+    """The pixel-split plan is taken only where no cluster size cuts a group on
+    channel boundaries: every width of the shipped models keeps its plan."""
+    for c in (32, 64, 128, 256, 512):
+        for n in (16, 64, 256, 1024, 4096, 16384, 65536, 262144, 35):
+            for itemsize in (2, 4):
+                assert not groupnorm._fwd_plan(16, c, 32, n, itemsize).split
+                assert not groupnorm._bwd_plan(16, c, 32, n, itemsize).split
+
+
+@pytest.mark.parametrize("limit", [64, 1000, 2 ** 31 - 1])
+def test_batch_blocks_cover_the_batch_within_the_grid(monkeypatch, limit):
+    """Past the grid's 2³¹ − 1 CTAs (here also a grid cut to ``limit``) a call runs
+    as launches over blocks of the batch: each row in one block, in order, and
+    each block's grid within the limit."""
+    monkeypatch.setattr(groupnorm, "_MAX_GRID", limit)
+    shapes = [(7, 64, 32, 64), (5, 2080, 32, 64), (3, 2048, 1, 16)]
+    if limit == 2 ** 31 - 1:
+        shapes.append((2 ** 26 + 3, 32, 32, 1))  # one CTA a group: 2³¹ + 96 CTAs
+    for b, c, groups, n in shapes:
+        for plan in (groupnorm._fwd_plan(b, c, groups, n, 2),
+                     groupnorm._bwd_plan(b, c, groups, n, 2)):
+            blocks = groupnorm._batch_blocks(b, groups, plan)
+            assert blocks[0][0] == 0 and blocks[-1][1] == b
+            assert all(hi == lo for (_, hi), (lo, _) in zip(blocks, blocks[1:]))
+            per_row = groups * max(plan.cluster, 1)
+            if per_row <= limit:
+                assert all((b1 - b0) * per_row <= limit for b0, b1 in blocks)
+            assert (len(blocks) == 1) == (b * per_row <= limit)
+            assert groupnorm.in_kernel_envelope(b, c, groups, n, 2, forward=isinstance(
+                plan, groupnorm.FwdPlan)) == (len(blocks) == 1)
 
 
 def test_kernel_library_is_keyed_by_source_hash():
@@ -606,6 +696,150 @@ def test_fwd_plan_replay_matches_jax(monkeypatch, form, case):
         _assert_rel_max(rstd.numpy(), jax.lax.rsqrt(ref_var + 1e-6), tol)
 
 
+def _split_slices(plan, span):
+    """(first element, length) of each CTA's slice on the pixel-split plan."""
+    return [(q * plan.slice, min(plan.slice, span - q * plan.slice)) for q in range(plan.cluster)]
+
+
+def _replay_split_fwd(plan, x, weight, bias, ada_scale, ada_shift, swish, groups, eps=1e-6):
+    """The forward kernel on the pixel-split plan in plain PyTorch: per CTA of each
+    (b, group) cluster, Σx, Σ(x − K) and Σ(x − K)² over its slice about K, the
+    mean of the slice's first 256 elements; the group's mean from the partials
+    in rank order; each CTA's shifted sums moved to μ with its own length, in
+    rank order; then y = (x − μ)·a + c per channel. Returns (y, mean, rstd)."""
+    b, c, h, w = x.shape
+    cpg, n = c // groups, h * w
+    xf = x.float().reshape(b, groups, cpg * n)
+    parts = []
+    for lo, length in _split_slices(plan, cpg * n):
+        xs = xf[..., lo:lo + length]
+        shift = xs[..., :min(256, length)].mean(-1)
+        d = xs - shift[..., None]
+        parts.append((xs.sum(-1), shift, d.sum(-1), d.square().sum(-1), length))
+    total = torch.zeros(b, groups)
+    for part in parts:
+        total = total + part[0]
+    mu = total / (cpg * n)
+    m2 = torch.zeros(b, groups)
+    for _, shift, sd, sd2, length in parts:
+        dk = shift - mu
+        m2 = m2 + (sd2 + dk * (2.0 * sd + length * dk))
+    rstd = torch.rsqrt(m2.clamp_min(0.0) / (cpg * n) + eps)
+    y = _normalize_replay(x, mu, rstd, weight, bias, ada_scale, ada_shift, swish)
+    return y, mu, rstd
+
+
+def _normalize_replay(x, mu, rstd, weight, bias, ada_scale, ada_shift, swish):
+    b, c = x.shape[:2]
+    cpg = c // mu.shape[1]
+    s = (ada_scale if ada_scale is not None else torch.ones(c)).float().expand(b, c)
+    t = (ada_shift if ada_shift is not None else torch.zeros(c)).float().expand(b, c)
+    a = rstd.repeat_interleave(cpg, dim=1) * weight.float() * s
+    cc = bias.float() * s + t
+    y = ((x.float() - mu.repeat_interleave(cpg, dim=1)[:, :, None, None]) * a[:, :, None, None]
+         + cc[:, :, None, None])
+    return (torch.nn.functional.silu(y) if swish else y).to(x.dtype)
+
+
+def _replay_split_bwd(plan, g, x, mean, rstd, weight, bias, ada_scale, ada_shift, swish):
+    """The backward kernel on the pixel-split plan in plain PyTorch: per CTA and
+    per channel its slice touches, partial Σ dz and Σ dz·x̂; a channel whole in
+    one slice keeps its CTA's sums, a split one adds its CTAs' partials in rank
+    order; the group's Σ a·S1 and Σ a·S2 are each CTA's Σ a·(its partials), in
+    channel order, added in rank order; then dx = k1·dz + k0 + k2·x̂."""
+    b, c, h, w = x.shape
+    groups, n = mean.shape[1], h * w
+    cpg = c // groups
+    coef = groupnorm._plane_coefficients(x, mean, rstd, weight, bias, ada_scale, ada_shift)
+    xh, dz = groupnorm._xhat_dz(x, g, coef, swish)
+    xh, dz = xh.reshape(b, groups, cpg * n), dz.reshape(b, groups, cpg * n)
+    a = coef[2].reshape(b, groups, cpg)
+    s1, s2 = torch.zeros(b, groups, cpg), torch.zeros(b, groups, cpg)
+    g1, g2 = torch.zeros(b, groups), torch.zeros(b, groups)
+    for lo, length in _split_slices(plan, cpg * n):
+        t1, t2 = torch.zeros(b, groups), torch.zeros(b, groups)
+        for cc in range(lo // n, (lo + length - 1) // n + 1):
+            e0, e1 = max(cc * n, lo), min((cc + 1) * n, lo + length)
+            p1, p2 = dz[..., e0:e1].sum(-1), (dz * xh)[..., e0:e1].sum(-1)
+            s1[..., cc] += p1  # the channel's CTAs in rank order
+            s2[..., cc] += p2
+            t1, t2 = t1 + a[..., cc] * p1, t2 + a[..., cc] * p2
+        g1, g2 = g1 + t1, g2 + t2
+    r = coef[1].reshape(b, groups, cpg)
+    k0 = -r[..., :1] * g1[..., None] / (n * cpg)
+    k2 = -r[..., :1] * g2[..., None] / (n * cpg)
+    expand = (lambda v: v.repeat_interleave(n, dim=-1))
+    dx = expand(r * a) * dz + expand(k0.expand(-1, -1, cpg)) + expand(k2.expand(-1, -1, cpg)) * xh
+    return dx.reshape(x.shape).to(x.dtype), s1.reshape(b, c), s2.reshape(b, c)
+
+
+# (shape, groups) of the replays: 65 channels a group at n = 64 (slices cut
+# inside channels) and n = 35 (ragged), GroupNorm(1, 2048) at n = 16 (a slice
+# of 128 channels: two windows of the kernels').
+SPLIT_REPLAY_CASES = {"cpg65": ((2, 2080, 8, 8), 32), "cpg65-ragged": ((1, 2080, 5, 7), 32),
+                      "G1-C2048": ((2, 2048, 4, 4), 1)}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_REPLAY_CASES))
+def test_split_plan_replay_matches_jax(case):
+    """The pixel-split plan's partition and rank-order combines of both kernels,
+    replayed in fp32 with AdaIN [B, C] and swish, against the JAX package: the
+    forward (and the saved mean and rstd) against its ``_stats`` two-pass path +
+    ``_apply``, within 1e-5 of max |reference|; the backward's five gradients
+    against ``jax.vjp`` of its ``group_norm`` (``_gn_bwd``), AdaIN and SiLU,
+    within ``TOL_BWD``; and the port's ``group_norm`` and its autograd on the
+    CPU against the same references."""
+    import jax
+    import jax.numpy as jnp
+
+    from eovax.kernels.groupnorm import _apply, _stats
+    from eovax.kernels.groupnorm import group_norm as jax_group_norm
+    from eovax.nn.blocks import swish as jax_swish
+
+    shape, groups = SPLIT_REPLAY_CASES[case]
+    b, c, h, w = shape
+    fplan = groupnorm._fwd_plan(b, c, groups, h * w, 4)
+    bplan = groupnorm._bwd_plan(b, c, groups, h * w, 4)
+    assert fplan.split and bplan.split and bplan.cluster > 1, (fplan, bplan)
+    x = _x(shape, seed=40, loc=0.5)
+    wt, bias = _params(c, seed=41)
+    rng = np.random.default_rng(42)
+    ada = [(1.0 + 0.2 * rng.standard_normal((b, c))).astype(np.float32),
+           (0.2 * rng.standard_normal((b, c))).astype(np.float32)]
+    g = rng.standard_normal(shape).astype(np.float32)
+    t = [torch.from_numpy(a) for a in [x, wt, bias] + ada]
+
+    xj = jnp.asarray(_nhwc(x))
+    ref_mean, ref_var = _stats(xj, groups, use_pallas=False)
+    y = _apply(xj, ref_mean, ref_var, jnp.asarray(wt), jnp.asarray(bias), groups, 1e-6)
+    y = jax_swish(y * jnp.asarray(ada[0])[:, None, None, :] + jnp.asarray(ada[1])[:, None, None, :])
+    got, mean, rstd = _replay_split_fwd(fplan, *t, swish=True, groups=groups)
+    _assert_rel_max(got.numpy(), _nchw(y), 1e-5)
+    _assert_rel_max(mean.numpy(), ref_mean, 1e-5)
+    _assert_rel_max(rstd.numpy(), jax.lax.rsqrt(ref_var + 1e-6), 1e-5)
+
+    def jax_fn(xx, ww, bb, sc, sh):
+        yy = jax_group_norm(xx, ww, bb, groups, 1e-6, False)
+        return jax_swish(yy * sc[:, None, None, :] + sh[:, None, None, :])
+
+    _, vjp = jax.vjp(jax_fn, xj, *map(jnp.asarray, [wt, bias] + ada))
+    refs = vjp(jnp.asarray(_nhwc(g)))
+    refs = [_nchw(refs[0])] + [np.asarray(r) for r in refs[1:]]
+    mean, rstd = groupnorm.group_stats_plain(t[0], groups, 1e-6)
+    grads = groupnorm._backward(lambda *args: _replay_split_bwd(bplan, *args), torch.from_numpy(g),
+                                t[0], mean, rstd, t[1], t[2], t[3], t[4], True)
+    for got, ref in zip(grads, refs):
+        np.testing.assert_allclose(got.numpy(), ref, **TOL_BWD)
+
+    # The port's own group_norm (its CPU path) and its autograd, at the same widths.
+    inputs = [v.clone().requires_grad_() for v in t]
+    out = groupnorm.group_norm(*inputs[:3], groups, 1e-6, ada_scale=inputs[3],
+                               ada_shift=inputs[4], swish=True)
+    _assert_rel_max(out.detach().numpy(), _nchw(y), 1e-5)
+    for got, ref in zip(torch.autograd.grad(out, inputs, torch.from_numpy(g)), refs):
+        np.testing.assert_allclose(got.numpy(), ref, **TOL_BWD)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -712,18 +946,80 @@ def test_backward_kernels_match_plain_on_card(cuda_device, shape, dtype, ada, sw
         assert (a.float() - r.float()).abs().max().item() <= tol * r.abs().max().item(), name
 
 
+# (shape, groups) on the pixel-split plan on the card: 65 channels a group
+# (n 8², 16² and 5·7, ragged), 130 a group, and GroupNorm(1, 2048) at n = 16 and 1.
+CARD_SPLIT_CASES = [((2, 2080, 8, 8), 32), ((2, 2080, 16, 16), 32), ((3, 2080, 5, 7), 32),
+                    ((2, 4160, 24, 24), 32), ((2, 2048, 4, 4), 1), ((2, 2048, 1, 1), 1)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_outside_the_envelope_raises_on_card(cuda_device, dtype):
-    """65 channels a group: no plan of either kernel cuts the group, so the
-    forward and the backward raise rather than compute off the kernels."""
-    x, w, bias, kw = _card_inputs(cuda_device, (2, 32 * 65, 8, 8), dtype, "batched", loc=0.5)
-    with pytest.raises(ValueError, match="65 channels a group"):
-        groupnorm.group_norm(x, w, bias, swish=True, **kw)
-    mean, rstd = (t.to(cuda_device) for t in groupnorm.group_stats_plain(x.cpu(), 32, 1e-6))
-    with pytest.raises(ValueError, match="65 channels a group"):
-        groupnorm.group_norm_backward(torch.ones_like(x), x, mean, rstd, w, bias, swish=True,
-                                      **kw)
+@pytest.mark.parametrize("shape,groups", CARD_SPLIT_CASES,
+                         ids=["x".join(map(str, s)) + f"-G{g}" for s, g in CARD_SPLIT_CASES])
+def test_pixel_split_plan_matches_plain_on_card(cuda_device, shape, groups, dtype):
+    """Groups that no cluster cuts on channel boundaries, on the pixel-split plan:
+    the forward (one launch) and the backward (one launch) with AdaIN [B, C] and
+    swish against the plain versions, and two calls of each bit-identical."""
+    b, c, h, w = shape
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    assert groupnorm._bwd_plan(b, c, groups, h * w, itemsize).split
+    x, wt, bias, kw = _card_inputs(cuda_device, shape, dtype, "batched", loc=0.5)
+    args = (x, wt, bias, groups, 1e-6, kw["ada_scale"], kw["ada_shift"], True)
+    before = (groupnorm.group_norm.launches, groupnorm.group_norm_backward.launches)
+    first = groupnorm._forward(*args, with_stats=True)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    grad = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    mean, rstd = groupnorm.group_stats_plain(x, groups, 1e-6)
+    bargs = (grad, x, mean, rstd, wt, bias, kw["ada_scale"], kw["ada_shift"], True)
+    dfirst = groupnorm._backward_kernel(*bargs)
+    torch.cuda.synchronize()
+    assert (groupnorm.group_norm.launches, groupnorm.group_norm_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    second = groupnorm._forward(*args, with_stats=True)
+    dsecond = groupnorm._backward_kernel(*bargs)
+    torch.cuda.synchronize()
+    for u, v in zip(first + dfirst, second + dsecond):
+        assert torch.equal(u, v)
+    ref = groupnorm.group_norm_plain(x, wt, bias, groups, swish=True, **kw).float()
+    tol = TOL_FWD_CARD[dtype]
+    assert (first[0].float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    for got, want in zip(first[1:], (mean, rstd)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    got = groupnorm.group_norm_backward(grad, x, mean, rstd, wt, bias, swish=True, **kw)
+    ref = groupnorm.group_norm_backward_plain(grad, x, mean, rstd, wt, bias, swish=True, **kw)
+    for name, u, r in zip(("dx", "dw", "db", "ds", "dt"), got, ref):
+        tol = TOL_BWD_CARD[dtype] if name == "dx" else 1e-4
+        assert (u.float() - r.float()).abs().max().item() <= tol * r.abs().max().item(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,groups", [((5, 64, 8, 8), 32), ((5, 2080, 8, 8), 32)],
+                         ids=["warp-plan", "pixel-split"])
+def test_batch_blocks_on_card(cuda_device, monkeypatch, shape, groups):
+    """A grid past the limit (cut here to 64 CTAs) runs as one launch a batch
+    block, forward and backward, with each block's rows of x, the [B, C] AdaIN,
+    the saved statistics and the per-plane sums: the plain versions' results."""
+    monkeypatch.setattr(groupnorm, "_MAX_GRID", 64)
+    b, c, h, w = shape
+    x, wt, bias, kw = _card_inputs(cuda_device, shape, torch.float32, "batched", loc=0.5)
+    blocks = (len(groupnorm._batch_blocks(b, groups, groupnorm._fwd_plan(b, c, groups, h * w, 4))),
+              len(groupnorm._batch_blocks(b, groups, groupnorm._bwd_plan(b, c, groups, h * w, 4))))
+    assert min(blocks) > 1
+    before = (groupnorm.group_norm.launches, groupnorm.group_norm_backward.launches)
+    out, mean, rstd = groupnorm._forward(x, wt, bias, groups, 1e-6, kw["ada_scale"],
+                                         kw["ada_shift"], True, with_stats=True)
+    grad = torch.randn(shape, device=cuda_device)
+    got = groupnorm.group_norm_backward(grad, x, mean, rstd, wt, bias, swish=True, **kw)
+    torch.cuda.synchronize()
+    assert (groupnorm.group_norm.launches - before[0],
+            groupnorm.group_norm_backward.launches - before[1]) == blocks
+    ref = groupnorm.group_norm_plain(x, wt, bias, groups, swish=True, **kw)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    for u, r in zip((mean, rstd), groupnorm.group_stats_plain(x, groups, 1e-6)):
+        assert (u - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+    ref = groupnorm.group_norm_backward_plain(grad, x, mean, rstd, wt, bias, swish=True, **kw)
+    for u, r in zip(got, ref):
+        assert (u - r).abs().max().item() <= 1e-4 * r.abs().max().item()
 
 
 @pytest.mark.gpu
