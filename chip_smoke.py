@@ -180,10 +180,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    whose ``sr-final.pt`` ``eval_metric_super_res.main`` loads strictly.
 10. Stage-1 distillation at the full width of ``configs/weight_distill.yaml``
    (transformer generators, 4 layers, 256 planes; Flux-sized stems) in fp32
-   with TF32 off against a random teacher: 20 steps of ``run_distillation``
+   with TF32 off against a random teacher: 10 steps of ``run_distillation``
    on the card against the CPU (losses and generated stems within 1e-4
-   relative, the loss falls), ms/step, and ``weight_distill.main`` writing a
-   file that ``load_distilled_checkpoint`` reads back into a core.
+   relative, the loss falls), ms/step over 20 steps, and
+   ``weight_distill.main`` writing a file that ``load_distilled_checkpoint`` reads back into a core.
 11. Adversarial stage 2 at the full width of ``configs/finetune_gan.yaml``
    (the shipped body; EOPatchLoss over a spectral-norm DynamicPatchGAN, ndf
    128, 3 layers, its stem the encoder stem's 4-layer 256-plane generator,
@@ -194,7 +194,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    at [1,12,96,96] (MS-SSIM's five scales need more than 64 pixels); at
    12-band 256² B=16, exact launches per adversarial step 48 / 52 / 2 forward
    and 48 / 52 / 2 backward (the adaptive weight and the discriminator launch
-   no hand kernel); 2 warm-up and 10 timed steps on one batch (CUDA events),
+   no hand kernel); 2 warm-up and 5 timed steps on one batch (CUDA events),
    whose losses must be finite, the generator's reconstruction part (L1 +
    MS-SSIM) and the discriminator's loss falling from the first step (the
    whole generator loss is printed: its GAN term rises as the discriminator
@@ -230,7 +230,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    flash_attention against their plain versions at the bf16 limits; exact
    launches per adversarial step 48 / 52 / 2 forward and
    48 / 52 / 2 backward with the term on and with it off (DOFA launches no hand
-   kernel); 2 warm-up and 10 timed steps each way (CUDA events): ms/step,
+   kernel); 2 warm-up and 5 timed steps each way (CUDA events): ms/step,
    imgs/s, peak memory, the LPIPS forward's device time (events from hooks on
    the module), a profiled step's busy share, and DOFALPIPS alone (forward of
    both images and the input gradient) beside its operations from the shapes;
@@ -370,7 +370,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    [16,12,256,256] with exact launches 0 conv3x3 / 52 / 2 (its 48 ResnetBlock
    convs are Winograd products), its rms distance from the direct bf16 model
    within ``TOL_WINOGRAD_RMS``, and its time beside the direct bf16 model with
-   the hand conv kernel and with cuDNN's conv (CUDA events, 10 calls after 2).
+   the hand conv kernel and with cuDNN's conv (CUDA events, 5 calls after 2).
    (c) ``evaluate_metrics_tokenizer`` (2 synthetic S2L2A batches of 4) and
    ``visual_eval`` (S2L2A and S2RGB batches of 2) on phase 15's checkpoint,
    with their launches; ``slope_ms`` of a ``reconstruct`` [4,12,256,256]
@@ -382,10 +382,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 18. The benchmark CLI (``eovax_torch.cli.benchmark``, in this process).
    ``main(["--all"])`` at the CLI's widths and shapes, its depth cut by
    ``ALL_DEPTH``: ``reconstruct`` bf16 and int8 at 12-band 256² B=16 and the
-   bf16 serving artifact's (80 calls each, the slope of 5 and 15), the
-   stage-2 train step (48 steps, the slope of 3 and 9), the SR pipeline at LR
-   128² B=1 with DDIM-50 and DPM++(2M)-25 (6 calls of each stage a sampler)
-   and ``encode_split`` over 2 + 1 batches of 16 Sen2NAIP-shaped 512² pairs,
+   bf16 serving artifact's (48 calls each, the slope of 3 and 9), the
+   stage-2 train step (32 steps, the slope of 2 and 6), the SR pipeline at LR
+   128² B=1 with DDIM-50 and DPM++(2M)-25 (5 calls of each stage a sampler)
+   and ``encode_split`` over 1 + 1 batches of 16 Sen2NAIP-shaped 512² pairs,
    each after a warm batch; the serving section times phase 15's bf16
    artifact (the same architecture) in place of its own export. Each section
    is driven with the counts set to 0
@@ -402,10 +402,59 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    ``quality_launches``, and phase 2's widened calls' errors as
    ``widened_max_abs_err``.
 
+19. The shipped configurations no earlier phase runs, bf16, weights N(0, 0.02)
+   from numpy seeds. (a) ``configs_superres/pixel.yaml`` at full width
+   (``KarrasDenoiser`` + ``VPSchedule``, 4 bands + 4 conditioning at 512²,
+   widths 256/128/64, bottom attention over 16,384 tokens at D = 64): the
+   train step at [B,4,512,512] for B = 4 and 8 (16 where 8 took under half
+   the card; a batch that does not fit is said so on a line), each with
+   exact launches 46/48/1 + 46/48/1, ms/step, peak memory, the bytes the
+   tensor-op attention backward takes alone and a falling loss; gradients
+   card (fp32, bf16) vs fp32 on the CPU at [1,4,64,64] + cond; one UNet eval
+   at [4,4,512,512] beside its operations bound; DDIM-4 through
+   ``DiffusionSuperRes.sample`` at B = 2 with exact launches, and DDIM-4 fp32
+   against the CPU at [1,4,64,64]; the host collates' ms at B = 4; the SR
+   train CLI's pixel branch on copies of the config with and without
+   ``domain_adapted`` (2 steps at B = 2 and a save) through
+   ``Sen2NaipStub`` in place of ``Sen2NaipCrossSensor`` (rasterio). (b)
+   ``flux_vae_latent.yaml`` (Karras + VP) and ``eo_vae_latent_batch.yaml``
+   (Karras + ``DecaySchedule``, ``normalize: false``, clip 0.5) on phase 8's
+   UNet shapes: the train step at [16,32,64,64] under the config's clip
+   (exact launches, ms/step, a falling loss, the gradient norms before the
+   clip), DDIM-50 at B = 8 (2300/2400/50), gradients card vs CPU at
+   [2,32,32,32], the SR train CLI on latents ``write_latent_tree`` writes (4
+   steps, a save every 2, a validation; the datamodule's ``normalize`` held).
+   (c) ``configs/finetune_consistency_factor.yaml`` (factorized stem
+   generators) at 12-band 256² B=16 with phase 5's settings (the config's lr,
+   the warmup cut, MS-SSIM from step 0, the posterior's mode): exact launches
+   48/52/2 + 48/52/2, ms/step, peak memory, a falling loss; gradients card vs
+   CPU at [1,12,64,64] with the model in eval mode (the generators' dropout
+   off); the train CLI, 2 steps. (d) The consistency loss's optional terms
+   (SAM, gradient, focal frequency, DOFA v2 base features from phase 12's
+   full-width file), each alone at [1,12,96,96]: its value and its gradient
+   with respect to the reconstruction, fp32 on the card against the CPU; then
+   one step of (c)'s model with every term on, exact launches, each term
+   finite and positive. (e) At the pixel UNet's shapes: each hand kernel
+   against its plain version on the tensors of one B = 1 pixel train step
+   (``up[0].block[0]``'s ``norm1`` [1,512,512,512] and ``norm2`` with its
+   FiLM, forward and backward; ``conv1`` 512→256 and its dx; ``conv2``
+   256→256; the mid attention at S = 16,384), then at B = 4 (conv3x3
+   [4,512→256,512²] and [4,256→256,512²], GroupNorm + FiLM + SiLU
+   [4,512,512,512] forward and backward with its plan, flash attention
+   [4,16384,64] and the tensor-op backward's ms and bytes) timed beside its
+   plain version, the library call and the bound (``pixel_shapes`` in the
+   ``kernels`` line; CUDA-graph replays, CUDA events for the backward). The
+   ``kernels`` line's entries carry the pixel step's launches as
+   ``pixel_launches``, the DDIM-4 sample's as ``pixel_sample_launches``, each
+   Karras latent config's step's as ``karras_latent_launches`` and the
+   factorized step's as ``factor_launches``.
+
 Each profiled count is read from a trace that kept the records it counts: a
 trace's window is padded by ``PROFILE_PAD_S`` at both ends, a short trace is
 taken again, up to three in all, and a third short one fails the script; the
-``kernels`` line's ``profile_retries`` counts the traces taken again. Every drive also reads ``gn_channel_sums``'s launches, 0 on every path.
+``kernels`` line's ``profile_retries`` counts the traces taken again, and a line
+before it their sum. Every drive also reads ``gn_channel_sums``'s launches, 0 on
+every path.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with an error before any result.
@@ -2399,9 +2448,9 @@ def sr_phase(vae, vae_sd: dict, card: str, g) -> dict:
         for label, sampler in (("DDIM-50", ddim), ("DPM++(2M)-25", dpm),
                                ("cached DDIM-50", cached)):
             t0 = time.perf_counter()
-            ms = cuda_ms(lambda: sampler(unet, x1, cond8), 3, warmup=1)
+            ms = cuda_ms(lambda: sampler(unet, x1, cond8), 1, warmup=1)
             print(f"time SR {label} [8,32,64,64] bf16: {ms:.3f} ms a sample batch, "
-                  f"{8e3 / ms:.2f} latents/s (host wall {(time.perf_counter() - t0) * 1e3 / 4:.3f} "
+                  f"{8e3 / ms:.2f} latents/s (host wall {(time.perf_counter() - t0) * 1e3 / 2:.3f} "
                   f"ms a call) [{card}]")
         rows = profile_full("SR DDIM step [8,32,64,64] bf16",
                             lambda: DDIMSampler(denoiser, steps=1)(unet, x1, cond8), card,
@@ -2757,7 +2806,7 @@ def sr_train_phase(vae_sd: dict, card: str, g) -> dict:
     return counts
 
 
-DISTILL_CHECK_STEPS = 20
+DISTILL_CHECK_STEPS = 10
 
 
 def distill_phase(card: str) -> None:
@@ -2807,7 +2856,7 @@ def distill_phase(card: str) -> None:
     if not ok:
         raise AssertionError("distillation on the card disagrees with the CPU or did not fall")
 
-    timed = distill.DistillConfig(max_steps=50, log_every_n_steps=10**9,
+    timed = distill.DistillConfig(max_steps=20, log_every_n_steps=10**9,
                                   val_every_n_steps=10**9)
     model = EOFluxVAE(cfg, policy=FULL_PRECISION, device="cuda", seed=0)
     distill.run_distillation(model.core, teacher, distill.DistillConfig(max_steps=2))  # warm-up
@@ -2816,8 +2865,8 @@ def distill_phase(card: str) -> None:
     distill.run_distillation(model.core, teacher, timed)
     torch.cuda.synchronize()
     print(f"time distillation step (fp32, TF32 off): "
-          f"{(time.perf_counter() - t0) * 1e3 / timed.max_steps:.3f} ms/step over 50 steps "
-          f"[{card}]")
+          f"{(time.perf_counter() - t0) * 1e3 / timed.max_steps:.3f} ms/step over "
+          f"{timed.max_steps} steps [{card}]")
     del model
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_distill_", dir=ROOT / "build"))
@@ -3011,7 +3060,7 @@ def gan_phase(sd: dict, card: str, bare_ms: float) -> tuple[dict, float]:
         for v in marks.values():
             v.clear()
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: record(step()), 10, warmup=0)
+        ms = cuda_ms(lambda: record(step()), 5, warmup=0)
         peak = torch.cuda.max_memory_allocated()
         disc_ms = sum(a.elapsed_time(b) for a, b in marks["disc"]) / len(marks["disc"])
         weight_ms = sum(a.elapsed_time(b) for a, b in marks["weight"]) / len(marks["weight"])
@@ -3297,9 +3346,10 @@ def check_captured_body(mods: dict, captured: dict) -> None:
                 check_gn_backward(grad, x, mod.weight, mod.bias, label, **kw)
 
 
-def dofa_phase(card: str) -> dict:
+def dofa_phase(card: str, keep: Path) -> dict:
     """Phase 12: the DOFA perceptual term of ``finetune_dyn_conv_rgb.yaml`` on the
-    card. Returns the launches of one adversarial step with the term on."""
+    card. Writes its full-width DOFA file into ``keep`` (phase 19's feature term
+    reads it). Returns the launches of one adversarial step with the term on."""
     import copy
     import tempfile
 
@@ -3313,7 +3363,7 @@ def dofa_phase(card: str) -> dict:
     dev = torch.device("cuda")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dofa_", dir=ROOT / "build"))
     try:
-        pth = tmp / "dofav2_vit_base_e150.pth"
+        pth = keep / "dofav2_vit_base_e150.pth"
         nbytes = write_dofa_file(pth, seed=4)
         raw = dofa_yaml(pth)
         t0 = time.perf_counter()
@@ -3451,7 +3501,7 @@ def dofa_phase(card: str) -> dict:
                               launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
             marks.clear()
             torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(step, 10, warmup=0)
+            ms = cuda_ms(step, 5, warmup=0)
             peak = torch.cuda.max_memory_allocated()
             lpips_ms = (sum(a.elapsed_time(b) for a, b in marks) / len(marks)) if marks else 0.0
             tail = [{k: float(v) for k, v in logs.items()} for logs in logs_seen[-10:]]
@@ -4028,7 +4078,7 @@ def bases_phase(card: str, gan_ms: float) -> dict:
     logs, counts = drive("basis adversarial step [16,12,256,256] bf16 (generator + discriminator)",
                          step, launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(step, 10, warmup=0)
+    ms = cuda_ms(step, 5, warmup=0)
     peak = torch.cuda.max_memory_allocated()
     rec = [float(r["train/loss_rec"] + loss.ssim_weight * r["train/loss_msssim"]) for r in records]
     disc_losses = [float(r["train/loss_disc"]) for r in records]
@@ -4249,7 +4299,7 @@ def refine_phase(vae_sd: dict, card: str, g) -> dict:
                          step, REFINE_STEP)
     losses.append(loss)
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(lambda: losses.append(step()), 10, warmup=0)
+    ms = cuda_ms(lambda: losses.append(step()), 5, warmup=0)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
     print(f"flow-refine losses over {len(losses)} steps on one batch (fixed t and noise): "
@@ -4655,9 +4705,9 @@ def serving_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
             for label in ("artifact", "live", "live", "artifact"):
                 fn = ((lambda: served.reconstruct(x16[:b])) if label == "artifact"
                       else (lambda: model.reconstruct(x16[:b], s2)))
-                times.setdefault((b, label), []).append(cuda_ms(fn, 10))
+                times.setdefault((b, label), []).append(cuda_ms(fn, 5))
             print(f"time reconstruct [{b},12,256,256] bf16: artifact {times[b, 'artifact']} ms, "
-                  f"live model {times[b, 'live']} ms (CUDA events, 10 calls after 2, order A L L "
+                  f"live model {times[b, 'live']} ms (CUDA events, 5 calls after 2, order A L L "
                   f"A) [{card}]")
         # One request's path without HTTP: the payload to the card, the graph, the
         # reply to the host (as the daemon's handler runs it), 8 in a row.
@@ -5271,10 +5321,10 @@ def mesh_phase(model, sd: dict, card: str, g, keep: Path) -> dict:
     for label in (*fns, *reversed(fns)):
         blocks.conv3x3 = cudnn_conv if label == "direct cuDNN" else direct_conv
         try:
-            times.setdefault(label, []).append(cuda_ms(fns[label], 10))
+            times.setdefault(label, []).append(cuda_ms(fns[label], 5))
         finally:
             blocks.conv3x3 = direct_conv
-    print(f"time reconstruct [16,12,256,256] bf16: {times} ms (CUDA events, 10 calls after 2, "
+    print(f"time reconstruct [16,12,256,256] bf16: {times} ms (CUDA events, 5 calls after 2, "
           f"order W K C C K W) [{card}]")
     del wino, yw, yb
     torch.cuda.empty_cache()
@@ -5340,8 +5390,8 @@ QUALITY_MODALITIES = ("S2RGB", "S1RTC", "S2L2A", "S2L1C")
 # --all's depth here, cut from the CLI's (slope chains of 10 and 30 calls and of 6
 # and 18 steps, 20 iterations a SR stage, 4 + 2 bulk batches) to keep the script
 # inside its time on a slow host; the widths and shapes are the CLI's.
-ALL_DEPTH = {"ALL_LO": 5, "ALL_HI": 15, "TRAIN_LO": 3, "TRAIN_HI": 9, "SR_ITERS": 3,
-             "BULK_RUNS": (("uncompressed", False, 2), ("compressed", True, 1))}
+ALL_DEPTH = {"ALL_LO": 3, "ALL_HI": 9, "TRAIN_LO": 2, "TRAIN_HI": 6, "SR_ITERS": 2,
+             "BULK_RUNS": (("uncompressed", False, 1), ("compressed", True, 1))}
 
 
 def all_section_launches() -> dict:
@@ -5484,6 +5534,748 @@ def benchmark_phase(card: str, artifact: Path) -> dict:
     shutil.rmtree(tmp, ignore_errors=True)
     stamp("phase 18: benchmark --int8-quality")
     return {"sections": sections, "ledger": ledger, "quality_launches": quality_launches}
+
+
+PIXEL_CONFIG = ROOT / "configs_superres" / "pixel.yaml"
+# The Karras latent-SR configs on phase 8's UNet shapes.
+KARRAS_LATENT_CONFIGS = ("flux_vae_latent.yaml", "eo_vae_latent_batch.yaml")
+FACTOR_CONFIG = "finetune_consistency_factor.yaml"
+# The pixel train step's batches, tried in this order (16 only where 8 fits).
+PIXEL_BATCHES = (4, 8, 16)
+PIXEL_TIMED_STEPS = 4
+# The pixel UNet's bottom attention: 128² tokens at D = 64.
+PIXEL_TOKENS = 128 * 128
+# The consistency loss's optional terms, each alone over a zero pixel weight.
+CONSISTENCY_TERMS = ("spectral", "spatial", "freq", "feature")
+#  One term of the consistency loss and its gradient with respect to the
+#  reconstruction, fp32 on the card (TF32 off) vs the CPU: fp32 sums in other
+#  orders; the feature term through DOFA's 12 fp32 blocks.
+TOL_TERM = 1e-4
+
+
+def numpy_state_dict(module, seed: int) -> dict:
+    """N(0, 0.02) for every tensor of ``module``'s state, from one numpy seed."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(seed)
+    return {name: torch.from_numpy(g.normal(0.0, 0.02, tuple(t.shape)).astype(np.float32))
+            for name, t in module.state_dict().items()}
+
+
+def attention_backward_bytes(b: int, s: int, d: int, dev) -> int:
+    """Device bytes that ``flash_attention_backward`` takes above its bf16 [b, s, d]
+    inputs at its peak: the fp32 [b, s, s] probabilities, dP, dS and their temporaries."""
+    import torch
+
+    from eovax_torch.kernels.attention import flash_attention_backward
+
+    q, k, v, do = (torch.randn(b, s, d, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = flash_attention_backward(q, k, v, do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del q, k, v, do, grads
+    torch.cuda.empty_cache()
+    return peak
+
+
+def time_big_shape(name, shape, kernel, plain, library, flops, flops_per_s, nbytes, err, card,
+                   graphed: bool = True) -> dict:
+    """Kernel, plain and library device times at a shape whose calls take milliseconds:
+    CUDA-graph replays of 4 calls (``graphed``), else CUDA events over 4 calls after
+    one (autograd's backward), beside the bound."""
+    def timer(fn):
+        return graph_ms(fn, 4, 2) if graphed else cuda_ms(fn, 4, warmup=1)
+
+    row = dict(shape=list(shape), ms=timer(kernel), plain_ms=timer(plain),
+               library_ms=timer(library) if library is not None else None,
+               max_abs_err=err, timed_by="graph" if graphed else "events",
+               **bound(flops, flops_per_s, nbytes))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    lib = "null" if library is None else f"{row['library_ms']:.4f} ms"
+    print(f"time {name} {list(shape)} bf16: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {lib}, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}; {100 * row['bound_share']:.1f}% of it; "
+          f"{'CUDA-graph replays' if graphed else 'CUDA events'}) [{card}]")
+    return row
+
+
+class Sen2NaipStub:
+    """Stands in for ``Sen2NaipCrossSensor``, whose tifs need rasterio (the card's
+    machine has none): yields the batches its ``batches`` yields, the collate
+    it was built with applied to LR / HR pairs drawn uniformly over the two
+    sensors' value ranges. ``built`` records each construction."""
+
+    built: list = []
+
+    def __init__(self, root, split, *, collate, lr_size, hr_size):
+        Sen2NaipStub.built.append((split, collate.__name__, lr_size, hr_size))
+        self.collate, self.lr_size, self.hr_size = collate, lr_size, hr_size
+
+    def samples(self, n: int, g) -> list[dict]:
+        import numpy as np
+
+        return [{"image_lr": g.uniform(0, 4000, (self.lr_size, self.lr_size, 4)).astype(np.float32),
+                 "image_hr": g.uniform(0, 255, (self.hr_size, self.hr_size, 4)).astype(np.float32),
+                 "aoi": f"aoi{i}"} for i in range(n)]
+
+    def batches(self, batch_size: int, *, shuffle: bool = False, seed: int = 0,
+                repeat: bool = False, process_index: int = 0, process_count: int = 1):
+        import numpy as np
+
+        from eovax_torch.data.sen2naip import SEN2NAIP_WVS
+
+        g = np.random.default_rng(seed)
+        while True:
+            yield {**self.collate(self.samples(batch_size, g)), "wvs": SEN2NAIP_WVS}
+            if not repeat:
+                return
+
+
+def pixel_sr_phase(card: str, g) -> dict:
+    """Phase 19 (a) and (e): ``configs_superres/pixel.yaml`` at full width on 4-band
+    512² pixels, bf16. Returns the launches of its train step and of a DDIM-4
+    sample, the steps' times and memory, and its kernels' timed shapes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import yaml
+
+    from eovax_torch.cli import train_super_res
+    from eovax_torch.cli.train_super_res import build_denoiser_from_config
+    from eovax_torch.core.config import load_yaml
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data import sen2naip
+    from eovax_torch.kernels.attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_plain,
+    )
+    from eovax_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
+    from eovax_torch.kernels.groupnorm import (
+        group_norm,
+        group_norm_backward,
+        group_norm_backward_plain,
+        group_norm_plain,
+        group_stats_plain,
+    )
+    from eovax_torch.models.sr_diffusion import DDIMSampler
+    from eovax_torch.train.sr import DiffusionSuperRes
+
+    dev = g.device
+    raw = load_yaml(str(PIXEL_CONFIG))
+    lm, clip = raw["lightning_module"], raw["trainer"]["gradient_clip_val"]
+    denoiser, unet = build_denoiser_from_config(lm, policy=DEFAULT_POLICY, device=dev)
+    sd = numpy_state_dict(unet, seed=30)
+    unet.load_state_dict(sd)
+    d_attn = unet.hid_channels[-1]
+    print(f"pixel SR UNet ({PIXEL_CONFIG.name}): {sum(p.numel() for p in unet.parameters())} "
+          f"params, {type(denoiser).__name__} + {type(denoiser.schedule).__name__}, 4 bands + 4 "
+          f"conditioning at 512², widths {list(unet.hid_channels)} x blocks "
+          f"{list(unet.hid_blocks)}, bottom attention over {PIXEL_TOKENS} tokens at D = "
+          f"{d_attn}; bf16 compute, N(0, 0.02) weights from numpy seed 30 [{card}]")
+    sr = DiffusionSuperRes(denoiser=denoiser, init_params=unet, base_lr=1e-4, grad_clip=clip)
+    state = sr.init_state()
+
+    def batch(b: int, seed: int):
+        gb = torch.Generator(dev).manual_seed(seed)
+        hr, cond, eps = (torch.randn(b, 4, 512, 512, generator=gb, device=dev)
+                         for _ in range(3))
+        # t inside [0.2, 0.9], where the Karras weight 1/c_out² stays below 11 (VP).
+        return hr, cond, eps, 0.2 + 0.7 * torch.rand(b, generator=gb, device=dev)
+
+    # ---- (e) the kernels against their plain versions on one B=1 step's tensors ------
+    captured = {}
+
+    def capture(key):
+        def hook(mod, args, kwargs, out):  # returns None: the output stays as it is
+            captured[key] = (args[0].detach().clone(),
+                             {k: v.detach() if torch.is_tensor(v) else v
+                              for k, v in kwargs.items()})
+            out.register_hook(lambda grad: captured.__setitem__(key + "/grad", grad.clone()))
+        return hook
+
+    block, attn = state.model.up[0].block[0], state.model.mid_attn
+    mods = {"norm1": block.norm1, "conv1": block.conv1, "norm2": block.norm2,
+            "conv2": block.conv2, "attn": attn}
+    hooks = [m.register_forward_hook(capture(k), with_kwargs=True) for k, m in mods.items()]
+    hr, cond, eps, t = batch(1, seed=31)
+    sr.train_step(state, hr, cond, t=t, eps=eps)
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        for key in ("conv1", "conv2"):
+            conv = mods[key]
+            check_conv(captured[key][0], conv.weight, conv.bias, TOL_CONV_BF16,
+                       f"pixel up0-block0-{key}-captured")
+        check_conv_dx(captured["conv1/grad"].contiguous(), block.conv1.weight, TOL_CONV_BF16,
+                      "pixel up0-block0-conv1-captured")
+        for key in ("norm1", "norm2"):
+            xn, kw = captured[key]
+            norm = mods[key]
+            print(f"group_norm plan {list(xn.shape)} {xn.dtype}: "
+                  f"{gn_plan_line(tuple(xn.shape), xn.dtype, forward=True)}; backward "
+                  f"{gn_plan_line(tuple(xn.shape), xn.dtype, forward=False)}")
+            check_group_norm(xn, norm.weight, norm.bias, TOL_GN_BF16,
+                             f"pixel up0-block0-{key}-captured", {"as called": kw})
+            check_gn_backward(captured[key + "/grad"].contiguous(), xn, norm.weight, norm.bias,
+                              f"pixel up0-block0-{key}-captured", **kw)
+        check_attention(*attn.qkv_tokens(captured["attn"][0]), TOL_BF16,
+                        "pixel mid_attn-captured")
+    del captured, hr, cond, eps, t
+    torch.cuda.empty_cache()
+    stamp("phase 19 (e): pixel kernels vs plain on a B=1 step's tensors")
+
+    # ---- (a) the train step at B = 4, 8 (and 16 where 8 fits) ---------------------------
+    per_sample = sum(unet_flops(unet, *(torch.zeros(1, 4, 512, 512, device=dev),
+                                        torch.full((1,), 0.5, device=dev),
+                                        torch.zeros(1, 4, 512, 512, device=dev))).values())
+    steps = {}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for b in PIXEL_BATCHES:
+        if b == 16 and (8 not in steps or 2 * steps[8]["peak_bytes"] > total):
+            print(f"pixel SR train step [16,4,512,512] bf16: not tried, B = 8 "
+                  + ("did not fit" if 8 not in steps else
+                     f"took {steps[8]['peak_bytes'] / 2**30:.2f} GiB, more than half the "
+                     f"card's {total / 2**30:.1f} GiB") + f" [{card}]")
+            continue
+        hr, cond, eps, t = batch(b, seed=31 + b)
+
+        def step():
+            return sr.train_step(state, hr, cond, t=t, eps=eps)["train_loss"]
+
+        try:
+            where = "the tensor-op attention backward alone"
+            attn_bytes = attention_backward_bytes(b, PIXEL_TOKENS, d_attn, dev)
+            where = "the step"
+            torch.cuda.reset_peak_memory_stats()
+            losses = [step()]
+            loss, counts = drive(f"pixel SR train step [{b},4,512,512] bf16", step,
+                                 SR_TRAIN_STEP)
+            losses.append(loss)
+            ms = cuda_ms(lambda: losses.append(step()), PIXEL_TIMED_STEPS, warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+        except torch.cuda.OutOfMemoryError as exc:
+            print(f"pixel SR train step [{b},4,512,512] bf16 does not fit on the card "
+                  f"({total / 2**30:.1f} GiB; {where} ran out): {str(exc).splitlines()[0]} "
+                  f"[{card}]")
+            state.optimizer.zero_grad()
+            del hr, cond, eps, t
+            torch.cuda.empty_cache()
+            continue
+        losses = [float(v) for v in losses]
+        print(f"pixel SR train losses over {len(losses)} steps on one batch (fixed t and noise): "
+              f"{', '.join(f'{v:.5f}' for v in losses)}")
+        if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+            raise AssertionError(f"the pixel SR train loss at B = {b} is not finite or did "
+                                 "not fall")
+        bound_ms = 3.0 * b * per_sample / H100_BF16_FLOPS * 1e3
+        steps[b] = dict(ms=ms, peak_bytes=peak, attn_backward_bytes=attn_bytes, counts=counts)
+        print(f"time pixel SR train step [{b},4,512,512] bf16: {ms:.3f} ms/step, "
+              f"{b * 1e3 / ms:.2f} imgs/s, peak memory {peak / 2**30:.2f} GiB, the tensor-op "
+              f"attention backward alone {attn_bytes / 2**30:.2f} GiB "
+              f"({100 * attn_bytes / peak:.1f}% of the peak); operations bound {bound_ms:.3f} ms "
+              f"(3 x {per_sample / 1e12:.3f} TFLOP a sample, {100 * bound_ms / ms:.1f}% of it) "
+              f"[{card}]")
+        del hr, cond, eps, t
+        torch.cuda.empty_cache()
+    if not steps:
+        raise AssertionError("no batch of the pixel SR train step fits the card")
+    stamp("phase 19 (a): pixel SR train steps")
+
+    # ---- (a) the gradients on the card (fp32, bf16) against fp32 on the CPU ------------
+    gc = torch.Generator().manual_seed(33)
+    xs, cs, es = (torch.randn(1, 4, 64, 64, generator=gc) for _ in range(3))
+    ts = torch.tensor([0.6])
+
+    def grads(policy, device) -> dict:
+        den, model = build_denoiser_from_config(lm, policy=policy, device=device)
+        model.load_state_dict(sd)
+        den.loss(model, *(a.to(device) for a in (xs, ts, cs)), eps=es.to(device)).backward()
+        return {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+    ref = grads(FULL_PRECISION, "cpu")
+    for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
+                               ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
+        check_model_grads(f"pixel SR UNet, Karras loss, {label}", grads(policy, dev), ref, tol,
+                          "[1,4,64,64] + cond")
+    del ref
+    stamp("phase 19 (a): pixel SR gradients card vs CPU")
+
+    # ---- (a) sampling: one eval, DDIM-4 with exact launches, DDIM-4 against the CPU ----
+    gs = torch.Generator(dev).manual_seed(35)
+    with torch.inference_mode():
+        x4, c4 = (torch.randn(4, 4, 512, 512, generator=gs, device=dev) for _ in range(2))
+        t4 = torch.rand(4, generator=gs, device=dev)
+        eval_ms = cuda_ms(lambda: unet(x4, t4, c4), 3)
+    eval_bound = 4 * per_sample / H100_BF16_FLOPS * 1e3
+    print(f"time pixel SR UNet eval [4,4,512,512] bf16: {eval_ms:.3f} ms, operations bound "
+          f"{eval_bound:.3f} ms ({per_sample / 1e12:.3f} TFLOP a sample, "
+          f"{100 * eval_bound / eval_ms:.1f}% of it) [{card}]")
+    sr4 = DiffusionSuperRes(denoiser=denoiser, init_params=unet, sampler_steps=4)
+    state4 = sr4.init_state()
+    samples, sample_counts = drive(
+        "pixel SR sample DDIM-4 [2,4,512,512] bf16 (DiffusionSuperRes.sample)",
+        lambda: sr4.sample(state4, (2, 4, 512, 512), c4[:2], seed=0),
+        launches(*(4 * a for a in UNET_EVAL)))
+    if tuple(samples.shape) != (2, 4, 512, 512) or not torch.isfinite(samples).all():
+        raise AssertionError("the pixel DDIM-4 sample gave a wrong shape or non-finite values")
+    del x4, c4, t4, samples, state4, sr4
+    cpu_den, cpu_unet = build_denoiser_from_config(lm, policy=FULL_PRECISION, device="cpu")
+    cpu_unet.load_state_dict(sd)
+    _, unet32 = build_denoiser_from_config(lm, policy=FULL_PRECISION, device=dev)
+    unet32.load_state_dict(sd)
+    ddim = DDIMSampler(cpu_den, steps=4)
+    x1 = ddim.init(torch.Generator().manual_seed(36), (1, 4, 64, 64))
+    c1 = torch.randn(1, 4, 64, 64, generator=torch.Generator().manual_seed(37))
+    with torch.inference_mode():
+        ref, got = ddim(cpu_unet, x1, c1), ddim(unet32, x1.to(dev), c1.to(dev)).cpu()
+    err, rel = rel_err(got, ref)
+    ok = rel <= TOL_SAMPLER_F32 and bool(torch.isfinite(got).all())
+    print(f"pixel SR DDIM-4 fp32 on the card vs the CPU [1,4,64,64] + cond, one x1: "
+          f"max_abs_err={err:.3e} rel={rel:.3e} tol={TOL_SAMPLER_F32:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the pixel DDIM-4 sample on the card disagrees with the CPU")
+    del cpu_unet, unet32
+    stamp("phase 19 (a): pixel SR sampling")
+
+    # ---- (e) each kernel at the pixel UNet's shapes: kernel, plain, library, bound ------
+    rows = {"conv3x3": [], "group_norm": [], "group_norm_backward": [], "flash_attention": []}
+    with torch.inference_mode():
+        for ci, co in ((512, 256), (256, 256)):
+            x, w, bias = conv_inputs(4, ci, co, 512, 512, torch.bfloat16, g)
+            err = check_conv(x, w, bias, TOL_CONV_BF16, "pixel")
+            wb, bb = w.bfloat16(), bias.bfloat16()
+            rows["conv3x3"].append(time_big_shape(
+                "conv3x3", (4, ci, co, 512, 512), lambda: conv3x3(x, w, bias),
+                lambda: conv3x3_plain(x, w, bias), lambda: F.conv2d(x, wb, bb, padding=1),
+                2.0 * 4 * 512 * 512 * 9 * ci * co, H100_BF16_FLOPS,
+                2.0 * (x.numel() + w.numel() + co + 4 * co * 512 * 512), err, card))
+            del x
+            torch.cuda.empty_cache()
+    shape = (4, 512, 512, 512)
+    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(torch.bfloat16)
+    grad = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn(512, generator=g, device=dev)
+    bias = 0.1 * torch.randn(512, generator=g, device=dev)
+    film = gn_variants(4, 512, g)["adain[B,C]+swish"]
+    scale, shift = (film[k][:, :, None, None].bfloat16() for k in ("ada_scale", "ada_shift"))
+    wb, bb = w.bfloat16(), bias.bfloat16()
+    plans = {fwd: gn_plan(shape, torch.bfloat16, fwd) for fwd in (True, False)}
+    for fwd, (plan, _, clusters) in plans.items():
+        print(f"group_norm{'' if fwd else '_backward'} plan {list(shape)} bf16: "
+              f"{gn_plan_line(shape, torch.bfloat16, forward=fwd)}")
+    with torch.inference_mode():
+        err = check_group_norm(x, w, bias, TOL_GN_BF16, "pixel 16 channels a group",
+                               {"FiLM[B,C]+swish": film})["FiLM[B,C]+swish"]
+        row = time_big_shape(
+            "group_norm+FiLM[B,C]+swish", shape, lambda: group_norm(x, w, bias, **film),
+            lambda: group_norm_plain(x, w, bias, **film),
+            lambda: F.silu(F.group_norm(x, 32, wb, bb, 1e-6) * scale + shift),
+            GN_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS,
+            2.0 * x.numel() * 2 + 4.0 * 2 * film["ada_scale"].numel(), err, card)
+        rows["group_norm"].append(dict(row, plan=plans[True][0]._asdict(),
+                                       active_clusters=plans[True][2]))
+    err = check_gn_backward(grad, x, w, bias, "pixel FiLM[B,C]+swish", **film)
+    check_gn_backward_repeat(grad, x, w, bias, "pixel FiLM[B,C]+swish", **film)
+    stats = group_stats_plain(x, 32, 1e-6)
+    leaves = [a.detach().clone().requires_grad_() for a in (x, wb, bb, scale, shift)]
+    xr, wr, br, sr_, shr = leaves
+    y = F.silu(F.group_norm(xr, 32, wr, br, 1e-6) * sr_ + shr)
+    # The least traffic: x and g read once, dx written once.
+    row = time_big_shape(
+        "group_norm_backward+FiLM[B,C]+swish", shape,
+        lambda: group_norm_backward(grad, x, *stats, w, bias, **film),
+        lambda: group_norm_backward_plain(grad, x, *stats, w, bias, **film),
+        lambda: torch.autograd.grad(y, leaves, grad, retain_graph=True),
+        GN_BWD_FLOPS_PER_ELEMENT * x.numel(), H100_F32_FLOPS, 6.0 * x.numel(), err, card,
+        graphed=False)
+    rows["group_norm_backward"].append(dict(row, plan=plans[False][0]._asdict(),
+                                            active_clusters=plans[False][2]))
+    del x, grad, y, leaves, xr, stats
+    torch.cuda.empty_cache()
+    q1, k1, v1 = (torch.randn(1, PIXEL_TOKENS, d_attn, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(3))
+    err = check_attention(q1, k1, v1, TOL_BF16, "pixel S = 16384")
+    del q1, k1, v1
+    q, k, v, do = (torch.randn(4, PIXEL_TOKENS, d_attn, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    with torch.inference_mode():
+        row = time_big_shape(
+            "flash_attention", q.shape, lambda: flash_attention(q, k, v),
+            lambda: flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            4.0 * 4 * PIXEL_TOKENS * PIXEL_TOKENS * d_attn, H100_BF16_FLOPS, 4.0 * q.numel() * 2,
+            err, card)
+    row["backward_ms"] = cuda_ms(lambda: flash_attention_backward(q, k, v, do), 3, warmup=1)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    row["backward_bytes"] = attention_backward_bytes(4, PIXEL_TOKENS, d_attn, dev)
+    print(f"time flash_attention_backward (tensor ops) [4,{PIXEL_TOKENS},{d_attn}] bf16: "
+          f"{row['backward_ms']:.3f} ms, {row['backward_bytes'] / 2**30:.2f} GiB above its "
+          f"inputs [{card}]")
+    rows["flash_attention"].append(row)
+    stamp("phase 19 (e): pixel kernel shapes timed")
+
+    # ---- (a) the train CLI's pixel branch, both collates, through the stub ---------------
+    collates = (sen2naip.sen2naip_collate, sen2naip.sen2naip_domain_adapted_collate)
+    stub = Sen2NaipStub(None, "timing", collate=collates[0], lr_size=128, hr_size=512)
+    pairs = stub.samples(4, np.random.default_rng(38))
+    for collate in collates:
+        t0 = time.perf_counter()
+        out = collate(pairs)
+        collate_ms = (time.perf_counter() - t0) * 1e3
+        print(f"time {collate.__name__} on the host, B = 4 (LR 128² bicubic to 512², HR 512²): "
+              f"{collate_ms:.1f} ms a batch, image_lr {list(out['image_lr'].shape)} [{card}]")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pixel_", dir=ROOT / "build"))
+    real = sen2naip.Sen2NaipCrossSensor
+    try:
+        sen2naip.Sen2NaipCrossSensor = Sen2NaipStub
+        for adapted, collate in zip((False, True), collates):
+            cfg = yaml.safe_load(PIXEL_CONFIG.read_text())
+            cfg["experiment"]["exp_dir"] = str(tmp / f"exps_{adapted}")
+            cfg["datamodule"].update(root=str(tmp / "tifs"), batch_size=2, domain_adapted=adapted)
+            cfg["trainer"]["log_every_n_steps"] = 1
+            path = tmp / f"pixel_{adapted}.yaml"
+            path.write_text(yaml.safe_dump(cfg))
+            Sen2NaipStub.built.clear()
+            t0 = time.perf_counter()
+            drive(
+                f"train_super_res.main {PIXEL_CONFIG.name} (domain_adapted {adapted}) "
+                "--max-steps 2, B = 2",
+                lambda: train_super_res.main(["--config", str(path), "--max-steps", "2"]),
+                launches(*(2 * a for a in UNET_EVAL), *(2 * a for a in UNET_EVAL)))
+            cli_s = time.perf_counter() - t0
+            (exp,) = (tmp / f"exps_{adapted}").iterdir()
+            files = sorted(p.name for p in exp.iterdir())
+            with open(exp / "metrics.csv") as f:
+                lines = f.read().splitlines()
+            head = lines[0].split(",")
+            loss_rows = [dict(zip(head, ln.split(","))) for ln in lines[1:]]
+            values = [float(r["train_loss"]) for r in loss_rows if r.get("train_loss")]
+            built = [(s, c) for s, c, _, _ in Sen2NaipStub.built]
+            if (built != [("train", collate.__name__), ("val", collate.__name__)]
+                    or not {"sr-final.pt", "checkpoints", "metrics.csv"} <= set(files)
+                    or len(values) != 2 or not np.isfinite(values).all()):
+                raise AssertionError(f"the pixel CLI (domain_adapted {adapted}): datasets "
+                                     f"{built}, files {files}, losses {values}")
+            print(f"train_super_res pixel branch (domain_adapted {adapted}, {collate.__name__}): "
+                  f"{cli_s:.3f} s, {files}, losses {values} [{card}]")
+    finally:
+        sen2naip.Sen2NaipCrossSensor = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stamp("phase 19 (a): pixel SR train CLI")
+    return {"launches": steps[min(steps)]["counts"], "sample_launches": sample_counts,
+            "shapes": rows, "steps": steps}
+
+
+def karras_latent_phase(card: str, g) -> dict:
+    """Phase 19 (b): the Karras latent-SR configs at phase 8's UNet shapes, bf16: the
+    train step, its gradients against the CPU, DDIM-50 and the train CLI. Returns
+    each config's train-step launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from eovax_torch.cli import train_super_res
+    from eovax_torch.cli.train_super_res import build_denoiser_from_config
+    from eovax_torch.core.config import load_yaml
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.train.sr import DiffusionSuperRes
+
+    dev = g.device
+    counts = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_karras_", dir=ROOT / "build"))
+    try:
+        write_latent_tree(tmp / "latents", 16, seed=40)
+        for i, name in enumerate(KARRAS_LATENT_CONFIGS):
+            path = ROOT / "configs_superres" / name
+            raw = load_yaml(str(path))
+            lm, clip = raw["lightning_module"], raw["trainer"]["gradient_clip_val"]
+            denoiser, unet = build_denoiser_from_config(lm, policy=DEFAULT_POLICY, device=dev)
+            sd = numpy_state_dict(unet, seed=41 + i)
+            unet.load_state_dict(sd)
+            print(f"SR UNet ({name}): {sum(p.numel() for p in unet.parameters())} params, "
+                  f"{type(denoiser).__name__} + {type(denoiser.schedule).__name__}, clip {clip}, "
+                  f"datamodule normalize {raw['datamodule']['normalize']}, bf16 compute, "
+                  f"N(0, 0.02) weights from numpy seed {41 + i} [{card}]")
+
+            # -- the train step at [16,32,64,64]: launches, a falling loss, the clip.
+            sr = DiffusionSuperRes(denoiser=denoiser, init_params=unet, base_lr=1e-4,
+                                   grad_clip=clip)
+            state = sr.init_state()
+            hr, cond, eps = (torch.randn(16, 32, 64, 64, generator=g, device=dev)
+                             for _ in range(3))
+            t = 0.2 + 0.7 * torch.rand(16, generator=g, device=dev)
+            norms, opt_step = [], state.optimizer.step
+
+            def spy():  # the gradient's norm before the clip
+                norms.append(opt_step())
+                return norms[-1]
+
+            state.optimizer.step = spy
+
+            def step():
+                return sr.train_step(state, hr, cond, t=t, eps=eps)["train_loss"]
+
+            losses = [step()]
+            loss, counts[name] = drive(f"SR train step {name} [16,32,64,64] bf16", step,
+                                       SR_TRAIN_STEP)
+            losses.append(loss)
+            ms = cuda_ms(lambda: losses.append(step()), 6, warmup=0)
+            losses, norms = [float(v) for v in losses], [float(v) for v in norms]
+            print(f"SR train losses {name} over {len(losses)} steps on one batch (fixed t and "
+                  f"noise): {', '.join(f'{v:.5f}' for v in losses)}; gradient norms before the "
+                  f"clip at {clip}: {min(norms):.4g}-{max(norms):.4g}")
+            if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+                raise AssertionError(f"the SR train loss of {name} is not finite or did not fall")
+            print(f"time SR train step {name} [16,32,64,64] bf16: {ms:.3f} ms/step, "
+                  f"{16e3 / ms:.2f} latents/s [{card}]")
+
+            # -- DDIM-50 at B = 8, the config's sampler, exact launches; the driven call
+            # timed by CUDA events.
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+            def sample():
+                events[0].record()
+                out = sr.sample(state, (8, 32, 64, 64), cond[:8], seed=0)
+                events[1].record()
+                return out
+
+            samples, _ = drive(f"SR sample DDIM-50 {name} [8,32,64,64] bf16", sample,
+                               launches(*(50 * a for a in UNET_EVAL)))
+            if tuple(samples.shape) != (8, 32, 64, 64) or not torch.isfinite(samples).all():
+                raise AssertionError(f"DDIM-50 of {name} gave a wrong shape or non-finite values")
+            ms = events[0].elapsed_time(events[1])
+            print(f"time SR DDIM-50 {name} [8,32,64,64] bf16: {ms:.3f} ms a sample batch, "
+                  f"{8e3 / ms:.2f} latents/s [{card}]")
+            del state, sr, hr, cond, eps, samples
+            torch.cuda.empty_cache()
+
+            # -- the gradients on the card (fp32, bf16) against fp32 on the CPU.
+            gc = torch.Generator().manual_seed(43 + i)
+            x2, c2, e2 = (torch.randn(2, 32, 32, 32, generator=gc) for _ in range(3))
+            t2 = torch.tensor([0.83, 0.27])
+
+            def grads(policy, device) -> dict:
+                den, model = build_denoiser_from_config(lm, policy=policy, device=device)
+                model.load_state_dict(sd)
+                den.loss(model, *(a.to(device) for a in (x2, t2, c2)),
+                         eps=e2.to(device)).backward()
+                return {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+            ref = grads(FULL_PRECISION, "cpu")
+            for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
+                                       ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
+                check_model_grads(f"SR UNet {name}, Karras loss, {label}", grads(policy, dev),
+                                  ref, tol, "[2,32,32,32]")
+            del ref
+
+            # -- the train CLI on a copy of the config: 4 steps, a save every 2, a
+            # validation at step 4 (DDIM-50 twice: the image grid's and the val MSE's).
+            cfg = yaml.safe_load(path.read_text())
+            cfg["experiment"]["exp_dir"] = str(tmp / f"exps_{i}")
+            cfg["datamodule"]["root"] = str(tmp / "latents")
+            cfg["trainer"].update(log_every_n_steps=1, ckpt_every=2, val_every=4,
+                                  limit_val_batches=1)
+            copy = tmp / name
+            copy.write_text(yaml.safe_dump(cfg))
+            train_ds, _ = train_super_res._datasets(cfg["datamodule"])
+            with np.load(train_ds.paths[0]) as data:
+                stored = np.transpose(data["hr_latent"], (1, 2, 0))
+            normalized = not np.array_equal(train_ds[0]["image_hr"], stored)
+            if normalized != cfg["datamodule"]["normalize"]:
+                raise AssertionError(f"{name}: the datamodule's normalize "
+                                     f"{cfg['datamodule']['normalize']} not applied")
+            t0 = time.perf_counter()
+            drive(f"train_super_res.main {name} --max-steps 4, a save every 2, a validation",
+                  lambda: train_super_res.main(["--config", str(copy), "--max-steps", "4"]),
+                  launches(*(104 * a for a in UNET_EVAL), *(4 * a for a in UNET_EVAL)))
+            cli_s = time.perf_counter() - t0
+            (exp,) = (tmp / f"exps_{i}").iterdir()
+            files = sorted(p.name for p in exp.iterdir())
+            if not {"sr-final.pt", "sr-best.pt", "metrics.csv", "checkpoints"} <= set(files):
+                raise AssertionError(f"train_super_res {name} wrote {files}")
+            print(f"train_super_res {name}: {cli_s:.3f} s, {files}; latents "
+                  f"{'normalized' if normalized else 'as stored'} [{card}]")
+            torch.cuda.empty_cache()
+            stamp(f"phase 19 (b): {name}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def factor_phase(card: str, dofa_pth: Path) -> dict:
+    """Phase 19 (c) and (d): ``configs/finetune_consistency_factor.yaml`` (factorized
+    stem generators) at full width, and the consistency loss's optional terms.
+    Returns the launches of one stage-2 step."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from eovax_torch import EOFluxVAE
+    from eovax_torch.cli import train as train_cli
+    from eovax_torch.core.config import VAEConfig, load_yaml
+    from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
+    from eovax_torch.data.wavelengths import wavelengths_for
+    from eovax_torch.losses.consistency import charbonnier_loss
+    from eovax_torch.losses.factory import build_loss_from_config
+    from eovax_torch.train import stage2
+
+    dev = torch.device("cuda")
+    raw = load_yaml(str(ROOT / "configs" / FACTOR_CONFIG))
+    cfg = dataclasses.replace(VAEConfig.from_dict(raw), final_lr=None, sample_posterior=False)
+    stems = {cfg.encoder.stem.generator_type, cfg.decoder.stem.generator_type}
+    if stems != {"factorized"}:
+        raise AssertionError(f"{FACTOR_CONFIG}: stem generators {stems}")
+    base = EOFluxVAE(cfg, device="cpu", seed=0)
+    sd = bench_state_dict(base, seed=50)
+    print(f"factorized model ({FACTOR_CONFIG}): {base.param_count()} params, factorized stem "
+          f"generators ({cfg.encoder.stem.num_layers} layers, {cfg.encoder.stem.wv_planes} "
+          f"planes, rank ratio {cfg.encoder.stem.rank_ratio}), weights N(0, 0.02) [{card}]")
+    del base
+    s2 = torch.tensor(wavelengths_for("S2L2A"))
+
+    # ---- (c) the stage-2 step at 12-band 256² B=16 bf16, phase 5's settings -----------
+    # The config's loss (Charbonnier + MS-SSIM) with MS-SSIM from step 0, its lr
+    # 2e-4 without the warmup, the posterior's mode.
+    loss, _, _ = build_loss_from_config({**raw["model"]["loss_fn"], "msssim_start_step": 0}, cfg,
+                                        policy=DEFAULT_POLICY)
+    model = EOFluxVAE(cfg, sd, policy=DEFAULT_POLICY, device=dev)
+    opt, schedule = stage2.make_optimizer(cfg, model.core.parameters())
+    step = stage2.make_train_step(model.core, loss, opt, cfg, schedule=schedule)
+    state = stage2.TrainState()
+    x = torch.randn(16, 12, 256, 256, generator=torch.Generator(device=dev).manual_seed(51),
+                    device=dev)
+    s2d = s2.to(dev)
+    losses = [step(state, x, s2d)["train/loss_total"]]
+    logs, counts = drive(f"train step {FACTOR_CONFIG} [16,12,256,256] bf16",
+                         lambda: step(state, x, s2d),
+                         launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+    losses.append(logs["train/loss_total"])
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: losses.append(step(state, x, s2d)["train/loss_total"]), 6, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    print(f"train losses {FACTOR_CONFIG} over {len(losses)} steps on one batch: "
+          f"{', '.join(f'{v:.5f}' for v in losses)}")
+    if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        raise AssertionError(f"the {FACTOR_CONFIG} train loss is not finite or did not fall")
+    print(f"time train step {FACTOR_CONFIG} [16,12,256,256] bf16: {ms:.3f} ms/step, "
+          f"{16e3 / ms:.2f} imgs/s, peak memory {peak / 2**30:.2f} GiB [{card}]")
+    del opt, step
+    torch.cuda.empty_cache()
+    stamp("phase 19 (c): factorized stage-2 step")
+
+    # -- the gradients on the card (fp32, bf16) against fp32 on the CPU at [1,12,64,64]:
+    # the model in eval mode (the generators' dropout off, as phase 5's check), the
+    # Charbonnier loss alone (MS-SSIM's five scales need more than 64 pixels).
+    x_small = torch.randn(1, 12, 64, 64, generator=torch.Generator().manual_seed(52))
+
+    def grads(policy, device) -> dict:
+        core = EOFluxVAE(cfg, sd, policy=policy, device=device).core
+        recon, _ = core(x_small.to(device), s2.to(device), sample_posterior=False, train=True)
+        charbonnier_loss(recon, x_small.to(device)).backward()
+        return {n: p.grad.float().cpu() for n, p in core.named_parameters()}
+
+    ref = grads(FULL_PRECISION, "cpu")
+    for label, policy, tol in (("fp32", FULL_PRECISION, TOL_GRAD_F32),
+                               ("bf16", DEFAULT_POLICY, TOL_GRAD_BF16)):
+        check_model_grads(f"{FACTOR_CONFIG} (factorized stems, eval mode) {label}",
+                          grads(policy, dev), ref, tol)
+    del ref
+    stamp("phase 19 (c): factorized gradients card vs CPU")
+
+    # -- the train CLI on a copy of the config, 2 steps.
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_factor_", dir=ROOT / "build"))
+    try:
+        exp, copy = tmp / "exp", tmp / FACTOR_CONFIG
+        copy.write_text(yaml.safe_dump(raw))
+        t0 = time.perf_counter()
+        drive(f"train CLI {FACTOR_CONFIG} --synthetic-data --max-steps 2",
+              lambda: train_cli.main(["--config", str(copy), "--synthetic-data",
+                                      "--max-steps", "2", "--resume-dir", str(exp)]),
+              launches(2 * 48, 2 * 52, 2 * 2, 2 * 48, 2 * 52, 2 * 2))
+        cli_s = time.perf_counter() - t0
+        files = sorted(p.name for p in exp.iterdir())
+        if "eo-vae-final.pt" not in files:
+            raise AssertionError(f"train CLI {FACTOR_CONFIG} wrote {files}")
+        print(f"train CLI {FACTOR_CONFIG}: {cli_s:.3f} s, {files} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stamp("phase 19 (c): factorized train CLI")
+
+    # ---- (d) the consistency loss's optional terms at [1,12,96,96] ----------------------
+    # Each term alone (pixel weight 0) at global step 1000 (the frequency term's
+    # warm-in done): its value and its gradient with respect to the reconstruction,
+    # fp32 on the card against the CPU; the feature term on DOFA v2 base from phase
+    # 12's full-width file. Then one stage-2 step on the card with every term on.
+    FULL_PRECISION.activate()
+    dofa_net = {"_target_": "eo_vae.models.dofa.dofav2_base_patch14_224",
+                "ckpt_data": str(dofa_pth)}
+    gt = torch.Generator().manual_seed(53)
+    inputs = torch.randn(1, 12, 96, 96, generator=gt)
+    recon = inputs + 0.3 * torch.randn(1, 12, 96, 96, generator=gt)
+    for term in CONSISTENCY_TERMS:
+        loss_cfg = {"_target_": "EOConsistencyLoss", "pixel_weight": 0.0,
+                    f"{term}_weight": 1.0, "dofa_net": dofa_net}
+        results = []
+        for device in ("cpu", dev):
+            term_loss, _, _ = build_loss_from_config(loss_cfg, cfg)
+            for net in stage2.loss_networks(term_loss):
+                net.to(device)
+            r = recon.clone().to(device).requires_grad_()
+            value, logs = term_loss(inputs.to(device), s2.to(device), r, global_step=1000)
+            value.backward()
+            results.append((value.detach().cpu(), r.grad.cpu()))
+        (ref_v, ref_g), (got_v, got_g) = results
+        v_rel = abs(float(got_v) - float(ref_v)) / abs(float(ref_v))
+        g_rel = float((got_g - ref_g).norm() / ref_g.norm())
+        ok = (v_rel <= TOL_TERM and g_rel <= TOL_TERM and float(ref_v) > 0
+              and bool(torch.isfinite(got_g).all()))
+        print(f"consistency term {term} [1,12,96,96] fp32 on the card vs the CPU: value "
+              f"{float(got_v):.6g} vs {float(ref_v):.6g} (rel {v_rel:.3e}), gradient wrt the "
+              f"reconstruction |diff|/|ref| {g_rel:.3e} (tol {TOL_TERM:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the consistency loss's {term} term on the card disagrees "
+                                 "with the CPU")
+    all_terms = {**raw["model"]["loss_fn"], "msssim_start_step": 0, "dofa_net": dofa_net,
+                 **{f"{term}_weight": 1.0 for term in CONSISTENCY_TERMS}}
+    loss, _, _ = build_loss_from_config(all_terms, cfg, policy=DEFAULT_POLICY)
+    for net in stage2.loss_networks(loss):
+        net.to(dev)
+    # (c)'s model and batch, a fresh optimizer.
+    opt, schedule = stage2.make_optimizer(cfg, model.core.parameters())
+    step = stage2.make_train_step(model.core, loss, opt, cfg, schedule=schedule)
+    state = stage2.TrainState(step=1000)
+    logs, _ = drive(f"train step {FACTOR_CONFIG} with every consistency term on "
+                    "[16,12,256,256] bf16", lambda: step(state, x, s2d),
+                    launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+    keys = ["loss_rec", "loss_spectral", "loss_spatial", "loss_freq_raw", "loss_feature",
+            "loss_msssim", "loss_total"]
+    values = {k: float(logs[f"train/{k}"]) for k in keys}
+    if not all(np.isfinite(v) and v > 0 for v in values.values()):
+        raise AssertionError(f"a consistency term of the step is not finite and positive: "
+                             f"{values}")
+    print(f"train step {FACTOR_CONFIG} with every consistency term on (step 1000): "
+          + ", ".join(f"{k} {v:.5g}" for k, v in values.items()) + f" [{card}]")
+    del model, opt, step, x, loss
+    torch.cuda.empty_cache()
+    stamp("phase 19 (d): consistency terms")
+    return counts
 
 
 def main() -> int:
@@ -5802,19 +6594,25 @@ def main() -> int:
     srtrain = sr_train_phase(sd, card, g)
     distill_phase(card)
     gan, gan_ms = gan_phase(sd, card, bwd_timings["train_step_ms"])
-    dofa_counts = dofa_phase(card)
-    dp_counts = dp_phase(sd, card, bwd_timings["train_step_ms"])
-    bases_counts = bases_phase(card, gan_ms)
-    refine = refine_phase(sd, card, g)
-    legacy_counts = legacy_phase(card)
-    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=ROOT / "build"))
+    # Files that later phases read: phase 12's DOFA file (phase 19), phases 15-16's
+    # artifacts (phases 17-18).
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_keep_", dir=ROOT / "build"))
     try:
+        dofa_counts = dofa_phase(card, keep)
+        dp_counts = dp_phase(sd, card, bwd_timings["train_step_ms"])
+        bases_counts = bases_phase(card, gan_ms)
+        refine = refine_phase(sd, card, g)
+        legacy_counts = legacy_phase(card)
         serving = serving_phase(model, sd, card, g, keep)
         int8 = int8_phase(model, sd, card, g, keep)
         mesh = mesh_phase(model, sd, card, g, keep)
         del model
         torch.cuda.empty_cache()
         bench = benchmark_phase(card, keep / "bf16")
+        # ---- 19. the shipped configurations no earlier phase runs -----------------
+        pixel = pixel_sr_phase(card, g)
+        karras = karras_latent_phase(card, g)
+        factor = factor_phase(card, keep / "dofav2_vit_base_e150.pth")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
@@ -5917,6 +6715,19 @@ def main() -> int:
     for entry in kernels:  # each error's key starts with its wrapper's name
         entry["widened_max_abs_err"] = {k: v for k, v in widened_errs.items()
                                         if k.split(" ")[0] == entry["name"]}
+        # Phase 19: a pixel SR train step (its smallest batch) and a DDIM-4 sample at
+        # B = 2; a train step of each Karras latent config; a factorized stage-2 step.
+        entry["pixel_launches"] = pixel["launches"][entry["name"]]
+        entry["pixel_sample_launches"] = pixel["sample_launches"][entry["name"]]
+        entry["karras_latent_launches"] = {k: c[entry["name"]] for k, c in karras.items()}
+        entry["factor_launches"] = factor[entry["name"]]
+        if entry["name"] in pixel["shapes"]:
+            entry["pixel_shapes"] = pixel["shapes"][entry["name"]]
+    print(f"pixel SR train steps (phase 19): " + ", ".join(
+        f"B = {b}: {s['ms']:.3f} ms/step, peak {s['peak_bytes'] / 2**30:.2f} GiB, attention "
+        f"backward {s['attn_backward_bytes'] / 2**30:.2f} GiB" for b, s in pixel["steps"].items()))
+    print(f"profiler traces taken again: {sum(PROFILE_RETRIES.values())} "
+          f"({PROFILE_RETRIES or 'none'})")
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,6 +12,8 @@ eo_vae/datasets/sen2naip.py):
 - collate functions with the hard-coded LR(S2)/HR(NAIP) z-score stats and
   bicubic LR→HR upsample (sen2naip.py:694-728), plus the TerraMesh
   domain-adaptation variant (sen2naip.py:731-784)
+- the reference tokenizers' published latent statistics (sen2naip.py:322-545),
+  a copy of the JAX package's latent_stats.json beside this module
 
 Arrays are NHWC here, as in the JAX package; the encode CLI transposes them
 to the model's NCHW.
@@ -45,6 +47,16 @@ TM_LR_MEAN = np.asarray([2199.116, 1853.926, 1718.211, 3132.235], np.float32)
 TM_LR_STD = np.asarray([2105.179, 2152.477, 2059.311, 1775.656], np.float32)
 DA_TARGET_LOC = -0.4
 DA_TARGET_SCALE = 0.6
+
+
+def reference_latent_stats(name: str = "eo-vae") -> dict[str, np.ndarray]:
+    """Published 32-channel latent statistics of the reference tokenizers
+    (sen2naip.py:322-545): fp32 ``mean`` and ``std`` of ``name`` in
+    ``latent_stats.json`` ("eo-vae", "flux-vae", "flux-vae-01")."""
+    path = os.path.join(os.path.dirname(__file__), "latent_stats.json")
+    with open(path) as f:
+        stats = json.load(f)[name]
+    return {k: np.asarray(v, np.float32) for k, v in stats.items()}
 
 
 def assign_spatial_split(
