@@ -15,6 +15,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    - ``flash_attention``: [4,4096,512], [16,1024,512], odd S, fp32, and the
      q/k/v of the encoder's ``mid.attn_1``; and a one-hot permutation case at
      [2,512,512] that must give V[π] exactly;
+   - ``flash_attention_backward`` (``ATTN_BWD_SHAPES``, bf16 and fp32: the
+     training paths' [16,1024,512], [16,4096,128], [16,256,64] and
+     [4,16384,64], the D-split [2,1024,640] and the widened [2,333,96]): the
+     forward's output ``torch.equal`` with and without its row statistics
+     written, the statistics against ``flash_attention_lse_plain``, the three
+     backward launches against ``flash_attention_backward_from_stats_plain``
+     on the same o and lse, two calls bit-identical;
    - ``group_norm`` (affine; + swish; + AdaIN + swish with [C] and [B, C])
      and ``gn_channel_sums``: [4,128,512,512] and [4,512,64,64] bf16,
      [2,96,37,53] fp32, and the input of a decoder ResnetBlock ``norm2``;
@@ -83,15 +90,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    fp32 [2,256,256,256]) and at odd shapes, each with its cluster plan and
    ``cudaOccupancyMaxActiveClusters``, and two calls bit-identical; exact
    launches per step: forward 48 / 52 / 2 and
-   backward 48 ``conv3x3_dx``, 52 ``group_norm_backward`` and 2 attention
-   backward calls; all parameter gradients of the full model in train mode on
-   the card (fp32 and bf16) against fp32 on the CPU at [1,12,64,64]; 2
-   warm-up and 10 timed steps (CUDA events) on one fixed batch, whose loss
-   must be finite and fall; ms/step, imgs/s, peak memory, the optimizer
-   step's host time, the kernel rows of one profiled step (52 ``gn_fwd_``
-   and 52 ``gn_bwd_`` launches); the backward kernels' times beside their plain
-   versions, library calls and bounds (``group_norm_backward`` at
-   [16,128,256,256] and [16,256,256,256]). Then one ``{"kernels": [...]}`` line
+   backward 48 ``conv3x3_dx``, 52 ``group_norm_backward`` and 6 attention
+   backward launches (2 calls of 3; every driven path on the card also
+   requires 0 calls of the tensor-op backward); all parameter gradients of the
+   full model in train mode on the card (fp32 and bf16) against fp32 on the
+   CPU at [1,12,64,64]; 2 warm-up and 10 timed steps (CUDA events) on one
+   fixed batch, whose loss must be finite and fall; ms/step, imgs/s, peak
+   memory, the optimizer step's host time, the kernel rows of one profiled
+   step (52 ``gn_fwd_`` and 52 ``gn_bwd_`` launches); the backward kernels'
+   times beside their plain versions, library calls and bounds
+   (``group_norm_backward`` at [16,128,256,256] and [16,256,256,256]; the
+   attention backward at [16,1024,512] beside the backward of
+   ``F.scaled_dot_product_attention``). Then one ``{"kernels": [...]}`` line
    (flash_attention and conv3x3 also with their TFLOP/s at each timed shape;
    flash_attention with the bytes its blocks read from L2 and the rate they
    imply).
@@ -162,11 +172,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    plain versions in bf16 and fp32, and on the hooked activations and output
    gradients of ``up[0].block[0]`` (``conv1``, ``norm2`` with its FiLM) and
    ``mid_attn.norm`` of one step; exact launches a train step, 46 / 48 / 1
-   forward and 46 ``conv3x3_dx``, 48 ``group_norm_backward``, 1 attention
-   backward; 12 steps on one [16,32,64,64] batch with fixed t and noise (Adam
-   1e-4 after a clip at 1.0, the warmup cut) whose loss must fall; ms/step,
-   latents/s and peak memory at B = 16 and 8 beside the operations bound, the
-   step's kernel time (profiled) and the device's busy share, the host's issue
+   forward and 46 ``conv3x3_dx``, 48 ``group_norm_backward``, 3 attention
+   backward launches (one call); 12 steps on one [16,32,64,64] batch with
+   fixed t and noise (Adam 1e-4 after a clip at 1.0, the warmup cut) whose
+   loss must fall; ms/step, latents/s and peak memory at B = 16 and 8 beside
+   the operations bound, the step's kernel time (profiled) and the device's
+   busy share, the host's issue
    time; one profiled step's hand-kernel records against the 92 / 48 / 48
    expected; all parameter gradients of the loss (t and noise injected) on
    the card in fp32 and bf16 against fp32 on the CPU at [2,32,32,32];
@@ -406,10 +417,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    from numpy seeds. (a) ``configs_superres/pixel.yaml`` at full width
    (``KarrasDenoiser`` + ``VPSchedule``, 4 bands + 4 conditioning at 512²,
    widths 256/128/64, bottom attention over 16,384 tokens at D = 64): the
-   train step at [B,4,512,512] for B = 4 and 8 (16 where 8 took under half
-   the card; a batch that does not fit is said so on a line), each with
-   exact launches 46/48/1 + 46/48/1, ms/step, peak memory, the bytes the
-   tensor-op attention backward takes alone and a falling loss; gradients
+   train step at [B,4,512,512] for B = 4 and 8 (16, the config's own batch,
+   where 8 took under half the card; a batch that does not fit is said so on
+   a line), each with exact launches 46/48/1 + 46/48/1 (3 attention backward
+   launches), ms/step, peak memory, the bytes the attention backward kernels
+   take alone and a falling loss; gradients
    card (fp32, bf16) vs fp32 on the CPU at [1,4,64,64] + cond; one UNet eval
    at [4,4,512,512] beside its operations bound; DDIM-4 through
    ``DiffusionSuperRes.sample`` at B = 2 with exact launches, and DDIM-4 fp32
@@ -441,9 +453,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    256→256; the mid attention at S = 16,384), then at B = 4 (conv3x3
    [4,512→256,512²] and [4,256→256,512²], GroupNorm + FiLM + SiLU
    [4,512,512,512] forward and backward with its plan, flash attention
-   [4,16384,64] and the tensor-op backward's ms and bytes) timed beside its
-   plain version, the library call and the bound (``pixel_shapes`` in the
-   ``kernels`` line; CUDA-graph replays, CUDA events for the backward). The
+   [4,16384,64], and its backward kernels with their bytes above their
+   operands, at most 64 MiB) timed beside its plain version, the library call
+   and the bound (``pixel_shapes`` in the ``kernels`` line; CUDA-graph
+   replays, CUDA events for the backwards; the ``flash_attention_backward``
+   entry's numbers are this shape's). The
    ``kernels`` line's entries carry the pixel step's launches as
    ``pixel_launches``, the DDIM-4 sample's as ``pixel_sample_launches``, each
    Karras latent config's step's as ``karras_latent_launches`` and the
@@ -503,6 +517,21 @@ TOL_GN_BWD_F32 = 1e-4
 #  every layer.
 TOL_GRAD_F32 = 1e-3
 TOL_GRAD_BF16 = 1e-1
+#  Attention backward kernels vs flash_attention_backward_from_stats_plain on the
+#  same o and lse: TOL_BF16 (the products in another order, P and dS rounded to
+#  bf16 at other sides of a tie, one output rounding) and TOL_F32. The forward's
+#  row statistics vs flash_attention_lse_plain: fp32 logits summed in another order.
+TOL_LSE = 1e-5
+# Launches of one attention backward call on the card: Δ, dK/dV, dQ.
+ATTN_BWD_LAUNCHES = 3
+# The most device memory the attention backward may take above its operands at
+# the pixel SR shape [4,16384,64]: Δ (256 KiB) and nothing of size S².
+ATTN_BWD_MAX_BYTES = 64 * 2**20
+# The attention backward's shapes in phase 2 (bf16 and fp32): stage 2 (and the
+# paths built on it), the flow refiner, the SR latent UNet, the pixel SR UNet,
+# the D-split width and a widened width at an odd S.
+ATTN_BWD_SHAPES = ((16, 1024, 512), (16, 4096, 128), (16, 256, 64), (4, 16384, 64),
+                   (2, 1024, 640), (2, 333, 96))
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # fp32 outside the tensor cores
@@ -722,6 +751,46 @@ def check_attention(q, k, v, tol: float, label: str) -> float:
     torch.cuda.synchronize()
     return check("flash_attention", f"{label} {tuple(q.shape)} {q.dtype}", out,
                  flash_attention_plain(q, k, v), tol)
+
+
+def check_attention_backward(b: int, s: int, d: int, dtype, g) -> float:
+    """The forward with its row statistics written against the forward without
+    (``torch.equal``) and the statistics against ``flash_attention_lse_plain``;
+    the backward kernels (one call: ``ATTN_BWD_LAUNCHES`` launches) against
+    ``flash_attention_backward_from_stats_plain`` on the same o and lse, and a
+    second call bit-identical. Returns the largest max abs error of dq, dk, dv."""
+    import torch
+
+    from eovax_torch.kernels import attention
+
+    label = f"[{b},{s},{d}] {str(dtype).removeprefix('torch.')}"
+    q, k, v, do = (torch.randn(b, s, d, generator=g, device=g.device).to(dtype)
+                   for _ in range(4))
+    o, lse = attention.flash_attention_with_lse(q, k, v)
+    same = torch.equal(o, attention.flash_attention(q, k, v))
+    print(f"flash_attention {label}: output with lse written torch.equal to without: {same}")
+    if not same:
+        raise AssertionError(f"flash_attention {label}: writing lse changed the output")
+    # The statistics of the kernel's inputs: up to D = 512 a widened call's q is
+    # scaled by √(Dk/D) and rounded to its dtype (``widened``) before the logits.
+    kernel_in = attention.widened(q, k, v) if d <= attention.KERNEL_HEAD_DIMS[-1] else (q, k, v)
+    check("flash_attention (lse)", label, lse, attention.flash_attention_lse_plain(*kernel_in),
+          TOL_LSE)
+    grads = launched(f"flash_attention_backward {label}",
+                     lambda: attention.flash_attention_backward_from_stats(q, k, v, o, lse, do),
+                     attention.flash_attention_backward, ATTN_BWD_LAUNCHES)
+    again = attention.flash_attention_backward_from_stats(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, r) for a, r in zip(grads, again)):
+        raise AssertionError(f"flash_attention_backward {label}: two calls differ")
+    del again
+    refs = attention.flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    errs = [check("flash_attention_backward", f"{label} d{name} (two calls bit-identical)",
+                  got, ref, tol) for name, got, ref in zip("qkv", grads, refs)]
+    del q, k, v, do, o, lse, grads, refs
+    torch.cuda.empty_cache()
+    return max(errs)
 
 
 def check_attention_permutation(b: int, s: int, d: int, g) -> float:
@@ -1195,15 +1264,16 @@ def drive(label: str, fn, expected: dict | None):
 
     from eovax_torch.kernels import attention, conv3x3, groupnorm, qconv
 
-    # (wrapper, its count): the kernels' launches, and the attention backward's
-    # calls (tensor ops, no kernel of its own).
+    # (wrapper, its count): the kernels' launches, and the calls of the tensor-op
+    # attention backward (the CPU's), which no card path makes.
     counters = {"conv3x3": (conv3x3.conv3x3, "launches"),
                 "conv3x3_int8": (qconv.conv3x3_int8, "launches"),
                 "group_norm": (groupnorm.group_norm, "launches"),
                 "flash_attention": (attention.flash_attention, "launches"),
                 "conv3x3_dx": (conv3x3.conv3x3_dx, "launches"),
                 "group_norm_backward": (groupnorm.group_norm_backward, "launches"),
-                "flash_attention_backward": (attention.flash_attention_backward, "calls"),
+                "flash_attention_backward": (attention.flash_attention_backward, "launches"),
+                "flash_attention_backward_calls": (attention.flash_attention_backward, "calls"),
                 "gn_channel_sums": (groupnorm.gn_channel_sums, "launches")}
     for f, attr in counters.values():
         setattr(f, attr, 0)
@@ -1211,6 +1281,8 @@ def drive(label: str, fn, expected: dict | None):
     torch.cuda.synchronize()
     got = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
     print(f"{label}: launches {got}")
+    if got["flash_attention_backward_calls"]:
+        raise AssertionError(f"{label}: the tensor-op attention backward ran on the card")
     if expected is not None and got != expected:
         raise AssertionError(f"{label}: expected launches {expected}, got {got}")
     return out, got
@@ -1218,10 +1290,14 @@ def drive(label: str, fn, expected: dict | None):
 
 def launches(conv: int, gn: int, attn: int, conv_dx: int = 0, gn_bwd: int = 0,
              attn_bwd: int = 0, conv_int8: int = 0) -> dict:
-    """The launch counts ``drive`` expects; ``gn_channel_sums`` is on no path: 0."""
+    """The launch counts ``drive`` expects, for ``attn_bwd`` attention backward
+    calls (``ATTN_BWD_LAUNCHES`` kernel launches each); ``gn_channel_sums`` and the
+    tensor-op attention backward are on no path: 0."""
     return {"conv3x3": conv, "group_norm": gn, "flash_attention": attn, "conv3x3_dx": conv_dx,
-            "group_norm_backward": gn_bwd, "flash_attention_backward": attn_bwd,
-            "gn_channel_sums": 0, "conv3x3_int8": conv_int8}
+            "group_norm_backward": gn_bwd,
+            "flash_attention_backward": ATTN_BWD_LAUNCHES * attn_bwd,
+            "flash_attention_backward_calls": 0, "gn_channel_sums": 0,
+            "conv3x3_int8": conv_int8}
 
 
 def sen2naip_batches(n_batches: int, batch: int, seed: int) -> list[dict]:
@@ -1469,6 +1545,8 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
     stamp("phase 5: full-model gradients")
 
     # Backward kernels' times at the largest main-path shapes.
+    timings["flash_attention_backward"] = time_attention_backward(16, 1024, 512, g, card,
+                                                                  iters=10)
     b, ci, co, h, w = 16, 128, 128, 256, 256
     grad = torch.randn(b, co, h, w, generator=g, device=dev).to(torch.bfloat16)
     k = 0.05 * torch.randn(co, ci, 3, 3, generator=g, device=dev)
@@ -2520,7 +2598,7 @@ def sr_phase(vae, vae_sd: dict, card: str, g) -> dict:
 
 # The SR train step's launches (conv3x3 / group_norm / flash_attention): one UNet
 # eval forward, and backward 46 conv3x3_dx, 48 group_norm_backward and one
-# attention-backward call.
+# attention-backward call (ATTN_BWD_LAUNCHES launches).
 SR_TRAIN_STEP = launches(*UNET_EVAL, *UNET_EVAL)
 
 
@@ -5564,22 +5642,74 @@ def numpy_state_dict(module, seed: int) -> dict:
 
 
 def attention_backward_bytes(b: int, s: int, d: int, dev) -> int:
-    """Device bytes that ``flash_attention_backward`` takes above its bf16 [b, s, d]
-    inputs at its peak: the fp32 [b, s, s] probabilities, dP, dS and their temporaries."""
+    """Device bytes that the card's attention backward
+    (``flash_attention_backward_from_stats``) takes at its peak above its bf16
+    [b, s, d] inputs (q, k, v, o, dO and the fp32 lse) and its three gradients: Δ,
+    and nothing of size S²."""
     import torch
 
-    from eovax_torch.kernels.attention import flash_attention_backward
+    from eovax_torch.kernels.attention import (
+        flash_attention_backward_from_stats,
+        flash_attention_with_lse,
+    )
 
     q, k, v, do = (torch.randn(b, s, d, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention_with_lse(q, k, v)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    grads = flash_attention_backward(q, k, v, do)
+    grads = flash_attention_backward_from_stats(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    del q, k, v, do, grads
+    peak = torch.cuda.max_memory_allocated() - base - sum(
+        t.numel() * t.element_size() for t in grads)
+    del q, k, v, do, o, lse, grads
     torch.cuda.empty_cache()
     return peak
+
+
+def time_attention_backward(b: int, s: int, d: int, g, card: str, iters: int) -> dict:
+    """The attention backward kernels at bf16 [b, s, d] (CUDA events over ``iters``
+    calls; three launches a call) beside their plain version
+    (``flash_attention_backward_from_stats_plain``), the backward of
+    ``F.scaled_dot_product_attention`` on [b, 1, s, d] views of the same inputs
+    (timed only), and the bound: 5 products of 2·b·s²·d at the bf16 peak (dP, dV
+    and dK in the dK/dV kernel, dQ beside the recomputed logits: the forward's 2
+    products are not counted) against q, k, v, o, dO, lse read and dq, dk, dv
+    written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from eovax_torch.kernels.attention import (
+        flash_attention_backward_from_stats,
+        flash_attention_backward_from_stats_plain,
+        flash_attention_with_lse,
+    )
+
+    q, k, v, do = (torch.randn(b, s, d, generator=g, device=g.device).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = flash_attention_with_lse(q, k, v)
+    err = max(rel_err(got, ref)[0] for got, ref in zip(
+        flash_attention_backward_from_stats(q, k, v, o, lse, do),
+        flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)))
+    kernel_ms = cuda_ms(lambda: flash_attention_backward_from_stats(q, k, v, o, lse, do), iters)
+    plain_ms = cuda_ms(lambda: flash_attention_backward_from_stats_plain(q, k, v, o, lse, do),
+                       3, warmup=1)
+    leaves = [t.view(b, 1, s, d).detach().requires_grad_() for t in (q, k, v)]
+    y = F.scaled_dot_product_attention(*leaves)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(y, leaves, do.view(b, 1, s, d),
+                                                     retain_graph=True), iters)
+    flops = 5 * 2.0 * b * s * s * d
+    row = dict(shape=[b, s, d], ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               max_abs_err=err, tflops=flops / kernel_ms / 1e9,
+               **bound(flops, H100_BF16_FLOPS, 8.0 * b * s * d * 2 + 4.0 * b * s))
+    row["bound_share"] = row["bound_ms"] / kernel_ms
+    print(f"time flash_attention_backward [{b},{s},{d}] bf16: kernel {kernel_ms:.4f} ms "
+          f"({row['tflops']:.1f} TFLOP/s, {ATTN_BWD_LAUNCHES} launches), plain {plain_ms:.4f} ms, "
+          f"sdpa backward {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}; {100 * row['bound_share']:.1f}% of it) [{card}]")
+    del q, k, v, do, o, lse, leaves, y
+    torch.cuda.empty_cache()
+    return row
 
 
 def time_big_shape(name, shape, kernel, plain, library, flops, flops_per_s, nbytes, err, card,
@@ -5651,11 +5781,7 @@ def pixel_sr_phase(card: str, g) -> dict:
     from eovax_torch.core.config import load_yaml
     from eovax_torch.core.precision import DEFAULT_POLICY, FULL_PRECISION
     from eovax_torch.data import sen2naip
-    from eovax_torch.kernels.attention import (
-        flash_attention,
-        flash_attention_backward,
-        flash_attention_plain,
-    )
+    from eovax_torch.kernels.attention import flash_attention, flash_attention_plain
     from eovax_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
     from eovax_torch.kernels.groupnorm import (
         group_norm,
@@ -5750,7 +5876,7 @@ def pixel_sr_phase(card: str, g) -> dict:
             return sr.train_step(state, hr, cond, t=t, eps=eps)["train_loss"]
 
         try:
-            where = "the tensor-op attention backward alone"
+            where = "the attention backward alone"
             attn_bytes = attention_backward_bytes(b, PIXEL_TOKENS, d_attn, dev)
             where = "the step"
             torch.cuda.reset_peak_memory_stats()
@@ -5777,8 +5903,8 @@ def pixel_sr_phase(card: str, g) -> dict:
         bound_ms = 3.0 * b * per_sample / H100_BF16_FLOPS * 1e3
         steps[b] = dict(ms=ms, peak_bytes=peak, attn_backward_bytes=attn_bytes, counts=counts)
         print(f"time pixel SR train step [{b},4,512,512] bf16: {ms:.3f} ms/step, "
-              f"{b * 1e3 / ms:.2f} imgs/s, peak memory {peak / 2**30:.2f} GiB, the tensor-op "
-              f"attention backward alone {attn_bytes / 2**30:.2f} GiB "
+              f"{b * 1e3 / ms:.2f} imgs/s, peak memory {peak / 2**30:.2f} GiB, the attention "
+              f"backward kernels alone {attn_bytes / 2**30:.4f} GiB above their operands "
               f"({100 * attn_bytes / peak:.1f}% of the peak); operations bound {bound_ms:.3f} ms "
               f"(3 x {per_sample / 1e12:.3f} TFLOP a sample, {100 * bound_ms / ms:.1f}% of it) "
               f"[{card}]")
@@ -5845,7 +5971,8 @@ def pixel_sr_phase(card: str, g) -> dict:
     stamp("phase 19 (a): pixel SR sampling")
 
     # ---- (e) each kernel at the pixel UNet's shapes: kernel, plain, library, bound ------
-    rows = {"conv3x3": [], "group_norm": [], "group_norm_backward": [], "flash_attention": []}
+    rows = {"conv3x3": [], "group_norm": [], "group_norm_backward": [], "flash_attention": [],
+            "flash_attention_backward": []}
     with torch.inference_mode():
         for ci, co in ((512, 256), (256, 256)):
             x, w, bias = conv_inputs(4, ci, co, 512, 512, torch.bfloat16, g)
@@ -5903,8 +6030,8 @@ def pixel_sr_phase(card: str, g) -> dict:
                   for _ in range(3))
     err = check_attention(q1, k1, v1, TOL_BF16, "pixel S = 16384")
     del q1, k1, v1
-    q, k, v, do = (torch.randn(4, PIXEL_TOKENS, d_attn, generator=g, device=dev)
-                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (torch.randn(4, PIXEL_TOKENS, d_attn, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
     with torch.inference_mode():
         row = time_big_shape(
             "flash_attention", q.shape, lambda: flash_attention(q, k, v),
@@ -5912,14 +6039,18 @@ def pixel_sr_phase(card: str, g) -> dict:
             lambda: F.scaled_dot_product_attention(q, k, v),
             4.0 * 4 * PIXEL_TOKENS * PIXEL_TOKENS * d_attn, H100_BF16_FLOPS, 4.0 * q.numel() * 2,
             err, card)
-    row["backward_ms"] = cuda_ms(lambda: flash_attention_backward(q, k, v, do), 3, warmup=1)
-    del q, k, v, do
+    del q, k, v
     torch.cuda.empty_cache()
-    row["backward_bytes"] = attention_backward_bytes(4, PIXEL_TOKENS, d_attn, dev)
-    print(f"time flash_attention_backward (tensor ops) [4,{PIXEL_TOKENS},{d_attn}] bf16: "
-          f"{row['backward_ms']:.3f} ms, {row['backward_bytes'] / 2**30:.2f} GiB above its "
-          f"inputs [{card}]")
     rows["flash_attention"].append(row)
+    row = time_attention_backward(4, PIXEL_TOKENS, d_attn, g, card, iters=5)
+    row["backward_bytes"] = attention_backward_bytes(4, PIXEL_TOKENS, d_attn, dev)
+    print(f"flash_attention_backward [4,{PIXEL_TOKENS},{d_attn}] bf16: "
+          f"{row['backward_bytes']} bytes ({row['backward_bytes'] / 2**20:.3f} MiB) above its "
+          f"inputs and gradients, at most {ATTN_BWD_MAX_BYTES // 2**20} MiB [{card}]")
+    if row["backward_bytes"] > ATTN_BWD_MAX_BYTES:
+        raise AssertionError("the attention backward takes more than "
+                             f"{ATTN_BWD_MAX_BYTES // 2**20} MiB above its operands")
+    rows["flash_attention_backward"].append(row)
     stamp("phase 19 (e): pixel kernel shapes timed")
 
     # ---- (a) the train CLI's pixel branch, both collates, through the stub ---------------
@@ -6321,6 +6452,11 @@ def main() -> int:
     check_attention(*qkv(3, 1037, 512, torch.bfloat16), TOL_BF16, "odd-S")
     check_attention(*qkv(2, 1037, 512, torch.float32), TOL_F32, "odd-S-fp32")
     check_attention_permutation(2, 512, 512, g)
+    # The backward kernels at the training paths' shapes; the widened [2,333,96]
+    # joins the ``widened_max_abs_err`` of the kernels line.
+    attn_bwd_errs = {(shape, dtype): check_attention_backward(*shape, dtype, g)
+                     for shape in ATTN_BWD_SHAPES for dtype in (torch.bfloat16, torch.float32)}
+    stamp("phase 2: attention backward vs plain")
 
     gn_errs = {}
     for shape, dtype, tol in (((4, 128, 512, 512), torch.bfloat16, TOL_GN_BF16),
@@ -6356,6 +6492,8 @@ def main() -> int:
                               ((2, 64, 96, 37, 53), torch.float32, TOL_CONV_F32)):
         conv_errs[shape] = check_conv(*conv_inputs(*shape, dtype, g), tol, "synthetic")
     widened_errs = check_widened(g)
+    widened_errs.update({f"flash_attention_backward [2,333,96] {str(dt).removeprefix('torch.')}":
+                         attn_bwd_errs[(2, 333, 96), dt] for dt in (torch.bfloat16, torch.float32)})
     torch.cuda.empty_cache()
     stamp("phase 2: kernels vs plain")
 
@@ -6624,10 +6762,29 @@ def main() -> int:
          **timings["flash_attention", (4, 4096, 512)], "shapes": attn_rates,
          "sr_launches": sr["launches"]["flash_attention"],
          "gan_launches": gan["flash_attention"], "dofa_launches": dofa_counts["flash_attention"],
-         "gan_backward_calls": gan["flash_attention_backward"],
+         "gan_backward_launches": gan["flash_attention_backward"],
          "srtrain_launches": srtrain["flash_attention"],
          "sr_shapes": sr["shapes"]["flash_attention"],
          "split_shapes": split_rows["flash_attention"]},
+        # The gradient of the same TPU kernel (the JAX trainer differentiates
+        # sdpa_auto's einsum, eovax/kernels/attention.py:103): three launches a call.
+        # Its numbers at the pixel SR shape [4,16384,64]; "shapes" adds stage 2's
+        # [16,1024,512]; launches from the stage-2 train step.
+        {"name": "flash_attention_backward", "route": "cuda",
+         "source": "eovax_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "eovax/kernels/attention.py:28",
+         "launches": train_counts["flash_attention_backward"],
+         **{k: pixel["shapes"]["flash_attention_backward"][0][k]
+            for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                      "bound_share", "backward_bytes")},
+         "shapes": [pixel["shapes"]["flash_attention_backward"][0],
+                    bwd_timings["flash_attention_backward"]],
+         "phase2_max_abs_err": {f"{list(shape)} {str(dt).removeprefix('torch.')}": err
+                                for (shape, dt), err in attn_bwd_errs.items()},
+         "tensor_op_calls": train_counts["flash_attention_backward_calls"],
+         "srtrain_launches": srtrain["flash_attention_backward"],
+         "gan_launches": gan["flash_attention_backward"],
+         "dofa_launches": dofa_counts["flash_attention_backward"]},
         {"name": "group_norm", "route": "cuda",
          "source": "eovax_torch/kernels/csrc/groupnorm.cu",
          "replaces": "eovax/kernels/groupnorm.py:31",
@@ -6725,7 +6882,7 @@ def main() -> int:
             entry["pixel_shapes"] = pixel["shapes"][entry["name"]]
     print(f"pixel SR train steps (phase 19): " + ", ".join(
         f"B = {b}: {s['ms']:.3f} ms/step, peak {s['peak_bytes'] / 2**30:.2f} GiB, attention "
-        f"backward {s['attn_backward_bytes'] / 2**30:.2f} GiB" for b, s in pixel["steps"].items()))
+        f"backward {s['attn_backward_bytes'] / 2**20:.3f} MiB" for b, s in pixel["steps"].items()))
     print(f"profiler traces taken again: {sum(PROFILE_RETRIES.values())} "
           f"({PROFILE_RETRIES or 'none'})")
     print(f"wall time: {time.perf_counter() - T_START:.1f} s")

@@ -21,10 +21,20 @@ zero columns add nothing to q·kᵀ, and the output's are dropped. More than
 65535 batch rows run as several launches, each adding one to the count.
 
 When an input requires grad, :func:`flash_attention` is a
-``torch.autograd.Function`` whose backward, :func:`flash_attention_backward`,
-recomputes the fp32 probabilities from the saved q, k and v in tensor ops: the
-JAX trainer's gradient is autodiff of ``sdpa_auto``'s plain einsum, outside any
-Pallas kernel, and this is that gradient.
+``torch.autograd.Function``; the JAX trainer's gradient is autodiff of
+``sdpa_auto``'s plain einsum, outside any Pallas kernel, and its backward
+computes that gradient. On a CUDA tensor the forward kernel also writes each
+row's log-sum-exp of the scaled logits (:func:`flash_attention_with_lse`), and
+the backward is :func:`flash_attention_backward_from_stats`: three launches of
+the hand kernels in ``csrc/flash_attention_bwd.cu`` (Δ = rowsum(dO∘O); dK and
+dV; dQ), which recompute the probabilities tile by tile from those statistics
+and keep nothing of size S². A call outside :func:`in_kernel_envelope` is
+widened as the forward widens it, and its gradients narrowed by the chain rule.
+On a CPU tensor the backward is :func:`flash_attention_backward`, which
+recomputes the fp32 probabilities from the saved q, k and v in tensor ops.
+:func:`flash_attention_lse_plain` and
+:func:`flash_attention_backward_from_stats_plain` are the kernels' arithmetic
+in tensor ops, for the tests.
 
 The forward is also the custom op ``eovax::flash_attention``
 (:mod:`eovax_torch.kernels.ops`), through which a ``torch.export`` trace reaches it.
@@ -41,12 +51,17 @@ import torch.nn.functional as F
 from eovax_torch.kernels import build, grid, ops
 
 SOURCE = "flash_attention.cu"
+BACKWARD_SOURCE = "flash_attention_bwd.cu"
 KERNEL_HEAD_DIMS = (64, 128, 256, 512)
 # D above the widest kernel width goes to the D-split kernel, padded to this.
 _SPLIT_ALIGN = 64
 _ENTRY = {torch.bfloat16: "eovax_flash_attention_bf16", torch.float32: "eovax_flash_attention_f32"}
 _SPLIT_ENTRY = {torch.bfloat16: "eovax_flash_attention_split_bf16",
                 torch.float32: "eovax_flash_attention_split_f32"}
+_BACKWARD_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# The kernels' row statistics are in log2 units: log2 Σ exp2(x·log2 e) of the
+# scaled logits x.
+_LOG2E = 1.4426950408889634
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -54,6 +69,41 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's row statistics in tensor ops: the fp32 [B, S]
+    log-sum-exp of each row of q kᵀ / √D, in log2 units (the natural one times
+    log2 e). ``v`` is not read: the signature is the forward's."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.logsumexp(logits, dim=-1) * _LOG2E
+
+
+def flash_attention_backward_from_stats_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+        do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' arithmetic in tensor ops: (dq, dk, dv) from the
+    forward's output ``o`` and row statistics ``lse`` (log2 units, as
+    :func:`flash_attention_lse_plain` gives them).
+
+    Δ = rowsum(dO∘O) in fp32; P = exp2(q kᵀ·log2(e)/√D − lse) in fp32, rounded to
+    the compute dtype before dV = Pᵀ·dO; dP = dO·Vᵀ in fp32; dS = P∘(dP − Δ),
+    rounded to the compute dtype before dQ = dS·K and dK = dSᵀ·Q, each times the
+    scale. Every product accumulates in fp32, and each gradient is rounded once.
+    """
+    dt = q.dtype
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    do = do.to(dt).float()
+    delta = (do * o.float()).sum(dim=-1, keepdim=True)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.exp2(logits * (scale * _LOG2E) - lse.float()[..., None])
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do).to(dt)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    ds = (p * (dp - delta)).to(dt).float()
+    dq = (torch.matmul(ds, k.float()) * scale).to(dt)
+    dk = (torch.matmul(ds.transpose(-1, -2), q.float()) * scale).to(dt)
+    return dq, dk, dv
 
 
 def _kernel_width(d: int) -> int:
@@ -95,12 +145,26 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     for name in _SPLIT_ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _backward_library() -> ctypes.CDLL:
+    lib = build.load(BACKWARD_SOURCE)
+    for suffix in _BACKWARD_SUFFIX.values():
+        fn = getattr(lib, f"eovax_flash_attention_bwd_delta_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for part, pointers in (("dkdv", 8), ("dq", 7)):
+            fn = getattr(lib, f"eovax_flash_attention_bwd_{part}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -125,26 +189,33 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def _launch_counted(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _check_operands(what: str, *ts: torch.Tensor) -> None:
+    """Raise unless the tensors are contiguous [B, S, D] of one shape, dtype
+    (bf16 or fp32) and CUDA device."""
+    q = ts[0]
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"flash_attention: q, k, v must share one [B, S, D] shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k, v must be on one device")
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(
-            f"flash_attention: dtypes must all be bfloat16 or float32, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
-        )
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dim() != 3 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"{what}: operands must share one [B, S, D] shape, got "
+                         f"{', '.join(str(tuple(t.shape)) for t in ts)}")
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"{what}: operands must be on one device")
+    if q.dtype not in _ENTRY or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"{what}: dtypes must all be bfloat16 or float32, got "
+                         f"{', '.join(str(t.dtype) for t in ts)}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: operands must be contiguous")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            stats: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The forward on the kernel: the output and, where ``stats``, the [B, S] fp32
+    row statistics (else None)."""
+    _check_operands("flash_attention", q, k, v)
     b, s, d = q.shape
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
+    lse = torch.empty((b, s), device=q.device, dtype=torch.float32) if stats else None
     if b == 0 or s == 0 or d == 0:
-        return torch.empty_like(q)
+        return torch.empty_like(q), lse
     if not in_kernel_envelope(q.shape):
         q, k, v = widened(q, k, v)
     dk = q.shape[-1]
@@ -160,11 +231,101 @@ def _launch_counted(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
             at = b0 * row
             code = getattr(lib, entry)(
                 q.data_ptr() + at, k.data_ptr() + at, v.data_ptr() + at, out.data_ptr() + at,
-                min(grid.GRID_LIMIT, b - b0), s, dk, *extra, stream
+                min(grid.GRID_LIMIT, b - b0), s, dk, *extra,
+                lse.data_ptr() + b0 * s * 4 if stats else None, stream
             )
             build.check(lib, code, "flash_attention")
             flash_attention.launches += 1
-    return out if dk == d else out[..., :d].contiguous()
+    return (out if dk == d else out[..., :d].contiguous()), lse
+
+
+def _launch_counted(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return _launch(q, k, v, stats=False)[0]
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The attention and its fp32 [B, S] row statistics (log2 units). CUDA
+    tensors launch the forward kernel with its statistics written (one count a
+    launch, as :func:`flash_attention`); CPU tensors take
+    :func:`flash_attention_plain` and :func:`flash_attention_lse_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v), flash_attention_lse_plain(q, k, v)
+    return _launch(q, k, v, stats=True)
+
+
+def widened_for_backward(q, k, v, o, do):
+    """q, k, v, the output o and its gradient do at the kernel width of
+    :func:`widened`: q, k, v as the forward widened them, o and do with zero
+    columns appended (the widened forward's output has zeros there)."""
+    d = q.shape[-1]
+    width = _kernel_width(d)
+    if width == d:
+        return q, k, v, o, do
+    return (*widened(q, k, v), *(F.pad(t, (0, width - d)) for t in (o, do)))
+
+
+def narrowed_gradients(dq, dk, dv, d: int):
+    """The gradients of the inputs of width ``d`` from those of their widened
+    copies: the pad columns dropped, and dq times √(width/d) where
+    :func:`widened` scaled q by it (the chain rule of q_w = q·√(width/d))."""
+    width = dq.shape[-1]
+    if width == d:
+        return dq, dk, dv
+    if d <= KERNEL_HEAD_DIMS[-1]:
+        dq = (dq[..., :d].float() * (width / d) ** 0.5).to(dq.dtype)
+    return tuple(t[..., :d].contiguous() for t in (dq, dk, dv))
+
+
+def _launch_backward(q, k, v, o, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check_operands("flash_attention_backward", q, k, v, o, do)
+    b, s, d = q.shape
+    if lse.shape != (b, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_backward: lse must be contiguous fp32 [B, S], got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if b == 0 or s == 0 or d == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    q, k, v, o, do = widened_for_backward(q, k, v, o, do)
+    width = q.shape[-1]
+    # Up to the widest kernel width the kernels scale by 1/√width (q was scaled for
+    # it); above, by the true D's, as the D-split forward does.
+    scale_d = d if width > KERNEL_HEAD_DIMS[-1] else width
+    lib = _backward_library()
+    suffix = _BACKWARD_SUFFIX[q.dtype]
+    delta = torch.empty((b, s), device=q.device, dtype=torch.float32)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = getattr(lib, f"eovax_flash_attention_bwd_delta_{suffix}")(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), b * s, width, stream)
+        build.check(lib, code, "flash_attention_backward (delta)")
+        flash_attention_backward.launches += 1
+        row = s * width * q.element_size()  # bytes of one batch row
+        for b0 in range(0, b, grid.GRID_LIMIT):
+            at, st = b0 * row, b0 * s * 4
+            common = (q.data_ptr() + at, k.data_ptr() + at, v.data_ptr() + at,
+                      do.data_ptr() + at, lse.data_ptr() + st, delta.data_ptr() + st)
+            shape = (min(grid.GRID_LIMIT, b - b0), s, width, scale_d, stream)
+            for part, outs in (("dkdv", (dk, dv)), ("dq", (dq,))):
+                code = getattr(lib, f"eovax_flash_attention_bwd_{part}_{suffix}")(
+                    *common, *(t.data_ptr() + at for t in outs), *shape)
+                build.check(lib, code, f"flash_attention_backward ({part})")
+                flash_attention_backward.launches += 1
+    return narrowed_gradients(dq, dk, dv, d)
+
+
+def flash_attention_backward_from_stats(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+        do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of softmax(q kᵀ / √D) v for the output gradient ``do``, from
+    the forward's output ``o`` and row statistics ``lse``
+    (:func:`flash_attention_with_lse`). CUDA tensors launch the backward kernels,
+    three a call (Δ, dK/dV, dQ; two more for each further 65535 batch rows), each
+    adding one to ``flash_attention_backward.launches``; CPU tensors take
+    :func:`flash_attention_backward_from_stats_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)
+    return _launch_backward(q, k, v, o, lse, do.to(q.dtype).contiguous())
 
 
 @torch.library.custom_op("eovax::flash_attention", mutates_args=(), device_types="cpu")
@@ -191,12 +352,19 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v)
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return _forward(q, k, v)
+        out, lse = _launch(q, k, v, stats=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        return flash_attention_backward(*ctx.saved_tensors, do)
+        saved = ctx.saved_tensors
+        if len(saved) == 3:  # the CPU's forward
+            return flash_attention_backward(*saved, do)
+        return flash_attention_backward_from_stats(*saved, do)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -204,7 +372,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
     kernel (and add one to ``flash_attention.launches`` a launch) or raise. Where grad
-    is enabled and an input requires it, the output carries the backward of
+    is enabled and an input requires it, the output carries a backward: on a CUDA
+    tensor :func:`flash_attention_backward_from_stats` (the backward kernels, from
+    the row statistics the forward launch wrote), on a CPU tensor
     :func:`flash_attention_backward`.
     """
     if (torch.is_grad_enabled() and not torch.compiler.is_exporting()
@@ -215,3 +385,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 flash_attention.launches = 0
 flash_attention_backward.calls = 0
+flash_attention_backward.launches = 0

@@ -4,7 +4,12 @@
 // eovax/kernels/attention.py (pallas_call at line 83): softmax(q·kᵀ/√D)·v for
 // q, k, v of shape [B, S, D], fp32 logits, an online softmax with fp32
 // running max and sum, an fp32 P·V accumulator, and the output cast to the
-// input type. Forward only, as the TPU kernel is.
+// input type. Where the caller passes an `lse` buffer of [B, S] fp32, each
+// kernel also writes every row's log-sum-exp of the scaled logits in log2
+// units, m + log2(l) of its running max m (log2 units) and sum l: the row
+// statistics from which the backward (flash_attention_bwd.cu) recomputes the
+// probabilities as exp2(q·kᵀ·log2(e)/√D − lse). The inference path passes null
+// and writes nothing more.
 //
 // What bounds it on the H100: operations. The EO-VAE mid-block attention has
 // D = 512 and S = (res/8)². At 512² input and B = 4 one call is 4·B·S²·D =
@@ -365,8 +370,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                      float scale_log2) {
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int S, float scale_log2) {
   using L = Smem<D>;
   constexpr int kAcc = D / 4;  // fp32 output registers a thread: 64 rows × D/2 columns / 128
   extern __shared__ __align__(16) unsigned char smem[];
@@ -496,6 +501,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     l += __shfl_xor_sync(kFull, l, 1);
     l += __shfl_xor_sync(kFull, l, 2);
     inv[h] = 1.f / l;
+    // The row statistics, once a row: warpgroup 0, the quad's first lane.
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (lse != nullptr && wg == 0 && t == 0 && row < S)
+      lse[(size_t)blockIdx.y * S + row] = m_i[h] + log2f(l);
   }
 
   // Every Q·Kᵀ is done and no copy is in flight: the output tile is staged in
@@ -522,7 +531,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                 float scale_log2, cudaStream_t stream) {
   const size_t bytes = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
@@ -531,7 +540,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   dim3 grid((S + kBQ - 1) / kBQ, B);
   flash_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -574,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_bf16_split_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            int S, int Dp, float scale_log2) {
+                            float* __restrict__ lse, int S, int Dp, float scale_log2) {
   constexpr int DC = kSplitCols;
   using L = Smem<DC>;
   constexpr int kAcc = DC / 4;  // fp32 output registers a thread: 64 rows × DC/2 columns / 128
@@ -703,6 +712,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     l += __shfl_xor_sync(kFull, l, 1);
     l += __shfl_xor_sync(kFull, l, 2);
     inv[h] = 1.f / l;
+    // The row statistics, once a row: the first chunk's warpgroup 0, the quad's first lane.
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (lse != nullptr && blockIdx.z == 0 && wg == 0 && t == 0 && row < S)
+      lse[(size_t)blockIdx.y * S + row] = m_i[h] + log2f(l);
   }
 
   // The output chunk staged in the Q and K tiles as [64 rows][kEpiLD], then
@@ -729,8 +742,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-int launch_bf16_split(const void* q, const void* k, const void* v, void* o, int B, int S, int Dp,
-                      float scale_log2, cudaStream_t stream) {
+int launch_bf16_split(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int S, int Dp, float scale_log2, cudaStream_t stream) {
   const size_t bytes = Smem<kSplitCols>::bytes;
   cudaError_t err = cudaFuncSetAttribute(flash_bf16_split_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -738,7 +751,8 @@ int launch_bf16_split(const void* q, const void* k, const void* v, void* o, int 
   dim3 grid((S + kBQ - 1) / kBQ, B, (Dp + kSplitCols - 1) / kSplitCols);
   flash_bf16_split_kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Dp, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, Dp,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -758,7 +772,8 @@ constexpr size_t f32_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kFThreads)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int S, float scale_log2) {
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     int S, float scale_log2) {
   constexpr int kNC = D / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);  // [kFBQ][D]
@@ -842,12 +857,13 @@ __global__ void __launch_bounds__(kFThreads)
     if (row < S) {
 #pragma unroll
       for (int c = 0; c < kNC; ++c) ob[(size_t)row * D + lane + 32 * c] = acc[r][c] / l_i[r];
+      if (lse != nullptr && lane == 0) lse[(size_t)blockIdx.y * S + row] = m_i[r] + log2f(l_i[r]);
     }
   }
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                float scale_log2, cudaStream_t stream) {
   const size_t bytes = f32_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<D>,
@@ -856,7 +872,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   dim3 grid((S + kFBQ - 1) / kFBQ, B);
   flash_f32_kernel<D><<<grid, kFThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, scale_log2);
+      static_cast<float*>(o), lse, S, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -871,8 +887,8 @@ constexpr size_t f32_split_bytes() {
 
 __global__ void __launch_bounds__(kFThreads)
     flash_f32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, int S, int Dp,
-                           float scale_log2) {
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, int S, int Dp, float scale_log2) {
   constexpr int P = kSplitCols;  // columns of d a piece, and output columns a block
   constexpr int kNC = P / 32;    // output columns per lane
   extern __shared__ __align__(16) unsigned char smem[];
@@ -959,12 +975,14 @@ __global__ void __launch_bounds__(kFThreads)
         const int col = c0 + lane + 32 * c;
         if (col < Dp) ob[(size_t)row * Dp + col] = acc[r][c] / l_i[r];
       }
+      if (lse != nullptr && blockIdx.z == 0 && lane == 0)
+        lse[(size_t)blockIdx.y * S + row] = m_i[r] + log2f(l_i[r]);
     }
   }
 }
 
-int launch_f32_split(const void* q, const void* k, const void* v, void* o, int B, int S, int Dp,
-                     float scale_log2, cudaStream_t stream) {
+int launch_f32_split(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int S, int Dp, float scale_log2, cudaStream_t stream) {
   const size_t bytes = f32_split_bytes();
   cudaError_t err = cudaFuncSetAttribute(flash_f32_split_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -972,7 +990,7 @@ int launch_f32_split(const void* q, const void* k, const void* v, void* o, int B
   dim3 grid((S + kFBQ - 1) / kFBQ, B, (Dp + kSplitCols - 1) / kSplitCols);
   flash_f32_split_kernel<<<grid, kFThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, Dp, scale_log2);
+      static_cast<float*>(o), lse, S, Dp, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -983,53 +1001,54 @@ float scale_log2_for(int D) { return (float)(1.0 / sqrt((double)D)) * kLog2e; }
 extern "C" {
 
 // q, k, v, o: contiguous [B, S, D] bf16 on the current device. D in {64, 128, 256, 512};
-// wider D: eovax_flash_attention_split_bf16.
+// wider D: eovax_flash_attention_split_bf16. lse: null, or [B, S] fp32 for the rows'
+// log-sum-exp in log2 units.
 int eovax_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                               int D, void* stream) {
+                               int D, float* lse, void* stream) {
   if (B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   const float sl2 = scale_log2_for(D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_bf16<64>(q, k, v, o, B, S, sl2, st);
-    case 128: return launch_bf16<128>(q, k, v, o, B, S, sl2, st);
-    case 256: return launch_bf16<256>(q, k, v, o, B, S, sl2, st);
-    case 512: return launch_bf16<512>(q, k, v, o, B, S, sl2, st);
+    case 64: return launch_bf16<64>(q, k, v, o, lse, B, S, sl2, st);
+    case 128: return launch_bf16<128>(q, k, v, o, lse, B, S, sl2, st);
+    case 256: return launch_bf16<256>(q, k, v, o, lse, B, S, sl2, st);
+    case 512: return launch_bf16<512>(q, k, v, o, lse, B, S, sl2, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // q, k, v, o: contiguous [B, S, D] fp32 on the current device. D in {64, 128, 256, 512};
-// wider D: eovax_flash_attention_split_f32.
+// wider D: eovax_flash_attention_split_f32. lse as in eovax_flash_attention_bf16.
 int eovax_flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
-                              int D, void* stream) {
+                              int D, float* lse, void* stream) {
   if (B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   const float sl2 = scale_log2_for(D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_f32<64>(q, k, v, o, B, S, sl2, st);
-    case 128: return launch_f32<128>(q, k, v, o, B, S, sl2, st);
-    case 256: return launch_f32<256>(q, k, v, o, B, S, sl2, st);
-    case 512: return launch_f32<512>(q, k, v, o, B, S, sl2, st);
+    case 64: return launch_f32<64>(q, k, v, o, lse, B, S, sl2, st);
+    case 128: return launch_f32<128>(q, k, v, o, lse, B, S, sl2, st);
+    case 256: return launch_f32<256>(q, k, v, o, lse, B, S, sl2, st);
+    case 512: return launch_f32<512>(q, k, v, o, lse, B, S, sl2, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // q, k, v, o: contiguous [B, S, Dp] in the entry's dtype on the current device,
 // Dp a multiple of 64 above 512; the columns from D on are zero in q and k. The
-// logits are scaled by 1/√D.
+// logits are scaled by 1/√D. lse as in eovax_flash_attention_bf16.
 int eovax_flash_attention_split_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                                     int S, int Dp, int D, void* stream) {
+                                     int S, int Dp, int D, float* lse, void* stream) {
   if (B <= 0 || S <= 0 || Dp <= 512 || Dp % 64 != 0 || D <= 0 || D > Dp)
     return (int)cudaErrorInvalidValue;
-  return launch_bf16_split(q, k, v, o, B, S, Dp, scale_log2_for(D),
+  return launch_bf16_split(q, k, v, o, lse, B, S, Dp, scale_log2_for(D),
                            static_cast<cudaStream_t>(stream));
 }
 
 int eovax_flash_attention_split_f32(const void* q, const void* k, const void* v, void* o, int B,
-                                    int S, int Dp, int D, void* stream) {
+                                    int S, int Dp, int D, float* lse, void* stream) {
   if (B <= 0 || S <= 0 || Dp <= 512 || Dp % 64 != 0 || D <= 0 || D > Dp)
     return (int)cudaErrorInvalidValue;
-  return launch_f32_split(q, k, v, o, B, S, Dp, scale_log2_for(D),
+  return launch_f32_split(q, k, v, o, lse, B, S, Dp, scale_log2_for(D),
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -73,7 +73,7 @@ def build_variant(name: str) -> tuple[str, ctypes.CDLL, str]:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(so))
     lib.eovax_flash_attention_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p] * 2
     lib.eovax_flash_attention_bf16.restype = ctypes.c_int
     ptxas = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
              if "Used" in line and "2 barriers" in line]  # the bf16 kernels use two barriers
@@ -105,7 +105,7 @@ def main() -> int:
 
             def call():
                 code = lib.eovax_flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                                      out.data_ptr(), b, s, d, stream)
+                                                      out.data_ptr(), b, s, d, None, stream)
                 if code != 0:
                     raise RuntimeError(f"{name}: CUDA error {code}")
 

@@ -403,20 +403,23 @@ def test_tiny_model_on_card_launches_kernel_and_matches_cpu(cuda_device, policy_
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 def test_backward_on_card_has_grad_fn_and_matches_the_cpu(cuda_device, dtype, tol):
-    """The kernel's output carries the backward; its gradients match the same
-    backward on the CPU in fp32. bf16: P and dP rounded to bf16. Relative to
-    max |reference|."""
+    """The kernel's output carries the backward, which launches the three
+    backward kernels and no tensor-op backward; its gradients match the tensor-op
+    backward on the CPU in fp32. bf16: P and dS rounded to bf16. Relative to max
+    |reference|."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(2, 333, 512, generator=g, device=cuda_device).to(dtype)
                .requires_grad_() for _ in range(3))
-    before = (attention.flash_attention.launches, attention.flash_attention_backward.calls)
+    counters = ((attention.flash_attention, "launches"),
+                (attention.flash_attention_backward, "launches"),
+                (attention.flash_attention_backward, "calls"))
+    before = [getattr(f, name) for f, name in counters]
     out = attention.flash_attention(q, k, v)
     assert out.grad_fn is not None
     do = torch.randn(out.shape, generator=g, device=cuda_device).to(dtype)
     out.backward(do)
     torch.cuda.synchronize()
-    assert (attention.flash_attention.launches, attention.flash_attention_backward.calls) == (
-        before[0] + 1, before[1] + 1)
+    assert [getattr(f, name) - n for (f, name), n in zip(counters, before)] == [1, 3, 0]
     refs = attention.flash_attention_backward(*(t.detach().float().cpu() for t in (q, k, v)),
                                               do.float().cpu())
     for got, ref in zip((q.grad, k.grad, v.grad), refs):
@@ -428,7 +431,8 @@ def test_backward_on_card_has_grad_fn_and_matches_the_cpu(cuda_device, dtype, to
 def test_tiny_model_backward_on_card_matches_cpu(cuda_device, policy_name, tol):
     """backward() through EOVAECore in train mode on the card against the same
     weights on the CPU in fp32: every conv3x3 data gradient on the kernel, every
-    GroupNorm backward on its kernels, and the relative global norm of the
+    GroupNorm backward on its kernels, each attention backward on its three
+    kernels (no tensor-op backward), and the relative global norm of the
     difference of all parameter gradients within tol (fp32: other summation
     orders; bf16: bf16 activations and gradients between layers)."""
     from eovax_torch import EOFluxVAE
@@ -448,6 +452,7 @@ def test_tiny_model_backward_on_card_matches_cpu(cuda_device, policy_name, tol):
     grads = []
     for model, device in ((cpu, "cpu"), (card, cuda_device)):
         before = (conv3x3.conv3x3_dx.launches, groupnorm.group_norm_backward.launches,
+                  attention.flash_attention_backward.launches,
                   attention.flash_attention_backward.calls)
         recon, _ = model.core(x.to(device), wvs.to(device), sample_posterior=False, train=True)
         (recon.float() - x.to(device)).square().mean().backward()
@@ -457,7 +462,8 @@ def test_tiny_model_backward_on_card_matches_cpu(cuda_device, policy_name, tol):
             n_gn = sum(isinstance(m, GroupNorm) for m in model.core.modules())
             assert (conv3x3.conv3x3_dx.launches - before[0],
                     groupnorm.group_norm_backward.launches - before[1],
-                    attention.flash_attention_backward.calls - before[2]) == (n_conv, n_gn, 2)
+                    attention.flash_attention_backward.launches - before[2],
+                    attention.flash_attention_backward.calls - before[3]) == (n_conv, n_gn, 6, 0)
         grads.append({n: p.grad.float().cpu() for n, p in model.core.named_parameters()})
     ref_norm = torch.sqrt(sum(g.square().sum() for g in grads[0].values()))
     diff_norm = torch.sqrt(sum((grads[1][n] - g).square().sum() for n, g in grads[0].items()))

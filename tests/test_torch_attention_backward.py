@@ -1,0 +1,207 @@
+"""The attention backward from the forward's row statistics, against the JAX package.
+
+On a CUDA tensor the port's attention saves each row's log-sum-exp (in log2
+units) from the forward kernel, and its backward runs the hand kernels of
+``csrc/flash_attention_bwd.cu``. Their arithmetic in tensor ops,
+``flash_attention_lse_plain`` and ``flash_attention_backward_from_stats_plain``,
+is held here against ``jax.nn.logsumexp`` of the scaled logits and against
+``jax.vjp`` of ``sdpa_auto`` (what the JAX trainer differentiates), on
+numpy-seeded fp32 inputs, within 1e-5 of max |reference|; so is the widening
+of a width the kernels lack (D = 96 padded to 128 with q scaled by √(128/96),
+its gradient narrowed by the chain rule).
+The tests marked ``gpu`` hold the kernels against those plain versions on the
+card and skip without one. They import no JAX:
+
+    python -m pytest tests/test_torch_attention_backward.py -m gpu --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from eovax_torch.kernels import attention
+
+# fp32 on both sides; Δ from dO∘O where the autodiff sums dP∘P, other summation
+# orders: within 1e-5 of max |reference|.
+TOL_JAX = 1e-5
+# On the card, kernel against plain version, relative to max |reference|: bf16
+# (the inputs rounded alike; products in another order, P and dS rounded to bf16
+# at other points of a tie) and fp32 (other summation orders).
+TOL_CARD = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+# (B, S, D): the kernels' widths, odd S (partial last tiles), and the D-split width.
+SHAPES = [(2, 100, 64), (1, 77, 128), (1, 65, 512), (1, 33, 640)]
+
+
+def _inputs(b, s, d, seed):
+    g = np.random.default_rng(seed)
+    return [g.standard_normal((b, s, d), dtype=np.float32) for _ in range(4)]
+
+
+def _assert_close(got, ref, tol):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape
+    err, scale = np.abs(got - ref).max(), np.abs(ref).max()
+    assert err <= tol * scale, (err, scale)
+
+
+def _jax_grads(q, k, v, g):
+    import jax
+    import jax.numpy as jnp
+
+    from eovax.kernels.attention import sdpa_auto
+
+    _, vjp = jax.vjp(lambda *a: sdpa_auto(*a, precision=jax.lax.Precision.HIGHEST),
+                     *map(jnp.asarray, (q, k, v)))
+    return [np.asarray(r) for r in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("b,s,d", SHAPES)
+def test_lse_plain_matches_jax_logsumexp(b, s, d):
+    """The row statistics: log-sum-exp of q kᵀ/√D, in log2 units."""
+    import jax
+    import jax.numpy as jnp
+
+    q, k, v, _ = _inputs(b, s, d, seed=d + s)
+    logits = jnp.einsum("bqd,bkd->bqk", jnp.asarray(q), jnp.asarray(k),
+                        precision=jax.lax.Precision.HIGHEST) / np.sqrt(d)
+    ref = np.asarray(jax.nn.logsumexp(logits, axis=-1)) * np.log2(np.e)
+    got = attention.flash_attention_lse_plain(*map(torch.from_numpy, (q, k, v)))
+    assert got.dtype == torch.float32 and got.shape == (b, s)
+    _assert_close(got.numpy(), ref, TOL_JAX)
+
+
+@pytest.mark.parametrize("b,s,d", SHAPES)
+def test_backward_from_stats_plain_matches_jax_vjp(b, s, d):
+    """(dq, dk, dv) from o and lse against autodiff of the JAX package's attention."""
+    q, k, v, g = _inputs(b, s, d, seed=d + s + 1)
+    refs = _jax_grads(q, k, v, g)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    o, lse = attention.flash_attention_with_lse(*t[:3])
+    grads = attention.flash_attention_backward_from_stats_plain(*t[:3], o, lse, t[3])
+    for got, ref in zip(grads, refs):
+        assert got.dtype == torch.float32
+        _assert_close(got.numpy(), ref, TOL_JAX)
+
+
+@pytest.mark.parametrize("d,width", [(96, 128), (32, 64)])
+def test_widened_backward_matches_jax_vjp(d, width):
+    """The card's path at a width the kernels lack, the plain version standing in
+    for the kernels: q, k, v widened as the forward widens them (q scaled by
+    √(width/D)), o and dO zero-padded, the gradients at the width narrowed by
+    ``narrowed_gradients`` (dq times √(width/D)), against the JAX package's at D."""
+    q, k, v, g = _inputs(2, 61, d, seed=d)
+    refs = _jax_grads(q, k, v, g)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    o = attention.flash_attention_plain(*t[:3])
+    wide = attention.widened_for_backward(*t[:3], o, t[3])
+    assert all(w.shape == (2, 61, width) for w in wide)
+    qw, kw, vw, ow, dow = wide
+    assert attention.in_kernel_envelope(qw.shape)
+    assert not ow[..., d:].any() and not dow[..., d:].any()
+    lse = attention.flash_attention_lse_plain(qw, kw, vw)
+    wide_grads = attention.flash_attention_backward_from_stats_plain(qw, kw, vw, ow, lse, dow)
+    grads = attention.narrowed_gradients(*wide_grads, d)
+    for got, ref in zip(grads, refs):
+        assert got.shape == (2, 61, d)
+        _assert_close(got.numpy(), ref, TOL_JAX)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_from_stats_plain_agrees_with_tensor_op_backward(dtype):
+    """The two tensor-op backwards compute one gradient: fp32 to TOL_JAX; bf16,
+    where one rounds dP and the other dS to bf16, within 2e-2 of max."""
+    q, k, v, g = (torch.from_numpy(a).to(dtype) for a in _inputs(2, 90, 64, seed=11))
+    o, lse = attention.flash_attention_with_lse(q, k, v)
+    got = attention.flash_attention_backward_from_stats_plain(q, k, v, o, lse, g)
+    ref = attention.flash_attention_backward(q, k, v, g)
+    tol = TOL_JAX if dtype == torch.float32 else 2e-2
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype
+        _assert_close(a.float().numpy(), r.float().numpy(), tol)
+
+
+def test_cpu_tensors_take_the_plain_versions_without_launch():
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(1, 40, 64, seed=12))
+    before = (attention.flash_attention.launches, attention.flash_attention_backward.launches)
+    o, lse = attention.flash_attention_with_lse(q, k, v)
+    assert torch.equal(o, attention.flash_attention_plain(q, k, v))
+    assert torch.equal(lse, attention.flash_attention_lse_plain(q, k, v))
+    grads = attention.flash_attention_backward_from_stats(q, k, v, o, lse, g)
+    refs = attention.flash_attention_backward_from_stats_plain(q, k, v, o, lse, g)
+    assert all(torch.equal(a, r) for a, r in zip(grads, refs))
+    assert (attention.flash_attention.launches,
+            attention.flash_attention_backward.launches) == before
+
+
+def test_backward_library_is_keyed_by_source_hash():
+    from eovax_torch.kernels import build
+
+    lib = build.library_path(attention.BACKWARD_SOURCE)
+    assert lib.name.startswith("flash_attention_bwd_") and lib.suffix == ".so"
+    assert (build.CSRC / attention.BACKWARD_SOURCE).exists()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _card_inputs(b, s, d, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, s, d, generator=g, device=device).to(dtype) for _ in range(4)]
+
+
+def _rel(got, ref):
+    return (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d", [(2, 333, 64), (2, 200, 128), (1, 130, 256), (2, 257, 512),
+                                   (1, 100, 640), (1, 65, 1024), (3, 3, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_backward_kernels_match_plain_on_card(cuda_device, b, s, d, dtype):
+    """The forward's row statistics against ``flash_attention_lse_plain`` and its
+    output ``torch.equal`` with and without them; the three backward launches
+    against ``flash_attention_backward_from_stats_plain`` on the same o and lse
+    (TOL_CARD), and two calls bit-identical."""
+    q, k, v, do = _card_inputs(b, s, d, dtype, cuda_device, seed=d + s)
+    o, lse = attention.flash_attention_with_lse(q, k, v)
+    assert torch.equal(o, attention.flash_attention(q, k, v))
+    ref_lse = attention.flash_attention_lse_plain(q, k, v)
+    assert _rel(lse, ref_lse) <= 1e-5
+    before = attention.flash_attention_backward.launches
+    grads = attention.flash_attention_backward_from_stats(q, k, v, o, lse, do)
+    again = attention.flash_attention_backward_from_stats(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_backward.launches == before + 6
+    refs = attention.flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)
+    for got, rep, ref in zip(grads, again, refs):
+        assert got.dtype == dtype and got.shape == q.shape
+        assert torch.equal(got, rep)
+        assert _rel(got, ref) <= TOL_CARD[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,dtype,launches", [
+    (2, 300, 96, torch.bfloat16, 3), (2, 300, 96, torch.float32, 3),
+    (2, 77, 520, torch.bfloat16, 3), (65537, 16, 64, torch.bfloat16, 5)],
+    ids=["96-bf16", "96-fp32", "520-bf16", "batch-past-the-grid"])
+def test_autograd_outside_the_envelope_on_card(cuda_device, b, s, d, dtype, launches):
+    """``backward()`` through ``flash_attention`` at a width the kernels lack and a
+    batch past their grid: the kernels' launches exactly (Δ once, dK/dV and dQ a
+    batch block), no tensor-op backward, and the gradients within TOL_CARD of the
+    tensor-op backward on the same inputs."""
+    q, k, v, do = _card_inputs(b, s, d, dtype, cuda_device, seed=d)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (attention.flash_attention_backward.launches, attention.flash_attention_backward.calls)
+    attention.flash_attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    assert (attention.flash_attention_backward.launches - before[0],
+            attention.flash_attention_backward.calls - before[1]) == (launches, 0)
+    refs = attention.flash_attention_backward(q.float(), k.float(), v.float(), do.float())
+    for leaf, ref in zip(leaves, refs):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == q.shape
+        assert _rel(leaf.grad, ref) <= TOL_CARD[dtype]

@@ -839,6 +839,7 @@ def test_adversarial_step_on_card_matches_cpu(cuda_device, precision, loss_cfg, 
         counters = (conv3x3.conv3x3, conv3x3.conv3x3_dx, groupnorm.group_norm,
                     groupnorm.group_norm_backward)
         before = [f.launches for f in counters] + [attention.flash_attention.launches,
+                                                   attention.flash_attention_backward.launches,
                                                    attention.flash_attention_backward.calls]
         state = stage2.TrainState(step=step)
         wvs = torch.from_numpy(WVS).to(device)
@@ -853,9 +854,11 @@ def test_adversarial_step_on_card_matches_cpu(cuda_device, precision, loss_cfg, 
             n_gn = sum(isinstance(m, GroupNorm) for m in model.core.modules())
             n_attn = sum(isinstance(m, AttnBlock) for m in model.core.modules())
             after = [f.launches for f in counters] + [attention.flash_attention.launches,
+                                                      attention.flash_attention_backward.launches,
                                                       attention.flash_attention_backward.calls]
+            # Each attention backward: three kernel launches, no tensor-op call.
             assert [a - b for a, b in zip(after, before)] == [n_conv, n_conv, n_gn, n_gn,
-                                                              n_attn, n_attn]
+                                                              n_attn, 3 * n_attn, 0]
         stats = {k: v.cpu() for k, v in disc.state_dict().items() if k.endswith((".u", ".sigma"))}
         (weight,) = weights
         results.append((grads, weight.item(), stats))

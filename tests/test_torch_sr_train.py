@@ -687,11 +687,13 @@ def test_sr_gradients_on_card_match_cpu(cuda_device, dtype, tol):
     den = tsr.SimpleDenoiser()
     den.loss(ref_unet, x, t, cond, eps=eps).backward()
     conv3x3.conv3x3_dx.launches = groupnorm.group_norm_backward.launches = 0
-    attention.flash_attention_backward.calls = 0
+    attention.flash_attention_backward.launches = attention.flash_attention_backward.calls = 0
     den.loss(card, *(a.to(cuda_device) for a in (x, t, cond)), eps=eps.to(cuda_device)).backward()
     torch.cuda.synchronize()
+    # The attention backward: one call of three kernel launches, no tensor-op call.
     assert (conv3x3.conv3x3_dx.launches, groupnorm.group_norm_backward.launches,
-            attention.flash_attention_backward.calls) == (16, 18, 1)
+            attention.flash_attention_backward.launches,
+            attention.flash_attention_backward.calls) == (16, 18, 3, 0)
     ref = {n: p.grad for n, p in ref_unet.named_parameters()}
     diff = sum(((p.grad.float().cpu() - ref[n]).double() ** 2).sum()
                for n, p in card.named_parameters())
