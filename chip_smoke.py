@@ -17,7 +17,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      [2,512,512] that must give V[π] exactly;
    - ``flash_attention_backward`` (``ATTN_BWD_SHAPES``, bf16 and fp32: the
      training paths' [16,1024,512], [16,4096,128], [16,256,64] and
-     [4,16384,64], the D-split [2,1024,640] and the widened [2,333,96]): the
+     [4,16384,64], the D-split [2,1024,640], the widened [2,333,96] and the
+     wgmma kernels' tile edges [2,129,64] and [2,255,128]): the
      forward's output ``torch.equal`` with and without its row statistics
      written, the statistics against ``flash_attention_lse_plain``, the three
      backward launches against ``flash_attention_backward_from_stats_plain``
@@ -100,8 +101,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    step (52 ``gn_fwd_`` and 52 ``gn_bwd_`` launches); the backward kernels'
    times beside their plain versions, library calls and bounds
    (``group_norm_backward`` at [16,128,256,256] and [16,256,256,256]; the
-   attention backward at [16,1024,512] beside the backward of
-   ``F.scaled_dot_product_attention``). Then one ``{"kernels": [...]}`` line
+   attention backward at [16,1024,512] and [16,4096,128] beside the backward
+   of ``F.scaled_dot_product_attention``). Then one ``{"kernels": [...]}`` line
    (flash_attention and conv3x3 also with their TFLOP/s at each timed shape;
    flash_attention with the bytes its blocks read from L2 and the rate they
    imply).
@@ -525,13 +526,23 @@ TOL_LSE = 1e-5
 # Launches of one attention backward call on the card: Δ, dK/dV, dQ.
 ATTN_BWD_LAUNCHES = 3
 # The most device memory the attention backward may take above its operands at
-# the pixel SR shape [4,16384,64]: Δ (256 KiB) and nothing of size S².
+# the pixel SR shape [4,16384,64]: Δ and a copy of lse, padded to 128 rows (512
+# KiB), and nothing of size S².
 ATTN_BWD_MAX_BYTES = 64 * 2**20
 # The attention backward's shapes in phase 2 (bf16 and fp32): stage 2 (and the
 # paths built on it), the flow refiner, the SR latent UNet, the pixel SR UNet,
-# the D-split width and a widened width at an odd S.
+# the D-split width, a widened width at an odd S, and the edges of the bf16
+# wgmma kernels' tiles (64 streamed rows, 128 resident rows a block).
 ATTN_BWD_SHAPES = ((16, 1024, 512), (16, 4096, 128), (16, 256, 64), (4, 16384, 64),
-                   (2, 1024, 640), (2, 333, 96))
+                   (2, 1024, 640), (2, 333, 96), (2, 129, 64), (2, 255, 128))
+# The backward kernels that each drive launched, by C entry
+# (``flash_attention_backward.kernels``), keyed by the drive's label.
+BACKWARD_KERNELS: dict[str, dict[str, int]] = {}
+# The drives whose attention backward route is checked: the stage-2 step (D = 512,
+# the mma.sync kernels), the flow-refine step (D = 128) and the pixel SR step
+# (D = 64), both on the wgmma kernels.
+TRAIN_STEP_LABEL = "train step [16,12,256,256] bf16"
+REFINE_STEP_LABEL = "flow-refine step [16,3,256,256] bf16 (VAE reconstruct + refiner)"
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12    # fp32 outside the tensor cores
@@ -1277,15 +1288,31 @@ def drive(label: str, fn, expected: dict | None):
                 "gn_channel_sums": (groupnorm.gn_channel_sums, "launches")}
     for f, attr in counters.values():
         setattr(f, attr, 0)
+    attention.flash_attention_backward.kernels = {}
     out = fn()
     torch.cuda.synchronize()
     got = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
     print(f"{label}: launches {got}")
+    if attention.flash_attention_backward.kernels:
+        BACKWARD_KERNELS[label] = dict(attention.flash_attention_backward.kernels)
+        print(f"{label}: attention backward kernels {BACKWARD_KERNELS[label]}")
     if got["flash_attention_backward_calls"]:
         raise AssertionError(f"{label}: the tensor-op attention backward ran on the card")
     if expected is not None and got != expected:
         raise AssertionError(f"{label}: expected launches {expected}, got {got}")
     return out, got
+
+
+def expect_backward_route(label: str, route: str) -> None:
+    """Fail unless the drive of ``label`` launched exactly the attention backward
+    kernels of ``route`` (``attention.backward_kernels``), each as often."""
+    from eovax_torch.kernels import attention
+
+    got = BACKWARD_KERNELS.get(label, {})
+    parts = attention._BACKWARD_PARTS[route]
+    if set(got) != set(parts) or len(set(got.values())) != 1:
+        raise AssertionError(f"{label}: attention backward kernels {got}, expected the "
+                             f"{route} kernels {parts}")
 
 
 def launches(conv: int, gn: int, attn: int, conv_dx: int = 0, gn_bwd: int = 0,
@@ -1493,8 +1520,9 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
                           "decoder-up0-block1-norm2-captured", **kw)
     del captured, xn, kw
 
-    logs, counts = drive("train step [16,12,256,256] bf16", lambda: step(state, x, s2),
+    logs, counts = drive(TRAIN_STEP_LABEL, lambda: step(state, x, s2),
                          launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+    expect_backward_route(TRAIN_STEP_LABEL, "mma")
     losses.append(logs["train/loss_total"])
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: losses.append(step(state, x, s2)["train/loss_total"]), 10,
@@ -1547,6 +1575,8 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
     # Backward kernels' times at the largest main-path shapes.
     timings["flash_attention_backward"] = time_attention_backward(16, 1024, 512, g, card,
                                                                   iters=10)
+    timings["flash_attention_backward", (16, 4096, 128)] = time_attention_backward(
+        16, 4096, 128, g, card, iters=10)
     b, ci, co, h, w = 16, 128, 128, 256, 256
     grad = torch.randn(b, co, h, w, generator=g, device=dev).to(torch.bfloat16)
     k = 0.05 * torch.randn(co, ci, 3, 3, generator=g, device=dev)
@@ -4373,8 +4403,8 @@ def refine_phase(vae_sd: dict, card: str, g) -> dict:
                         "refiner mid_attn-captured")
     del captured, x1, xn, kw
     torch.cuda.empty_cache()
-    loss, counts = drive("flow-refine step [16,3,256,256] bf16 (VAE reconstruct + refiner)",
-                         step, REFINE_STEP)
+    loss, counts = drive(REFINE_STEP_LABEL, step, REFINE_STEP)
+    expect_backward_route(REFINE_STEP_LABEL, "wgmma")
     losses.append(loss)
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: losses.append(step()), 5, warmup=0)
@@ -5883,6 +5913,7 @@ def pixel_sr_phase(card: str, g) -> dict:
             losses = [step()]
             loss, counts = drive(f"pixel SR train step [{b},4,512,512] bf16", step,
                                  SR_TRAIN_STEP)
+            expect_backward_route(f"pixel SR train step [{b},4,512,512] bf16", "wgmma")
             losses.append(loss)
             ms = cuda_ms(lambda: losses.append(step()), PIXEL_TIMED_STEPS, warmup=0)
             peak = torch.cuda.max_memory_allocated()
@@ -6778,7 +6809,9 @@ def main() -> int:
             for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                       "bound_share", "backward_bytes")},
          "shapes": [pixel["shapes"]["flash_attention_backward"][0],
-                    bwd_timings["flash_attention_backward"]],
+                    bwd_timings["flash_attention_backward"],
+                    bwd_timings["flash_attention_backward", (16, 4096, 128)]],
+         "kernels_by_path": BACKWARD_KERNELS,
          "phase2_max_abs_err": {f"{list(shape)} {str(dt).removeprefix('torch.')}": err
                                 for (shape, dt), err in attn_bwd_errs.items()},
          "tensor_op_calls": train_counts["flash_attention_backward_calls"],

@@ -28,8 +28,11 @@ row's log-sum-exp of the scaled logits (:func:`flash_attention_with_lse`), and
 the backward is :func:`flash_attention_backward_from_stats`: three launches of
 the hand kernels in ``csrc/flash_attention_bwd.cu`` (Δ = rowsum(dO∘O); dK and
 dV; dQ), which recompute the probabilities tile by tile from those statistics
-and keep nothing of size S². A call outside :func:`in_kernel_envelope` is
-widened as the forward widens it, and its gradients narrowed by the chain rule.
+and keep nothing of size S². :func:`backward_kernels` picks them by dtype and
+width: bf16 at kernel widths 64 and 128 the `wgmma` kernels, other bf16 widths
+the `mma.sync` kernels, fp32 the FMA kernels. A call outside
+:func:`in_kernel_envelope` is widened as the forward widens it, and its
+gradients narrowed by the chain rule.
 On a CPU tensor the backward is :func:`flash_attention_backward`, which
 recomputes the fp32 probabilities from the saved q, k and v in tensor ops.
 :func:`flash_attention_lse_plain` and
@@ -58,7 +61,14 @@ _SPLIT_ALIGN = 64
 _ENTRY = {torch.bfloat16: "eovax_flash_attention_bf16", torch.float32: "eovax_flash_attention_f32"}
 _SPLIT_ENTRY = {torch.bfloat16: "eovax_flash_attention_split_bf16",
                 torch.float32: "eovax_flash_attention_split_f32"}
-_BACKWARD_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# The backward kernels of each route (:func:`backward_kernels`): the C entries
+# eovax_flash_attention_bwd_<part> of Δ (with, for the wgmma kernels, the
+# statistics padded to their rows), dK/dV and dQ.
+_BACKWARD_PARTS = {"wgmma": ("stats_bf16", "dkdv_wgmma_bf16", "dq_wgmma_bf16"),
+                   "mma": ("delta_bf16", "dkdv_bf16", "dq_bf16"),
+                   "fma": ("delta_f32", "dkdv_f32", "dq_f32")}
+# Kernel widths at which bf16 takes the wgmma backward kernels.
+WGMMA_BACKWARD_WIDTHS = (64, 128)
 # The kernels' row statistics are in log2 units: log2 Σ exp2(x·log2 e) of the
 # scaled logits x.
 _LOG2E = 1.4426950408889634
@@ -154,18 +164,49 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def backward_kernels(dtype: torch.dtype, d: int) -> str:
+    """The route of the backward kernels for a call of head width ``d`` in
+    ``dtype``, at the kernel width the call is widened to (:func:`_kernel_width`):
+    ``"wgmma"`` for bf16 at :data:`WGMMA_BACKWARD_WIDTHS`, ``"mma"`` for bf16 at
+    the other widths, ``"fma"`` for fp32."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_backward: no kernel for {dtype}")
+    return "wgmma" if _kernel_width(d) in WGMMA_BACKWARD_WIDTHS else "mma"
+
+
+def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of the C entries eovax_flash_attention_bwd_<part> of a
+    library built from :data:`BACKWARD_SOURCE` (or from a variant of it)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    argtypes = {"delta_bf16": [ptr] * 3 + [ctypes.c_longlong, i32, ptr],
+                "dkdv_bf16": [ptr] * 8 + [i32] * 4 + [ptr],
+                "dq_bf16": [ptr] * 7 + [i32] * 4 + [ptr],
+                "stats_rows": [i32],
+                "stats_bf16": [ptr] * 5 + [i32] * 4 + [ptr],
+                "dkdv_wgmma_bf16": [ptr] * 8 + [i32] * 5 + [ptr],
+                "dq_wgmma_bf16": [ptr] * 7 + [i32] * 5 + [ptr]}
+    for part in ("delta", "dkdv", "dq"):
+        argtypes[f"{part}_f32"] = argtypes[f"{part}_bf16"]
+    for part, types in argtypes.items():
+        fn = getattr(lib, f"eovax_flash_attention_bwd_{part}")
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def _backward_library() -> ctypes.CDLL:
-    lib = build.load(BACKWARD_SOURCE)
-    for suffix in _BACKWARD_SUFFIX.values():
-        fn = getattr(lib, f"eovax_flash_attention_bwd_delta_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        for part, pointers in (("dkdv", 8), ("dq", 7)):
-            fn = getattr(lib, f"eovax_flash_attention_bwd_{part}_{suffix}")
-            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
+    return bind_backward(build.load(BACKWARD_SOURCE))
+
+
+def _backward_launch(lib: ctypes.CDLL, part: str, *args) -> None:
+    """Launch the backward kernel of C entry ``part``, raise on its error, and count it."""
+    code = getattr(lib, f"eovax_flash_attention_bwd_{part}")(*args)
+    build.check(lib, code, f"flash_attention_backward ({part})")
+    flash_attention_backward.launches += 1
+    flash_attention_backward.kernels[part] = flash_attention_backward.kernels.get(part, 0) + 1
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -285,32 +326,38 @@ def _launch_backward(q, k, v, o, lse, do) -> tuple[torch.Tensor, torch.Tensor, t
                          f"{tuple(lse.shape)} {lse.dtype}")
     if b == 0 or s == 0 or d == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    route = backward_kernels(q.dtype, d)
     q, k, v, o, do = widened_for_backward(q, k, v, o, do)
     width = q.shape[-1]
     # Up to the widest kernel width the kernels scale by 1/√width (q was scaled for
     # it); above, by the true D's, as the D-split forward does.
     scale_d = d if width > KERNEL_HEAD_DIMS[-1] else width
     lib = _backward_library()
-    suffix = _BACKWARD_SUFFIX[q.dtype]
-    delta = torch.empty((b, s), device=q.device, dtype=torch.float32)
+    stats, dkdv, dq_part = _BACKWARD_PARTS[route]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = getattr(lib, f"eovax_flash_attention_bwd_delta_{suffix}")(
-            o.data_ptr(), do.data_ptr(), delta.data_ptr(), b * s, width, stream)
-        build.check(lib, code, "flash_attention_backward (delta)")
-        flash_attention_backward.launches += 1
+        if route == "wgmma":
+            # Δ and a copy of lse, padded to the rows the kernels read.
+            rows = lib.eovax_flash_attention_bwd_stats_rows(s)
+            delta, lse_p = (torch.empty((b, rows), device=q.device, dtype=torch.float32)
+                            for _ in range(2))
+            _backward_launch(lib, stats, o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                             delta.data_ptr(), lse_p.data_ptr(), b, s, rows, width, stream)
+            lse, extra = lse_p, (rows,)
+        else:
+            rows, extra = s, ()
+            delta = torch.empty((b, s), device=q.device, dtype=torch.float32)
+            _backward_launch(lib, stats, o.data_ptr(), do.data_ptr(), delta.data_ptr(), b * s,
+                             width, stream)
         row = s * width * q.element_size()  # bytes of one batch row
         for b0 in range(0, b, grid.GRID_LIMIT):
-            at, st = b0 * row, b0 * s * 4
+            at, st = b0 * row, b0 * rows * 4
             common = (q.data_ptr() + at, k.data_ptr() + at, v.data_ptr() + at,
                       do.data_ptr() + at, lse.data_ptr() + st, delta.data_ptr() + st)
-            shape = (min(grid.GRID_LIMIT, b - b0), s, width, scale_d, stream)
-            for part, outs in (("dkdv", (dk, dv)), ("dq", (dq,))):
-                code = getattr(lib, f"eovax_flash_attention_bwd_{part}_{suffix}")(
-                    *common, *(t.data_ptr() + at for t in outs), *shape)
-                build.check(lib, code, f"flash_attention_backward ({part})")
-                flash_attention_backward.launches += 1
+            shape = (min(grid.GRID_LIMIT, b - b0), s, *extra, width, scale_d, stream)
+            _backward_launch(lib, dkdv, *common, dk.data_ptr() + at, dv.data_ptr() + at, *shape)
+            _backward_launch(lib, dq_part, *common, dq.data_ptr() + at, *shape)
     return narrowed_gradients(dq, dk, dv, d)
 
 
@@ -321,8 +368,9 @@ def flash_attention_backward_from_stats(
     the forward's output ``o`` and row statistics ``lse``
     (:func:`flash_attention_with_lse`). CUDA tensors launch the backward kernels,
     three a call (Δ, dK/dV, dQ; two more for each further 65535 batch rows), each
-    adding one to ``flash_attention_backward.launches``; CPU tensors take
-    :func:`flash_attention_backward_from_stats_plain`."""
+    adding one to ``flash_attention_backward.launches`` and, under its C entry
+    (:data:`_BACKWARD_PARTS`), to ``flash_attention_backward.kernels``; CPU tensors
+    take :func:`flash_attention_backward_from_stats_plain`."""
     if q.device.type == "cpu":
         return flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)
     return _launch_backward(q, k, v, o, lse, do.to(q.dtype).contiguous())
@@ -386,3 +434,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 flash_attention.launches = 0
 flash_attention_backward.calls = 0
 flash_attention_backward.launches = 0
+flash_attention_backward.kernels = {}

@@ -8,8 +8,9 @@
 // kernel also writes every row's log-sum-exp of the scaled logits in log2
 // units, m + log2(l) of its running max m (log2 units) and sum l: the row
 // statistics from which the backward (flash_attention_bwd.cu) recomputes the
-// probabilities as exp2(q·kᵀ·log2(e)/√D − lse). The inference path passes null
-// and writes nothing more.
+// probabilities as exp2(q·kᵀ·log2(e)/√D − lse). Each kernel is built twice, by
+// its template flag kLse: the inference path passes null and launches the
+// variant without the write, whose code is that of a forward with no lse.
 //
 // What bounds it on the H100: operations. The EO-VAE mid-block attention has
 // D = 512 and S = (res/8)². At 512² input and B = 4 one call is 4·B·S²·D =
@@ -367,7 +368,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -503,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     inv[h] = 1.f / l;
     // The row statistics, once a row: warpgroup 0, the quad's first lane.
     const int row = q0 + 16 * warp + g + 8 * h;
-    if (lse != nullptr && wg == 0 && t == 0 && row < S)
+    if (kLse && wg == 0 && t == 0 && row < S)
       lse[(size_t)blockIdx.y * S + row] = m_i[h] + log2f(l);
   }
 
@@ -530,18 +531,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                 float scale_log2, cudaStream_t stream) {
   const size_t bytes = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBQ - 1) / kBQ, B);
-  flash_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_bf16_kernel<D, kLse><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, scale_log2);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                float scale_log2, cudaStream_t stream) {
+  return lse != nullptr ? launch_bf16<D, true>(q, k, v, o, lse, B, S, scale_log2, stream)
+                        : launch_bf16<D, false>(q, k, v, o, lse, B, S, scale_log2, stream);
 }
 
 // ------------------------------------------------------- bf16, D above 512
@@ -579,6 +587,7 @@ __device__ __forceinline__ void load_tile_cols(uint32_t dst, const __nv_bfloat16
   }
 }
 
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bf16_split_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
@@ -714,7 +723,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     inv[h] = 1.f / l;
     // The row statistics, once a row: the first chunk's warpgroup 0, the quad's first lane.
     const int row = q0 + 16 * warp + g + 8 * h;
-    if (lse != nullptr && blockIdx.z == 0 && wg == 0 && t == 0 && row < S)
+    if (kLse && blockIdx.z == 0 && wg == 0 && t == 0 && row < S)
       lse[(size_t)blockIdx.y * S + row] = m_i[h] + log2f(l);
   }
 
@@ -742,14 +751,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <bool kLse>
 int launch_bf16_split(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                       int S, int Dp, float scale_log2, cudaStream_t stream) {
   const size_t bytes = Smem<kSplitCols>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_split_kernel,
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_split_kernel<kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBQ - 1) / kBQ, B, (Dp + kSplitCols - 1) / kSplitCols);
-  flash_bf16_split_kernel<<<grid, kThreads, bytes, stream>>>(
+  flash_bf16_split_kernel<kLse><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, Dp,
       scale_log2);
@@ -769,7 +779,7 @@ constexpr size_t f32_bytes() {
   return (size_t)(kFBQ * D + kFBK * (D + 1) + kFBK * D) * sizeof(float);
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kFThreads)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
@@ -857,23 +867,30 @@ __global__ void __launch_bounds__(kFThreads)
     if (row < S) {
 #pragma unroll
       for (int c = 0; c < kNC; ++c) ob[(size_t)row * D + lane + 32 * c] = acc[r][c] / l_i[r];
-      if (lse != nullptr && lane == 0) lse[(size_t)blockIdx.y * S + row] = m_i[r] + log2f(l_i[r]);
+      if (kLse && lane == 0) lse[(size_t)blockIdx.y * S + row] = m_i[r] + log2f(l_i[r]);
     }
   }
+}
+
+template <int D, bool kLse>
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+               float scale_log2, cudaStream_t stream) {
+  const size_t bytes = f32_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<D, kLse>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kFBQ - 1) / kFBQ, B);
+  flash_f32_kernel<D, kLse><<<grid, kFThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, S, scale_log2);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                float scale_log2, cudaStream_t stream) {
-  const size_t bytes = f32_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kFBQ - 1) / kFBQ, B);
-  flash_f32_kernel<D><<<grid, kFThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, S, scale_log2);
-  return (int)cudaGetLastError();
+  return lse != nullptr ? launch_f32<D, true>(q, k, v, o, lse, B, S, scale_log2, stream)
+                        : launch_f32<D, false>(q, k, v, o, lse, B, S, scale_log2, stream);
 }
 
 // D above 512 in fp32: flash_f32_kernel over a chunk of kSplitCols output
@@ -885,6 +902,7 @@ constexpr size_t f32_split_bytes() {
          sizeof(float);
 }
 
+template <bool kLse>
 __global__ void __launch_bounds__(kFThreads)
     flash_f32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
@@ -975,20 +993,21 @@ __global__ void __launch_bounds__(kFThreads)
         const int col = c0 + lane + 32 * c;
         if (col < Dp) ob[(size_t)row * Dp + col] = acc[r][c] / l_i[r];
       }
-      if (lse != nullptr && blockIdx.z == 0 && lane == 0)
+      if (kLse && blockIdx.z == 0 && lane == 0)
         lse[(size_t)blockIdx.y * S + row] = m_i[r] + log2f(l_i[r]);
     }
   }
 }
 
+template <bool kLse>
 int launch_f32_split(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                      int S, int Dp, float scale_log2, cudaStream_t stream) {
   const size_t bytes = f32_split_bytes();
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_split_kernel,
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_split_kernel<kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kFBQ - 1) / kFBQ, B, (Dp + kSplitCols - 1) / kSplitCols);
-  flash_f32_split_kernel<<<grid, kFThreads, bytes, stream>>>(
+  flash_f32_split_kernel<kLse><<<grid, kFThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, S, Dp, scale_log2);
   return (int)cudaGetLastError();
@@ -1040,16 +1059,18 @@ int eovax_flash_attention_split_bf16(const void* q, const void* k, const void* v
                                      int S, int Dp, int D, float* lse, void* stream) {
   if (B <= 0 || S <= 0 || Dp <= 512 || Dp % 64 != 0 || D <= 0 || D > Dp)
     return (int)cudaErrorInvalidValue;
-  return launch_bf16_split(q, k, v, o, lse, B, S, Dp, scale_log2_for(D),
-                           static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return lse != nullptr ? launch_bf16_split<true>(q, k, v, o, lse, B, S, Dp, scale_log2_for(D), st)
+                        : launch_bf16_split<false>(q, k, v, o, lse, B, S, Dp, scale_log2_for(D), st);
 }
 
 int eovax_flash_attention_split_f32(const void* q, const void* k, const void* v, void* o, int B,
                                     int S, int Dp, int D, float* lse, void* stream) {
   if (B <= 0 || S <= 0 || Dp <= 512 || Dp % 64 != 0 || D <= 0 || D > Dp)
     return (int)cudaErrorInvalidValue;
-  return launch_f32_split(q, k, v, o, lse, B, S, Dp, scale_log2_for(D),
-                          static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return lse != nullptr ? launch_f32_split<true>(q, k, v, o, lse, B, S, Dp, scale_log2_for(D), st)
+                        : launch_f32_split<false>(q, k, v, o, lse, B, S, Dp, scale_log2_for(D), st);
 }
 
 const char* eovax_cuda_error_string(int code) {

@@ -1,60 +1,92 @@
 // Single-head, unmasked flash attention backward for Hopper (sm_90a).
 //
 // The gradient of flash_attention.cu's forward, softmax(q·kᵀ/√D)·v over
-// [B, S, D]: the TPU kernel it replaces (`_flash_kernel` / `flash_attention` in
-// eovax/kernels/attention.py, pallas_call at line 83) has no backward; the JAX
-// trainer differentiates `sdpa_auto`'s einsum, whose gradient this computes
-// without its [B, S, S] buffers. The probabilities are recomputed from the
-// forward's row statistics: lse, each row's log-sum-exp of the scaled logits in
-// log2 units, so that P = exp2(q·kᵀ·scale·log2(e) − lse).
+// [B, S, D], which replaces the TPU kernel `_flash_kernel` / `flash_attention`
+// (eovax/kernels/attention.py:28-100, pallas_call at line 83). That kernel has
+// no backward: the JAX trainer differentiates `sdpa_auto`'s einsum
+// (attention.py:103-128), whose gradient this computes without its [B, S, S]
+// buffers. The probabilities are recomputed from the forward's row statistics:
+// lse, each row's log-sum-exp of the scaled logits in log2 units, so that
+// P = exp2(q·kᵀ·scale·log2(e) − lse).
 //
 // FlashAttention-2's split, with no atomics, so that two calls give the same
 // bits:
-//   (a) flash_bwd_delta_kernel: Δ = rowsum(dO ∘ O) in fp32, [B, S], a warp a row.
-//   (b) flash_bwd_*_kernel<true>: a block owns 64 keys and one chunk of 64
-//       columns of dK and dV (the grid's z), and loops over the query tiles:
-//       Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over the whole D, in pieces of 64 columns;
-//       Pᵀ = exp2(Sᵀ·scale·log2(e) − lse), dSᵀ = Pᵀ ∘ (dPᵀ − Δ); then
-//       dV += Pᵀ·dO and dK += dSᵀ·Q on the block's chunk; dK times the scale.
-//   (c) flash_bwd_*_kernel<false>: a block owns 64 queries and one chunk of dQ
-//       and loops over the key tiles in the same way: S = Q·Kᵀ, dP = dO·Vᵀ,
-//       P, dS, dQ += dS·K; dQ times the scale.
-// (b) and (c) are one kernel: rows A1, A2 (K, V or Q, dO) against the streamed
-// tiles B1, B2 (Q, dO or K, V); dS·B1 goes to the first output, P·B2 (dK/dV
-// only) to the second, and the statistics belong to the streamed columns (dK/dV)
-// or to the rows (dQ).
+//   (a) Δ = rowsum(dO ∘ O) in fp32, a warp a row: flash_bwd_delta_kernel
+//       ([B, S]) or, for the wgmma kernels, flash_bwd_stats_kernel, which also
+//       copies lse, both into [B, Sp] buffers padded to kStatsAlign rows (Δ 0
+//       and lse +∞ past S, so that a padded column's probability is 0).
+//   (b) dK/dV: a block owns a tile of keys and loops over the query tiles:
+//       Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ; Pᵀ = exp2(Sᵀ·scale·log2(e) − lse),
+//       dSᵀ = Pᵀ ∘ (dPᵀ − Δ); dV += Pᵀ·dO, dK += dSᵀ·Q; dK times the scale.
+//   (c) dQ: a block owns a tile of queries and loops over the key tiles in the
+//       same way: S = Q·Kᵀ, dP = dO·Vᵀ, P, dS, dQ += dS·K; dQ times the scale.
+// (b) and (c) are one kernel body: resident rows A1, A2 (K, V or Q, dO) against
+// the streamed tiles B1, B2 (Q, dO or K, V); dS·B1 goes to the first output,
+// P·B2 (dK/dV only) to the second, and the statistics belong to the streamed
+// columns (dK/dV) or to the resident rows (dQ).
 //
-// Why column chunks: at D = 512 the dK and dV accumulators of 64 keys are
-// 256 KiB of fp32, more than a block's registers and shared memory. So a block
-// keeps 64 output columns, and every D above 64 recomputes S and dP for each
-// chunk (the D-split forward does the same with its logits): slow at
-// D = 512, and right at every D. The pieces of D are taken in the order that
-// ends with the block's own chunk, whose Q/dO (or K/V) tiles then stay in
-// shared memory for the update products.
+// What bounds it on the H100: the tensor cores, and beside them the exps. The
+// least work is 5 products of 2·B·S²·D (dP, dV, dK; dQ and the logits once),
+// but the split computes 7: the dQ kernel recomputes S and dP. Each kernel also
+// takes B·S² exp2s on the SMs' special-function units, 16 a clock an SM: at
+// [4,16384,64] the 2·B·S² exps alone are about 0.55 ms, near the 0.69 ms that
+// the 5 products take at the bf16 peak.
 //
-// bf16: a block of four warps (16 rows each) runs `mma.sync` m16n8k16 with
-// fp32 accumulators; operands come from shared memory by `ldmatrix` (the update
-// products' B operands by `ldmatrix.trans`), rows padded to 144 bytes so that
-// the eight rows of a matrix fall on distinct banks; P and dS are rounded to
-// bf16 as the A operands of the update products (P before dV as the tensor-op
-// backward and the JAX autodiff round it; dS because the tensor cores take
-// bf16), dP stays fp32. Each stage (the four 64 × 64 pieces) is copied with
-// cp.async while the stage before is multiplied: two stages, 72 KiB.
+// bf16 at D = 64 and 128 (the pixel SR UNet, the flow refiner, the SR latent
+// UNet; wider widths that the wrapper pads to them): flash_bwd_wgmma_kernel.
+//   - Two consumer warpgroups a block (one in dK/dV at D = 128), each owning
+//     64 resident rows, and a producer warpgroup. The resident rows (A1, A2)
+//     are loaded once by TMA and stay in shared memory for the whole loop; the
+//     streamed tiles of 64 rows (B1, B2, and in dK/dV their lse and Δ by a bulk
+//     copy) come through a ring of kStages stages, each with a full and an
+//     empty mbarrier. One thread of the producer issues every copy; its
+//     warpgroup keeps 24 registers (setmaxnreg), the consumers take 240.
+//   - Every product is `wgmma` (the only path to the card's tensor-core rate):
+//     S and dP as m64n64k16 with both operands in shared memory (K-major);
+//     P and dS, formed in registers and rounded to bf16, are the register A
+//     operand of the update products m64nDk16, whose B is the streamed tile
+//     read MN-major (no transposing copy), as the forward's P·V.
+//   - The 7 products against 5: the split keeps its two kernels so that no
+//     atomics are needed; the dQ kernel's recompute is 2 of its 3 products.
+//     The exps: each consumer computes P while its dP product is in flight,
+//     and the block's two warpgroups interleave on the SM, one's exps beside
+//     the other's products.
+//   - Shared memory holds every tile in wgmma's 128-byte swizzle layout, as
+//     TMA writes it: [D/64 column blocks][64 rows][128 bytes], 1024-aligned.
+//   - Rows past S arrive zero-filled (TMA's out-of-bounds fill); padded
+//     columns of dK/dV have lse = +∞ (P = 0); the dQ kernel masks the keys of
+//     its last tile past S.
+//
+// bf16 at the other widths: flash_bwd_bf16_kernel, a block of
+// four warps (16 rows each) owning 64 rows and one chunk of 64 output columns
+// (the grid's z), `mma.sync` m16n8k16 with fp32 accumulators, operands from
+// shared memory by `ldmatrix` (the update products' B by `ldmatrix.trans`),
+// rows padded to 144 bytes; every stage copies its four 64 × 64 pieces with
+// cp.async (two stages, 72 KiB). At D = 512 the dK and dV accumulators of 64
+// keys are 256 KiB of fp32, more than a block's registers and shared memory,
+// so every D above 64 recomputes S and dP for each 64-column chunk (8× at
+// D = 512), the chunk's own piece of D last so that its tiles stay in shared
+// memory for the update products.
 // fp32 (FULL_PRECISION): an FMA kernel in the forward's fp32 layout, 8 warps ×
 // 4 rows, lane j scoring streamed row j of a 32-row tile, lane l owning output
 // columns l and l + 32 of the chunk.
 //
-// D is any multiple of 64 (the wrapper widens the others as the forward
-// does); any S, the last tiles masked (rows past S zero-filled, their
-// probabilities 0); the batch on the grid's y (at most 65535 a launch).
+// P is rounded to bf16 before dV (as the tensor-op backward and the JAX
+// autodiff round it) and dS because the tensor cores take bf16; dP stays fp32.
+// D is any multiple of 64 (the wrapper widens the others as the forward does);
+// any S, the last tiles masked; the batch on the grid's y (at most 65535 a
+// launch).
 //
 // Plain C interface, loaded with ctypes. Each entry point launches one kernel
 // on the given stream and returns cudaGetLastError() (0 on success).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -348,6 +380,571 @@ int launch_bwd_bf16(const void* a1, const void* a2, const void* b1, const void* 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- bf16, D ≤ 128: wgmma
+
+namespace wg {
+
+constexpr int kTile = 64;          // rows of a warpgroup's resident tile and of a streamed tile
+constexpr int kStages = 3;         // streamed tiles in flight
+// setmaxnreg moves registers between whole warpgroups, so the producer is a
+// warpgroup (one thread of it issues the copies): ptxas gives the kernel
+// 65536 / threads registers a thread, the producer hands its down to 24 and
+// the consumers take up to 240.
+constexpr int kProducerThreads = 128;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kAtomBytes = 8 * 128;   // one 128-byte swizzle atom: 8 rows × 128 bytes
+constexpr int kColBytes = 64 * 128;   // 64 columns of d of a 64-row tile: 8 atoms
+constexpr int kStatBytes = kTile * 4;  // lse (or Δ) of a streamed tile
+
+// A block at width D of the dK/dV (kDKV) or the dQ kernel: its consumer
+// warpgroups (two, but one for dK/dV at D = 128: with two, ptxas has 168
+// registers a thread, and its 128 accumulator registers spilled), its threads,
+// and its shared memory from a 1024-byte aligned base: the resident tiles (A1
+// of each warpgroup, then A2 of each), the ring of stages (B1, B2, then in
+// dK/dV the tile's lse and Δ), the mbarriers (full and empty a stage, and one
+// for the resident tiles).
+template <int D, bool kDKV>
+struct Plan {
+  static constexpr int kGroups = kDKV && D == 128 ? 1 : 2;
+  static constexpr int kThreads = kGroups * 128 + kProducerThreads;
+  static constexpr int kTileBytes = kTile * D * 2;  // a 64 × D bf16 tile
+  static constexpr int kResBytes = 2 * kGroups * kTileBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes + 1024;
+  static constexpr int kBars = kResBytes + kStages * kStageBytes;
+  static constexpr size_t bytes = kBars + (2 * kStages + 1) * 8 + 1024;  // + the alignment
+  // Registers of the block's warps after setmaxnreg: within an SM's 65536.
+  static_assert((kGroups * kConsumerRegs + kProducerRegs) * 128 <= 65536, "registers");
+  static_assert(bytes <= 232448, "shared memory of one block");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// One arrival, and `bytes` more for the copies that complete on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Until the barrier's phase of this parity has completed (acquire). A wait of
+// more than 2^34 clocks (seconds) traps, so that a fault in the pipeline is a
+// launch error and not a card that never finishes.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 34)) __trap();
+}
+
+// A 64 × 64 box of a [B, S, D] bf16 tensor map (d0, row0, batch) into shared
+// memory at dst, in the 128-byte swizzle; rows past S are zero-filled.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int d0, int row0,
+                                        int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(row0), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// All D/64 column blocks of the rows row0 .. row0+63 into the tile at dst.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int row0,
+                                         int batch, uint32_t bar) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_box(dst + c * kColBytes, map, 64 * c, row0, batch, bar);
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of a wgmma operand register across
+// the wgmma fence, commit and wait.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(r[i]);
+}
+
+__device__ __forceinline__ void fence_all(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) fence_operand(r[i][j]);
+}
+
+// Shared-memory matrix descriptors with the 128-byte swizzle, as in
+// flash_attention.cu: bits 0-13 the start address, 16-29 LBO, 32-45 SBO (16-byte
+// units), 62-63 the layout (1: 128-byte swizzle); the high word is the same for
+// every operand.
+//   K-major (S and dP, both operands): SBO 1024 bytes between 8-row groups; a
+//   k-step of 16 columns of d moves the start 32 bytes inside the atom row.
+//   MN-major (the update products' B, the streamed tile read as [k = row][n =
+//   d]): LBO kColBytes between 64-column blocks of d, SBO 1024 bytes between
+//   8-row groups; a k-step of 16 rows moves the start two atoms.
+constexpr uint32_t kKLBO = 16;
+constexpr uint32_t kMNLBO = kColBytes;
+constexpr uint32_t kDescHi = (kAtomBytes >> 4) | (1u << 30);
+__host__ __device__ constexpr int k_step(int kk) {
+  return ((16 * kk) / 64 * kColBytes + (16 * kk) % 64 * 2) / 16;
+}
+constexpr int kMNStep = 2 * kAtomBytes / 16;
+
+__device__ __forceinline__ uint32_t desc_lo(uint32_t smem, uint32_t lbo_bytes) {
+  return ((smem & 0x3FFFF) >> 4) | ((lbo_bytes >> 4) << 16);
+}
+
+#define EOVAX_F8(d, i)                                                                       \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
+      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define EOVAX_F32(d, i) \
+  EOVAX_F8(d, i), EOVAX_F8(d, (i) + 8), EOVAX_F8(d, (i) + 16), EOVAX_F8(d, (i) + 24)
+
+// d[64 × 64] = A[64 × 16] · B[16 × 64] (+ d if accumulate), both K-major bf16 in
+// shared memory at lo_a + OA and lo_b + OB (16-byte units), fp32 d.
+// d[4j + 2h + e]: row 16·warp + lane/4 + 8h, column 8j + 2·(lane % 4) + e.
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t lo_a, uint32_t lo_b,
+                                         uint32_t accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 la, lb;\n"
+      ".reg .b64 da, db;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "add.u32 la, %32, %36;\n"
+      "add.u32 lb, %33, %37;\n"
+      "mov.b64 da, {la, %35};\n"
+      "mov.b64 db, {lb, %35};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : EOVAX_F32(d, 0)
+      : "r"(lo_a), "r"(lo_b), "r"(accumulate), "r"(kDescHi), "n"(OA), "n"(OB));
+}
+
+// d[64 × N] += A[64 × 16] · B[16 × N] (d overwritten where !accumulate): A bf16
+// in registers, for each warp's 16 rows the m16n8k16 A fragment (a[0] row
+// lane/4, columns 2·(lane % 4) + {0, 1}; a[1] the row 8 below; a[2], a[3] the
+// columns 8 further), B MN-major bf16 at lo_b + OB (imm-trans-b = 1); d laid
+// out as in wgmma_ss.
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<64> {
+  template <int OB>
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint32_t lo_b, uint32_t accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        ".reg .b32 lb;\n"
+        ".reg .b64 db;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "add.u32 lb, %36, %39;\n"
+        "mov.b64 db, {lb, %38};\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, db, p, 1, 1, 1;\n"
+        "}\n"
+        : EOVAX_F32(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(lo_b), "r"(accumulate),
+          "r"(kDescHi), "n"(OB));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  template <int OB>
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint32_t lo_b, uint32_t accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        ".reg .b32 lb;\n"
+        ".reg .b64 db;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "add.u32 lb, %68, %71;\n"
+        "mov.b64 db, {lb, %70};\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, db, p, 1, 1, 1;\n"
+        "}\n"
+        : EOVAX_F32(d, 0), EOVAX_F32(d, 32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(lo_b), "r"(accumulate),
+          "r"(kDescHi), "n"(OB));
+  }
+};
+
+#undef EOVAX_F32
+#undef EOVAX_F8
+
+// d = A·Bᵀ over all of D: D/16 k-steps, the first overwriting d.
+template <int... K>
+__device__ __forceinline__ void ss_steps(float (&d)[32], uint32_t lo_a, uint32_t lo_b,
+                                         std::integer_sequence<int, K...>) {
+  (wgmma_ss<k_step(K), k_step(K)>(d, lo_a, lo_b, K == 0 ? 0u : 1u), ...);
+}
+
+// acc += X·B over the 64 streamed rows: 4 k-steps; where `first`, the first
+// overwrites acc.
+template <int N, int... K>
+__device__ __forceinline__ void rs_steps(float (&acc)[N / 2], const uint32_t (&x)[4][4],
+                                         uint32_t lo_b, uint32_t first,
+                                         std::integer_sequence<int, K...>) {
+  (WgmmaRS<N>::template run<K * kMNStep>(acc, x[K], lo_b, K == 0 ? 1u - first : 1u), ...);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// kDKV: A1 = K, A2 = V, B1 = Q, B2 = dO; out1 = dK, out2 = dV; the statistics
+//       of the streamed columns come with each stage.
+// dQ:   A1 = Q, A2 = dO, B1 = K, B2 = V; out1 = dQ (out2 unused); the
+//       statistics of the resident rows are read once.
+// lse and delta are [B, Sp] (Sp a multiple of kStatsAlign, padded as
+// flash_bwd_stats_kernel pads them); the maps are [B, S, D] bf16.
+template <int D, bool kDKV>
+__global__ void __launch_bounds__(Plan<D, kDKV>::kThreads, 1)
+    flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap a1_map,
+                           const __grid_constant__ CUtensorMap a2_map,
+                           const __grid_constant__ CUtensorMap b1_map,
+                           const __grid_constant__ CUtensorMap b2_map,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ out1, __nv_bfloat16* __restrict__ out2,
+                           int S, int Sp, float scale_log2, float scale) {
+  using L = Plan<D, kDKV>;
+  constexpr int kGroups = L::kGroups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle is a function of the address
+  const unsigned char* gbase = smem + (base - raw);
+  const uint32_t sRes = base, sStages = base + L::kResBytes, bars = base + L::kBars;
+  const uint32_t res_bar = bars + 16 * kStages;
+  auto full_bar = [&](int st) { return bars + 8 * st; };
+  auto empty_bar = [&](int st) { return bars + 8 * (kStages + st); };
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kGroups * kTile;  // the block's first resident row
+  const int batch = blockIdx.y;
+  const int ntiles = (S + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar(st), 1);
+      mbar_init(empty_bar(st), kGroups * 128);
+    }
+    mbar_init(res_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kGroups * 128) {
+    // The producer warpgroup: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kGroups * 128) {
+      mbar_expect_tx(res_bar, L::kResBytes);
+#pragma unroll
+      for (int w = 0; w < kGroups; ++w) {
+        tma_tile<D>(sRes + w * L::kTileBytes, &a1_map, r0 + kTile * w, batch, res_bar);
+        tma_tile<D>(sRes + (kGroups + w) * L::kTileBytes, &a2_map, r0 + kTile * w, batch,
+                    res_bar);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty_bar(st), (it / kStages - 1) & 1);
+        const uint32_t buf = sStages + st * L::kStageBytes;
+        mbar_expect_tx(full_bar(st), 2 * L::kTileBytes + (kDKV ? 2 * kStatBytes : 0));
+        tma_tile<D>(buf, &b1_map, it * kTile, batch, full_bar(st));
+        tma_tile<D>(buf + L::kTileBytes, &b2_map, it * kTile, batch, full_bar(st));
+        if (kDKV) {
+          const size_t at = (size_t)batch * Sp + (size_t)it * kTile;
+          bulk_copy(buf + 2 * L::kTileBytes, lse + at, kStatBytes, full_bar(st));
+          bulk_copy(buf + 2 * L::kTileBytes + kStatBytes, delta + at, kStatBytes, full_bar(st));
+        }
+      }
+    }
+  } else {
+    // A consumer warpgroup: 64 resident rows against every streamed tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int grp = tid / 128, warp = tid % 128 / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int row0 = r0 + kTile * grp;
+    const uint32_t lo_a1 = desc_lo(sRes + grp * L::kTileBytes, kKLBO);
+    const uint32_t lo_a2 = desc_lo(sRes + (kGroups + grp) * L::kTileBytes, kKLBO);
+
+    // dQ: the statistics of this thread's rows g, g + 8 (lse +∞ past S: P = 0).
+    float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+    if (!kDKV) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t at = (size_t)batch * Sp + row0 + 16 * warp + g + 8 * h;
+        row_lse[h] = lse[at];
+        row_delta[h] = delta[at];
+      }
+    }
+
+    float acc1[D / 2], acc2[D / 2];  // written first by the first tile's products (acc2: dK/dV)
+    mbar_wait(res_bar, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % kStages;
+      const uint32_t buf = sStages + st * L::kStageBytes;
+      mbar_wait(full_bar(st), (it / kStages) & 1);
+
+      float s[32], dp[32];
+      fence_all(s);
+      fence_all(dp);
+      wgmma_fence();
+      ss_steps(s, lo_a1, desc_lo(buf, kKLBO), std::make_integer_sequence<int, D / 16>{});
+      wgmma_commit();
+      ss_steps(dp, lo_a2, desc_lo(buf + L::kTileBytes, kKLBO),
+               std::make_integer_sequence<int, D / 16>{});
+      wgmma_commit();
+      wgmma_wait<1>();  // S is done; dP may be in flight
+      fence_all(s);
+
+      // Register i of s and dp: row g + 8·((i >> 1) & 1), column
+      // 8·(i >> 2) + 2t + (i & 1) of the streamed tile.
+      const float* stat = reinterpret_cast<const float*>(gbase + (buf - base) + 2 * L::kTileBytes);
+      const int valid = S - it * kTile;  // streamed columns below S in this tile
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, col = 8 * j + 2 * t + (e & 1);
+          const float l2 = kDKV ? stat[col] : row_lse[e >> 1];
+          float pr = ex2(fmaf(s[i], scale_log2, -l2));
+          if (!kDKV && col >= valid) pr = 0.f;  // keys past S
+          s[i] = pr;
+        }
+
+      wgmma_wait<0>();  // dP is done
+      fence_all(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, col = 8 * j + 2 * t + (e & 1);
+          const float dl = kDKV ? stat[kTile + col] : row_delta[e >> 1];
+          dp[i] = s[i] * (dp[i] - dl);
+        }
+      // P (dK/dV) and dS rounded to bf16 as the A fragments of the 4 k-steps of
+      // the update products: registers 8kk .. 8kk+7 hold columns 16kk .. 16kk+15.
+      uint32_t x[4][4], y[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (kDKV) x[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          y[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+
+      fence_all(acc1);
+      if constexpr (kDKV) {
+        fence_all(acc2);
+        fence_all(x);
+      }
+      fence_all(y);
+      wgmma_fence();
+      if constexpr (kDKV)
+        rs_steps<D>(acc2, x, desc_lo(buf + L::kTileBytes, kMNLBO), it == 0 ? 1u : 0u,
+                    std::make_integer_sequence<int, 4>{});
+      rs_steps<D>(acc1, y, desc_lo(buf, kMNLBO), it == 0 ? 1u : 0u,
+                  std::make_integer_sequence<int, 4>{});
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(acc1);
+      if constexpr (kDKV) fence_all(acc2);
+      mbar_arrive(empty_bar(st));  // this thread is done with the stage
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * warp + g + 8 * h;
+      if (row >= S) continue;
+      const size_t at = ((size_t)batch * S + row) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(out1 + at + 8 * j) =
+            __floats2bfloat162_rn(acc1[4 * j + 2 * h] * scale, acc1[4 * j + 2 * h + 1] * scale);
+        if (kDKV)
+          *reinterpret_cast<__nv_bfloat162*>(out2 + at + 8 * j) =
+              __floats2bfloat162_rn(acc2[4 * j + 2 * h], acc2[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point query,
+// so that the library needs no link to libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [B, S, D] bf16 tensor as TMA boxes of 64 columns × 64 rows × 1 batch row
+// with the 128-byte swizzle; rows past S read as zeros.
+bool encode(CUtensorMap* map, const void* ptr, int B, int S, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, kTile, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Once an instance: the shared memory above 48 KB, and a check that the kernel
+// was given the registers that setmaxnreg hands from the producer to the
+// consumers (with fewer, setmaxnreg.inc would wait for ever).
+template <int D, bool kDKV>
+cudaError_t configure() {
+  static const cudaError_t status = [] {
+    using L = Plan<D, kDKV>;
+    auto kernel = flash_bwd_wgmma_kernel<D, kDKV>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)L::bytes);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    return attr.numRegs * L::kThreads >= (L::kGroups * kConsumerRegs + kProducerRegs) * 128
+               ? cudaSuccess
+               : cudaErrorInvalidConfiguration;
+  }();
+  return status;
+}
+
+template <int D, bool kDKV>
+int launch(const void* a1, const void* a2, const void* b1, const void* b2, const float* lse,
+           const float* delta, void* out1, void* out2, int B, int S, int Sp, float scale,
+           cudaStream_t stream) {
+  const cudaError_t err = configure<D, kDKV>();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[4];
+  const void* srcs[4] = {a1, a2, b1, b2};
+  for (int i = 0; i < 4; ++i)
+    if (!encode(&maps[i], srcs[i], B, S, D)) return (int)cudaErrorInvalidValue;
+  using L = Plan<D, kDKV>;
+  dim3 grid((S + L::kGroups * kTile - 1) / (L::kGroups * kTile), B);
+  flash_bwd_wgmma_kernel<D, kDKV><<<grid, L::kThreads, L::bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<__nv_bfloat16*>(out1),
+      static_cast<__nv_bfloat16*>(out2), S, Sp, scale * kLog2e, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// Rows of the padded statistics: a multiple of the wgmma kernels' resident rows
+// a block, so that every row and streamed tile they read lies inside.
+constexpr int kStatsAlign = 2 * wg::kTile;
+static_assert(kStatsAlign % (wg::Plan<64, false>::kGroups * wg::kTile) == 0 &&
+                  kStatsAlign % (wg::Plan<64, true>::kGroups * wg::kTile) == 0 &&
+                  kStatsAlign % (wg::Plan<128, false>::kGroups * wg::kTile) == 0 &&
+                  kStatsAlign % (wg::Plan<128, true>::kGroups * wg::kTile) == 0,
+              "padded statistics cover every block's rows");
+
+// Δ = rowsum(dO ∘ O) and a copy of lse into [B, Sp] buffers, Δ 0 and lse +∞ on
+// the rows from S to Sp; a warp a row.
+__global__ void __launch_bounds__(kDeltaWarps * 32)
+    flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o,
+                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                           float* __restrict__ delta_p, float* __restrict__ lse_p, long long rows,
+                           int S, int Sp, int D) {
+  const long long row = (long long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const long long batch = row / Sp;
+  const int i = (int)(row % Sp);
+  float acc = 0.f;
+  if (i < S) {
+    const long long src = batch * S + i;
+    const __nv_bfloat162* ob = reinterpret_cast<const __nv_bfloat162*>(o + src * D);
+    const __nv_bfloat162* db = reinterpret_cast<const __nv_bfloat162*>(dout + src * D);
+    for (int d = lane; d < D / 2; d += 32) {
+      const float2 a = __bfloat1622float2(ob[d]), b = __bfloat1622float2(db[d]);
+      acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+  }
+  if (lane == 0) {
+    delta_p[row] = acc;
+    lse_p[row] = i < S ? lse[batch * S + i] : INFINITY;
+  }
+}
+
 // ---------------------------------------------------------------- fp32 path
 
 constexpr int kFRows = 4;               // rows per warp
@@ -540,6 +1137,63 @@ int eovax_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v
   if (bad_shape(B, S, D, Dscale)) return (int)cudaErrorInvalidValue;
   return launch_bwd_f32<false>(q, dout, k, v, lse, delta, dq, nullptr, B, S, D,
                                scale_for(Dscale), static_cast<cudaStream_t>(stream));
+}
+
+// The rows Sp of the padded statistics of eovax_flash_attention_bwd_stats_bf16
+// for a sequence of S.
+int eovax_flash_attention_bwd_stats_rows(int S) {
+  return (S + kStatsAlign - 1) / kStatsAlign * kStatsAlign;
+}
+
+// o, dout: contiguous [B, S, D] bf16; lse: [B, S] fp32 (the forward's row
+// statistics); delta_p, lse_p: [B, Sp] fp32, Sp from
+// eovax_flash_attention_bwd_stats_rows: Δ and lse, padded for the wgmma kernels.
+int eovax_flash_attention_bwd_stats_bf16(const void* o, const void* dout, const float* lse,
+                                         float* delta_p, float* lse_p, int B, int S, int Sp,
+                                         int D, void* stream) {
+  if (B <= 0 || S <= 0 || D <= 0 || D % 64 != 0 || Sp < S || Sp % kStatsAlign != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * Sp;
+  const long long blocks = (rows + kDeltaWarps - 1) / kDeltaWarps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_bwd_stats_kernel<<<(unsigned)blocks, kDeltaWarps * 32, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, delta_p,
+      lse_p, rows, S, Sp, D);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma kernels, D in {64, 128}: q, k, v, dout, dk, dv as for
+// eovax_flash_attention_bwd_dkdv_bf16, each 16-byte aligned; lse_p, delta_p the
+// padded statistics of eovax_flash_attention_bwd_stats_bf16.
+int eovax_flash_attention_bwd_dkdv_wgmma_bf16(const void* q, const void* k, const void* v,
+                                              const void* dout, const float* lse_p,
+                                              const float* delta_p, void* dk, void* dv, int B,
+                                              int S, int Sp, int D, int Dscale, void* stream) {
+  if (bad_shape(B, S, D, Dscale) || Sp < S || Sp % kStatsAlign != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = scale_for(Dscale);
+  switch (D) {
+    case 64: return wg::launch<64, true>(k, v, q, dout, lse_p, delta_p, dk, dv, B, S, Sp, scale, st);
+    case 128: return wg::launch<128, true>(k, v, q, dout, lse_p, delta_p, dk, dv, B, S, Sp, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int eovax_flash_attention_bwd_dq_wgmma_bf16(const void* q, const void* k, const void* v,
+                                            const void* dout, const float* lse_p,
+                                            const float* delta_p, void* dq, int B, int S, int Sp,
+                                            int D, int Dscale, void* stream) {
+  if (bad_shape(B, S, D, Dscale) || Sp < S || Sp % kStatsAlign != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = scale_for(Dscale);
+  switch (D) {
+    case 64: return wg::launch<64, false>(q, dout, k, v, lse_p, delta_p, dq, nullptr, B, S, Sp, scale, st);
+    case 128: return wg::launch<128, false>(q, dout, k, v, lse_p, delta_p, dq, nullptr, B, S, Sp, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* eovax_cuda_error_string(int code) {

@@ -8,9 +8,11 @@ is held here against ``jax.nn.logsumexp`` of the scaled logits and against
 ``jax.vjp`` of ``sdpa_auto`` (what the JAX trainer differentiates), on
 numpy-seeded fp32 inputs, within 1e-5 of max |reference|; so is the widening
 of a width the kernels lack (D = 96 padded to 128 with q scaled by √(128/96),
-its gradient narrowed by the chain rule).
-The tests marked ``gpu`` hold the kernels against those plain versions on the
-card and skip without one. They import no JAX:
+its gradient narrowed by the chain rule), and at the tile edges of the
+`wgmma` kernels that bf16 takes at D = 64 and 128 (S = 63, 65, 127, 129).
+``backward_kernels``, the wrapper's choice of kernels by dtype and width, is
+held to its rule. The tests marked ``gpu`` hold the kernels against those plain
+versions on the card and skip without one. They import no JAX:
 
     python -m pytest tests/test_torch_attention_backward.py -m gpu --noconftest
 """
@@ -31,6 +33,8 @@ TOL_CARD = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 # (B, S, D): the kernels' widths, odd S (partial last tiles), and the D-split width.
 SHAPES = [(2, 100, 64), (1, 77, 128), (1, 65, 512), (1, 33, 640)]
+# The wgmma kernels' tile edges: 64-row tiles, 128 resident rows a block.
+TILE_EDGES = [(1, s, d) for d in (64, 128) for s in (63, 65, 127, 129)]
 
 
 def _inputs(b, s, d, seed):
@@ -82,6 +86,36 @@ def test_backward_from_stats_plain_matches_jax_vjp(b, s, d):
     for got, ref in zip(grads, refs):
         assert got.dtype == torch.float32
         _assert_close(got.numpy(), ref, TOL_JAX)
+
+
+@pytest.mark.parametrize("b,s,d", TILE_EDGES)
+def test_backward_from_stats_plain_matches_jax_vjp_at_tile_edges(b, s, d):
+    """The kernels' arithmetic at the edges of the wgmma kernels' tiles, against
+    autodiff of the JAX package's attention."""
+    q, k, v, g = _inputs(b, s, d, seed=d + s + 2)
+    refs = _jax_grads(q, k, v, g)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    o, lse = attention.flash_attention_with_lse(*t[:3])
+    grads = attention.flash_attention_backward_from_stats_plain(*t[:3], o, lse, t[3])
+    for got, ref in zip(grads, refs):
+        _assert_close(got.numpy(), ref, TOL_JAX)
+
+
+@pytest.mark.parametrize("d,route", [(64, "wgmma"), (96, "wgmma"), (128, "wgmma"), (192, "mma"),
+                                     (512, "mma"), (640, "mma")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_backward_kernels_by_dtype_and_width(dtype, d, route):
+    """bf16 takes the wgmma kernels where the call's kernel width is 64 or 128
+    (D = 96 is widened to 128), the mma.sync kernels at the other widths; fp32
+    the FMA kernels at every width. Each route names three C entries."""
+    want = route if dtype == torch.bfloat16 else "fma"
+    assert attention.backward_kernels(dtype, d) == want
+    assert len(attention._BACKWARD_PARTS[want]) == 3
+
+
+def test_backward_kernels_refuse_other_dtypes():
+    with pytest.raises(ValueError):
+        attention.backward_kernels(torch.float16, 64)
 
 
 @pytest.mark.parametrize("d,width", [(96, 128), (32, 64)])
@@ -158,9 +192,27 @@ def _rel(got, ref):
     return (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
 
 
+def _backward_twice(q, k, v, o, lse, do):
+    """Two backward calls; asserts their six launches, on the kernels of the
+    route that ``backward_kernels`` names, and that both give the same bits."""
+    route = attention.backward_kernels(q.dtype, q.shape[-1])
+    before = attention.flash_attention_backward.launches
+    attention.flash_attention_backward.kernels = {}
+    grads = attention.flash_attention_backward_from_stats(q, k, v, o, lse, do)
+    again = attention.flash_attention_backward_from_stats(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_backward.launches == before + 6
+    assert attention.flash_attention_backward.kernels == {
+        part: 2 for part in attention._BACKWARD_PARTS[route]}
+    for got, rep in zip(grads, again):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert torch.equal(got, rep)
+    return grads
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,d", [(2, 333, 64), (2, 200, 128), (1, 130, 256), (2, 257, 512),
-                                   (1, 100, 640), (1, 65, 1024), (3, 3, 64)])
+                                   (1, 100, 640), (1, 65, 1024), (3, 3, 64), *TILE_EDGES])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_backward_kernels_match_plain_on_card(cuda_device, b, s, d, dtype):
     """The forward's row statistics against ``flash_attention_lse_plain`` and its
@@ -172,23 +224,36 @@ def test_backward_kernels_match_plain_on_card(cuda_device, b, s, d, dtype):
     assert torch.equal(o, attention.flash_attention(q, k, v))
     ref_lse = attention.flash_attention_lse_plain(q, k, v)
     assert _rel(lse, ref_lse) <= 1e-5
-    before = attention.flash_attention_backward.launches
-    grads = attention.flash_attention_backward_from_stats(q, k, v, o, lse, do)
-    again = attention.flash_attention_backward_from_stats(q, k, v, o, lse, do)
-    torch.cuda.synchronize()
-    assert attention.flash_attention_backward.launches == before + 6
+    grads = _backward_twice(q, k, v, o, lse, do)
     refs = attention.flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)
-    for got, rep, ref in zip(grads, again, refs):
-        assert got.dtype == dtype and got.shape == q.shape
-        assert torch.equal(got, rep)
+    for got, ref in zip(grads, refs):
         assert _rel(got, ref) <= TOL_CARD[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_backward_kernels_at_one_key_on_card(cuda_device, d, dtype):
+    """S = 1: the softmax is 1, so dq and dk are 0 but for the two roundings of
+    dP − Δ (dP = dO·v in the kernel, Δ = dO·o in its own launch, o = v): they are
+    held within TOL_CARD of max(|ref|, 1) (|dO·v| is of order 1 here), dv = dO
+    within TOL_CARD of it."""
+    q, k, v, do = _card_inputs(3, 1, d, dtype, cuda_device, seed=d + 1)
+    o, lse = attention.flash_attention_with_lse(q, k, v)
+    grads = _backward_twice(q, k, v, o, lse, do)
+    refs = attention.flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)
+    for got, ref in zip(grads, refs):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= TOL_CARD[dtype] * max(ref.float().abs().max().item(), 1.0)
+    assert _rel(grads[2], do) <= TOL_CARD[dtype]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,d,dtype,launches", [
     (2, 300, 96, torch.bfloat16, 3), (2, 300, 96, torch.float32, 3),
-    (2, 77, 520, torch.bfloat16, 3), (65537, 16, 64, torch.bfloat16, 5)],
-    ids=["96-bf16", "96-fp32", "520-bf16", "batch-past-the-grid"])
+    (2, 77, 520, torch.bfloat16, 3), (65537, 16, 64, torch.bfloat16, 5),
+    (65537, 3, 128, torch.bfloat16, 5)],
+    ids=["96-bf16", "96-fp32", "520-bf16", "batch-past-the-grid", "batch-past-the-grid-128"])
 def test_autograd_outside_the_envelope_on_card(cuda_device, b, s, d, dtype, launches):
     """``backward()`` through ``flash_attention`` at a width the kernels lack and a
     batch past their grid: the kernels' launches exactly (Δ once, dK/dV and dQ a
