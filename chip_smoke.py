@@ -17,12 +17,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      [2,512,512] that must give V[π] exactly;
    - ``flash_attention_backward`` (``ATTN_BWD_SHAPES``, bf16 and fp32: the
      training paths' [16,1024,512], [16,4096,128], [16,256,64] and
-     [4,16384,64], the D-split [2,1024,640], the widened [2,333,96] and the
-     wgmma kernels' tile edges [2,129,64] and [2,255,128]): the
+     [4,16384,64], the D-split [2,1024,640], the widened [2,333,96], the
+     wgmma kernels' tile edges [2,129,64] and [2,255,128] and the cluster
+     kernels' [2,129,256] and [2,255,512]): the
      forward's output ``torch.equal`` with and without its row statistics
      written, the statistics against ``flash_attention_lse_plain``, the three
      backward launches against ``flash_attention_backward_from_stats_plain``
-     on the same o and lse, two calls bit-identical;
+     on the same o and lse, two calls bit-identical; and each cluster plan's
+     ``cudaOccupancyMaxActiveClusters`` (0 fails);
    - ``group_norm`` (affine; + swish; + AdaIN + swish with [C] and [B, C])
      and ``gn_channel_sums``: [4,128,512,512] and [4,512,64,64] bf16,
      [2,96,37,53] fp32, and the input of a decoder ResnetBlock ``norm2``;
@@ -101,8 +103,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    step (52 ``gn_fwd_`` and 52 ``gn_bwd_`` launches); the backward kernels'
    times beside their plain versions, library calls and bounds
    (``group_norm_backward`` at [16,128,256,256] and [16,256,256,256]; the
-   attention backward at [16,1024,512] and [16,4096,128] beside the backward
-   of ``F.scaled_dot_product_attention``). Then one ``{"kernels": [...]}`` line
+   attention backward at [16,1024,512], [4,4096,512] and [16,4096,128] beside the
+   backward of ``F.scaled_dot_product_attention``, and at D = 512 beside the
+   ``mma.sync`` kernels called on the same inputs). The step's attention
+   backward must run on the cluster kernels, and so must the adversarial
+   step's (phase 11). Then one ``{"kernels": [...]}`` line
    (flash_attention and conv3x3 also with their TFLOP/s at each timed shape;
    flash_attention with the bytes its blocks read from L2 and the rate they
    imply).
@@ -531,17 +536,24 @@ ATTN_BWD_LAUNCHES = 3
 ATTN_BWD_MAX_BYTES = 64 * 2**20
 # The attention backward's shapes in phase 2 (bf16 and fp32): stage 2 (and the
 # paths built on it), the flow refiner, the SR latent UNet, the pixel SR UNet,
-# the D-split width, a widened width at an odd S, and the edges of the bf16
-# wgmma kernels' tiles (64 streamed rows, 128 resident rows a block).
+# the D-split width, a widened width at an odd S, the edges of the bf16 wgmma
+# kernels' tiles (64 streamed rows, 128 resident rows a block) and of the
+# cluster kernels' (64 streamed rows; 64 resident rows a dK/dV block, 128 a dQ
+# block).
 ATTN_BWD_SHAPES = ((16, 1024, 512), (16, 4096, 128), (16, 256, 64), (4, 16384, 64),
-                   (2, 1024, 640), (2, 333, 96), (2, 129, 64), (2, 255, 128))
+                   (2, 1024, 640), (2, 333, 96), (2, 129, 64), (2, 255, 128),
+                   (2, 129, 256), (2, 255, 512))
+# The attention backward's timed shapes at D = 512 (phase 5): stage 2's mid-block
+# attention at a 256² input (B = 16) and at a 512² input (B = 4).
+ATTN_BWD_TIMED_512 = ((16, 1024, 512), (4, 4096, 512))
 # The backward kernels that each drive launched, by C entry
 # (``flash_attention_backward.kernels``), keyed by the drive's label.
 BACKWARD_KERNELS: dict[str, dict[str, int]] = {}
-# The drives whose attention backward route is checked: the stage-2 step (D = 512,
-# the mma.sync kernels), the flow-refine step (D = 128) and the pixel SR step
-# (D = 64), both on the wgmma kernels.
+# The drives whose attention backward route is checked: the stage-2 step and the
+# adversarial step (D = 512, the cluster kernels), the flow-refine step
+# (D = 128) and the pixel SR step (D = 64), both on the wgmma kernels.
 TRAIN_STEP_LABEL = "train step [16,12,256,256] bf16"
+GAN_STEP_LABEL = "adversarial step [16,12,256,256] bf16 (generator + discriminator)"
 REFINE_STEP_LABEL = "flow-refine step [16,3,256,256] bf16 (VAE reconstruct + refiner)"
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
@@ -802,6 +814,27 @@ def check_attention_backward(b: int, s: int, d: int, dtype, g) -> float:
     del q, k, v, do, o, lse, grads, refs
     torch.cuda.empty_cache()
     return max(errs)
+
+
+def attention_route(dtype, d: int) -> str:
+    from eovax_torch.kernels import attention
+
+    return attention.backward_kernels(dtype, d)
+
+
+def attention_backward_clusters(card: str) -> dict:
+    """``cudaOccupancyMaxActiveClusters`` of each cluster plan of the attention
+    backward (dK/dV and dQ at D = 256 and 512), printed; fails where it is 0."""
+    from eovax_torch.kernels import attention
+
+    counts = {f"{part} D={d}": attention.backward_active_clusters(d, part)
+              for d in attention.CLUSTER_BACKWARD_WIDTHS for part in ("dkdv", "dq")}
+    for plan, n in counts.items():
+        print(f"flash_attention_backward cluster plan {plan} ({int(plan[-3:]) // 128} CTAs a "
+              f"cluster): cudaOccupancyMaxActiveClusters {n} [{card}]")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"a cluster plan of the attention backward fits no cluster: {counts}")
+    return counts
 
 
 def check_attention_permutation(b: int, s: int, d: int, g) -> float:
@@ -1522,7 +1555,7 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
 
     logs, counts = drive(TRAIN_STEP_LABEL, lambda: step(state, x, s2),
                          launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
-    expect_backward_route(TRAIN_STEP_LABEL, "mma")
+    expect_backward_route(TRAIN_STEP_LABEL, "cluster")
     losses.append(logs["train/loss_total"])
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: losses.append(step(state, x, s2)["train/loss_total"]), 10,
@@ -1573,8 +1606,10 @@ def train_phase(sd: dict, card: str, g) -> tuple[dict, dict, dict]:
     stamp("phase 5: full-model gradients")
 
     # Backward kernels' times at the largest main-path shapes.
-    timings["flash_attention_backward"] = time_attention_backward(16, 1024, 512, g, card,
-                                                                  iters=10)
+    # At D = 512 beside the mma.sync kernels (the route before the cluster kernels).
+    for shape in ATTN_BWD_TIMED_512:
+        timings["flash_attention_backward", shape] = time_attention_backward(
+            *shape, g, card, iters=10, compare="mma")
     timings["flash_attention_backward", (16, 4096, 128)] = time_attention_backward(
         16, 4096, 128, g, card, iters=10)
     b, ci, co, h, w = 16, 128, 128, 256, 256
@@ -3159,9 +3194,9 @@ def gan_phase(sd: dict, card: str, bare_ms: float) -> tuple[dict, float]:
             return logs
 
         record(step())  # the first warm-up step
-        logs, counts = drive("adversarial step [16,12,256,256] bf16 (generator + discriminator)",
-                             lambda: record(step()),
+        logs, counts = drive(GAN_STEP_LABEL, lambda: record(step()),
                              launches(48, 52, 2, conv_dx=48, gn_bwd=52, attn_bwd=2))
+        expect_backward_route(GAN_STEP_LABEL, "cluster")
         for key in ("train/loss_disc", "train/disc_weight", "train/logits_fake_g"):
             if key not in logs or not torch.isfinite(logs[key]):
                 raise AssertionError(f"the adversarial step's logs lack a finite {key}: {logs}")
@@ -5697,7 +5732,8 @@ def attention_backward_bytes(b: int, s: int, d: int, dev) -> int:
     return peak
 
 
-def time_attention_backward(b: int, s: int, d: int, g, card: str, iters: int) -> dict:
+def time_attention_backward(b: int, s: int, d: int, g, card: str, iters: int,
+                            compare: str | None = None) -> dict:
     """The attention backward kernels at bf16 [b, s, d] (CUDA events over ``iters``
     calls; three launches a call) beside their plain version
     (``flash_attention_backward_from_stats_plain``), the backward of
@@ -5705,7 +5741,9 @@ def time_attention_backward(b: int, s: int, d: int, g, card: str, iters: int) ->
     (timed only), and the bound: 5 products of 2·b·s²·d at the bf16 peak (dP, dV
     and dK in the dK/dV kernel, dQ beside the recomputed logits: the forward's 2
     products are not counted) against q, k, v, o, dO, lse read and dq, dk, dv
-    written once."""
+    written once. With ``compare``, the kernels of that route on the same inputs
+    too (``<route>_ms``, and their largest error against the plain version), in
+    turns with the wrapper's (wrapper, other, other, wrapper)."""
     import torch
     import torch.nn.functional as F
 
@@ -5718,10 +5756,20 @@ def time_attention_backward(b: int, s: int, d: int, g, card: str, iters: int) ->
     q, k, v, do = (torch.randn(b, s, d, generator=g, device=g.device).to(torch.bfloat16)
                    for _ in range(4))
     o, lse = flash_attention_with_lse(q, k, v)
-    err = max(rel_err(got, ref)[0] for got, ref in zip(
-        flash_attention_backward_from_stats(q, k, v, o, lse, do),
-        flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)))
-    kernel_ms = cuda_ms(lambda: flash_attention_backward_from_stats(q, k, v, o, lse, do), iters)
+    refs = flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)
+
+    def call(route=None):
+        return flash_attention_backward_from_stats(q, k, v, o, lse, do, route=route)
+
+    err = max(rel_err(got, ref)[0] for got, ref in zip(call(), refs))
+    kernel_ms = cuda_ms(call, iters)
+    other = {}
+    if compare is not None:
+        other[f"{compare}_max_abs_err"] = max(rel_err(got, ref)[0]
+                                              for got, ref in zip(call(compare), refs))
+        other[f"{compare}_ms"] = min(cuda_ms(lambda: call(compare), iters) for _ in range(2))
+        kernel_ms = min(kernel_ms, cuda_ms(call, iters))
+    del refs
     plain_ms = cuda_ms(lambda: flash_attention_backward_from_stats_plain(q, k, v, o, lse, do),
                        3, warmup=1)
     leaves = [t.view(b, 1, s, d).detach().requires_grad_() for t in (q, k, v)]
@@ -5729,14 +5777,21 @@ def time_attention_backward(b: int, s: int, d: int, g, card: str, iters: int) ->
     library_ms = cuda_ms(lambda: torch.autograd.grad(y, leaves, do.view(b, 1, s, d),
                                                      retain_graph=True), iters)
     flops = 5 * 2.0 * b * s * s * d
-    row = dict(shape=[b, s, d], ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               max_abs_err=err, tflops=flops / kernel_ms / 1e9,
+    row = dict(shape=[b, s, d], route=attention_route(torch.bfloat16, d), ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
+               tflops=flops / kernel_ms / 1e9, **other,
                **bound(flops, H100_BF16_FLOPS, 8.0 * b * s * d * 2 + 4.0 * b * s))
     row["bound_share"] = row["bound_ms"] / kernel_ms
-    print(f"time flash_attention_backward [{b},{s},{d}] bf16: kernel {kernel_ms:.4f} ms "
-          f"({row['tflops']:.1f} TFLOP/s, {ATTN_BWD_LAUNCHES} launches), plain {plain_ms:.4f} ms, "
-          f"sdpa backward {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}; {100 * row['bound_share']:.1f}% of it) [{card}]")
+    beside = ""
+    if compare is not None:
+        other_ms = other[f"{compare}_ms"]
+        beside = (f", {compare} kernels {other_ms:.4f} ms (max_abs_err "
+                  f"{other[f'{compare}_max_abs_err']:.3e}; "
+                  f"{100 * row['bound_ms'] / other_ms:.1f}% of the bound)")
+    print(f"time flash_attention_backward [{b},{s},{d}] bf16: {row['route']} kernels "
+          f"{kernel_ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {ATTN_BWD_LAUNCHES} launches), plain "
+          f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}; {100 * row['bound_share']:.1f}% of it){beside} [{card}]")
     del q, k, v, do, o, lse, leaves, y
     torch.cuda.empty_cache()
     return row
@@ -6487,6 +6542,7 @@ def main() -> int:
     # joins the ``widened_max_abs_err`` of the kernels line.
     attn_bwd_errs = {(shape, dtype): check_attention_backward(*shape, dtype, g)
                      for shape in ATTN_BWD_SHAPES for dtype in (torch.bfloat16, torch.float32)}
+    attn_clusters = attention_backward_clusters(card)
     stamp("phase 2: attention backward vs plain")
 
     gn_errs = {}
@@ -6809,8 +6865,10 @@ def main() -> int:
             for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                       "bound_share", "backward_bytes")},
          "shapes": [pixel["shapes"]["flash_attention_backward"][0],
-                    bwd_timings["flash_attention_backward"],
+                    *(bwd_timings["flash_attention_backward", shape]
+                      for shape in ATTN_BWD_TIMED_512),
                     bwd_timings["flash_attention_backward", (16, 4096, 128)]],
+         "cluster_occupancy": attn_clusters,
          "kernels_by_path": BACKWARD_KERNELS,
          "phase2_max_abs_err": {f"{list(shape)} {str(dt).removeprefix('torch.')}": err
                                 for (shape, dt), err in attn_bwd_errs.items()},

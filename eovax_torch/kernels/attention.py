@@ -29,8 +29,9 @@ the backward is :func:`flash_attention_backward_from_stats`: three launches of
 the hand kernels in ``csrc/flash_attention_bwd.cu`` (Δ = rowsum(dO∘O); dK and
 dV; dQ), which recompute the probabilities tile by tile from those statistics
 and keep nothing of size S². :func:`backward_kernels` picks them by dtype and
-width: bf16 at kernel widths 64 and 128 the `wgmma` kernels, other bf16 widths
-the `mma.sync` kernels, fp32 the FMA kernels. A call outside
+width: bf16 at kernel widths 64 and 128 the `wgmma` kernels, at 256 and 512 the
+`wgmma` kernels with D split over a thread-block cluster, above 512 the
+`mma.sync` kernels, fp32 the FMA kernels. A call outside
 :func:`in_kernel_envelope` is widened as the forward widens it, and its
 gradients narrowed by the chain rule.
 On a CPU tensor the backward is :func:`flash_attention_backward`, which
@@ -62,13 +63,16 @@ _ENTRY = {torch.bfloat16: "eovax_flash_attention_bf16", torch.float32: "eovax_fl
 _SPLIT_ENTRY = {torch.bfloat16: "eovax_flash_attention_split_bf16",
                 torch.float32: "eovax_flash_attention_split_f32"}
 # The backward kernels of each route (:func:`backward_kernels`): the C entries
-# eovax_flash_attention_bwd_<part> of Δ (with, for the wgmma kernels, the
-# statistics padded to their rows), dK/dV and dQ.
+# eovax_flash_attention_bwd_<part> of Δ (with, for the wgmma and cluster kernels,
+# the statistics padded to their rows), dK/dV and dQ.
 _BACKWARD_PARTS = {"wgmma": ("stats_bf16", "dkdv_wgmma_bf16", "dq_wgmma_bf16"),
+                   "cluster": ("stats_bf16", "dkdv_cluster_bf16", "dq_cluster_bf16"),
                    "mma": ("delta_bf16", "dkdv_bf16", "dq_bf16"),
                    "fma": ("delta_f32", "dkdv_f32", "dq_f32")}
-# Kernel widths at which bf16 takes the wgmma backward kernels.
+# Kernel widths at which bf16 takes the wgmma backward kernels, and those at which
+# it takes them with D split over a cluster of D/128 CTAs.
 WGMMA_BACKWARD_WIDTHS = (64, 128)
+CLUSTER_BACKWARD_WIDTHS = (256, 512)
 # The kernels' row statistics are in log2 units: log2 Σ exp2(x·log2 e) of the
 # scaled logits x.
 _LOG2E = 1.4426950408889634
@@ -167,13 +171,17 @@ def _library() -> ctypes.CDLL:
 def backward_kernels(dtype: torch.dtype, d: int) -> str:
     """The route of the backward kernels for a call of head width ``d`` in
     ``dtype``, at the kernel width the call is widened to (:func:`_kernel_width`):
-    ``"wgmma"`` for bf16 at :data:`WGMMA_BACKWARD_WIDTHS`, ``"mma"`` for bf16 at
-    the other widths, ``"fma"`` for fp32."""
+    ``"wgmma"`` for bf16 at :data:`WGMMA_BACKWARD_WIDTHS`, ``"cluster"`` for bf16
+    at :data:`CLUSTER_BACKWARD_WIDTHS`, ``"mma"`` for bf16 at the wider widths,
+    ``"fma"`` for fp32."""
     if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_backward: no kernel for {dtype}")
-    return "wgmma" if _kernel_width(d) in WGMMA_BACKWARD_WIDTHS else "mma"
+    width = _kernel_width(d)
+    if width in WGMMA_BACKWARD_WIDTHS:
+        return "wgmma"
+    return "cluster" if width in CLUSTER_BACKWARD_WIDTHS else "mma"
 
 
 def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -186,7 +194,10 @@ def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
                 "stats_rows": [i32],
                 "stats_bf16": [ptr] * 5 + [i32] * 4 + [ptr],
                 "dkdv_wgmma_bf16": [ptr] * 8 + [i32] * 5 + [ptr],
-                "dq_wgmma_bf16": [ptr] * 7 + [i32] * 5 + [ptr]}
+                "dq_wgmma_bf16": [ptr] * 7 + [i32] * 5 + [ptr],
+                "cluster_occupancy": [i32, i32, ptr]}
+    for part in ("dkdv", "dq"):
+        argtypes[f"{part}_cluster_bf16"] = argtypes[f"{part}_wgmma_bf16"]
     for part in ("delta", "dkdv", "dq"):
         argtypes[f"{part}_f32"] = argtypes[f"{part}_bf16"]
     for part, types in argtypes.items():
@@ -199,6 +210,21 @@ def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _backward_library() -> ctypes.CDLL:
     return bind_backward(build.load(BACKWARD_SOURCE))
+
+
+def backward_active_clusters(d: int, part: str) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster kernel of kernel width ``d``
+    (in :data:`CLUSTER_BACKWARD_WIDTHS`) for ``part`` ``"dkdv"`` or ``"dq"`` on the
+    current card: how many of its clusters the card holds at once. A launch
+    raises where it is 0."""
+    if d not in CLUSTER_BACKWARD_WIDTHS or part not in ("dkdv", "dq"):
+        raise ValueError(f"backward_active_clusters: no cluster kernel {part} at D = {d}")
+    lib = _backward_library()
+    count = ctypes.c_int(0)
+    code = lib.eovax_flash_attention_bwd_cluster_occupancy(d, int(part == "dkdv"),
+                                                           ctypes.byref(count))
+    build.check(lib, code, f"backward_active_clusters ({part}, D = {d})")
+    return count.value
 
 
 def _backward_launch(lib: ctypes.CDLL, part: str, *args) -> None:
@@ -318,15 +344,32 @@ def narrowed_gradients(dq, dk, dv, d: int):
     return tuple(t[..., :d].contiguous() for t in (dq, dk, dv))
 
 
-def _launch_backward(q, k, v, o, lse, do) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def route_takes(route: str, dtype: torch.dtype, d: int) -> bool:
+    """Whether the backward kernels of ``route`` take a call of head width ``d`` in
+    ``dtype`` (at the kernel width :func:`_kernel_width` widens it to): the wgmma
+    kernels bf16 at :data:`WGMMA_BACKWARD_WIDTHS`, the cluster kernels bf16 at
+    :data:`CLUSTER_BACKWARD_WIDTHS`, the mma.sync kernels bf16 at any width, the
+    FMA kernels fp32."""
+    width = _kernel_width(d)
+    return {"wgmma": dtype == torch.bfloat16 and width in WGMMA_BACKWARD_WIDTHS,
+            "cluster": dtype == torch.bfloat16 and width in CLUSTER_BACKWARD_WIDTHS,
+            "mma": dtype == torch.bfloat16,
+            "fma": dtype == torch.float32}.get(route, False)
+
+
+def _launch_backward(q, k, v, o, lse, do, route: str | None = None):
     _check_operands("flash_attention_backward", q, k, v, o, do)
     b, s, d = q.shape
     if lse.shape != (b, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention_backward: lse must be contiguous fp32 [B, S], got "
                          f"{tuple(lse.shape)} {lse.dtype}")
+    if route is None:
+        route = backward_kernels(q.dtype, d)
+    elif not route_takes(route, q.dtype, d):
+        raise ValueError(f"flash_attention_backward: the {route} kernels do not take "
+                         f"{q.dtype} at D = {d}")
     if b == 0 or s == 0 or d == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    route = backward_kernels(q.dtype, d)
     q, k, v, o, do = widened_for_backward(q, k, v, o, do)
     width = q.shape[-1]
     # Up to the widest kernel width the kernels scale by 1/√width (q was scaled for
@@ -337,7 +380,7 @@ def _launch_backward(q, k, v, o, lse, do) -> tuple[torch.Tensor, torch.Tensor, t
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "wgmma":
+        if stats == "stats_bf16":
             # Δ and a copy of lse, padded to the rows the kernels read.
             rows = lib.eovax_flash_attention_bwd_stats_rows(s)
             delta, lse_p = (torch.empty((b, rows), device=q.device, dtype=torch.float32)
@@ -363,17 +406,21 @@ def _launch_backward(q, k, v, o, lse, do) -> tuple[torch.Tensor, torch.Tensor, t
 
 def flash_attention_backward_from_stats(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-        do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        do: torch.Tensor, route: str | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of softmax(q kᵀ / √D) v for the output gradient ``do``, from
     the forward's output ``o`` and row statistics ``lse``
     (:func:`flash_attention_with_lse`). CUDA tensors launch the backward kernels,
     three a call (Δ, dK/dV, dQ; two more for each further 65535 batch rows), each
     adding one to ``flash_attention_backward.launches`` and, under its C entry
     (:data:`_BACKWARD_PARTS`), to ``flash_attention_backward.kernels``; CPU tensors
-    take :func:`flash_attention_backward_from_stats_plain`."""
+    take :func:`flash_attention_backward_from_stats_plain`. ``route`` names the
+    kernels to launch where it is not :func:`backward_kernels`' choice (another
+    route that takes the width, :func:`route_takes`, to compare the two on the
+    card); the CPU ignores it."""
     if q.device.type == "cpu":
         return flash_attention_backward_from_stats_plain(q, k, v, o, lse, do)
-    return _launch_backward(q, k, v, o, lse, do.to(q.dtype).contiguous())
+    return _launch_backward(q, k, v, o, lse, do.to(q.dtype).contiguous(), route)
 
 
 @torch.library.custom_op("eovax::flash_attention", mutates_args=(), device_types="cpu")

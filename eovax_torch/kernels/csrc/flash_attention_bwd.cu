@@ -57,7 +57,19 @@
 //     columns of dK/dV have lse = +∞ (P = 0); the dQ kernel masks the keys of
 //     its last tile past S.
 //
-// bf16 at the other widths: flash_bwd_bf16_kernel, a block of
+// bf16 at D = 256 and 512 (stage 2's mid-block attention at 512 channels, and
+// D = 192 widened): flash_bwd_cluster_kernel, D split over a thread-block
+// cluster of D/128 CTAs along the grid's x, each CTA the D = 128 block above on
+// its own 128 columns (resident tiles, streamed tiles by TMA through an
+// mbarrier ring, one producer warpgroup, setmaxnreg 24/240, every product on
+// wgmma). Each CTA computes its partial S_c and dP_c over its columns once per
+// (row tile, streamed tile); the cluster sums them through distributed shared
+// memory as a reduce-scatter (CTA r sums, in rank order, the rows held by warps
+// r·4/C .. of every CTA's warpgroup, and forms their P and dS in bf16), then
+// an all-gather of those bf16 rows hands every CTA the register A operands of
+// its own update products. See the section's own notes below.
+//
+// bf16 above D = 512 (the D-split forward's widths): flash_bwd_bf16_kernel, a block of
 // four warps (16 rows each) owning 64 rows and one chunk of 64 output columns
 // (the grid's z), `mma.sync` m16n8k16 with fp32 accumulators, operands from
 // shared memory by `ldmatrix` (the update products' B by `ldmatrix.trans`),
@@ -86,6 +98,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <utility>
 
 namespace {
@@ -945,6 +958,503 @@ __global__ void __launch_bounds__(kDeltaWarps * 32)
   }
 }
 
+// ---------------------------------------------------------------- bf16, D = 256 and 512: clusters
+//
+// D is split over a cluster of kC = D/128 CTAs along the grid's x: rank r owns
+// columns 128r .. 128r+127 of every operand and gradient. A CTA is the D = 128
+// wgmma block above on its own columns: 64 resident rows of A1, A2 a consumer
+// warpgroup, the streamed 64-row tiles of B1, B2 (in dK/dV with their lse and Δ)
+// through the mbarrier ring from one thread of a producer warpgroup, S and dP as
+// m64n64k16 SS over its 128 columns, the update products m64n128k16 RS into its
+// 128 columns. A call issues the D = 128 kernels' 7 products of 2·B·S²·D, with
+// no recompute per column chunk.
+//
+// The exchange, once a streamed tile and warpgroup, through distributed shared
+// memory in two rounds (a reduce-scatter of the fp32 partials, then an
+// all-gather of bf16 P and dS):
+//   1. each consumer thread stores its 32 + 32 fp32 partials of S and dP in its
+//      CTA's partial buffer in fragment order (16-byte chunk q of thread u at
+//      (q·128 + u)·16: neighbouring threads, neighbouring addresses); then
+//      lane 0 of each warp fences (a release to the cluster of this CTA's
+//      shared memory) and arrives on every CTA's part_full barrier;
+//   2. CTA r forms the fragments of warps r·W .. r·W + W − 1 (W = 4/kC): each of
+//      its threads takes one such thread u and 8/kC of its chunk pairs (S, dP),
+//      reads them from the kC CTAs (ld.shared::cluster), sums them in rank order,
+//      forms P = exp2(S·scale·log2 e − lse) and dS = P∘(dP − Δ), and stores them
+//      in bf16 in its own P/dS buffer as u's A-fragment registers; then each
+//      warp fences and arrives on every CTA's pds_full barrier;
+//   3. each consumer thread loads its dS (and in dK/dV P) fragments from the CTA
+//      that formed them: every CTA updates with the same bits.
+// A wait acquires at cluster scope what the fence and the arrivals released.
+// At D = 512 a CTA reads 24 KiB of its peers' partials and 12 KiB of their P and
+// dS a tile, against 96 KiB for an all-gather of the partials, and takes a
+// quarter of the exps. No buffer is doubled: a CTA rewrites its partials only
+// after its pds_full wait of the tile (every peer has read them by then), and
+// its P/dS only after its part_full wait of the next tile (every peer has
+// loaded them before arriving there). Every CTA of a cluster runs the same
+// tiles, so the masks agree: rows past S are TMA's zero fill, lse is +∞ past S
+// in the padded statistics, and the dQ kernel zeroes P for the keys past S.
+//
+// Shared memory, from a 1024-aligned base (the same offset in every CTA, so one
+// address names a buffer in each): the resident tiles, the ring, the streamed
+// tiles' lse and Δ (dK/dV), then a warpgroup's 32 KiB partial buffer and its
+// P/dS (16 KiB in dK/dV, 8 in dQ). dK/dV keeps one consumer warpgroup and 3
+// stages, 179 KiB: ptxas gives a 384-thread block 168 registers a thread, and
+// a second warpgroup's dK and dV accumulators beside S and dP spilled there.
+// dQ has two, so that one's exchange runs beside the other's products, and
+// gives up a stage for them: 2 stages, 210 KiB (3 would need 243).
+// What bounds it: each tile's two rounds of the exchange, which a CTA's one
+// (dK/dV) or two (dQ) warpgroups wait for in turn, more than the tensor cores:
+// without the exchange the kernels take about a third of the time. Full
+// cluster-scope fences, arrivals with release semantics to each CTA, and
+// pushes of every chunk by st.async onto the receiver's barrier were each
+// slower than the fences restricted to shared memory used here (PERF.md §6
+// PR 26, scripts/ablate_attention_backward.py).
+
+namespace cl {
+
+using namespace wg;
+
+constexpr int kSlice = 128;                      // columns of D a CTA owns
+constexpr int kSliceBytes = kTile * kSlice * 2;  // a 64 × 128 bf16 tile
+constexpr int kPartBytes = 16 * 128 * 16;        // a warpgroup's S and dP partials, fp32
+constexpr int kFragBytes = 4 * 128 * 16;         // a warpgroup's P (or dS) A fragments, bf16
+
+template <int kC, bool kDKV>
+struct ClusterPlan {
+  static constexpr int kW = 4 / kC;  // warps of a warpgroup whose fragments a CTA forms
+  static constexpr int kGroups = kDKV ? 1 : 2;
+  static constexpr int kStages = kGroups == 2 ? 2 : 3;
+  static constexpr int kThreads = kGroups * 128 + kProducerThreads;
+  static constexpr int kResBytes = 2 * kGroups * kSliceBytes;
+  static constexpr int kStageBytes = 2 * kSliceBytes;
+  static constexpr int kStats = kResBytes + kStages * kStageBytes;  // lse, Δ a stage (dK/dV)
+  static constexpr int kPdsBytes = (kDKV ? 2 : 1) * kFragBytes;
+  static constexpr int kPart = kStats + kStages * 2 * kStatBytes;
+  static constexpr int kPds = kPart + kGroups * kPartBytes;
+  static constexpr int kBars = kPds + kGroups * kPdsBytes;
+  // full and empty a stage, the resident tiles', part_full and pds_full a warpgroup
+  static constexpr int kNumBars = 2 * kStages + 1 + 2 * kGroups;
+  static constexpr size_t bytes = kBars + kNumBars * 8 + 1024;  // + the alignment
+  static_assert(kC == 2 || kC == 4, "a cluster of 2 or 4 CTAs");
+  static_assert((kGroups * kConsumerRegs + kProducerRegs) * 128 <= 65536, "registers");
+  static_assert(bytes <= 232448, "shared memory of one block");
+};
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of the same offset in the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t peer(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Lane 0 of a warp, after __syncwarp: a fence releasing to the cluster what the
+// warp stored in this CTA's shared memory, then one relaxed arrival on `bar` (a
+// shared::cta address) in each of the cluster's kC CTAs. The fence is
+// restricted to shared memory (a full fence.acq_rel.cluster took a sixth of
+// the kernel's time); the warp's earlier reads of its peers' buffers are
+// ordered before it by their data: what they read went into what it stored.
+template <int kC>
+__device__ __forceinline__ void release_to_cluster(uint32_t bar) {
+  asm volatile("fence.release.sync_restrict::shared::cta.cluster;\n" ::: "memory");
+#pragma unroll
+  for (int r = 0; r < kC; ++r)
+    asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                     peer(bar, r))
+                 : "memory");
+}
+
+__device__ __forceinline__ bool try_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.relaxed.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// As mbar_wait (the trap included), then a fence acquiring from the cluster's
+// shared memory what the arrivals released.
+__device__ __forceinline__ void wait_cluster(uint32_t bar, uint32_t parity) {
+  if (!try_wait_cluster(bar, parity)) {
+    const long long start = clock64();
+    while (!try_wait_cluster(bar, parity))
+      if (clock64() - start > (1ll << 34)) __trap();
+  }
+  asm volatile("fence.acquire.sync_restrict::shared::cluster.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_peer_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void ld_peer_u4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_f4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c),
+               "f"(d)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_u2(uint32_t addr, uint32_t a, uint32_t b) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b) : "memory");
+}
+
+// Every thread of the cluster arrives (release) and waits for the others (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Columns d0 .. d0+127 of rows row0 .. row0+63 into the 64 × 128 tile at dst.
+__device__ __forceinline__ void tma_slice(uint32_t dst, const CUtensorMap* map, int d0, int row0,
+                                          int batch, uint32_t bar) {
+  tma_box(dst, map, d0, row0, batch, bar);
+  tma_box(dst + kColBytes, map, d0 + 64, row0, batch, bar);
+}
+
+// kDKV: A1 = K, A2 = V, B1 = Q, B2 = dO; out1 = dK, out2 = dV.
+// dQ:   A1 = Q, A2 = dO, B1 = K, B2 = V; out1 = dQ (out2 unused).
+// The maps are [B, S, kC·128] bf16 in 64 × 64 boxes; lse and delta [B, Sp],
+// padded as flash_bwd_stats_kernel pads them.
+template <int kC, bool kDKV>
+__global__ void __launch_bounds__(ClusterPlan<kC, kDKV>::kThreads, 1)
+    flash_bwd_cluster_kernel(const __grid_constant__ CUtensorMap a1_map,
+                             const __grid_constant__ CUtensorMap a2_map,
+                             const __grid_constant__ CUtensorMap b1_map,
+                             const __grid_constant__ CUtensorMap b2_map,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ out1, __nv_bfloat16* __restrict__ out2,
+                             int S, int Sp, float scale_log2, float scale) {
+  using L = ClusterPlan<kC, kDKV>;
+  constexpr int kGroups = L::kGroups, kStages = L::kStages, kW = L::kW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* gbase = smem + (base - raw);
+  const uint32_t sRes = base, sStages = base + L::kResBytes, bars = base + L::kBars;
+  const uint32_t res_bar = bars + 16 * kStages;
+  auto full_bar = [&](int st) { return bars + 8 * st; };
+  auto empty_bar = [&](int st) { return bars + 8 * (kStages + st); };
+  auto part_bar = [&](int grp) { return bars + 8 * (2 * kStages + 1 + grp); };
+  auto pds_bar = [&](int grp) { return bars + 8 * (2 * kStages + 1 + kGroups + grp); };
+
+  const int tid = threadIdx.x;
+  const uint32_t rank = cluster_rank();
+  const int c0 = kSlice * (int)rank;                 // this CTA's columns of D
+  const int r0 = blockIdx.x / kC * kGroups * kTile;  // the cluster's first resident row
+  const int batch = blockIdx.y;
+  const int ntiles = (S + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar(st), 1);
+      mbar_init(empty_bar(st), kGroups * 128);
+    }
+    mbar_init(res_bar, 1);
+    for (int grp = 0; grp < kGroups; ++grp) {
+      mbar_init(part_bar(grp), 4 * kC);  // each warp of the warpgroup in each CTA
+      mbar_init(pds_bar(grp), 4 * kC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every CTA's barriers are initialised before a peer arrives on them
+
+  if (tid >= kGroups * 128) {
+    // The producer warpgroup: one thread issues every copy of this CTA's columns.
+    regs_dec<kProducerRegs>();
+    if (tid == kGroups * 128) {
+      mbar_expect_tx(res_bar, L::kResBytes);
+#pragma unroll
+      for (int w = 0; w < kGroups; ++w) {
+        tma_slice(sRes + w * kSliceBytes, &a1_map, c0, r0 + kTile * w, batch, res_bar);
+        tma_slice(sRes + (kGroups + w) * kSliceBytes, &a2_map, c0, r0 + kTile * w, batch,
+                  res_bar);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty_bar(st), (it / kStages - 1) & 1);
+        const uint32_t buf = sStages + st * L::kStageBytes;
+        mbar_expect_tx(full_bar(st), 2 * kSliceBytes + (kDKV ? 2 * kStatBytes : 0));
+        tma_slice(buf, &b1_map, c0, it * kTile, batch, full_bar(st));
+        tma_slice(buf + kSliceBytes, &b2_map, c0, it * kTile, batch, full_bar(st));
+        if (kDKV) {
+          const size_t at = (size_t)batch * Sp + (size_t)it * kTile;
+          const uint32_t stats = base + L::kStats + st * 2 * kStatBytes;
+          bulk_copy(stats, lse + at, kStatBytes, full_bar(st));
+          bulk_copy(stats + kStatBytes, delta + at, kStatBytes, full_bar(st));
+        }
+      }
+    }
+  } else {
+    // A consumer warpgroup: 64 resident rows, this CTA's 128 columns.
+    regs_inc<kConsumerRegs>();
+    const int grp = tid / 128, ctid = tid % 128, warp = ctid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = r0 + kTile * grp;
+    const uint32_t lo_a1 = desc_lo(sRes + grp * kSliceBytes, kKLBO);
+    const uint32_t lo_a2 = desc_lo(sRes + (kGroups + grp) * kSliceBytes, kKLBO);
+    const uint32_t part = base + L::kPart + grp * kPartBytes;
+    const uint32_t pds = base + L::kPds + grp * L::kPdsBytes;
+    const uint32_t pbar = part_bar(grp), dbar = pds_bar(grp);
+    uint32_t part_at[kC];  // this warpgroup's partial buffer in each CTA
+#pragma unroll
+    for (int r = 0; r < kC; ++r) part_at[r] = peer(part, r);
+    const uint32_t frags = peer(pds, warp / kW);  // where this thread's P and dS are formed
+
+    // The thread su whose P and dS this thread forms, and its first chunk pair.
+    const int su = 32 * kW * (int)rank + ctid % (32 * kW);
+    const int sq = ctid / (32 * kW);
+    const int scol = 2 * (su % 4);  // su's first column in an 8-column chunk
+    // dQ: the statistics of su's rows (lse +∞ past S: P = 0).
+    float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+    if (!kDKV) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t at = (size_t)batch * Sp + row0 + 16 * (su / 32) + su % 32 / 4 + 8 * h;
+        row_lse[h] = lse[at];
+        row_delta[h] = delta[at];
+      }
+    }
+
+    float acc1[kSlice / 2], acc2[kSlice / 2];  // written first by the first tile's products
+    mbar_wait(res_bar, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % kStages;
+      const uint32_t buf = sStages + st * L::kStageBytes;
+      mbar_wait(full_bar(st), (it / kStages) & 1);
+
+      // This CTA's partial S and dP over its columns.
+      float s[32], dp[32];
+      fence_all(s);
+      fence_all(dp);
+      wgmma_fence();
+      ss_steps(s, lo_a1, desc_lo(buf, kKLBO), std::make_integer_sequence<int, kSlice / 16>{});
+      wgmma_commit();
+      ss_steps(dp, lo_a2, desc_lo(buf + kSliceBytes, kKLBO),
+               std::make_integer_sequence<int, kSlice / 16>{});
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(s);
+      fence_all(dp);
+
+      // 1. The partials in fragment order: chunk q of s at q, of dp at 8 + q.
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        st_f4(part + (q * 128 + ctid) * 16, s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+        st_f4(part + ((8 + q) * 128 + ctid) * 16, dp[4 * q], dp[4 * q + 1], dp[4 * q + 2],
+              dp[4 * q + 3]);
+      }
+      __syncwarp();
+      if (lane == 0) release_to_cluster<kC>(pbar);
+      wait_cluster(pbar, it & 1);
+
+      // 2. su's chunk pairs sq, sq + kC, ... summed over the cluster in rank
+      // order; their P and dS in bf16 (register i of chunk q: row
+      // 16·(su/32) + su%32/4 + 8·(i >> 1), column 8q + scol + (i & 1)).
+      const float* stat = reinterpret_cast<const float*>(gbase + L::kStats + st * 2 * kStatBytes);
+      const int valid = S - it * kTile;  // streamed rows below S in this tile
+#pragma unroll
+      for (int k = 0; k < 8 / kC; ++k) {
+        const int q = sq + kC * k;
+        const uint32_t at_s = (q * 128 + su) * 16, at_dp = ((8 + q) * 128 + su) * 16;
+        float4 sv = ld_peer_f4(part_at[0] + at_s), dv = ld_peer_f4(part_at[0] + at_dp);
+#pragma unroll
+        for (int r = 1; r < kC; ++r) {
+          const float4 a = ld_peer_f4(part_at[r] + at_s), b = ld_peer_f4(part_at[r] + at_dp);
+          sv.x += a.x;
+          sv.y += a.y;
+          sv.z += a.z;
+          sv.w += a.w;
+          dv.x += b.x;
+          dv.y += b.y;
+          dv.z += b.z;
+          dv.w += b.w;
+        }
+        const float sx[4] = {sv.x, sv.y, sv.z, sv.w}, dx[4] = {dv.x, dv.y, dv.z, dv.w};
+        float pr[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * q + scol + (e & 1);
+          const float l2 = kDKV ? stat[col] : row_lse[e >> 1];
+          const float dl = kDKV ? stat[kTile + col] : row_delta[e >> 1];
+          float p = ex2(fmaf(sx[e], scale_log2, -l2));
+          if (!kDKV && col >= valid) p = 0.f;  // keys past S
+          pr[e] = p;
+          ds[e] = p * (dx[e] - dl);
+        }
+        // Chunk q is su's A-fragment registers 2q and 2q + 1 (k-step q/2).
+        const uint32_t at = (q / 2 * 128 + su) * 16 + q % 2 * 8;
+        st_u2(pds + at, pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]));
+        if (kDKV) st_u2(pds + kFragBytes + at, pack_bf16(pr[0], pr[1]), pack_bf16(pr[2], pr[3]));
+      }
+      __syncwarp();
+      if (lane == 0) release_to_cluster<kC>(dbar);
+      wait_cluster(dbar, it & 1);
+
+      // 3. This thread's dS (and P) fragments from the CTA that formed them.
+      uint32_t x[4][4], y[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        ld_peer_u4(y[kk], frags + (kk * 128 + ctid) * 16);
+        if (kDKV) ld_peer_u4(x[kk], frags + kFragBytes + (kk * 128 + ctid) * 16);
+      }
+
+      // dV += P·dO and dK += dS·Q, or dQ += dS·K, over this CTA's columns.
+      fence_all(acc1);
+      if constexpr (kDKV) {
+        fence_all(acc2);
+        fence_all(x);
+      }
+      fence_all(y);
+      wgmma_fence();
+      if constexpr (kDKV)
+        rs_steps<kSlice>(acc2, x, desc_lo(buf + kSliceBytes, kMNLBO), it == 0 ? 1u : 0u,
+                         std::make_integer_sequence<int, 4>{});
+      rs_steps<kSlice>(acc1, y, desc_lo(buf, kMNLBO), it == 0 ? 1u : 0u,
+                       std::make_integer_sequence<int, 4>{});
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(acc1);
+      if constexpr (kDKV) fence_all(acc2);
+      mbar_arrive(empty_bar(st));  // this thread is done with the stage
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * warp + g + 8 * h;
+      if (row >= S) continue;
+      const size_t at = ((size_t)batch * S + row) * (kC * kSlice) + c0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kSlice / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(out1 + at + 8 * j) =
+            __floats2bfloat162_rn(acc1[4 * j + 2 * h] * scale, acc1[4 * j + 2 * h + 1] * scale);
+        if (kDKV)
+          *reinterpret_cast<__nv_bfloat162*>(out2 + at + 8 * j) =
+              __floats2bfloat162_rn(acc2[4 * j + 2 * h], acc2[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may still read its shared memory
+}
+
+// An error code of a runtime call, with the runtime's last error cleared.
+int refused(cudaError_t err) {
+  cudaGetLastError();
+  return (int)err;
+}
+
+template <int kC, bool kDKV>
+cudaLaunchConfig_t cluster_config(dim3 grid, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kC;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(ClusterPlan<kC, kDKV>::kThreads);
+  cfg.dynamicSmemBytes = ClusterPlan<kC, kDKV>::bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Once a device and instance: the shared memory above 48 KB, the check that the
+// kernel has the registers setmaxnreg hands out (as wg::configure), and
+// cudaOccupancyMaxActiveClusters of its clusters, into *count.
+template <int kC, bool kDKV>
+int occupancy(int* count) {
+  using L = ClusterPlan<kC, kDKV>;
+  constexpr int kDevices = 64;
+  static int known[kDevices] = {};  // 1 + the count, once asked
+  static std::mutex mutex;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return refused(err);
+  if (device < 0 || device >= kDevices) return (int)cudaErrorInvalidDevice;
+  const std::lock_guard<std::mutex> lock(mutex);
+  if (known[device] == 0) {
+    const auto kernel = flash_bwd_cluster_kernel<kC, kDKV>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+    if (err != cudaSuccess) return refused(err);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return refused(err);
+    if (attr.numRegs * L::kThreads < (L::kGroups * kConsumerRegs + kProducerRegs) * 128)
+      return (int)cudaErrorInvalidConfiguration;
+    cudaLaunchAttribute cattr;
+    const cudaLaunchConfig_t cfg = cluster_config<kC, kDKV>(dim3(kC), nullptr, &cattr);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) return refused(err);
+    known[device] = 1 + n;
+  }
+  *count = known[device] - 1;
+  return 0;
+}
+
+template <int kC, bool kDKV>
+int launch(const void* a1, const void* a2, const void* b1, const void* b2, const float* lse,
+           const float* delta, void* out1, void* out2, int B, int S, int Sp, float scale,
+           cudaStream_t stream) {
+  using L = ClusterPlan<kC, kDKV>;
+  int active = 0;
+  const int code = occupancy<kC, kDKV>(&active);
+  if (code != 0) return code;
+  if (active < 1) return (int)cudaErrorLaunchOutOfResources;  // no cluster fits: no fallback
+  CUtensorMap maps[4];
+  const void* srcs[4] = {a1, a2, b1, b2};
+  for (int i = 0; i < 4; ++i)
+    if (!encode(&maps[i], srcs[i], B, S, kC * kSlice)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(kC * ((S + L::kGroups * kTile - 1) / (L::kGroups * kTile)), B);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<kC, kDKV>(grid, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, flash_bwd_cluster_kernel<kC, kDKV>, maps[0], maps[1], maps[2], maps[3], lse, delta,
+      static_cast<__nv_bfloat16*>(out1), static_cast<__nv_bfloat16*>(out2), S, Sp,
+      scale * kLog2e, scale);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+}  // namespace cl
+
+static_assert(kStatsAlign % (cl::ClusterPlan<2, false>::kGroups * wg::kTile) == 0 &&
+                  kStatsAlign % (cl::ClusterPlan<2, true>::kGroups * wg::kTile) == 0,
+              "padded statistics cover every cluster's rows");
+
 // ---------------------------------------------------------------- fp32 path
 
 constexpr int kFRows = 4;               // rows per warp
@@ -1192,6 +1702,49 @@ int eovax_flash_attention_bwd_dq_wgmma_bf16(const void* q, const void* k, const 
   switch (D) {
     case 64: return wg::launch<64, false>(q, dout, k, v, lse_p, delta_p, dq, nullptr, B, S, Sp, scale, st);
     case 128: return wg::launch<128, false>(q, dout, k, v, lse_p, delta_p, dq, nullptr, B, S, Sp, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The cluster kernels, D in {256, 512} (clusters of D/128 CTAs): arguments as
+// for the wgmma entries.
+int eovax_flash_attention_bwd_dkdv_cluster_bf16(const void* q, const void* k, const void* v,
+                                                const void* dout, const float* lse_p,
+                                                const float* delta_p, void* dk, void* dv, int B,
+                                                int S, int Sp, int D, int Dscale, void* stream) {
+  if (bad_shape(B, S, D, Dscale) || Sp < S || Sp % kStatsAlign != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = scale_for(Dscale);
+  switch (D) {
+    case 256: return cl::launch<2, true>(k, v, q, dout, lse_p, delta_p, dk, dv, B, S, Sp, scale, st);
+    case 512: return cl::launch<4, true>(k, v, q, dout, lse_p, delta_p, dk, dv, B, S, Sp, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int eovax_flash_attention_bwd_dq_cluster_bf16(const void* q, const void* k, const void* v,
+                                              const void* dout, const float* lse_p,
+                                              const float* delta_p, void* dq, int B, int S,
+                                              int Sp, int D, int Dscale, void* stream) {
+  if (bad_shape(B, S, D, Dscale) || Sp < S || Sp % kStatsAlign != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = scale_for(Dscale);
+  switch (D) {
+    case 256: return cl::launch<2, false>(q, dout, k, v, lse_p, delta_p, dq, nullptr, B, S, Sp, scale, st);
+    case 512: return cl::launch<4, false>(q, dout, k, v, lse_p, delta_p, dq, nullptr, B, S, Sp, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster kernel of width D (256 or 512),
+// dK/dV (dkdv != 0) or dQ, on the current device, into *count.
+int eovax_flash_attention_bwd_cluster_occupancy(int D, int dkdv, int* count) {
+  if (count == nullptr) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 256: return dkdv ? cl::occupancy<2, true>(count) : cl::occupancy<2, false>(count);
+    case 512: return dkdv ? cl::occupancy<4, true>(count) : cl::occupancy<4, false>(count);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,7 +9,8 @@ is held here against ``jax.nn.logsumexp`` of the scaled logits and against
 numpy-seeded fp32 inputs, within 1e-5 of max |reference|; so is the widening
 of a width the kernels lack (D = 96 padded to 128 with q scaled by √(128/96),
 its gradient narrowed by the chain rule), and at the tile edges of the
-`wgmma` kernels that bf16 takes at D = 64 and 128 (S = 63, 65, 127, 129).
+`wgmma` kernels that bf16 takes at D = 64 and 128 and of the cluster kernels it
+takes at D = 256 and 512 (S = 63, 65, 127, 129).
 ``backward_kernels``, the wrapper's choice of kernels by dtype and width, is
 held to its rule. The tests marked ``gpu`` hold the kernels against those plain
 versions on the card and skip without one. They import no JAX:
@@ -32,9 +33,10 @@ TOL_JAX = 1e-5
 TOL_CARD = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 # (B, S, D): the kernels' widths, odd S (partial last tiles), and the D-split width.
-SHAPES = [(2, 100, 64), (1, 77, 128), (1, 65, 512), (1, 33, 640)]
-# The wgmma kernels' tile edges: 64-row tiles, 128 resident rows a block.
-TILE_EDGES = [(1, s, d) for d in (64, 128) for s in (63, 65, 127, 129)]
+SHAPES = [(2, 100, 64), (1, 77, 128), (2, 90, 256), (1, 65, 512), (1, 33, 640)]
+# The tile edges of the wgmma kernels (D = 64, 128) and of the cluster kernels
+# (D = 256, 512): 64-row tiles, 64 or 128 resident rows a block.
+TILE_EDGES = [(1, s, d) for d in (64, 128, 256, 512) for s in (63, 65, 127, 129)]
 
 
 def _inputs(b, s, d, seed):
@@ -101,21 +103,44 @@ def test_backward_from_stats_plain_matches_jax_vjp_at_tile_edges(b, s, d):
         _assert_close(got.numpy(), ref, TOL_JAX)
 
 
-@pytest.mark.parametrize("d,route", [(64, "wgmma"), (96, "wgmma"), (128, "wgmma"), (192, "mma"),
-                                     (512, "mma"), (640, "mma")])
+@pytest.mark.parametrize("d,route", [(64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
+                                     (192, "cluster"), (256, "cluster"), (512, "cluster"),
+                                     (640, "mma")])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_backward_kernels_by_dtype_and_width(dtype, d, route):
     """bf16 takes the wgmma kernels where the call's kernel width is 64 or 128
-    (D = 96 is widened to 128), the mma.sync kernels at the other widths; fp32
-    the FMA kernels at every width. Each route names three C entries."""
+    (D = 96 is widened to 128), the cluster kernels at 256 and 512 (D = 192 is
+    widened to 256), the mma.sync kernels above 512; fp32 the FMA kernels at
+    every width. Each route names three C entries."""
     want = route if dtype == torch.bfloat16 else "fma"
     assert attention.backward_kernels(dtype, d) == want
     assert len(attention._BACKWARD_PARTS[want]) == 3
 
 
+@pytest.mark.parametrize("route,dtype,d,takes", [
+    ("cluster", torch.bfloat16, 512, True), ("cluster", torch.bfloat16, 192, True),
+    ("cluster", torch.bfloat16, 128, False), ("cluster", torch.float32, 256, False),
+    ("cluster", torch.bfloat16, 640, False), ("wgmma", torch.bfloat16, 256, False),
+    ("mma", torch.bfloat16, 512, True), ("mma", torch.float32, 64, False),
+    ("fma", torch.float32, 512, True), ("fma", torch.bfloat16, 64, False)])
+def test_route_takes(route, dtype, d, takes):
+    """Which routes a caller may name for a width (the card compares the cluster
+    kernels with the mma.sync kernels at D = 512); the chosen route always takes it."""
+    assert attention.route_takes(route, dtype, d) is takes
+    assert attention.route_takes(attention.backward_kernels(dtype, d), dtype, d)
+
+
 def test_backward_kernels_refuse_other_dtypes():
     with pytest.raises(ValueError):
         attention.backward_kernels(torch.float16, 64)
+
+
+@pytest.mark.parametrize("d,part", [(128, "dkdv"), (640, "dq"), (512, "dk")])
+def test_backward_active_clusters_refuses_what_has_no_cluster_kernel(d, part):
+    """Only the cluster kernels' widths (256, 512) and parts (dkdv, dq) have an
+    occupancy to ask for; anything else raises before a library is built."""
+    with pytest.raises(ValueError):
+        attention.backward_active_clusters(d, part)
 
 
 @pytest.mark.parametrize("d,width", [(96, 128), (32, 64)])
@@ -231,7 +256,16 @@ def test_backward_kernels_match_plain_on_card(cuda_device, b, s, d, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", attention.CLUSTER_BACKWARD_WIDTHS)
+@pytest.mark.parametrize("part", ["dkdv", "dq"])
+def test_cluster_kernels_are_scheduled_on_card(cuda_device, d, part):
+    """``cudaOccupancyMaxActiveClusters`` of each cluster plan: at least one cluster
+    fits on the card (a launch raises where none does)."""
+    assert attention.backward_active_clusters(d, part) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_backward_kernels_at_one_key_on_card(cuda_device, d, dtype):
     """S = 1: the softmax is 1, so dq and dk are 0 but for the two roundings of
@@ -251,9 +285,11 @@ def test_backward_kernels_at_one_key_on_card(cuda_device, d, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,d,dtype,launches", [
     (2, 300, 96, torch.bfloat16, 3), (2, 300, 96, torch.float32, 3),
-    (2, 77, 520, torch.bfloat16, 3), (65537, 16, 64, torch.bfloat16, 5),
-    (65537, 3, 128, torch.bfloat16, 5)],
-    ids=["96-bf16", "96-fp32", "520-bf16", "batch-past-the-grid", "batch-past-the-grid-128"])
+    (2, 300, 192, torch.bfloat16, 3), (2, 77, 520, torch.bfloat16, 3),
+    (65537, 16, 64, torch.bfloat16, 5), (65537, 3, 128, torch.bfloat16, 5),
+    (65537, 2, 512, torch.bfloat16, 5)],
+    ids=["96-bf16", "96-fp32", "192-bf16", "520-bf16", "batch-past-the-grid",
+         "batch-past-the-grid-128", "batch-past-the-grid-512"])
 def test_autograd_outside_the_envelope_on_card(cuda_device, b, s, d, dtype, launches):
     """``backward()`` through ``flash_attention`` at a width the kernels lack and a
     batch past their grid: the kernels' launches exactly (Δ once, dK/dV and dQ a
